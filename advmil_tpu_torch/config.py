@@ -1,0 +1,240 @@
+"""Flat YAML config loading and the checks that apply to the ported slice.
+
+The repo's configs are flat `key: value` files (config/*.yaml). They are read
+here with the standard library: scalars, `[a, b]` flow lists, `- item` block
+lists, comments and null, resolved the way PyYAML's default loader resolves
+them (so `1e-5` without a dot stays a string, `yes`/`on` are booleans).
+
+The port runs the adversarial handler's test mode (`test: True`). Keys that
+select a mode the port does not have yet are rejected by `check_configs` with
+an error naming the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import itertools
+import re
+
+from .utils.func import sparse_str
+
+PORT_DEFAULTS = {
+    "device": "cuda",              # cuda | cpu; never chosen implicitly
+    "batch_token_budget": 32768,   # patches per batch (bucketed padding)
+    "batch_max_size": 64,          # max bags per batch
+    "bucket_min": 256,             # smallest bag bucket (multiple of 16)
+    "bucket_growth": 2.0,          # geometric growth between bucket sizes
+    "precision": "f32",            # f32 | bf16 compute, f32 parameters
+    "use_pallas": True,            # hand-written attention kernel on long bags
+    "flash_min_len": 512,          # eval floors the gate at max(this, 2048)
+    "use_fused_lnpool": True,      # hand-written LN+ReLU+region-mean kernel
+    "tra_backbone": "Transformer",  # Transformer | Identity (no encoder)
+    "cache_bags": True,
+    "num_workers": 0,              # > 1: thread-pool batch assembly
+    "save_prediction": True,
+    "test": False,
+    "semi_training": False,
+    "wandb_prj": None,
+}
+
+# ---------------------------------------------------------------------------
+# YAML subset reader
+# ---------------------------------------------------------------------------
+
+_BOOL = {"yes": True, "Yes": True, "YES": True, "no": False, "No": False,
+         "NO": False, "true": True, "True": True, "TRUE": True,
+         "false": False, "False": False, "FALSE": False, "on": True,
+         "On": True, "ON": True, "off": False, "Off": False, "OFF": False}
+_NULL = {"", "~", "null", "Null", "NULL"}
+# PyYAML's YAML 1.1 implicit resolvers (resolver.py) for int and float
+_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+)$""", re.X)
+_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                    |[-+]?\.(?:inf|Inf|INF)
+                    |\.(?:nan|NaN|NAN))$""", re.X)
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a `#` comment that starts a line or follows whitespace, outside
+    quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(tok: str):
+    tok = tok.strip()
+    if len(tok) >= 2 and tok[0] == tok[-1] and tok[0] in "'\"":
+        return tok[1:-1]
+    if tok in _NULL:
+        return None
+    if tok in _BOOL:
+        return _BOOL[tok]
+    if _INT.match(tok):
+        t = tok.replace("_", "")
+        sign = -1 if t.startswith("-") else 1
+        t = t.lstrip("+-")
+        if t.startswith("0b"):
+            return sign * int(t[2:], 2)
+        if t.startswith("0x"):
+            return sign * int(t[2:], 16)
+        if t != "0" and t.startswith("0"):
+            return sign * int(t, 8)
+        return sign * int(t)
+    if _FLOAT.match(tok):
+        t = tok.replace("_", "").lower()
+        if t.endswith("inf"):
+            return float("-inf") if t.startswith("-") else float("inf")
+        if t.endswith("nan"):
+            return float("nan")
+        return float(t)
+    return tok
+
+
+def _value(tok: str):
+    tok = tok.strip()
+    if tok.startswith("[") and tok.endswith("]"):
+        inner = tok[1:-1].strip()
+        return [_scalar(p) for p in inner.split(",")] if inner else []
+    return _scalar(tok)
+
+
+def read_yaml(path: str) -> dict:
+    """Parse a flat YAML mapping (the repo's config format) into a dict."""
+    out: dict = {}
+    bare = set()        # `key:` lines: null unless a block list follows
+    key = None
+    with open(path) as f:
+        for lineno, raw in enumerate(f, 1):
+            line = _strip_comment(raw.rstrip("\n")).rstrip()
+            if not line.strip():
+                continue
+            stripped = line.lstrip()
+            if stripped.startswith("- "):
+                if key is None or not isinstance(out[key], list):
+                    raise ValueError(f"{path}:{lineno}: list item outside a "
+                                     "block list")
+                out[key].append(_scalar(stripped[2:]))
+                bare.discard(key)
+                continue
+            if line[0] in " \t" or ":" not in line:
+                raise ValueError(f"{path}:{lineno}: not a flat `key: value` "
+                                 f"line: {raw.rstrip()}")
+            k, v = line.split(":", 1)
+            key = k.strip()
+            if v.strip() == "":
+                out[key] = []
+                bare.add(key)
+            else:
+                out[key] = _value(v)
+    for k in bare:
+        out[k] = None
+    return out
+
+
+def get_config(config_path: str) -> dict:
+    return with_defaults(read_yaml(config_path))
+
+
+def with_defaults(cfg: dict) -> dict:
+    out = dict(PORT_DEFAULTS)
+    out.update(cfg)
+    return out
+
+
+def grid(kwargs: dict) -> list:
+    """Expand every list-valued key into a full cartesian grid."""
+    listed = {k: v for k, v in kwargs.items() if isinstance(v, list)}
+    fixed = {k: v for k, v in kwargs.items() if not isinstance(v, list)}
+    if not listed:
+        return [dict(kwargs)]
+    keys = list(listed.keys())
+    out = []
+    for combo in itertools.product(*[listed[k] for k in keys]):
+        cfg = dict(fixed)
+        cfg.update(dict(zip(keys, combo)))
+        out.append(cfg)
+    return out
+
+
+def grid_hyperparams(kwargs: dict) -> list:
+    return [k for k, v in kwargs.items() if isinstance(v, list)]
+
+
+# ---------------------------------------------------------------------------
+# Validation
+# ---------------------------------------------------------------------------
+
+def _not_ported(cfg: dict) -> list:
+    """(key, value, ROADMAP item) for every requested mode the port lacks."""
+    checks = [
+        ("bcb_mode", lambda v: v in ("cluster", "abmil"), "A12"),
+        ("bcb_mode", lambda v: v == "graph", "A13"),
+        ("semi_training", bool, "A11"),
+        ("time_format", lambda v: v == "quantile", "A8"),
+        ("use_coords_pe", bool, "A2"),
+        ("use_fused_embedding", bool, "B4"),
+        ("disc_netx_backbone", lambda v: v not in (None, "avgpool"), "A3"),
+        ("disc_netx_ksize", lambda v: v not in (None, 1), "A3"),
+        ("log_plot", bool, "A9"),
+        ("dp_devices", lambda v: int(v or 1) > 1, "A14"),
+        ("inst_devices", lambda v: int(v or 1) > 1, "A14"),
+        ("dist_num_processes", lambda v: int(v or 1) > 1, "A14"),
+    ]
+    return [(k, cfg[k], item) for k, bad, item in checks
+            if k in cfg and bad(cfg[k])]
+
+
+def check_configs(cfg: dict):
+    """Cross-field validation (the checks of `advmil_tpu.config.check_configs`
+    that apply to the test-mode slice), then the port's own limits."""
+    missing = _not_ported(cfg)
+    if missing:
+        raise NotImplementedError("; ".join(
+            f"{k}: {v} is not ported yet (ROADMAP {item})"
+            for k, v, item in missing))
+    if cfg.get("device") not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {cfg.get('device')!r}")
+    if cfg.get("precision") not in ("f32", "bf16", "bfloat16"):
+        raise ValueError(f"precision must be f32 or bf16, got {cfg.get('precision')!r}")
+    assert cfg.get("monitor_metrics", "loss") in ("loss", "ci", "ci_max"), \
+        "monitor_metrics must be loss / ci (reference-inverted) / ci_max"
+    assert cfg["loss_netD"] in ["bce", "hinge", "wasserstein"], \
+        f"loss_netD must be bce/hinge/wasserstein, got {cfg['loss_netD']}"
+    assert cfg["loss_recon_norm"] in ["l1", "l2"], "loss_recon_norm must be l1/l2"
+    assert cfg["gen_noi_noise_dist"] in ["uniform", "gaussian"], \
+        "gen_noi_noise_dist must be uniform/gaussian"
+    assert cfg["gen_noi_hops"] + 1 == len(str(cfg["gen_noi_noise"]).split("-")), \
+        "gen_noi_noise must have gen_noi_hops+1 dash-separated flags"
+    assert cfg["disc_netx_in_dim"] == int(cfg["bcb_dims"].split("-")[0]), \
+        "disc_netx_in_dim must equal the first entry of bcb_dims"
+    assert cfg["disc_nety_in_dim"] == int(str(cfg["gen_dims"]).split("-")[-1]), \
+        "disc_nety_in_dim must equal the last entry of gen_dims"
+    assert cfg["disc_netx_out_dim"] == int(cfg["disc_nety_hid_dims"].split("-")[-1]), \
+        "disc_netx_out_dim must equal the last entry of disc_nety_hid_dims"
+    noise_existing = sum(sparse_str(cfg["gen_noi_noise"])) > 0
+    if noise_existing:
+        assert cfg["times_test_sample"] > 1
+    else:
+        assert cfg["times_test_sample"] == 1
+    if cfg["task"] == "cont_gansurv":
+        assert cfg["time_format"] in ["origin", "ratio"]
+        assert str(cfg["gen_dims"])[-2:] == "-1"
+        assert (cfg["gen_out_scale"] == "sigmoid" and cfg["time_format"] == "ratio") or \
+               (cfg["gen_out_scale"] != "sigmoid" and cfg["time_format"] == "origin"), \
+            "cont_gansurv needs sigmoid<->ratio or exp/none<->origin pairing"
+        assert (cfg["time_format"] == "ratio" and cfg["loss_recon_gamma"] == 0) or \
+               (cfg["time_format"] == "origin" and cfg["loss_recon_gamma"] >= 1), \
+            "loss_recon_gamma must be 0 for ratio time, >=1 for origin time"
+    else:
+        raise NotImplementedError(
+            f"task {cfg['task']} is not ported yet (ROADMAP A8: disc_gansurv "
+            "needs quantile labels)")

@@ -1,0 +1,105 @@
+"""Synthetic WSI-bag dataset writer for tests and chip runs.
+
+The same on-disk layout and the same random draws as
+`advmil_tpu/data/synthetic.py` (feature files per slide, a label csv with
+patient_id / pathology_id / t / e, split .npz files, per-patient cluster ids
+and region coords), written without pandas. A planted survival signal makes
+the C-index learnable. The kNN graph files of graph mode are not written.
+
+`region_counts` fixes each patient's bag size (in 4x4 regions of 16
+patches) instead of drawing it, and `test_pids` fixes the test split, so a
+caller can place one long bag (e.g. 2,048 regions) in the test split.
+"""
+from __future__ import annotations
+
+import csv
+import os
+import os.path as osp
+
+import numpy as np
+import torch
+
+
+def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
+                           min_regions: int = 8, max_regions: int = 64,
+                           event_frac: float = 0.65, seed: int = 0,
+                           n_clusters: int = 8, n_folds: int = 1,
+                           feat_format: str = "npy", time_noise: float = 5.0,
+                           region_counts: list | None = None,
+                           test_pids: list | None = None) -> dict:
+    """Build a synthetic dataset under ``root``; returns a config-path dict."""
+    rng = np.random.default_rng(seed)
+    if region_counts is not None:
+        n_patients = len(region_counts)
+    feat_dir = osp.join(root, "feats")
+    cluster_dir = osp.join(root, "clusters")
+    coord_dir = osp.join(root, "coords")
+    for d in [feat_dir, cluster_dir, coord_dir]:
+        os.makedirs(d, exist_ok=True)
+
+    rows = []
+    pids = [f"P{i:04d}" for i in range(n_patients)]
+    for i, pid in enumerate(pids):
+        n_regions = (int(rng.integers(min_regions, max_regions + 1))
+                     if region_counts is None else int(region_counts[i]))
+        n = n_regions * 16
+        signal = rng.uniform(-1.0, 1.0)
+        feats = rng.normal(0, 1, size=(n, dim)).astype(np.float32)
+        feats[:, :8] += signal
+        t = float(np.clip(50.0 * (1.0 + signal) + rng.normal(0, time_noise),
+                          1.0, 120.0))
+        e = int(rng.uniform() < event_frac)
+        sid = f"S{i:04d}"
+        if feat_format == "pt":
+            torch.save(torch.from_numpy(feats), osp.join(feat_dir, f"{sid}.pt"))
+        else:
+            np.save(osp.join(feat_dir, f"{sid}.npy"), feats)
+        rows.append((sid, pid, e, t))
+        # cluster ids: drawn (and written) so the RNG stream stays the JAX
+        # writer's; the first n_clusters ids are overwritten to keep every
+        # cluster non-empty, consuming no extra draws
+        cids = rng.integers(0, n_clusters, size=n).astype(np.int64)
+        if n >= n_clusters:
+            cids[:n_clusters] = np.arange(n_clusters)
+        np.save(osp.join(cluster_dir, f"{pid}.npy"), cids)
+        side = int(np.ceil(np.sqrt(n_regions)))
+        region_xy = np.stack(np.unravel_index(np.arange(n_regions), (side, side)),
+                             axis=1).astype(np.float32)
+        np.savez(osp.join(coord_dir, f"{sid}.npz"), coords=region_xy)
+
+    table_path = osp.join(root, "labels.csv")
+    with open(table_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["pathology_id", "patient_id", "e", "t"])
+        w.writerows(rows)
+
+    split_paths = []
+    order = rng.permutation(n_patients)
+    n_test = max(2, n_patients // 5)
+    n_val = max(2, n_patients // 5)
+    fixed = None
+    if test_pids is not None:
+        fixed = [pids.index(p) for p in test_pids]
+        order = np.asarray(fixed + [i for i in order if i not in fixed])
+        n_test = len(fixed)
+    for fold in range(n_folds):
+        rolled = order if fixed is not None else np.roll(order, fold * n_test)
+        test = rolled[:n_test]
+        val = rolled[n_test:n_test + n_val]
+        train = rolled[n_test + n_val:]
+        p = osp.join(root, f"split-fold{fold}.npz")
+        np.savez(p, train_patients=np.asarray([pids[i] for i in train]),
+                 val_patients=np.asarray([pids[i] for i in val]),
+                 test_patients=np.asarray([pids[i] for i in test]))
+        split_paths.append(p)
+
+    return {
+        "path_patch": feat_dir,
+        "path_label": table_path,
+        "path_cluster": cluster_dir,
+        "path_coordx5": coord_dir,
+        "feat_format": feat_format,
+        "data_split_path": osp.join(root, "split-fold{}.npz"),
+        "split_paths": split_paths,
+        "pids": pids,
+    }

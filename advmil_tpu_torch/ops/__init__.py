@@ -1,0 +1,1 @@
+"""Masked reductions and the hand-written CUDA kernels with their plain twins."""

@@ -1,0 +1,120 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `advmil_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into
+one shared library with a plain C interface, at first use, under
+`advmil_tpu_torch/_build/` (listed in .gitignore). The library's name carries
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused. It is loaded with ctypes; every pointer and the CUDA
+stream cross as `c_void_p` (without argtypes ctypes would cut them to 32
+bits). Each C entry point returns `cudaGetLastError()` after its launch and
+`check` raises on anything but 0: a refused launch is visible nowhere else.
+
+Nothing here runs at import time; a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # name: argtypes (all return int = cudaError_t)
+    "advmil_ln_relu_region_mean": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+    "advmil_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}   # path, seconds (0.0 when reused), ptxas log
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels of advmil_tpu_torch cannot be built")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libadvmil_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(so: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
+                           f"{r.stdout}\n{r.stderr}")
+    os.replace(tmp, so)   # atomic: concurrent builders never see a partial file
+    build_info.update(seconds=time.perf_counter() - t0, log=r.stdout + r.stderr)
+
+
+def load():
+    """The loaded kernel library, built first if needed (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = library_path()
+            build_info.update(path=str(so), seconds=0.0, log="")
+            if not so.exists():
+                _build(so)
+            lib = ctypes.CDLL(str(so))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.advmil_error_string.argtypes = [ctypes.c_int]
+            lib.advmil_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if rc != 0:
+        msg = load().advmil_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Common wrapper checks: every tensor on one CUDA device, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")

@@ -1,0 +1,142 @@
+"""Host-side I/O: label tables, split files, patch features, predictions.
+
+The same file contracts as `advmil_tpu.utils.io` (csv label tables with
+patient_id, pathology_id, t, e; npz split files; .pt / .npy feature files;
+the prediction CSV and its `_dist.npz`), written with `csv` and numpy only.
+"""
+from __future__ import annotations
+
+import csv
+import os.path as osp
+
+import numpy as np
+import torch
+
+
+def _read_table(table_path: str) -> tuple[list, dict]:
+    """(rows, columns) of a csv label table; every cell stays a string."""
+    with open(table_path, newline="") as f:
+        reader = csv.DictReader(f)
+        rows = list(reader)
+        columns = list(reader.fieldnames or [])
+    return rows, columns
+
+
+def retrieve_from_table(patient_ids, table_path,
+                        ret=("pid", "pid2sid", "pid2label"),
+                        pid_column: str = "patient_id", time_format: str = "origin"):
+    """Returns the requested mappings among pid / sid / pid2sid / sid2pid /
+    pid2label / sid2label, after applying the time-format transform.
+
+    'ratio' divides t by the table-wide max; 'origin' keeps raw t. Slide ids
+    are returned as strings (they only ever name feature files).
+    """
+    if time_format == "quantile":
+        raise NotImplementedError(
+            "time_format: quantile (discrete-time labels) is not ported yet; "
+            "see ROADMAP A8")
+    assert time_format in ["origin", "ratio"]
+    for r in ret:
+        assert r in ["pid", "sid", "pid2sid", "sid2pid", "pid2label", "sid2label"]
+
+    rows, columns = _read_table(table_path)
+    for c in [pid_column, "pathology_id", "t", "e"]:
+        assert c in columns, f"label table missing column {c}"
+
+    patient_ids = [str(p) for p in patient_ids]
+    pid_set = set(patient_ids)
+    max_time = max(float(r["t"]) for r in rows)
+    pid2loc: dict = {}
+    for i, r in enumerate(rows):
+        if r[pid_column] in pid_set:
+            pid2loc.setdefault(r[pid_column], []).append(i)
+
+    def label(r):
+        t = float(r["t"])
+        if time_format == "ratio":
+            t = 1.0 * t / max_time
+        return (t, float(r["e"]))
+
+    pid, sid = [], []
+    pid2sid, pid2label, sid2pid, sid2label = {}, {}, {}, {}
+    for p in patient_ids:
+        if p not in pid2loc:
+            print(f"[Warning] Patient ID {p} not found in table {table_path}.")
+            continue
+        pid.append(p)
+        for _i in pid2loc[p]:
+            r = rows[_i]
+            _sid = r["pathology_id"]
+            pid2sid.setdefault(p, []).append(_sid)
+            if p not in pid2label:
+                pid2label[p] = label(r)
+            sid.append(_sid)
+            sid2pid[_sid] = p
+            sid2label[_sid] = label(r)
+
+    scope = {"pid": pid, "sid": sid, "pid2sid": pid2sid, "pid2label": pid2label,
+             "sid2pid": sid2pid, "sid2label": sid2label}
+    return [scope[r] for r in ret]
+
+
+def read_maxt_from_table(path: str, at_column: str = "t") -> float:
+    rows, _ = _read_table(path)
+    return max(float(r[at_column]) for r in rows)
+
+
+def read_patch_feature(path: str) -> np.ndarray:
+    """Read an [N, C] patch-feature matrix from .pt or .npy as float32."""
+    ext = osp.splitext(path)[1]
+    if ext == ".pt":
+        x = torch.load(path, map_location="cpu", weights_only=True)
+        return x.float().numpy()
+    if ext == ".npy":
+        return np.asarray(np.load(path), dtype=np.float32)
+    raise ValueError(f"Unsupported feature format {ext} (the port reads .pt "
+                     "and .npy)")
+
+
+def read_datasplit_npz(path: str):
+    data_npz = np.load(path)
+    pids_train = [str(s) for s in data_npz["train_patients"]]
+    pids_val = [str(s) for s in data_npz["val_patients"]]
+    pids_test = ([str(s) for s in data_npz["test_patients"]]
+                 if "test_patients" in data_npz else None)
+    return pids_train, pids_val, pids_test
+
+
+def _write_csv(path: str, header: list, columns: list):
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        for row in zip(*columns):
+            w.writerow([str(v) for v in row])
+
+
+def save_prediction(patient_id, y_true, y_pred, dist_pred, save_path: str):
+    """Continuous model -> csv [patient_id, t, e, pred_t] (+ _dist.npz of the
+    sampling distribution); discrete -> csv [patient_id, t, e, risk, surf_*]."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    if y_pred.ndim == 1:
+        y_pred = y_pred[:, None]
+    if dist_pred is not None:
+        dist_pred = np.squeeze(np.asarray(dist_pred))
+        assert len(patient_id) == len(dist_pred)
+    assert len(patient_id) == len(y_true) == len(y_pred)
+
+    if y_pred.shape[1] == 1:
+        _write_csv(save_path, ["patient_id", "t", "e", "pred_t"],
+                   [list(patient_id), y_true[:, 0], y_true[:, 1], y_pred[:, 0]])
+        if dist_pred is not None:
+            np.savez(save_path[:-4] + "_dist.npz", patient_id=patient_id,
+                     pred_dist=dist_pred)
+    else:
+        bins = y_pred.shape[1]
+        survival = np.cumprod(1 - y_pred, axis=1)
+        risk = np.sum(survival, axis=1)
+        _write_csv(save_path,
+                   ["patient_id", "t", "e", "risk"]
+                   + [f"surf_{i + 1}" for i in range(bins)],
+                   [list(patient_id), y_true[:, 0], 1 - y_true[:, 1], risk]
+                   + [survival[:, i] for i in range(bins)])
