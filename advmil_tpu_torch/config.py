@@ -5,9 +5,10 @@ here with the standard library: scalars, `[a, b]` flow lists, `- item` block
 lists, comments and null, resolved the way PyYAML's default loader resolves
 them (so `1e-5` without a dot stays a string, `yes`/`on` are booleans).
 
-The port runs the adversarial handler's test mode (`test: True`). Keys that
-select a mode the port does not have yet are rejected by `check_configs` with
-an error naming the ROADMAP item that brings it.
+The port runs the adversarial handler's training (`exec`, `test: False`) and
+test mode (`test: True`). Keys that select a mode the port does not have yet
+are rejected by `check_configs` with an error naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ PORT_DEFAULTS = {
     "cache_bags": True,
     "num_workers": 0,              # > 1: thread-pool batch assembly
     "save_prediction": True,
+    "gen_updates": 1,
+    "loss_regl1_coef": 0.0,
     "test": False,
     "semi_training": False,
     "wandb_prj": None,
@@ -185,6 +188,9 @@ def _not_ported(cfg: dict) -> list:
         ("disc_netx_backbone", lambda v: v not in (None, "avgpool"), "A3"),
         ("disc_netx_ksize", lambda v: v not in (None, 1), "A3"),
         ("log_plot", bool, "A9"),
+        ("accum_steps", lambda v: int(v or 1) > 1, "A6"),
+        ("train_sampling", lambda v: v is not None, "A8"),
+        ("opt_netG", lambda v: str(v).lower() != "adam", "A12"),
         ("dp_devices", lambda v: int(v or 1) > 1, "A14"),
         ("inst_devices", lambda v: int(v or 1) > 1, "A14"),
         ("dist_num_processes", lambda v: int(v or 1) > 1, "A14"),
@@ -195,7 +201,7 @@ def _not_ported(cfg: dict) -> list:
 
 def check_configs(cfg: dict):
     """Cross-field validation (the checks of `advmil_tpu.config.check_configs`
-    that apply to the test-mode slice), then the port's own limits."""
+    that apply to the ported slices), then the port's own limits."""
     missing = _not_ported(cfg)
     if missing:
         raise NotImplementedError("; ".join(

@@ -1,7 +1,8 @@
-// Key-padding-masked flash attention, forward, no dropout.
+// Key-padding-masked flash attention, forward, with optional dropout on the
+// attention probabilities.
 //
 // Replaces the Pallas TPU kernel advmil_tpu/ops/attention.py:_flash_fwd_kernel
-// (wrapper masked_flash_attention -> _flash -> _fwd_call) for dropout_p == 0.
+// (wrapper masked_flash_attention -> _flash -> _fwd_call).
 // For q [B, Lq, H, Dh] pre-scaled by 1/sqrt(Dh), k, v [B, Lk, H, Dh] and a key
 // mask [B, Lk]:
 //   out[b, i, h] = sum_j p_ij v[b, j, h] / max(sum_j p_ij, 1e-30),
@@ -10,6 +11,13 @@
 // lse[b*H + h, i] = m_i + log(max(sum_j p_ij, 1e-30)) in f32 for the backward.
 // A query whose keys are all masked gets 0 (the same denominator clamp as the
 // TPU kernel), never NaN.
+//
+// Dropout (DROP, p > 0): as torch's MultiheadAttention and the TPU kernel, it
+// acts on the normalised probabilities: l_i keeps summing the undropped p_ij,
+// and only the P.V contraction uses p_ij * keep_ij / (1 - p). keep_ij comes
+// from the per-element Philox stream of philox.cuh (seeded per call by the
+// wrapper), so the backward kernels regenerate the same bits. With DROP false
+// the code is the p = 0 kernel unchanged.
 //
 // What bounds it on the card: at the ESAT eval shapes (Dh = 48, L ~ 2048) the
 // work is 4 * L^2 * Dh flops per head, done here in f32 on the CUDA cores out
@@ -27,6 +35,7 @@
 // directly (no fold / transpose copies). Tensor cores (wgmma) and TMA are
 // later work; f32 math here also meets the f32 tolerance of the tests.
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace advmil {
 
@@ -42,12 +51,12 @@ constexpr size_t flash_smem_bytes() {
   return sizeof(float) * (kBQ * DH + kBK * (DH + 1) + kBK * DH + kBQ * kBK + kBK);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(32 * kWarps)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse,
-                 int Lq, int Lk, int H) {
+                 int Lq, int Lk, int H, DropoutArgs drop) {
   constexpr int NCOL = (DH + 31) / 32;  // output columns per lane
   extern __shared__ float smem[];
   float* sQ = smem;                        // [BQ][DH]
@@ -126,8 +135,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < NCOL; ++c) acc[i][c] *= alpha;
-      sP[(row0 + i) * kBK + lane] = pa;
-      sP[(row0 + i) * kBK + lane + 32] = pb;
+      if (DROP) {
+        const int r = q0 + row0 + i;
+        sP[(row0 + i) * kBK + lane] =
+            dropout_keep(drop, bh, r, k0 + lane) ? pa * drop.inv_keep : 0.f;
+        sP[(row0 + i) * kBK + lane + 32] =
+            dropout_keep(drop, bh, r, k0 + lane + 32) ? pb * drop.inv_keep : 0.f;
+      } else {
+        sP[(row0 + i) * kBK + lane] = pa;
+        sP[(row0 + i) * kBK + lane + 32] = pb;
+      }
     }
     __syncwarp();  // sP rows are private to this warp
 
@@ -164,12 +181,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* lse, int B, int Lq,
-                         int Lk, int H, cudaStream_t stream) {
+                         int Lk, int H, const DropoutArgs& drop, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<DH>();
-  auto kernel = flash_fwd_kernel<T, DH>;
+  auto kernel = flash_fwd_kernel<T, DH, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -177,22 +194,31 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   kernel<<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<T*>(out),
-      static_cast<float*>(lse), Lq, Lk, H);
+      static_cast<float*>(lse), Lq, Lk, H, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool DROP>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                         const void* mask, void* out, void* lse, int B, int Lq,
-                        int Lk, int H, int Dh, cudaStream_t s) {
+                        int Lk, int H, int Dh, const DropoutArgs& d, cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch_flash<T, 16>(q, k, v, mask, out, lse, B, Lq, Lk, H, s);
-    case 32: return launch_flash<T, 32>(q, k, v, mask, out, lse, B, Lq, Lk, H, s);
-    case 48: return launch_flash<T, 48>(q, k, v, mask, out, lse, B, Lq, Lk, H, s);
-    case 64: return launch_flash<T, 64>(q, k, v, mask, out, lse, B, Lq, Lk, H, s);
-    case 128: return launch_flash<T, 128>(q, k, v, mask, out, lse, B, Lq, Lk, H, s);
+    case 16: return launch_flash<T, 16, DROP>(q, k, v, mask, out, lse, B, Lq, Lk, H, d, s);
+    case 32: return launch_flash<T, 32, DROP>(q, k, v, mask, out, lse, B, Lq, Lk, H, d, s);
+    case 48: return launch_flash<T, 48, DROP>(q, k, v, mask, out, lse, B, Lq, Lk, H, d, s);
+    case 64: return launch_flash<T, 64, DROP>(q, k, v, mask, out, lse, B, Lq, Lk, H, d, s);
+    case 128: return launch_flash<T, 128, DROP>(q, k, v, mask, out, lse, B, Lq, Lk, H, d, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch_drop(const void* q, const void* k, const void* v,
+                          const void* mask, void* out, void* lse, int B, int Lq,
+                          int Lk, int H, int Dh, const DropoutArgs& d, bool drop,
+                          cudaStream_t s) {
+  return drop ? dispatch_dh<T, true>(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, d, s)
+              : dispatch_dh<T, false>(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, d, s);
 }
 
 }  // namespace advmil
@@ -200,15 +226,21 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
 // q [B, Lq, H, Dh] (pre-scaled), k / v [B, Lk, H, Dh], all f32 or all bf16 and
 // contiguous; mask [B, Lk] f32; out [B, Lq, H, Dh] in q's dtype; lse [B*H, Lq]
 // f32. Dh in {16, 32, 48, 64, 128}; B*H <= 65535; Lq, Lk > 0 (checked by the
-// Python wrapper). Returns cudaGetLastError() after launch.
+// Python wrapper). dropout != 0 applies attention dropout with the Philox
+// stream of (seed_hi << 32 | seed_lo): keep when bits >= threshold, kept
+// probabilities scaled by inv_keep. Returns cudaGetLastError() after launch.
 extern "C" int advmil_flash_fwd(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, void* lse, int B,
                                 int Lq, int Lk, int H, int Dh, int dtype,
-                                void* stream) {
+                                int dropout, unsigned seed_lo, unsigned seed_hi,
+                                unsigned threshold, float inv_keep, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const advmil::DropoutArgs d{seed_lo, seed_hi, threshold, inv_keep};
   if (dtype == advmil::kF32)
-    return advmil::dispatch_dh<float>(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, s);
+    return advmil::dispatch_drop<float>(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, d,
+                                        dropout != 0, s);
   if (dtype == advmil::kBF16)
-    return advmil::dispatch_dh<__nv_bfloat16>(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, s);
+    return advmil::dispatch_drop<__nv_bfloat16>(q, k, v, mask, out, lse, B, Lq, Lk, H,
+                                                 Dh, d, dropout != 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
-"""Patient-level WSI bag dataset and bucketed padded batching, patch mode,
-in eval order (counterpart of `advmil_tpu/data/bags.py`).
+"""Patient-level WSI bag dataset and bucketed padded batching, patch mode
+(counterpart of `advmil_tpu/data/bags.py`).
 
 Bags are grouped into length buckets (multiples of 16, so padding forms whole
 4x4 regions), padded to the bucket length and stacked into [B, N, C] batches
@@ -7,9 +7,8 @@ with masks. Ragged tail batches are filled with duplicates of the batch's
 first bag carrying sample_mask=0. Batches come out in the same order, with
 the same contents, as the JAX package's batcher under the same seed,
 including the test-mode occlusion masks drawn per `__getitem__` from the one
-`np.random.Generator` the handler passes in.
-
-Shuffled training order comes with the training slice (ROADMAP A8).
+`np.random.Generator` the handler passes in, and the shuffled training
+order drawn from that generator in the same order as the JAX package.
 """
 from __future__ import annotations
 
@@ -157,21 +156,33 @@ class BucketBatcher:
     def batch_size_for(self, bucket_n: int) -> int:
         return int(np.clip(self.token_budget // bucket_n, 1, self.max_batch))
 
-    def _epoch_chunks(self) -> list:
-        """The pass's (group, item chunk) schedule."""
+    def _epoch_chunks(self, shuffle: bool = False,
+                      rng: np.random.Generator | None = None) -> list:
+        """The pass's (group, item chunk) schedule. With `shuffle`, the items
+        of each bucket and then the chunks are shuffled by `rng` (numpy's
+        global stream if None), draw for draw as the JAX package does."""
         chunks = []
         for gi, (bn, items) in enumerate(self._groups):
+            items = list(items)
+            if shuffle:
+                (rng or np.random).shuffle(items)
             bb = self.batch_size_for(bn)
             for s in range(0, len(items), bb):
                 chunks.append((gi, items[s:s + bb]))
+        if shuffle:
+            (rng or np.random).shuffle(chunks)
         return chunks
 
-    def epoch_batches(self):
-        """Yield Batch objects covering the dataset once, in eval order."""
-        for gi, chunk in self._epoch_chunks():
+    def epoch_batches(self, shuffle: bool = False,
+                      rng: np.random.Generator | None = None):
+        """Yield Batch objects covering the dataset once (eval order unless
+        `shuffle`)."""
+        for gi, chunk in self._epoch_chunks(shuffle, rng):
             yield self._make_batch(gi, chunk)
 
-    def prefetch(self, depth: int | None = None, workers: int | None = None):
+    def prefetch(self, shuffle: bool = False,
+                 rng: np.random.Generator | None = None,
+                 depth: int | None = None, workers: int | None = None):
         """epoch_batches with host-side assembly overlapped with device work.
 
         workers <= 1: one background thread runs the pass serially.
@@ -184,7 +195,7 @@ class BucketBatcher:
         depth = max(2, self.prefetch_depth) if depth is None else depth
         workers = self.prefetch_workers if workers is None else workers
         if workers > 1 and self.ds.ratio_mask is None:
-            yield from self._prefetch_pool(depth, workers)
+            yield from self._prefetch_pool(shuffle, rng, depth, workers)
             return
         q: queue.Queue = queue.Queue(maxsize=depth)
         sentinel = object()
@@ -193,7 +204,7 @@ class BucketBatcher:
 
         def worker():
             try:
-                for b in self.epoch_batches():
+                for b in self.epoch_batches(shuffle, rng):
                     while not stop.is_set():
                         try:
                             q.put(b, timeout=0.1)
@@ -226,11 +237,11 @@ class BucketBatcher:
         if error:
             raise error[0]
 
-    def _prefetch_pool(self, depth: int, workers: int):
+    def _prefetch_pool(self, shuffle: bool, rng, depth: int, workers: int):
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
-        chunks = self._epoch_chunks()
+        chunks = self._epoch_chunks(shuffle, rng)
         with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="advmil-loader") as ex:
             pending: deque = deque()

@@ -7,8 +7,9 @@ and region coords), written without pandas. A planted survival signal makes
 the C-index learnable. The kNN graph files of graph mode are not written.
 
 `region_counts` fixes each patient's bag size (in 4x4 regions of 16
-patches) instead of drawing it, and `test_pids` fixes the test split, so a
-caller can place one long bag (e.g. 2,048 regions) in the test split.
+patches) instead of drawing it, `test_pids` fixes the test split and
+`train_pids` puts patients in the train split, so a caller can place long
+bags (e.g. 2,048 regions) where a run needs them.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
                            n_clusters: int = 8, n_folds: int = 1,
                            feat_format: str = "npy", time_noise: float = 5.0,
                            region_counts: list | None = None,
-                           test_pids: list | None = None) -> dict:
+                           test_pids: list | None = None,
+                           train_pids: list | None = None) -> dict:
     """Build a synthetic dataset under ``root``; returns a config-path dict."""
     rng = np.random.default_rng(seed)
     if region_counts is not None:
@@ -80,7 +82,8 @@ def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
     fixed = None
     if test_pids is not None:
         fixed = [pids.index(p) for p in test_pids]
-        order = np.asarray(fixed + [i for i in order if i not in fixed])
+        last = [pids.index(p) for p in train_pids or []]
+        order = np.asarray(fixed + [i for i in order if i not in fixed + last] + last)
         n_test = len(fixed)
     for fold in range(n_folds):
         rolled = order if fixed is not None else np.roll(order, fold * n_test)

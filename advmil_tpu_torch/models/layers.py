@@ -1,11 +1,15 @@
-"""Shared layers of the ESAT path in eval mode: flax-compatible Dense and
-LayerNorm, MLP blocks, global attention pooling, the region patch embedding,
+"""Shared layers of the ESAT path: flax-compatible Dense and LayerNorm,
+dropout, MLP blocks, global attention pooling, the region patch embedding,
 the masked transformer encoder and the noise-MLP generator head.
 
 Counterparts of `advmil_tpu/models/layers.py`, with the flax names kept as
 module attribute names so a flax parameter tree maps onto the `state_dict`
-key for key (`bridge.py`). Dropout is the identity in eval and is not ported
-here (training comes with ROADMAP slice 2).
+key for key (`bridge.py`). `.train()` / `.eval()` take the place of flax's
+`deterministic`. In train mode every random draw comes from the explicit
+generators of an `Rngs` passed down through `forward` (`rng=`): dropout masks
+and noise from its device generator, the flash kernels' per-call Philox seeds
+from its CPU generator. Dropout is plain Bernoulli (the JAX package's
+default path; its u8 byte masks are ROADMAP A15 and not ported).
 
 Mixed precision mirrors flax's explicit casts rather than `torch.autocast`:
 a Dense casts its input, weight and bias to the compute dtype; a LayerNorm
@@ -15,6 +19,7 @@ are cast to f32 before the output nonlinearity. Parameters stay f32.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -27,6 +32,52 @@ from ..ops.masked import masked_mean, masked_softmax
 
 XAVIER = "xavier"   # xavier-uniform weight, zero bias (generator nets)
 TORCH = "torch"     # torch Linear default U(+-1/sqrt(fan_in)) (discriminator nets)
+
+
+@dataclass
+class Rngs:
+    """The generators of one train-mode forward. `device` draws dropout masks
+    (and is the noise generator) on the tensors' device; `host` is a CPU
+    generator that draws each flash call's 64-bit Philox seed, so no draw
+    waits for the card."""
+    device: torch.Generator
+    host: torch.Generator
+
+    def flash_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=self.host).item())
+
+
+class Dropout(nn.Module):
+    """flax `Dropout` through `mask_dropout`'s default path: in train mode each
+    element is kept with probability 1 - rate (Bernoulli, from `rng.device`)
+    and scaled by 1 / (1 - rate) in x's dtype; the identity in eval mode or at
+    rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, rng: Rngs | None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if rng is None:
+            raise ValueError("train-mode dropout needs explicit generators (rng=Rngs)")
+        keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= self.rate
+        # made on the device: a host tensor copied over would wait for the stream
+        scale = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
+def set_dropout_rates(model: nn.Module, rate: float = 0.0) -> nn.Module:
+    """Set the rate of every Dropout in `model` (attention dropout included);
+    rate 0 makes train mode deterministic, as the parity checks need."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = float(rate)
+    return model
 
 
 def compute_dtype_of(precision: str) -> torch.dtype:
@@ -89,47 +140,53 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
 
 
 class MLPBlock(nn.Module):
-    """Dense (+LayerNorm) + ReLU (+Dropout, identity in eval)."""
+    """Dense (+LayerNorm) + ReLU + Dropout."""
 
     def __init__(self, dim_in: int, dim_out: int, layer_norm: bool = False,
-                 dense_init: str = XAVIER, dtype=torch.float32):
+                 dropout: float = 0.25, dense_init: str = XAVIER,
+                 dtype=torch.float32):
         super().__init__()
         self.Dense_0 = Dense(dim_in, dim_out, dense_init, dtype)
         self.LayerNorm_0 = LayerNorm(dim_out, dtype) if layer_norm else None
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
+    def forward(self, x, rng: Rngs | None = None):
         x = self.Dense_0(x)
         if self.LayerNorm_0 is not None:
             x = self.LayerNorm_0(x)
-        return torch.relu(x)
+        return self.drop(torch.relu(x), rng)
 
 
 class BottleneckMLP(nn.Module):
-    """Dense(d -> d/2) + ReLU + Dense(d/2 -> d), torch init (discriminator)."""
+    """Dense(d -> d/2) + ReLU + Dropout + Dense(d/2 -> d), torch init
+    (discriminator)."""
 
-    def __init__(self, dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, dropout: float = 0.25, dtype=torch.float32):
         super().__init__()
         self.Dense_0 = Dense(dim, dim // 2, TORCH, dtype)
         self.Dense_1 = Dense(dim // 2, dim, TORCH, dtype)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        return self.Dense_1(torch.relu(self.Dense_0(x)))
+    def forward(self, x, rng: Rngs | None = None):
+        return self.Dense_1(self.drop(torch.relu(self.Dense_0(x)), rng))
 
 
 class GAPool(nn.Module):
     """Global attention pooling [B, N, d] -> [B, d]:
-    attn = masked_softmax(fc2(tanh(fc1(x)) * sigmoid(score(x)))); out = attn @ x."""
+    emb = Dropout(tanh(fc1(x))); scr = Dropout(sigmoid(score(x)));
+    attn = masked_softmax(fc2(emb * scr)); out = attn @ x."""
 
-    def __init__(self, in_dim: int, hid_dim: int, dense_init: str = XAVIER,
-                 dtype=torch.float32):
+    def __init__(self, in_dim: int, hid_dim: int, dropout: float = 0.25,
+                 dense_init: str = XAVIER, dtype=torch.float32):
         super().__init__()
         self.fc1 = Dense(in_dim, hid_dim, dense_init, dtype)
         self.score = Dense(in_dim, hid_dim, dense_init, dtype)
         self.fc2 = Dense(hid_dim, 1, dense_init, dtype)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x, mask):
-        emb = torch.tanh(self.fc1(x))
-        scr = torch.sigmoid(self.score(x))
+    def forward(self, x, mask, rng: Rngs | None = None):
+        emb = self.drop(torch.tanh(self.fc1(x)), rng)
+        scr = self.drop(torch.sigmoid(self.score(x)), rng)
         rep = self.fc2(emb * scr)
         attn = masked_softmax(rep[..., 0], mask, dim=-1)       # [B, N]
         return torch.einsum("bn,bnd->bd", attn, x.to(attn.dtype))
@@ -168,22 +225,35 @@ class AvgPoolPatchEmbedding(nn.Module):
         return masked_mean(h, mask.reshape(B, L, S2)[..., None], dim=-2)
 
 
-def _masked_mha(q, k, v, mask, use_pallas: bool, flash_min_len: int):
+def _masked_mha(q, k, v, mask, use_pallas: bool, flash_min_len: int,
+                attn_drop: Dropout, rng: Rngs | None):
     """Key-padding-masked attention, q/k/v [B, L, H, Dh], mask [B, L].
 
-    At or above the eval gate, max(flash_min_len, 2048) regions as in the
-    JAX package, the flash op runs (kernel on the card). Below it, the plain
-    branch: fully masked queries softmax to uniform garbage here, which the
-    caller's final `x * mask` removes.
+    The JAX package's gate: the flash op (kernels on the card) runs at or
+    above `flash_min_len` regions in train mode and max(flash_min_len, 2048)
+    in eval mode; in train mode its dropout runs inside the kernels, seeded
+    from `rng.host`. Below the gate, the plain branch, with Bernoulli dropout
+    on the probabilities in train mode: fully masked queries softmax to
+    uniform garbage here, which the caller's final `x * mask` removes.
     """
     B, L, H, Dh = q.shape
-    if use_pallas and L >= max(int(flash_min_len), 2048):
-        return masked_flash_attention(q, k, v, mask)
-    scale = 1.0 / torch.tensor(math.sqrt(Dh), dtype=torch.float32).to(q.dtype)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale.to(q.device)
+    training = attn_drop.training
+    min_len = int(flash_min_len) if training else max(int(flash_min_len), 2048)
+    if use_pallas and L >= min_len:
+        p = attn_drop.rate if training else 0.0
+        if p > 0.0 and rng is None:
+            raise ValueError("train-mode attention dropout needs explicit "
+                             "generators (rng=Rngs)")
+        seed = rng.flash_seed() if p > 0.0 else None
+        return masked_flash_attention(q, k, v, mask, dropout_p=p, seed=seed)
+    # 1/sqrt(Dh) rounded to q's dtype as flax does, made on the device (a
+    # host tensor copied over would wait for the stream)
+    scale = float(1.0 / torch.tensor(math.sqrt(Dh), dtype=torch.float32).to(q.dtype))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * torch.full(
+        (), scale, dtype=q.dtype, device=q.device)
     logits = logits.masked_fill(~mask[:, None, None, :].bool(),
                                 torch.finfo(logits.dtype).min)
-    probs = torch.softmax(logits, dim=-1)
+    probs = attn_drop(torch.softmax(logits, dim=-1), rng)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -193,8 +263,8 @@ class TransformerEncoderLayer(nn.Module):
     init (generator)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 use_pallas: bool = True, flash_min_len: int = 512,
-                 dtype=torch.float32):
+                 dropout: float = 0.25, use_pallas: bool = True,
+                 flash_min_len: int = 512, dtype=torch.float32):
         super().__init__()
         self.nhead = nhead
         self.use_pallas, self.flash_min_len = use_pallas, flash_min_len
@@ -204,16 +274,20 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = Dense(d_model, dim_feedforward, XAVIER, dtype)
         self.linear2 = Dense(dim_feedforward, d_model, XAVIER, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
+        self.attn_drop = Dropout(dropout)   # on the attention probabilities
+        self.drop = Dropout(dropout)        # residual and feed-forward
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng: Rngs | None = None):
         B, L, D = x.shape
         H = self.nhead
         q, k, v = self.in_proj(x).split(D, dim=-1)
         q, k, v = (t.reshape(B, L, H, D // H) for t in (q, k, v))
-        attn = _masked_mha(q, k, v, mask, self.use_pallas, self.flash_min_len)
-        x = x + self.out_proj(attn.reshape(B, L, D))
+        attn = _masked_mha(q, k, v, mask, self.use_pallas, self.flash_min_len,
+                           self.attn_drop, rng)
+        x = x + self.drop(self.out_proj(attn.reshape(B, L, D)), rng)
         x = self.norm1(x)
-        x = x + self.linear2(torch.relu(self.linear1(x)))
+        ff = self.drop(torch.relu(self.linear1(x)), rng)
+        x = x + self.drop(self.linear2(ff), rng)
         x = self.norm2(x)
         return x * mask[..., None].to(x.dtype)
 
@@ -235,8 +309,8 @@ class NoiseMLPHead(nn.Module):
     the last layer is a bare Dense. Xavier init (generator)."""
 
     def __init__(self, dim_in: int, dim_out: int, noise: Sequence[int],
-                 hops: int = 1, norm: bool = False, noise_dist: str = "uniform",
-                 dtype=torch.float32):
+                 hops: int = 1, norm: bool = False, dropout: float = 0.25,
+                 noise_dist: str = "uniform", dtype=torch.float32):
         super().__init__()
         assert len(noise) == hops + 1
         if noise_dist not in ("uniform", "gaussian"):
@@ -252,11 +326,13 @@ class NoiseMLPHead(nn.Module):
                 layer = Dense(fan_in, out_dims[i], XAVIER, dtype)
             else:
                 layer = MLPBlock(fan_in, out_dims[i], layer_norm=norm,
-                                 dense_init=XAVIER, dtype=dtype)
+                                 dropout=dropout, dense_init=XAVIER, dtype=dtype)
             self.add_module(f"mlp_{i}", layer)
 
     def forward(self, h, *, zero_noise: bool,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                rng: Rngs | None = None):
+        """`generator` draws the noise; `rng` the train-mode dropout."""
         for i in range(self.num_layers):
             if self.noise[i] == 1:
                 if zero_noise:
@@ -268,7 +344,8 @@ class NoiseMLPHead(nn.Module):
                     noise = torch.randn(h.shape, generator=generator,
                                         device=h.device).to(h.dtype)
                 h = torch.cat([h, noise], dim=-1)
-            h = getattr(self, f"mlp_{i}")(h)
+            layer = getattr(self, f"mlp_{i}")
+            h = layer(h) if i == self.num_layers - 1 else layer(h, rng)
         return h
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `advmil_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into
-one shared library with a plain C interface, at first use, under
+Every `advmil_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a`, one
+`nvcc` process per source, all started together, and the objects are linked
+into one shared library with a plain C interface, at first use, under
 `advmil_tpu_torch/_build/` (listed in .gitignore). The library's name carries
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. It is loaded with ctypes; every pointer and the CUDA
@@ -27,15 +28,24 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_DROP = [_I, _U, _U, _U, _F]   # dropout on/off, seed lo / hi, threshold, 1/(1-p)
 _SIGNATURES = {
-    # name: argtypes (all return int = cudaError_t)
-    "advmil_ln_relu_region_mean": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
-    "advmil_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # name: argtypes (all return int: cudaError_t, or a count where named so)
+    "advmil_ln_relu_region_mean": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "advmil_ln_relu_region_mean_bwd": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "advmil_ln_pool_bwd_blocks": [_I],                       # returns a count
+    "advmil_flash_fwd": [_P] * 6 + [_I] * 6 + _DROP + [_P],
+    "advmil_flash_bwd_dq": [_P] * 8 + [_I] * 6 + _DROP + [_P],
+    "advmil_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + _DROP + [_P],
+    "advmil_keep_mask": [_P, _I, _I, _I, _U, _U, _U, _P],
+    "advmil_philox_check": [_P, _P, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -66,17 +76,38 @@ def library_path() -> Path:
 
 def _build(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
-    os.replace(tmp, so)   # atomic: concurrent builders never see a partial file
-    build_info.update(seconds=time.perf_counter() - t0, log=r.stdout + r.stderr)
+    jobs = []   # one nvcc per source, all running at once
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = so.with_name(f"{tag}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({r.returncode}): {' '.join(cmd)}\n"
+                               f"{r.stdout}\n{r.stderr}")
+        os.replace(tmp, so)   # atomic: a concurrent build never sees a partial file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0, log="\n".join(logs))
 
 
 def load():

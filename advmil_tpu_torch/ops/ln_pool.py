@@ -1,13 +1,14 @@
-"""Fused LayerNorm -> ReLU -> 16-row region mean (forward).
+"""Fused LayerNorm -> ReLU -> 16-row region mean, forward and backward.
 
 Counterpart of `advmil_tpu/ops/ln_pool.py::ln_relu_region_mean`. The ESAT and
 discriminator patch embeddings are Dense -> LayerNorm -> ReLU -> mean over
 each 4x4 region; the matmul stays with torch and this op reads the pre-LN
 rows once and writes only the 16x smaller pooled output.
 
-Dispatch: a CPU tensor goes to `ln_relu_region_mean_plain`; a CUDA tensor
-goes to the hand-written kernel `csrc/ln_pool.cu`, or raises. There is no
-fallback from the kernel to the plain version.
+Dispatch: a CPU tensor goes to `ln_relu_region_mean_plain` (autograd through
+plain torch ops); a CUDA tensor goes to `LnReluRegionMean`, whose forward and
+backward are the hand-written kernels of `csrc/ln_pool.cu`, or raises. There
+is no fallback from the kernels to the plain version.
 
 Padding contract (as in the JAX package): callers pad bags in whole 16-patch
 regions; fully padded regions produce finite values that the caller zeroes
@@ -21,7 +22,8 @@ from . import _build
 
 S2 = 16          # patches per region (4x4)
 LN_EPS = 1e-6    # flax LayerNorm default
-LAUNCHES = 0     # kernel launches since the last reset (chip_smoke reads it)
+LAUNCHES = 0      # forward kernel launches since the last reset (chip_smoke reads it)
+LAUNCHES_BWD = 0  # backward kernel launches since the last reset
 
 
 def ln_relu_region_mean_plain(h: torch.Tensor, scale: torch.Tensor,
@@ -36,29 +38,28 @@ def ln_relu_region_mean_plain(h: torch.Tensor, scale: torch.Tensor,
     return y.reshape(M // S2, S2, D).mean(dim=1).to(h.dtype)
 
 
-def ln_relu_region_mean(h: torch.Tensor, scale: torch.Tensor,
-                        bias: torch.Tensor) -> torch.Tensor:
-    """[M, D] pre-LN rows -> [M/16, D] pooled regions (M % 16 == 0).
-
-    mean over 16-row groups of relu(LayerNorm(h) * scale + bias), LN
-    statistics in f32 with eps 1e-6. h is f32 or bf16; the kernel takes any D
-    that is a multiple of 32 from 32 to 1024.
-    """
-    global LAUNCHES
-    if h.device.type == "cpu":
-        return ln_relu_region_mean_plain(h, scale, bias)
+def _check(name: str, h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
     if h.device.type != "cuda":
-        raise ValueError(f"ln_relu_region_mean: unsupported device {h.device}")
+        raise ValueError(f"{name}: needs CUDA tensors, got {h.device}")
     M, D = h.shape
     if M % S2 or D % 32 or not 32 <= D <= 1024:
-        raise ValueError(f"ln_relu_region_mean: needs M % 16 == 0 and D a "
-                         f"multiple of 32 in [32, 1024], got {(M, D)}")
+        raise ValueError(f"{name}: needs M % 16 == 0 and D a multiple of 32 in "
+                         f"[32, 1024], got {(M, D)}")
     if h.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"ln_relu_region_mean: unsupported dtype {h.dtype}")
+        raise ValueError(f"{name}: unsupported dtype {h.dtype}")
+    if scale.shape != (D,) or bias.shape != (D,):
+        raise ValueError(f"{name}: scale and bias must be [D]")
+
+
+def ln_relu_region_mean_fwd(h: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel: [M, D] -> [M/16, D] in h.dtype."""
+    global LAUNCHES
+    _check("ln_relu_region_mean", h, scale, bias)
+    M, D = h.shape
+    h = h.contiguous()
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
-    if scale.shape != (D,) or bias.shape != (D,):
-        raise ValueError("ln_relu_region_mean: scale and bias must be [D]")
     _build.require_cuda("ln_relu_region_mean", h, scale, bias)
     out = torch.empty((M // S2, D), dtype=h.dtype, device=h.device)
     if M == 0:
@@ -71,3 +72,68 @@ def ln_relu_region_mean(h: torch.Tensor, scale: torch.Tensor,
     _build.check(rc, "ln_relu_region_mean")
     LAUNCHES += 1
     return out
+
+
+def ln_relu_region_mean_bwd(g: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor):
+    """Launch the backward kernel: (dh [M, D] in h.dtype, dscale [D] f32,
+    dbias [D] f32) for the cotangent g [M/16, D] (taken in f32, as the TPU
+    rule `_bwd_rule` takes it)."""
+    global LAUNCHES_BWD
+    _check("ln_relu_region_mean_bwd", h, scale, bias)
+    M, D = h.shape
+    if g.shape != (M // S2, D):
+        raise ValueError(f"ln_relu_region_mean_bwd: g {tuple(g.shape)} for h {(M, D)}")
+    g = g.to(torch.float32).contiguous()
+    h = h.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda("ln_relu_region_mean_bwd", g, h, scale, bias)
+    dh = torch.empty_like(h)
+    dscale = torch.zeros(D, dtype=torch.float32, device=h.device)
+    dbias = torch.zeros(D, dtype=torch.float32, device=h.device)
+    if M == 0:
+        return dh, dscale, dbias
+    lib = _build.load()
+    nblocks = lib.advmil_ln_pool_bwd_blocks(M)
+    partials = torch.empty((2, nblocks, D), dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        rc = lib.advmil_ln_relu_region_mean_bwd(
+            g.data_ptr(), h.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            dh.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(),
+            M, D, _build.DTYPE_CODES[h.dtype], LN_EPS, _build.stream_of(h))
+    _build.check(rc, "ln_relu_region_mean_bwd")
+    LAUNCHES_BWD += 1
+    return dh, dscale, dbias
+
+
+class LnReluRegionMean(torch.autograd.Function):
+    """The op on the card: kernel forward, kernel backward (counterpart of the
+    JAX package's `jax.custom_vjp` rules `_fwd_rule` / `_bwd_rule`)."""
+
+    @staticmethod
+    def forward(ctx, h, scale, bias):
+        ctx.save_for_backward(h, scale, bias)
+        return ln_relu_region_mean_fwd(h, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, scale, bias = ctx.saved_tensors
+        dh, dscale, dbias = ln_relu_region_mean_bwd(g, h, scale, bias)
+        return dh, dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def ln_relu_region_mean(h: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """[M, D] pre-LN rows -> [M/16, D] pooled regions (M % 16 == 0).
+
+    mean over 16-row groups of relu(LayerNorm(h) * scale + bias), LN
+    statistics in f32 with eps 1e-6. h is f32 or bf16; the kernels take any D
+    that is a multiple of 32 from 32 to 1024. Differentiable in h, scale and
+    bias on both devices.
+    """
+    if h.device.type == "cpu":
+        return ln_relu_region_mean_plain(h, scale, bias)
+    if h.device.type != "cuda":
+        raise ValueError(f"ln_relu_region_mean: unsupported device {h.device}")
+    return LnReluRegionMean.apply(h, scale, bias)

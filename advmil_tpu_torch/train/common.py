@@ -68,10 +68,17 @@ class HandlerCommon:
         b.prefetch_workers = max(1, nw)
         return b
 
-    def _ship(self, batch) -> dict:
-        """Host batch -> device tensors; feats in bf16 under precision bf16."""
+    def _ship(self, batch, train: bool = False) -> dict:
+        """Host batch -> device tensors; feats in bf16 under precision bf16.
+        A training batch also carries label, sample_mask and visible (all 1:
+        every label is visible outside semi-supervised training)."""
         feats = torch.from_numpy(batch.feats).to(self.device)
         if self.cfg["precision"] in ("bf16", "bfloat16"):
             feats = feats.to(torch.bfloat16)
-        return {"feats": feats,
-                "mask": torch.from_numpy(batch.mask).to(self.device)}
+        out = {"feats": feats,
+               "mask": torch.from_numpy(batch.mask).to(self.device)}
+        if train:
+            smask = torch.from_numpy(batch.sample_mask).to(self.device)
+            out.update(label=torch.from_numpy(batch.label).to(self.device),
+                       sample_mask=smask, visible=torch.ones_like(smask))
+        return out

@@ -1,11 +1,16 @@
-"""Adversarial handler, test mode (counterpart of
-`advmil_tpu/train/handler.py::AdvHandler`): builds G and D on the configured
-device, loads the `best` checkpoints of a training run, evaluates the
-occluded test split with zero noise and writes the metrics and the
-prediction CSV under the same names and paths as the JAX package.
+"""Adversarial handler (counterpart of `advmil_tpu/train/handler.py::
+AdvHandler`): builds G and D on the configured device and runs
 
-Training (`exec`) is ROADMAP slice 2 and semi-supervised training
-(`exec_semi_sl`) slice 4.
+- `exec`: adversarial training with plateau LR and early stopping on the
+  validation split, best / last checkpoints with optimizer state, then the
+  evaluation of the best checkpoint on every split (`times_test_sample`
+  noise samples, lower median);
+- `exec_test`: test mode, which loads the `best` checkpoints of a training
+  run, evaluates the occluded test split with zero noise;
+
+writing metrics, prediction CSVs and checkpoints under the same names and
+paths as the JAX package. Semi-supervised training (`exec_semi_sl`) is
+ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -23,13 +28,14 @@ from ..data.bags import prepare_dataset
 from ..eval.evaluator import prepare_evaluator
 from ..models.backbones import load_backbone
 from ..models.gan import Discriminator, Generator, PrjDiscriminator
-from ..models.layers import compute_dtype_of, init_parameters
-from ..utils.func import (add_prefix_to_filename, print_metrics, rename_keys,
-                          seed_everything, sparse_key, sparse_str)
+from ..models.layers import Rngs, compute_dtype_of, init_parameters
+from ..utils.func import (EarlyStopping, add_prefix_to_filename, print_metrics,
+                          rename_keys, seed_everything, sparse_key, sparse_str)
 from ..utils.io import read_datasplit_npz, read_maxt_from_table, save_prediction
 from . import checkpoint as ckpt_lib
 from .common import HandlerCommon, resolve_device
-from .steps import make_eval_step
+from .optim import ReduceLROnPlateau, adam_with_l2, set_lr
+from .steps import make_adv_train_step, make_eval_step
 
 
 def build_models(cfg: dict):
@@ -46,14 +52,15 @@ def build_models(cfg: dict):
     noi = SimpleNamespace(**sparse_key(cfg, prefixes="gen_noi"))
     gen = Generator(backbone, dim_in, dim_out, noise=tuple(sparse_str(noi.noise)),
                     hops=noi.hops, noise_dist=(noi.noise_dist or "uniform"),
-                    norm=cfg["gen_norm"], out_scale=cfg["gen_out_scale"],
-                    dtype=dtype)
+                    norm=cfg["gen_norm"], dropout=cfg["gen_dropout"],
+                    out_scale=cfg["gen_out_scale"], dtype=dtype)
     dx = SimpleNamespace(**sparse_key(cfg, prefixes="disc_netx"))
     dy = SimpleNamespace(**sparse_key(cfg, prefixes="disc_nety"))
     disc_kw = dict(netx_in_dim=dx.in_dim, netx_out_dim=dx.out_dim,
                    nety_in_dim=dy.in_dim,
                    nety_hid_dims=tuple(sparse_str(dy.hid_dims)),
-                   nety_norm=dy.norm,
+                   netx_dropout=dx.dropout, nety_norm=dy.norm,
+                   nety_dropout=dy.dropout,
                    use_lnpool=cfg["use_fused_lnpool"], dtype=dtype)
     if cfg["disc_type"] == "prj":
         disc = PrjDiscriminator(prj_path=cfg["disc_prj_path"],
@@ -64,7 +71,7 @@ def build_models(cfg: dict):
 
 
 class AdvHandler(HandlerCommon):
-    """Adversarial (generator/discriminator) survival model, test mode."""
+    """Adversarial (generator/discriminator) survival model."""
 
     def __init__(self, cfg: dict):
         check_configs(cfg)
@@ -76,7 +83,8 @@ class AdvHandler(HandlerCommon):
         self._setup_paths()
 
         self.gen_model, self.disc_model = build_models(cfg)
-        # the port's own seeded init; a checkpoint replaces it in _eval_all
+        # the port's own seeded init (training starts from it; a checkpoint
+        # replaces it in _eval_all)
         init_parameters(self.gen_model, cfg["seed"])
         init_parameters(self.disc_model, cfg["seed"] + 1)
         self.gen_model.to(self.device).eval()
@@ -98,9 +106,33 @@ class AdvHandler(HandlerCommon):
                              "event_t_rae", "nonevent_t_rae", "event_t_nre",
                              "nonevent_t_nre"]
         self.ret_metrics = ["c_index", "loss_recon_org"]
+        self.opt_G = self.opt_D = self.train_step = None
+        if not cfg["test"]:
+            self._setup_training()
         self._eval_steps = {}
-        self.eval_timings = []   # (bags, seconds) per _run_eval pass
+        self.eval_timings = []    # (bags, seconds) per _run_eval pass
+        self.train_timings = []   # (bags, seconds) per training epoch
         self._setup_logging()
+
+    def _setup_training(self):
+        """Optimizers, train-mode generators and the adversarial step."""
+        cfg = self.cfg
+        # reference model/model_handler.py:100-109: Adam with coupled L2 on
+        # G's matrices, plain Adam on D; the plateau LR scales G's only
+        self.base_lr_G = cfg["opt_netG_lr"]
+        self.opt_G = adam_with_l2(self.gen_model.parameters(), self.base_lr_G,
+                                  weight_decay=cfg["opt_netG_weight_decay"])
+        self.opt_D = adam_with_l2(self.disc_model.parameters(), cfg["opt_netD_lr"])
+        # dropout masks and noise on the device; the flash kernels' Philox
+        # seeds from a CPU generator, so drawing one never waits for the card
+        self.train_rngs = Rngs(
+            device=torch.Generator(device=self.device).manual_seed(int(cfg["seed"])),
+            host=torch.Generator().manual_seed(int(cfg["seed"]) + 1))
+        self.train_step = make_adv_train_step(
+            self.gen_model, self.disc_model, self.opt_G, self.opt_D,
+            loss_netD=cfg["loss_netD"], coef_gan=cfg["loss_gan_coef"],
+            l1_coef=cfg["loss_regl1_coef"] or 0.0,
+            gen_updates=int(cfg["gen_updates"]), sup_loss_fn=self.sup_loss_fn)
 
     def _ckpt_path(self, net: str, ckpt_type: str, run_name: str,
                    load: bool = False) -> str:
@@ -112,12 +144,35 @@ class AdvHandler(HandlerCommon):
     # ------------------------------------------------------------------
 
     def exec(self):
-        raise NotImplementedError("training (AdvHandler.exec) is not ported "
-                                  "yet (ROADMAP slice 2: A5-A9)")
+        cfg = self.cfg
+        print(f"[exec] execute task {self.task} using backbone-mode {self.bcb}.")
+        path_split = cfg["data_split_path"].format(cfg["data_split_seed"])
+        pids_train, pids_val, pids_test = read_datasplit_npz(path_split)
+        self.patient_id["label_visible"] = set(
+            pids_train + pids_val + (pids_test or []))
+        print(f"[exec] read patient IDs from {path_split}")
+
+        train_set = prepare_dataset(pids_train, cfg, rng=self.np_rng)
+        val_set = prepare_dataset(pids_val, cfg, rng=self.np_rng)
+        self.patient_id["train"] = train_set.pids
+        self.patient_id["validation"] = val_set.pids
+        loaders = {"train": (train_set, self._make_bucket_batcher(train_set)),
+                   "validation": (val_set, self._make_bucket_batcher(val_set))}
+        if pids_test is not None:
+            test_set = prepare_dataset(pids_test, cfg, rng=self.np_rng)
+            self.patient_id["test"] = test_set.pids
+            loaders["test"] = (test_set, self._make_bucket_batcher(test_set))
+        self.loaders = loaders
+
+        val_loaders = {k: v for k, v in loaders.items() if k != "train"}
+        self._run_training(cfg["epochs"], loaders["train"], "train",
+                           val_loaders=val_loaders, val_name="validation",
+                           run_name="train")
+        return self._eval_all(loaders, ckpt_type="best", run_name="train")
 
     def exec_semi_sl(self):
         raise NotImplementedError("semi-supervised training is not ported yet "
-                                  "(ROADMAP slice 4: A11)")
+                                  "(ROADMAP A11)")
 
     def exec_test(self):
         cfg = self.cfg
@@ -135,6 +190,77 @@ class AdvHandler(HandlerCommon):
                               test_zero_noise=cfg["test_zero_noise"])
 
     # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
+
+    def _run_training(self, epochs, train_loader, name_loader, val_loaders=None,
+                      val_name=None, run_name="train"):
+        cfg = self.cfg
+        if cfg.get("es_patience") is not None:
+            self.early_stop = EarlyStopping(
+                warmup=cfg["es_warmup"], patience=cfg["es_patience"],
+                start_epoch=cfg["es_start_epoch"], verbose=cfg["es_verbose"])
+        else:
+            self.early_stop = None
+        self.steplr = ReduceLROnPlateau(factor=0.5, patience=10, verbose=True)
+        last_epoch = -1
+        for epoch in range(epochs):
+            last_epoch = epoch + 1
+            cltor = self._train_each_epoch(train_loader)
+            self._eval_and_print(cltor, name=name_loader, at_epoch=epoch + 1)
+
+            val_metrics = None
+            for k_i, (k, (ds, batcher)) in enumerate((val_loaders or {}).items()):
+                cltor = self._run_eval(ds, batcher, n_samples=1,
+                                       rng_tag=(epoch + 1) * 1024 + k_i)
+                met_ci, met_loss = self._eval_and_print(cltor, name=k,
+                                                        at_epoch=epoch + 1)
+                if k == val_name:
+                    # 'ci' keeps the reference's inverted semantics (monitored
+                    # as a loss: saves the minimum C-index); 'ci_max' negates
+                    mm = cfg.get("monitor_metrics", "loss")
+                    val_metrics = (met_ci if mm == "ci" else -met_ci
+                                   if mm == "ci_max" else met_loss)
+
+            if val_metrics is not None and self.early_stop is not None:
+                set_lr(self.opt_G, self.base_lr_G * self.steplr.step(val_metrics))
+                self.early_stop(epoch, val_metrics)
+                if self.early_stop.if_save_checkpoint():
+                    self.save_model(epoch + 1, "best", run_name)
+                    print(f"[{run_name}] best model saved at epoch {epoch + 1}")
+                if self.early_stop.if_stop():
+                    break
+        self.save_model(last_epoch, "last", run_name)
+        print(f"[{run_name}] last model saved at epoch {last_epoch}")
+
+    def _train_each_epoch(self, loader):
+        """One shuffled pass of adversarial steps; the device is synced once,
+        at the end, for the logged metrics and the collected predictions."""
+        ds, batcher = loader
+        t0 = time.perf_counter()
+        pending, keeps, ys, idxs = [], [], [], []
+        for batch in batcher.prefetch(shuffle=True, rng=self.np_rng):
+            metrics, collect = self.train_step(self._ship(batch, train=True),
+                                               self.train_rngs)
+            keep = batch.sample_mask.astype(bool)
+            pending.append((metrics, collect))
+            keeps.append(keep)
+            ys.append(batch.label[keep])
+            idxs.append(batch.idx[keep])
+        names = list(pending[0][0])
+        logged = {k: torch.stack([m[k] for m, _ in pending]).float().cpu().tolist()
+                  for k in names}
+        cltor = {"y": ys, "idx": idxs, "y_hat": [], "f_fake": []}
+        for (_, collect), keep in zip(pending, keeps):
+            for k in ("y_hat", "f_fake"):
+                cltor[k].append(collect[k].float().cpu().numpy()[keep])
+        self.train_timings.append((int(sum(k.sum() for k in keeps)),
+                                   time.perf_counter() - t0))
+        for i in range(len(pending)):
+            self.logger.log({f"train_batch/{k}": logged[k][i] for k in names})
+        return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
+
+    # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
 
@@ -149,6 +275,8 @@ class AdvHandler(HandlerCommon):
     def _run_eval(self, ds, batcher, n_samples=1, zero_noise=False, rng_tag=0):
         """One pass over `batcher`; returns the host-side collections."""
         step = self._get_eval_step(n_samples, zero_noise)
+        self.gen_model.eval()
+        self.disc_model.eval()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(((self.cfg["seed"] + 777) * 1_000_003 + rng_tag) % (1 << 62))
         t0 = time.perf_counter()
@@ -170,16 +298,17 @@ class AdvHandler(HandlerCommon):
                                   time.perf_counter() - t0))
         return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
 
-    def _eval_and_print(self, cltor, name=""):
+    def _eval_and_print(self, cltor, name="", at_epoch=None):
         results = self.evaluator.compute(cltor, self.metrics_list)
         results = rename_keys(results, name, sep="/")
-        print(f"[{name}] At epoch None:",
+        print(f"[{name}] At epoch {at_epoch}:",
               " ".join(f"{k}={v:.6f}," for k, v in results.items()))
         self.logger.log(results)
         return [results[name + "/" + k] for k in self.ret_metrics]
 
     def load_params(self, ckpt_type: str, run_name: str, load: bool):
-        """Load the G and D checkpoints into the models (on the device)."""
+        """Load the G and D checkpoints' parameters into the models (on the
+        device); the optimizer states stay as they are."""
         gpath = self._ckpt_path("G", ckpt_type, run_name, load=load)
         dpath = self._ckpt_path("D", ckpt_type, run_name, load=load)
         if not osp.exists(gpath):
@@ -191,9 +320,11 @@ class AdvHandler(HandlerCommon):
 
     def save_model(self, epoch, ckpt_type="best", run_name="train"):
         ckpt_lib.save_checkpoint(self._ckpt_path("G", ckpt_type, run_name),
-                                 epoch, self.gen_model.state_dict())
+                                 epoch, self.gen_model.state_dict(),
+                                 self.opt_G.state_dict())
         ckpt_lib.save_checkpoint(self._ckpt_path("D", ckpt_type, run_name),
-                                 epoch, self.disc_model.state_dict())
+                                 epoch, self.disc_model.state_dict(),
+                                 self.opt_D.state_dict())
 
     def _eval_all(self, evals_loader, ckpt_type="best", run_name="train",
                   if_print=True, test_mode=False, test_mode_name="test_mode",
@@ -213,8 +344,10 @@ class AdvHandler(HandlerCommon):
 
         metrics = {}
         for k_i, (k, (ds, batcher)) in enumerate(evals_loader.items()):
+            # the JAX package's tag domain for checkpoint evaluations
+            tag = (1 << 30) + (1 if ckpt_type == "best" else 2) * 16 + k_i
             cltor = self._run_eval(ds, batcher, n_samples=sampling_times,
-                                   zero_noise=test_zero_noise, rng_tag=k_i)
+                                   zero_noise=test_zero_noise, rng_tag=tag)
             ci, loss = self._eval_and_print(cltor, name=f"{wandb_group}/{k}")
             metrics[k] = [("cindex", ci), ("loss", loss)]
             if cfg["save_prediction"]:

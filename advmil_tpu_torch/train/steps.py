@@ -1,8 +1,11 @@
-"""The evaluation step (counterpart of `advmil_tpu/train/steps.py::
-make_eval_step`). Training steps come with ROADMAP A7."""
+"""The adversarial training step and the evaluation step (counterparts of
+`advmil_tpu/train/steps.py::make_adv_train_step` and `make_eval_step`)."""
 from __future__ import annotations
 
 import torch
+
+from .. import losses
+from ..models.layers import Rngs
 
 
 def _median_lower(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -36,5 +39,82 @@ def make_eval_step(gen_model, disc_model=None, *, n_samples: int = 1,
             out["dist_y_hat"] = dist.transpose(0, 1)
             out["avg_y_hat"] = _median_lower(dist, dim=0)
         return out
+
+    return step
+
+
+def _set_requires_grad(model, flag: bool) -> None:
+    for p in model.parameters():
+        p.requires_grad_(flag)
+
+
+def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
+                        coef_gan: float, l1_coef: float, gen_updates: int,
+                        sup_loss_fn):
+    """The adversarial step of one batch (continuous task): a D update, then
+    `gen_updates` G updates.
+
+    batch: feats [B, N, C], mask [B, N], label [B, 2] (t, e), sample_mask [B],
+    visible [B]. Modes follow the reference's train() / eval() flips:
+    - D phase: G in eval mode with noise on (no dropout), its prediction
+      detached; D in train mode scores the pair (t_real, t_fake) in one call
+      (shared patch embedding, independent dropout masks); real pairs are
+      weighted by event * visible, fake pairs by sample_mask.
+    - G phase: G in train mode; D in eval mode with its parameters frozen;
+      loss = recon(weighted by visible) + coef_gan * adversarial (weighted by
+      sample_mask) + l1_coef * sum |w_G|.
+    Returns (metrics, collect) as device tensors: the caller syncs once per
+    epoch. collect holds the D phase's predictions and fake scores, which the
+    reference logs as the training-set predictions.
+    """
+
+    def step(batch: dict, rngs: Rngs):
+        feats, mask = batch["feats"], batch["mask"]
+        t, e = batch["label"][:, 0], batch["label"][:, 1]
+        smask = batch["sample_mask"]
+        visible = batch["visible"] * smask
+
+        # ---- D phase: generator in eval mode (dropout off, noise on) ----
+        gen_model.eval()
+        disc_model.train()
+        with torch.no_grad():
+            pred_eval = gen_model(feats, mask, zero_noise=False,
+                                  generator=rngs.device)
+        real_w = (e == 1).to(torch.float32) * visible
+        f_real, f_fake = disc_model(feats, (t[:, None], pred_eval), mask, rngs)
+        f_real, f_fake = f_real.float(), f_fake.float()
+        loss_D = losses.real_fake_loss(f_real, f_fake, which=loss_netD,
+                                       real_weight=real_w, fake_weight=smask)
+        opt_D.zero_grad(set_to_none=True)
+        loss_D.backward()
+        opt_D.step()
+        metrics = {"Loss_D": loss_D.detach(),
+                   "D_real": losses._wmean(f_real.detach().reshape(-1), real_w),
+                   "D_fake": losses._wmean(f_fake.detach().reshape(-1), smask)}
+        collect = {"y_hat": pred_eval, "f_fake": f_fake.detach().reshape(-1)}
+
+        # ---- G phase (x gen_updates): D in eval mode and frozen ----
+        gen_model.train()
+        disc_model.eval()
+        _set_requires_grad(disc_model, False)
+        try:
+            for _ in range(gen_updates):
+                pred = gen_model(feats, mask, zero_noise=False,
+                                 generator=rngs.device, rng=rngs)
+                f_fake_g = disc_model(feats, pred, mask).float()
+                gen_loss = losses.fake_generator_loss(f_fake_g, weight=smask)
+                t_reg = sup_loss_fn(pred[:, 0], t, e, weight=visible)
+                total = t_reg if coef_gan == 0.0 else t_reg + coef_gan * gen_loss
+                total = total + losses.loss_reg_l1(gen_model.parameters(), l1_coef)
+                opt_G.zero_grad(set_to_none=True)
+                total.backward()
+                opt_G.step()
+                metrics.update({
+                    "Loss_G_fake": gen_loss.detach(), "Loss_G_time": t_reg.detach(),
+                    "Loss_G_total": total.detach(),
+                    "D_fake_avg": losses._wmean(f_fake_g.detach().reshape(-1), smask)})
+        finally:
+            _set_requires_grad(disc_model, True)
+        return metrics, collect
 
     return step

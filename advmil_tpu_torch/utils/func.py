@@ -1,8 +1,9 @@
-"""Framework-generic utilities used by the test-mode slice.
+"""Framework-generic utilities of the ported slices.
 
-Copies of `advmil_tpu.utils.func` (config scraping, occlusion masking, the
-printed-artifact formats, seeding), kept here so the port never imports the
-JAX package. Behaviour is identical, including the order of RNG draws.
+Copies of `advmil_tpu.utils.func` (config scraping, occlusion masking, early
+stopping, the printed-artifact formats, seeding), kept here so the port never
+imports the JAX package. Behaviour is identical, including the order of RNG
+draws.
 """
 from __future__ import annotations
 
@@ -67,6 +68,60 @@ def random_mask_square_instance(bag: np.ndarray, mask_ratio: float, scale: int =
         new_bag[idxs_keep] = bag[idxs_keep]
         return new_bag
     raise NotImplementedError(f"Cannot run with mask_way={mask_way}.")
+
+
+class EarlyStopping:
+    """Stops training when the monitored value does not improve (reference
+    utils/func.py:300-353, as `advmil_tpu.utils.func.EarlyStopping`).
+
+    score = -val_loss; no tracking during `warmup` epochs; an improvement
+    needs score - 1e-6 >= best; stopping needs counter >= patience and
+    epoch > start_epoch.
+    """
+
+    def __init__(self, warmup: int = 5, patience: int = 15, start_epoch: int = 0,
+                 verbose: bool = False):
+        self.warmup = warmup
+        self.patience = patience
+        self.start_epoch = start_epoch
+        self.verbose = verbose
+        self.counter = 0
+        self.best_score = None
+        self.early_stop = False
+        self.save_checkpoint = False
+        self.val_loss_min = np.inf
+
+    def __call__(self, epoch: int, val_loss: float):
+        self.save_checkpoint = False
+        score = -val_loss
+        if epoch < self.warmup:
+            pass
+        elif self.best_score is None:
+            self.best_score = score
+            self._update(val_loss)
+        elif score - 1e-6 < self.best_score:
+            self.counter += 1
+            if self.verbose:
+                print(f"EarlyStopping counter: {self.counter} out of {self.patience}")
+            if self.counter >= self.patience and epoch > self.start_epoch:
+                self.early_stop = True
+        else:
+            self.best_score = score
+            self._update(val_loss)
+            self.counter = 0
+
+    def if_stop(self) -> bool:
+        return self.early_stop
+
+    def if_save_checkpoint(self) -> bool:
+        return self.save_checkpoint
+
+    def _update(self, val_loss: float):
+        if self.verbose:
+            print(f"Validation loss decreased ({self.val_loss_min:.6f} --> "
+                  f"{val_loss:.6f}).  Saving model ...")
+        self.val_loss_min = val_loss
+        self.save_checkpoint = True
 
 
 def seed_everything(seed: int):

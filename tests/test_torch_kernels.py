@@ -86,3 +86,130 @@ def test_flash_kernel_refuses_unbuilt_head_dim(cuda_device):
     q, k, v, mask = _attn_inputs(1, 64, 2, 40, cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tattn.flash_attention_fwd(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------------
+# training: autograd Functions, backward kernels, in-kernel dropout
+# ---------------------------------------------------------------------------
+
+from advmil_tpu_torch.models import layers as tl   # noqa: E402
+from advmil_tpu_torch.ops import philox as tphilox   # noqa: E402
+
+
+@pytest.mark.cuda
+def test_gradients_reach_the_embedding_and_in_proj_on_cuda(cuda_device):
+    """Both kernel ops carry gradients on the card: the patch embedding's
+    Dense_0 / LayerNorm_0 (through LN-pool) and the transformer's in_proj
+    (through flash attention, train mode, L above the gate)."""
+    torch.manual_seed(0)
+    emb = tl.init_parameters(tl.AvgPoolPatchEmbedding(64, 128), seed=1).to(cuda_device)
+    x = torch.randn(2, 256, 64, device=cuda_device)
+    mask = torch.ones(2, 256, device=cuda_device)
+    mask[1, 128:] = 0.0
+    lnp_f, lnp_b = tlnp.LAUNCHES, tlnp.LAUNCHES_BWD
+    emb(x, mask).square().sum().backward()
+    assert tlnp.LAUNCHES == lnp_f + 1 and tlnp.LAUNCHES_BWD == lnp_b + 1
+    assert emb.Dense_0.weight.grad.abs().sum() > 0
+    assert emb.LayerNorm_0.weight.grad.abs().sum() > 0
+
+    layer = tl.init_parameters(tl.TransformerEncoderLayer(96, 2, 96, flash_min_len=64),
+                               seed=2).to(cuda_device).train()
+    rngs = tl.Rngs(torch.Generator(device=cuda_device).manual_seed(3),
+                   torch.Generator().manual_seed(4))
+    h = torch.randn(2, 128, 96, device=cuda_device)
+    rmask = torch.ones(2, 128, device=cuda_device)
+    rmask[0, 100:] = 0.0
+    before = (tattn.LAUNCHES, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV)
+    layer(h, rmask, rngs).square().sum().backward()
+    assert (tattn.LAUNCHES, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV) == tuple(
+        n + 1 for n in before)
+    assert layer.in_proj.weight.grad.abs().sum() > 0
+    assert torch.isfinite(layer.in_proj.weight.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(32768, 384), (32768, 128), (48, 32), (16 * 7, 1024)])
+def test_ln_pool_bwd_kernel_matches_plain(cuda_device, M, D, dtype):
+    h, scale, bias = _ln_inputs(M, D, seed=D + 1, device=cuda_device)
+    h = h.to(dtype)
+    h[-16:] = 0.0                                  # a fully padded region
+    g = torch.randn(M // 16, D, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(5)).to(dtype)
+
+    def grads(fn):
+        hh, sc, bi = (t.detach().clone().requires_grad_(True) for t in (h, scale, bias))
+        fn(hh, sc, bi).backward(g)
+        return hh.grad, sc.grad, bi.grad
+
+    before = tlnp.LAUNCHES_BWD
+    got = grads(tlnp.ln_relu_region_mean)
+    torch.cuda.synchronize()
+    assert tlnp.LAUNCHES_BWD == before + 1
+    want = grads(tlnp.ln_relu_region_mean_plain)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    for a, b in zip(got[1:], want[1:]):             # sums over M rows, f32 both
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+
+
+def _flash_grads(fn, q, k, v, mask, dout):
+    qq, kk, vv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(qq, kk, vv)
+    out.backward(dout)
+    return out.detach(), qq.grad, kk.grad, vv.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.25])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,L,H,Dh", [(2, 1024, 8, 48), (3, 130, 2, 16), (2, 77, 4, 64)])
+def test_flash_fwd_bwd_kernels_match_plain(cuda_device, B, L, H, Dh, dtype, tol, p):
+    q, k, v, mask = _attn_inputs(B, L, H, Dh, cuda_device)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    dout = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(7)).to(dtype)
+    seed = 0x1234_5678_9ABC_DEF0 if p else None
+    before = (tattn.LAUNCHES, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV)
+    got = _flash_grads(lambda a, b, c: tattn.masked_flash_attention(
+        a, b, c, mask, dropout_p=p, seed=seed), q, k, v, mask, dout)
+    torch.cuda.synchronize()
+    assert (tattn.LAUNCHES, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV) == tuple(
+        n + 1 for n in before)
+    want = _flash_grads(lambda a, b, c: tattn.masked_attention_reference(
+        a, b, c, mask, p, seed), q, k, v, mask, dout)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+        assert torch.all(a[-1] == 0), f"{name}: fully masked bag not exactly 0"
+
+
+@pytest.mark.cuda
+def test_flash_dropout_keeps_everything_at_tiny_p(cuda_device):
+    """p so small that its threshold is 0 and 1/(1-p) rounds to 1 in f32: the
+    dropout path keeps every element and must equal the p = 0 path bit for
+    bit (the dropout plumbing adds nothing of its own)."""
+    q, k, v, mask = _attn_inputs(2, 300, 2, 48, cuda_device)
+    out0, lse0 = tattn.flash_attention_fwd(q, k, v, mask)
+    out1, lse1 = tattn.flash_attention_fwd(q, k, v, mask, dropout_p=1e-12, seed=9)
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Lq,Lk,p", [(16, 1024, 1024, 0.25), (3, 77, 130, 0.6),
+                                        (1, 5, 3, 0.1)])
+def test_keep_mask_kernel_is_bit_exact(cuda_device, BH, Lq, Lk, p):
+    seed = (1 << 63) + 12345
+    before = tphilox.LAUNCHES
+    got = tphilox.keep_mask(seed, BH, Lq, Lk, p, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tphilox.LAUNCHES == before + 1
+    assert torch.equal(got, tphilox.keep_mask_plain(seed, BH, Lq, Lk, p, cuda_device))
+    assert torch.equal(got.cpu(), tphilox.keep_mask_plain(seed, BH, Lq, Lk, p))
+
+
+@pytest.mark.cuda
+def test_philox_header_matches_curand(cuda_device):
+    ours, ref = tphilox.check_against_curand(4096, cuda_device)
+    assert torch.equal(ours, ref)

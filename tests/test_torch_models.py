@@ -146,7 +146,7 @@ def test_median_lower_matches_jax(K):
 
 def test_noise_head_draws_from_the_generator():
     torch.manual_seed(0)
-    head = tl.init_parameters(tl.NoiseMLPHead(16, 1, (0, 1)), seed=0)
+    head = tl.init_parameters(tl.NoiseMLPHead(16, 1, (0, 1)), seed=0).eval()
     h = torch.randn(4, 16)
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)

@@ -87,9 +87,15 @@ def test_flash_reference_matches_jax_reference():
 
 
 def test_flash_dropout_is_not_ported():
+    """Attention dropout is ported now (tests/test_torch_train.py); what stays
+    refused is dropout without a seed for its Philox stream, or at p >= 1."""
     q, k, v, mask = (torch.from_numpy(a) for a in _attn_inputs(1, 8, 1, 8, seed=1))
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="seed"):
         tattn.masked_flash_attention(q, k, v, mask, dropout_p=0.1)
+    with pytest.raises(ValueError, match="< 1"):
+        tattn.masked_flash_attention(q, k, v, mask, dropout_p=1.0, seed=3)
+    out = tattn.masked_flash_attention(q, k, v, mask, dropout_p=0.1, seed=3)
+    assert out.shape == q.shape and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("fully_masked", [False, True])

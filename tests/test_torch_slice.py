@@ -123,17 +123,23 @@ def test_exec_test_matches_jax(synth, tmp_path):
 
 
 def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
+    """exec is ported (tests/test_torch_train.py). As in the JAX package, a
+    run whose warm-up outlasts its epochs saves no best checkpoint, and the
+    final evaluation says so; the modes still missing name their item."""
     from advmil_tpu_torch.config import with_defaults
     from advmil_tpu_torch.train.handler import AdvHandler
-    cfg = _cfg(synth, tmp_path, device="cpu")
+    cfg = _cfg(synth, tmp_path, device="cpu", es_warmup=5)    # epochs: 1
     del cfg["rng_impl"]
     h = AdvHandler(with_defaults(cfg))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        h.exec()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        h.exec_semi_sl()
     with pytest.raises(FileNotFoundError):
         h.load_params("best", "train", load=True)     # nothing saved yet
+    with pytest.raises(FileNotFoundError, match="es_warmup"):
+        h.exec()
+    assert osp.exists(osp.join(cfg["save_path"], "train_modelG-last.ckpt"))
+    with pytest.raises(NotImplementedError, match="A11"):
+        h.exec_semi_sl()
+    with pytest.raises(NotImplementedError, match="A12"):
+        AdvHandler(with_defaults(dict(cfg, bcb_mode="abmil")))
 
 
 def test_port_imports_no_jax():
