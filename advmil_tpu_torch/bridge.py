@@ -10,7 +10,11 @@ with these rules:
 - the packed attention `in_proj` keeps q | k | v on the output axis (the
   same packing as torch's `in_proj_weight`), so it needs no reordering;
 - the generator's head subtree is `head` in flax and `head_mlp` in torch
-  (`head` is the Generator's method there).
+  (`head` is the Generator's method there);
+- GENConv's temperature `t [1]` keeps its name. PatchGCN's per-graph
+  layers run under `nn.vmap` with shared parameters in flax, so their trees
+  (`layer0_conv/{t, mlp0, mlp_norm, mlp1}`, `layer{i}/conv/...`,
+  `layer{i}/norm`) carry no batch axis and map one to one.
 
 Reading the JAX package's msgpack `.ckpt` without flax is ROADMAP A1; until
 then trees come from numpy dicts or `.npz` files.
@@ -58,7 +62,7 @@ def flax_to_torch(params: dict) -> dict:
             leaf, arr = "weight", arr.T
         elif leaf == "scale":
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "t"):
             raise ValueError(f"unknown flax leaf {'/'.join(path)}")
         sd[".".join(mods + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
     return sd

@@ -28,6 +28,12 @@ PORT_DEFAULTS = {
     "flash_min_len": 512,          # eval floors the gate at max(this, 2048)
     "use_fused_lnpool": True,      # hand-written LN+ReLU+region-mean kernel
     "tra_backbone": "Transformer",  # Transformer | Identity (no encoder)
+    # PatchGCN (bcb_mode: graph), the JAX package's defaults
+    "num_graph_layers": 1,
+    "graph_edge_agg": "spatial",   # spatial | latent: which npz edge set
+    "graph_edges_per_node": 9,     # dense edge slots per node (in-degree cap)
+    "graph_banded": "auto",        # auto: banded route when coverage >= 0.7 | off
+    "graph_grid_resident": False,
     "cache_bags": True,
     "num_workers": 0,              # > 1: thread-pool batch assembly
     "save_prediction": True,
@@ -180,7 +186,7 @@ def _not_ported(cfg: dict) -> list:
     """(key, value, ROADMAP item) for every requested mode the port lacks."""
     checks = [
         ("bcb_mode", lambda v: v in ("cluster", "abmil"), "A12"),
-        ("bcb_mode", lambda v: v == "graph", "A13"),
+        ("graph_grid_resident", bool, "A13"),
         ("semi_training", bool, "A11"),
         ("time_format", lambda v: v == "quantile", "A8"),
         ("use_coords_pe", bool, "A2"),
@@ -211,6 +217,13 @@ def check_configs(cfg: dict):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {cfg.get('device')!r}")
     if cfg.get("precision") not in ("f32", "bf16", "bfloat16"):
         raise ValueError(f"precision must be f32 or bf16, got {cfg.get('precision')!r}")
+    if cfg.get("bcb_mode") == "graph":
+        assert cfg["graph_edge_agg"] in ("spatial", "latent"), \
+            "graph_edge_agg must be spatial/latent"
+        # YAML reads a bare `off` as False
+        assert cfg["graph_banded"] in ("auto", "off", False), "graph_banded must be auto/off"
+        assert 1 <= int(cfg["graph_edges_per_node"]) <= 16, \
+            "graph_edges_per_node must be 1-16 (the aggregation kernels' slot limit)"
     assert cfg.get("monitor_metrics", "loss") in ("loss", "ci", "ci_max"), \
         "monitor_metrics must be loss / ci (reference-inverted) / ci_max"
     assert cfg["loss_netD"] in ["bce", "hinge", "wasserstein"], \

@@ -1,5 +1,5 @@
-"""Patient-level WSI bag dataset and bucketed padded batching, patch mode
-(counterpart of `advmil_tpu/data/bags.py`).
+"""Patient-level WSI bag dataset and bucketed padded batching, patch and
+graph mode (counterpart of `advmil_tpu/data/bags.py`).
 
 Bags are grouped into length buckets (multiples of 16, so padding forms whole
 4x4 regions), padded to the bucket length and stacked into [B, N, C] batches
@@ -9,17 +9,32 @@ the same contents, as the JAX package's batcher under the same seed,
 including the test-mode occlusion masks drawn per `__getitem__` from the one
 `np.random.Generator` the handler passes in, and the shuffled training
 order drawn from that generator in the same order as the JAX package.
+
+Graph mode (PatchGCN) adds each bag's kNN graph, read from per-slide
+`<sid>.npz` files ([2, E] (dst, src) rows). The batcher pre-scans every
+bag's graph once and picks one route for all of them: the banded route
+when at least 70% of the edges sit on per-slot constant offsets (raster
+spatial kNN graphs), else the dense route. Per bag it ships, in
+`Batch.extra`, the band tables (`band_offs`, `band_mask`, `band_urows`,
+`band_usrc`, `band_uemask`, `band_uinv`) or the dense `edge_src` /
+`edge_mask` tables, cached by dataset index.
 """
 from __future__ import annotations
 
 import os.path as osp
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..ops.banded import build_u_inv, build_u_tables
+from ..ops.segment import band_coverage, build_band_tables
 from ..utils.func import random_mask_square_instance
 from ..utils.io import read_patch_feature, retrieve_from_table
+
+BAND_KEYS = ("band_offs", "band_mask", "band_urows", "band_usrc", "band_uemask",
+             "band_uinv")
+DENSE_KEYS = ("edge_src", "edge_mask")
 
 
 def default_buckets(max_n: int, min_bucket: int = 256,
@@ -40,19 +55,25 @@ def default_buckets(max_n: int, min_bucket: int = 256,
 
 
 class BagDataset:
-    """Patient-level bags with labels (patch mode): per patient the
-    concatenated patch features of all their slides and the label (t, e)."""
+    """Patient-level bags with labels: per patient the concatenated patch
+    features of all their slides and the label (t, e), plus in graph mode
+    their kNN graph (`edge_index` [2, E], dst-sorted)."""
 
     def __init__(self, patient_ids: list, patch_path: str, label_path: str,
                  mode: str = "patch", read_format: str = "pt",
-                 time_format: str = "ratio", ratio_mask=None,
+                 time_format: str = "ratio", ratio_mask=None, graph_path=None,
+                 edge_agg: str = "spatial",
                  rng: np.random.Generator | None = None, cache: bool = True):
-        if mode != "patch":
+        if mode not in ("patch", "graph"):
             raise NotImplementedError(f"bag mode {mode!r} is not ported yet "
-                                      "(ROADMAP A12, A13)")
+                                      "(ROADMAP A12)")
+        assert edge_agg in ("spatial", "latent")
         self.mode = mode
+        self.graph_path = graph_path
+        self.edge_agg = edge_agg
         if ratio_mask is not None and ratio_mask > 1e-5:
             assert ratio_mask <= 1
+            assert mode == "patch", "Only patch-style modes support instance masking."
             self.ratio_mask = float(ratio_mask)
         else:
             self.ratio_mask = None
@@ -91,8 +112,38 @@ class BagDataset:
         pid = self.pids[index]
         feats = np.concatenate([read_patch_feature(self._path(sid))
                                 for sid in self.pid2sid[pid]], axis=0)
-        return {"index": index, "pid": pid, "feats": feats.astype(np.float32),
+        item = {"index": index, "pid": pid, "feats": feats.astype(np.float32),
                 "label": np.asarray(self.pid2label[pid], np.float32)}
+        if self.mode == "graph":
+            item["edge_index"] = self._load_edges(pid)
+        return item
+
+    def _load_edges(self, pid: str) -> np.ndarray:
+        """The patient's [2, E] (dst, src) edge table: the slides' tables
+        with each slide's node ids offset by the nodes before it, dst-sorted
+        (stable)."""
+        key = "edge_index" if self.edge_agg == "spatial" else "edge_latent"
+        edges, offset = [], 0
+        for sid in self.pid2sid[pid]:
+            path = osp.join(self.graph_path, f"{sid}.npz")
+            if not osp.exists(path):
+                if osp.exists(osp.join(self.graph_path, f"{sid}.pt")):
+                    raise NotImplementedError(
+                        f"{sid}.pt: reference geomData graph files are not read yet "
+                        "(ROADMAP A13); write <sid>.npz graphs")
+                raise FileNotFoundError(f"no graph file {path}")
+            with np.load(path) as g:
+                edges.append(g[key].astype(np.int64) + offset)
+                offset += int(g["num_nodes"])
+        ei = np.concatenate(edges, axis=1)
+        if not np.all(np.diff(ei[0]) >= 0):
+            ei = ei[:, np.argsort(ei[0], kind="stable")]
+        return ei
+
+    def peek_edges(self, index: int) -> np.ndarray:
+        """Bag `index`'s edge table without loading its features (the
+        batcher's pre-scan)."""
+        return self._load_edges(self.pids[index])
 
     def __getitem__(self, index: int) -> dict:
         if self._cache is not None and index in self._cache:
@@ -115,7 +166,8 @@ def prepare_dataset(patient_ids: list, cfg: dict, **kws) -> BagDataset:
     return BagDataset(
         patient_ids, cfg["path_patch"], cfg["path_label"], cfg["bcb_mode"],
         read_format=cfg["feat_format"], time_format=cfg["time_format"],
-        ratio_mask=ratio_mask, rng=kws.get("rng"),
+        ratio_mask=ratio_mask, graph_path=cfg.get("path_graph"),
+        edge_agg=cfg.get("graph_edge_agg", "spatial"), rng=kws.get("rng"),
         cache=cfg.get("cache_bags", True))
 
 
@@ -127,6 +179,7 @@ class Batch:
     mask: np.ndarray         # [B, N] 1 = real patch
     label: np.ndarray        # [B, 2] (t, e)
     sample_mask: np.ndarray  # [B] 1 = real bag (0 = duplicated tail filler)
+    extra: dict = field(default_factory=dict)   # graph mode: [B, ...] tables
 
 
 class BucketBatcher:
@@ -136,10 +189,12 @@ class BucketBatcher:
 
     def __init__(self, dataset: BagDataset, token_budget: int = 32768,
                  max_batch: int = 64, min_bucket: int = 256,
-                 bucket_growth: float = 2.0):
+                 bucket_growth: float = 2.0, edges_per_node: int = 9,
+                 banded: str = "auto"):
         self.ds = dataset
         self.token_budget = token_budget
         self.max_batch = max_batch
+        self.edges_per_node = edges_per_node
         self.prefetch_depth = 2    # set from cfg num_workers by the handler
         self.prefetch_workers = 1
         sizes = dataset.bag_sizes()
@@ -152,6 +207,78 @@ class BucketBatcher:
         # sorted bucket order, ascending dataset index inside a bucket
         self._groups = [(int(self.buckets[b]), by_bucket[b])
                         for b in sorted(by_bucket)]
+        # graph mode: per-bag tables keyed by dataset index (static per bag),
+        # following the dataset's cache policy; the route is fixed here
+        self._tab_cache = {} if dataset._cache is not None else None
+        self._warned_edge_truncation = False
+        self.band_on = False
+        self._band_u_slots = 0
+        self.coverage = None
+        if dataset.mode == "graph" and banded != "off":
+            self._scan_band(sizes)
+
+    def _dense_table(self, edge_index: np.ndarray, n_rows: int):
+        """(edge_src, edge_mask [n_rows, epn], dropped): each node's first
+        `edges_per_node` incoming edges in file order; edges beyond that are
+        dropped."""
+        epn = self.edges_per_node
+        dst, src = edge_index[0], edge_index[1]
+        pos = np.arange(dst.shape[0]) - np.searchsorted(dst, dst, side="left")
+        keep = pos < epn
+        esrc = np.zeros((n_rows, epn), np.int32)
+        em = np.zeros((n_rows, epn), np.float32)
+        esrc[dst[keep], pos[keep]] = src[keep]
+        em[dst[keep], pos[keep]] = 1.0
+        return esrc, em, int((~keep).sum())
+
+    def _scan_band(self, sizes):
+        """Pre-scan every bag's graph once (edge files only): the banded route
+        engages when the banded share of all real edges is >= 0.7, and fixes
+        the residual-row slot count, so every batch has one table layout."""
+        band_edges = band_total = 0.0
+        u_max = 0
+        for i, n in enumerate(sizes):
+            esrc, em, _ = self._dense_table(self.ds.peek_edges(i), int(n))
+            cov, _, nrows, _ = band_coverage(esrc, em)
+            band_edges += cov * em.sum()
+            band_total += em.sum()
+            u_max = max(u_max, nrows)
+        self.coverage = band_edges / max(band_total, 1)
+        if self.coverage >= 0.7:
+            self.band_on = True
+            self._band_u_slots = -(-max(u_max, 1) // 8) * 8
+            print(f"[batcher] banded graph route ON: coverage {self.coverage:.3f}, "
+                  f"residual rows {self._band_u_slots}")
+        else:
+            print(f"[batcher] banded graph route off: coverage {self.coverage:.3f} < 0.7; "
+                  "grid-raster banding is not ported (ROADMAP A13), so the dense "
+                  "route aggregates these graphs")
+
+    def _graph_tables(self, it: dict, bucket_n: int) -> dict:
+        """The bag's padded graph tables for a bucket of `bucket_n` nodes:
+        the band tables on the banded route, else the dense edge tables.
+        Cached by dataset index."""
+        idx = int(it["index"])
+        if self._tab_cache is not None:
+            cached = self._tab_cache.get(idx)
+            if cached is not None and cached["_bucket_n"] == bucket_n:
+                return cached
+        esrc, em, dropped = self._dense_table(it["edge_index"], bucket_n)
+        if dropped and not self._warned_edge_truncation:
+            self._warned_edge_truncation = True
+            print(f"[batcher] WARNING: node in-degree exceeds {self.edges_per_node}; "
+                  f"dropping {dropped} edges per bag (raise graph_edges_per_node)")
+        tabs = {"_bucket_n": bucket_n}
+        if self.band_on:
+            offs, bmask, _, _, _ = build_band_tables(esrc, em)
+            ur, us, ue = build_u_tables(esrc, em, bmask, u_slots=self._band_u_slots)
+            tabs.update(band_offs=offs, band_mask=bmask, band_urows=ur, band_usrc=us,
+                        band_uemask=ue, band_uinv=build_u_inv(ur, bucket_n))
+        else:
+            tabs.update(edge_src=esrc, edge_mask=em)
+        if self._tab_cache is not None:
+            self._tab_cache[idx] = tabs
+        return tabs
 
     def batch_size_for(self, bucket_n: int) -> int:
         return int(np.clip(self.token_budget // bucket_n, 1, self.max_batch))
@@ -274,5 +401,10 @@ class BucketBatcher:
             label[j] = it["label"]
         sample_mask = np.zeros((bb,), np.float32)
         sample_mask[:n_real] = 1.0
+        extra = {}
+        if self.ds.mode == "graph":
+            per = [self._graph_tables(it, bucket_n) for it in items]
+            for k in (BAND_KEYS if self.band_on else DENSE_KEYS):
+                extra[k] = np.stack([t[k] for t in per])
         return Batch(idx=np.asarray(ids, np.int32), feats=feats, mask=mask,
-                     label=label, sample_mask=sample_mask)
+                     label=label, sample_mask=sample_mask, extra=extra)

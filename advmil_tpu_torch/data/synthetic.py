@@ -4,7 +4,10 @@ The same on-disk layout and the same random draws as
 `advmil_tpu/data/synthetic.py` (feature files per slide, a label csv with
 patient_id / pathology_id / t / e, split .npz files, per-patient cluster ids
 and region coords), written without pandas. A planted survival signal makes
-the C-index learnable. The kNN graph files of graph mode are not written.
+the C-index learnable. With `with_graph` each slide also gets the JAX
+writer's chain+skip graph (`graphs/<sid>.npz`: `edge_index` and
+`edge_latent` [2, E] as (dst, src) rows, `num_nodes`); it draws nothing
+from the RNG, so features and labels stay those of the JAX writer.
 
 `region_counts` fixes each patient's bag size (in 4x4 regions of 16
 patches) instead of drawing it, `test_pids` fixes the test split and
@@ -24,7 +27,8 @@ import torch
 def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
                            min_regions: int = 8, max_regions: int = 64,
                            event_frac: float = 0.65, seed: int = 0,
-                           n_clusters: int = 8, n_folds: int = 1,
+                           n_clusters: int = 8, with_graph: bool = False,
+                           n_folds: int = 1,
                            feat_format: str = "npy", time_noise: float = 5.0,
                            region_counts: list | None = None,
                            test_pids: list | None = None,
@@ -36,7 +40,8 @@ def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
     feat_dir = osp.join(root, "feats")
     cluster_dir = osp.join(root, "clusters")
     coord_dir = osp.join(root, "coords")
-    for d in [feat_dir, cluster_dir, coord_dir]:
+    graph_dir = osp.join(root, "graphs")
+    for d in [feat_dir, cluster_dir, coord_dir] + ([graph_dir] if with_graph else []):
         os.makedirs(d, exist_ok=True)
 
     rows = []
@@ -68,6 +73,10 @@ def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
         region_xy = np.stack(np.unravel_index(np.arange(n_regions), (side, side)),
                              axis=1).astype(np.float32)
         np.savez(osp.join(coord_dir, f"{sid}.npz"), coords=region_xy)
+        if with_graph:
+            ei = chain_skip_graph(n)
+            np.savez(osp.join(graph_dir, f"{sid}.npz"), edge_index=ei, edge_latent=ei,
+                     num_nodes=np.asarray(n))
 
     table_path = osp.join(root, "labels.csv")
     with open(table_path, "w", newline="") as f:
@@ -101,8 +110,19 @@ def make_synthetic_dataset(root: str, n_patients: int = 40, dim: int = 1024,
         "path_label": table_path,
         "path_cluster": cluster_dir,
         "path_coordx5": coord_dir,
+        "path_graph": graph_dir if with_graph else None,
         "feat_format": feat_format,
         "data_split_path": osp.join(root, "split-fold{}.npz"),
         "split_paths": split_paths,
         "pids": pids,
     }
+
+
+def chain_skip_graph(n: int) -> np.ndarray:
+    """The JAX writer's symmetric spatial graph over n nodes: node a receives
+    from a - 1, a + 1, a - 4 and a + 4 (those in range), as a dst-sorted
+    [2, E] int64 (dst, src) table."""
+    a = np.repeat(np.arange(n), 4)
+    b = a + np.tile(np.asarray([-1, 1, -4, 4]), n)
+    keep = (b >= 0) & (b < n)
+    return np.stack([a[keep], b[keep]]).astype(np.int64)

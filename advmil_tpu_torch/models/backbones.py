@@ -1,9 +1,12 @@
-"""MIL encoder backbones. The port has ESAT (`DualTransHS`, bcb_mode
-`patch`); the other modes come with later slices (ROADMAP A12, A13).
+"""MIL encoder backbones: ESAT (`DualTransHS`, bcb_mode `patch`) and
+PatchGCN (`bcb_mode: graph`); the cluster and ABMIL modes come with a later
+slice (ROADMAP A12).
 
 Call convention as in `advmil_tpu/models/backbones.py`: backbone(x, mask,
 extra) with x [B, N, C] padded patch features and mask [B, N] (1 = real
-patch); returns the bag embedding [B, dim_out].
+patch); returns the bag embedding [B, dim_out]. In graph mode `extra` is the
+batch's dict of graph tables (data/bags.py): the band tables of the banded
+route or `edge_src` / `edge_mask` of the dense route.
 """
 from __future__ import annotations
 
@@ -12,9 +15,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.masked import region_mask_from_patch_mask
-from .layers import (XAVIER, AvgPoolPatchEmbedding, GAPool, Rngs,
-                     TransformerEncoderLayer)
+from ..ops.banded import banded_aggregate
+from ..ops.masked import masked_softmax, region_mask_from_patch_mask
+from ..ops.segment import fused_knn_softmax_aggregate, knn_edge_softmax_aggregate
+from .layers import (XAVIER, AvgPoolPatchEmbedding, Dense, Dropout, GAPool,
+                     GatedAttention, LayerNorm, Rngs, TransformerEncoderLayer)
 
 
 class DualTransHS(nn.Module):
@@ -50,17 +55,116 @@ class DualTransHS(nn.Module):
         return self.pool(h, rmask, rng)
 
 
+class GENConv(nn.Module):
+    """GENConv with softmax aggregation and a learnable temperature t
+    (DeeperGCN, torch_geometric semantics): m_j = relu(x_j) + eps; per node
+    and channel, alpha = softmax over the incoming edges of t * m; out_i =
+    MLP(x_i + sum alpha * m), MLP = Dense(C, 2C) -> LayerNorm -> ReLU ->
+    Dense(2C, C).
+
+    Two routes, chosen per batch by the batcher's tables: the banded route
+    (`band_offs` present) aggregates without gathering the messages
+    (ops/banded.py, kernels #14/#15 and, for the residual rows, #12/#13);
+    the dense route gathers [B, N, epn, C] messages and aggregates them
+    (ops/segment.py, kernels #12/#13). `use_pallas` False takes the plain
+    versions on every device."""
+
+    def __init__(self, dim: int, eps: float = 1e-7, use_pallas: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps, self.use_pallas = eps, use_pallas
+        self.t = nn.Parameter(torch.ones(1))
+        self.mlp0 = Dense(dim, 2 * dim, XAVIER, dtype)
+        self.mlp_norm = LayerNorm(2 * dim, dtype)
+        self.mlp1 = Dense(2 * dim, dim, XAVIER, dtype)
+
+    def forward(self, x, graph: dict):
+        xr = torch.relu(x)
+        if "band_offs" in graph:
+            aggr = banded_aggregate(xr + self.eps, graph["band_offs"], graph["band_mask"],
+                                    graph["band_urows"], graph["band_usrc"],
+                                    graph["band_uemask"], graph["band_uinv"], self.t,
+                                    use_kernels=self.use_pallas)
+        else:
+            src = graph["edge_src"].long()                            # [B, N, epn]
+            B, N, epn = src.shape
+            # the messages in f32, as the banded route's residual rows: the
+            # gather's backward then sums a row's gradients in f32 and rounds once
+            msg = torch.gather(xr.float(), 1,
+                               src.reshape(B, -1, 1).expand(B, N * epn, x.shape[-1]))
+            msg = msg.reshape(B, N, epn, -1) + self.eps
+            agg = fused_knn_softmax_aggregate if self.use_pallas else knn_edge_softmax_aggregate
+            aggr = agg(msg, graph["edge_mask"], self.t).to(x.dtype)
+        h = self.mlp0(x + aggr)
+        return self.mlp1(torch.relu(self.mlp_norm(h)))
+
+
+class DeepGCNBlock(nn.Module):
+    """DeepGCNLayer(block='res'): Dropout(x + relu(LayerNorm(conv(x)))),
+    dropout 0.1."""
+
+    def __init__(self, dim: int, dropout: float = 0.1, use_pallas: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.conv = GENConv(dim, use_pallas=use_pallas, dtype=dtype)
+        self.norm = LayerNorm(dim, dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, graph: dict, rng: Rngs | None = None):
+        h = torch.relu(self.norm(self.conv(x, graph)))
+        return self.drop(x + h, rng)
+
+
+class PatchGCN(nn.Module):
+    """Graph MIL encoder: Dense embedding, a bare GENConv then
+    `num_layers - 1` DeepGCN blocks, the concatenation of every layer's
+    output, `path_phi`, gated attention and a masked softmax over the nodes.
+
+    The batch dimension goes into the aggregation ops directly (the JAX
+    package vmaps one graph at a time with shared parameters); there is no
+    loop over bags."""
+
+    def __init__(self, dims: Sequence[int], num_layers: int = 1, dropout: float = 0.25,
+                 use_pallas: bool = True, dtype=torch.float32):
+        super().__init__()
+        dim_in, dim_hid, dim_out = dims
+        self.num_layers = num_layers
+        self.fc = Dense(dim_in, dim_hid, XAVIER, dtype)
+        self.layer0_conv = GENConv(dim_hid, use_pallas=use_pallas, dtype=dtype)
+        for i in range(1, num_layers):
+            self.add_module(f"layer{i}", DeepGCNBlock(dim_hid, use_pallas=use_pallas,
+                                                      dtype=dtype))
+        self.path_phi = Dense(dim_hid * (1 + num_layers), dim_out, XAVIER, dtype)
+        self.gate = GatedAttention(dim_out, dim_out, dropout=dropout, dense_init=XAVIER,
+                                   dtype=dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, mask, extra: dict, rng: Rngs | None = None):
+        h = self.drop(torch.relu(self.fc(x)), rng)
+        cur = self.layer0_conv(h, extra)
+        feats = [h, cur]
+        for i in range(1, self.num_layers):
+            cur = getattr(self, f"layer{i}")(cur, extra, rng)
+            feats.append(cur)
+        h_path = self.drop(torch.relu(self.path_phi(torch.cat(feats, dim=-1))), rng)
+        scores = self.gate(h_path, rng)
+        attn = masked_softmax(scores[..., 0], mask, dim=-1)       # [B, N]
+        return torch.einsum("bn,bnd->bd", attn, h_path.to(attn.dtype))
+
+
 def load_backbone(mode: str, dims: Sequence[int], use_pallas: bool = True,
                   use_lnpool: bool = True, tra_backbone: str = "Transformer",
-                  flash_min_len: int = 512, dtype=torch.float32) -> nn.Module:
-    """Backbone factory with the reference's default hyperparameters (ESAT
-    dropout 0.25, as `advmil_tpu/models/backbones.py::load_backbone`)."""
+                  flash_min_len: int = 512, num_graph_layers: int = 1,
+                  dtype=torch.float32) -> nn.Module:
+    """Backbone factory with the reference's default hyperparameters (dropout
+    0.25, as `advmil_tpu/models/backbones.py::load_backbone`)."""
     dims = list(dims)[:3]
     if mode == "patch":
         return DualTransHS(dims, nhead=8, num_layers=1, tra_backbone=tra_backbone,
                            dropout=0.25,
                            use_pallas=use_pallas, use_lnpool=use_lnpool,
                            flash_min_len=flash_min_len, dtype=dtype)
-    item = "A13" if mode == "graph" else "A12"
-    raise NotImplementedError(f"backbone mode {mode!r} is not ported yet "
-                              f"(ROADMAP {item})")
+    if mode == "graph":
+        return PatchGCN(dims, num_layers=num_graph_layers, dropout=0.25,
+                        use_pallas=use_pallas, dtype=dtype)
+    raise NotImplementedError(f"backbone mode {mode!r} is not ported yet (ROADMAP A12)")

@@ -192,6 +192,26 @@ class GAPool(nn.Module):
         return torch.einsum("bn,bnd->bd", attn, x.to(attn.dtype))
 
 
+class GatedAttention(nn.Module):
+    """Gated attention scores [..., N, dim_l] -> [..., N, n_classes]:
+    attention_c(Dropout(tanh(attention_a(x))) * Dropout(sigmoid(attention_b(x))));
+    the caller takes the masked softmax over N. As in the JAX package, the
+    dropout rate is 0.25 whenever `dropout` is non-zero."""
+
+    def __init__(self, dim_l: int, dim_d: int, dropout: float = 0.25,
+                 n_classes: int = 1, dense_init: str = XAVIER, dtype=torch.float32):
+        super().__init__()
+        self.attention_a = Dense(dim_l, dim_d, dense_init, dtype)
+        self.attention_b = Dense(dim_l, dim_d, dense_init, dtype)
+        self.attention_c = Dense(dim_d, n_classes, dense_init, dtype)
+        self.drop = Dropout(0.25 if dropout else 0.0)
+
+    def forward(self, x, rng: Rngs | None = None):
+        a = self.drop(torch.tanh(self.attention_a(x)), rng)
+        b = self.drop(torch.sigmoid(self.attention_b(x)), rng)
+        return self.attention_c(a * b)
+
+
 class AvgPoolPatchEmbedding(nn.Module):
     """[B, N, C] -> [B, N/16, out_dim]: pointwise Dense + LN + ReLU, then the
     mean over each 4x4 region of 16 consecutive patches (ksize 1).

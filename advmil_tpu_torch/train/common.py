@@ -14,6 +14,13 @@ from ..utils.func import print_config
 from ..utils.logging import RunLogger
 
 
+def graph_banded(cfg: dict) -> str:
+    """`graph_banded` as the batcher takes it: YAML reads a bare `off` as
+    False, which means off here too."""
+    v = cfg.get("graph_banded", "auto")
+    return "off" if v in ("off", False) else "auto"
+
+
 def resolve_device(name: str) -> torch.device:
     """The configured device; never falls back from cuda to cpu."""
     if name == "cuda":
@@ -62,7 +69,9 @@ class HandlerCommon:
         b = BucketBatcher(ds, token_budget=self.cfg["batch_token_budget"],
                           max_batch=self.cfg["batch_max_size"],
                           min_bucket=self.cfg["bucket_min"],
-                          bucket_growth=float(self.cfg["bucket_growth"]))
+                          bucket_growth=float(self.cfg["bucket_growth"]),
+                          edges_per_node=int(self.cfg["graph_edges_per_node"]),
+                          banded=graph_banded(self.cfg))
         nw = int(self.cfg["num_workers"] or 0)
         b.prefetch_depth = max(2, nw)
         b.prefetch_workers = max(1, nw)
@@ -71,12 +80,16 @@ class HandlerCommon:
     def _ship(self, batch, train: bool = False) -> dict:
         """Host batch -> device tensors; feats in bf16 under precision bf16.
         A training batch also carries label, sample_mask and visible (all 1:
-        every label is visible outside semi-supervised training)."""
+        every label is visible outside semi-supervised training). Graph
+        tables go under `extra` as int32 / f32 tensors."""
         feats = torch.from_numpy(batch.feats).to(self.device)
         if self.cfg["precision"] in ("bf16", "bfloat16"):
             feats = feats.to(torch.bfloat16)
         out = {"feats": feats,
                "mask": torch.from_numpy(batch.mask).to(self.device)}
+        if batch.extra:
+            out["extra"] = {k: torch.from_numpy(v).to(self.device)
+                            for k, v in batch.extra.items()}
         if train:
             smask = torch.from_numpy(batch.sample_mask).to(self.device)
             out.update(label=torch.from_numpy(batch.label).to(self.device),

@@ -47,6 +47,7 @@ def build_models(cfg: dict):
                              use_lnpool=cfg["use_fused_lnpool"],
                              tra_backbone=cfg["tra_backbone"],
                              flash_min_len=int(cfg["flash_min_len"]),
+                             num_graph_layers=int(cfg["num_graph_layers"]),
                              dtype=dtype)
     dim_in, dim_out = sparse_str(cfg["gen_dims"])
     noi = SimpleNamespace(**sparse_key(cfg, prefixes="gen_noi"))

@@ -26,7 +26,7 @@ def make_eval_step(gen_model, disc_model=None, *, n_samples: int = 1,
     @torch.inference_mode()
     def step(batch: dict, generator: torch.Generator | None = None) -> dict:
         feats, mask = batch["feats"], batch["mask"]
-        H = gen_model.embed(feats, mask)
+        H = gen_model.embed(feats, mask, batch.get("extra"))
         y_hat = gen_model.head(H, zero_noise=zero_noise, generator=generator)
         out = {"y_hat": y_hat}
         if disc_model is not None:
@@ -55,7 +55,9 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
     `gen_updates` G updates.
 
     batch: feats [B, N, C], mask [B, N], label [B, 2] (t, e), sample_mask [B],
-    visible [B]. Modes follow the reference's train() / eval() flips:
+    visible [B], and in graph mode `extra`, the graph tables G reads (D sees
+    the node features and mask only, as in the JAX package). Modes follow the
+    reference's train() / eval() flips:
     - D phase: G in eval mode with noise on (no dropout), its prediction
       detached; D in train mode scores the pair (t_real, t_fake) in one call
       (shared patch embedding, independent dropout masks); real pairs are
@@ -69,7 +71,7 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
     """
 
     def step(batch: dict, rngs: Rngs):
-        feats, mask = batch["feats"], batch["mask"]
+        feats, mask, extra = batch["feats"], batch["mask"], batch.get("extra")
         t, e = batch["label"][:, 0], batch["label"][:, 1]
         smask = batch["sample_mask"]
         visible = batch["visible"] * smask
@@ -78,7 +80,7 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
         gen_model.eval()
         disc_model.train()
         with torch.no_grad():
-            pred_eval = gen_model(feats, mask, zero_noise=False,
+            pred_eval = gen_model(feats, mask, extra, zero_noise=False,
                                   generator=rngs.device)
         real_w = (e == 1).to(torch.float32) * visible
         f_real, f_fake = disc_model(feats, (t[:, None], pred_eval), mask, rngs)
@@ -99,7 +101,7 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
         _set_requires_grad(disc_model, False)
         try:
             for _ in range(gen_updates):
-                pred = gen_model(feats, mask, zero_noise=False,
+                pred = gen_model(feats, mask, extra, zero_noise=False,
                                  generator=rngs.device, rng=rngs)
                 f_fake_g = disc_model(feats, pred, mask).float()
                 gen_loss = losses.fake_generator_loss(f_fake_g, weight=smask)

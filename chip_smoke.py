@@ -25,8 +25,17 @@ Phases, each printed on its own line:
      the same batch and weights on the CPU (plain versions).
   7. one training step's gradients of G and D in f32 on the card against the
      CPU, dropout off and zero noise, on the long training batch.
-The last lines are the kernels JSON, the card line and the result JSON.
-Any failure raises and exits non-zero.
+  8. PatchGCN (`bcb_mode: graph`, 3 graph layers) training on the banded
+     route, bf16, 2 epochs, on 8-nearest-neighbour graphs over tissue-like
+     patch rasters (written here with numpy) of the same patients.
+  9. one epoch of the same on the dense route (`graph_banded: off`).
+ 10. graph test mode from phase 8's best checkpoint.
+ 11. one graph training step's gradients in f32 on the card against the CPU,
+     on each route.
+Phase 3 also holds the graph aggregation kernels (dense and banded, forward
+and backward) against their plain versions at B=2, N=16,384, C=384. Every
+phase's seconds are logged. The last lines are the kernels JSON, the card
+line and the result JSON. Any failure raises and exits non-zero.
 """
 import json
 import math
@@ -169,6 +178,7 @@ def phase_kernels(card):
             report["masked_flash_attention"] = dict(ms=k_ms, plain_ms=p_ms)
     report["masked_flash_attention"]["max_abs_err"] = worst
     report.update(_kernels_training(card, dev, g))
+    report.update(_kernels_graph(card, dev, g))
     return report
 
 
@@ -285,6 +295,175 @@ def _kernels_training(card, dev, g):
     return report
 
 
+def tissue_graph(n, rng, width=48, k=8, p_short=0.05, p_hole=0.05):
+    """The [2, E] (dst, src) k-nearest-neighbour graph of n patches on a
+    tissue-like raster about `width` patches wide: most rows full, a share
+    `p_short` of short rows (tissue edges) and a share `p_hole` with a hole
+    of 1-3 patches. Nodes are numbered in raster order; each receives from
+    its k nearest patches, ties broken in a fixed (row, column) order, as a
+    kNN over patch coordinates gives. Short rows and holes move the vertical
+    neighbours' offsets, which makes the residual (off-band) edges."""
+    import numpy as np
+    rows, total = [], 0
+    while total < n:
+        lo, hi = 0, width
+        if rng.random() < p_short:
+            lo, hi = sorted(int(v) for v in rng.integers(0, width, size=2))
+            hi = min(max(hi, lo + 4), width)
+        cols = np.arange(lo, hi)
+        if rng.random() < p_hole:
+            h = int(rng.integers(lo, max(lo + 1, hi - 3)))
+            cols = cols[(cols < h) | (cols >= h + int(rng.integers(1, 4)))]
+        rows.append(cols)
+        total += len(cols)
+    rc = np.concatenate([np.stack([np.full(len(c), r), c], 1)
+                         for r, c in enumerate(rows)])[:n]
+    reach = 4
+    grid = np.full((rc[:, 0].max() + 1 + 2 * reach, width + 2 * reach), -1, np.int64)
+    grid[rc[:, 0] + reach, rc[:, 1] + reach] = np.arange(n)
+    offs = np.asarray(sorted(((dr, dc) for dr in range(-reach, reach + 1)
+                              for dc in range(-reach, reach + 1) if (dr, dc) != (0, 0)),
+                             key=lambda o: (o[0] ** 2 + o[1] ** 2, o[0], o[1])))
+    cand = grid[rc[:, 0, None] + reach + offs[None, :, 0],
+                rc[:, 1, None] + reach + offs[None, :, 1]]
+    take = (cand >= 0) & (np.cumsum(cand >= 0, axis=1) <= k)
+    return np.stack([np.repeat(np.arange(n), take.sum(1)), cand[take]]).astype(np.int64)
+
+
+def _graph_kernel_inputs(B, N, epn, rng):
+    """B tissue graphs of N nodes as the batcher lays them out: dense tables
+    and band tables, with node 100 of each bag left without edges and one
+    sentinel u_rows slot."""
+    import numpy as np
+    from advmil_tpu_torch.ops import banded as tband
+    from advmil_tpu_torch.ops import segment as tseg
+    dense, band = [], []
+    for _ in range(B):
+        dst, src = tissue_graph(N, rng)
+        pos = np.arange(dst.shape[0]) - np.searchsorted(dst, dst, side="left")
+        esrc = np.zeros((N, epn), np.int32)
+        em = np.zeros((N, epn), np.float32)
+        esrc[dst, pos], em[dst, pos] = src, 1.0
+        em[100] = 0.0
+        dense.append((esrc, em))
+        band.append(tseg.build_band_tables(esrc, em)[:2])
+    u_rows = max(tseg.band_coverage(*d)[2] for d in dense)
+    ut = [tband.build_u_tables(*d, bm, u_slots=u_rows + 1) for d, (_, bm) in zip(dense, band)]
+    tabs = {"edge_src": np.stack([d[0] for d in dense]),
+            "edge_mask": np.stack([d[1] for d in dense]),
+            "band_offs": np.stack([o for o, _ in band]),
+            "band_mask": np.stack([bm for _, bm in band]),
+            "band_urows": np.stack([u[0] for u in ut]),
+            "band_usrc": np.stack([u[1] for u in ut]),
+            "band_uemask": np.stack([u[2] for u in ut]),
+            "band_uinv": np.stack([tband.build_u_inv(u[0], N) for u in ut])}
+    if not ((tabs["band_urows"] < N).sum(1).min() > 0 and (tabs["band_urows"] == N).any()):
+        raise AssertionError("graph kernel inputs: need residual rows and a sentinel slot")
+    return tabs, u_rows
+
+
+def _kernels_graph(card, dev, g):
+    """Phase 3, the graph aggregation kernels at B=2, N=16,384, epn=9,
+    C=384: #12 / #13 (dense) on the gathered messages, #14 / #15 (the banded
+    core) on the node messages, and the whole banded op (core + exact
+    residual rows) against its plain twin."""
+    import numpy as np
+    import torch
+    from advmil_tpu_torch.ops import banded as tband
+    from advmil_tpu_torch.ops import segment as tseg
+    B, N, epn, C = 2, 16384, 9, 384
+    tabs, u_rows = _graph_kernel_inputs(B, N, epn, np.random.default_rng(3))
+    tabs = {k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}
+    esrc, em = tabs["edge_src"].long(), tabs["edge_mask"]
+    offs, bm = tabs["band_offs"], tabs["band_mask"]
+    u = [tabs[k] for k in ("band_urows", "band_usrc", "band_uemask", "band_uinv")]
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    t = torch.tensor([1.3], device=dev)
+    y32 = torch.relu(torch.randn(B, N, C, device=dev, generator=g)) + 1e-7
+    g32 = torch.randn(B, N, C, device=dev, generator=g)
+    report = {}
+
+    def grads(fn, x, gout):
+        leaves = [x.detach().clone().requires_grad_(True), t.clone().requires_grad_(True)]
+        out = fn(*leaves)
+        return out, leaves, lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True)
+
+    def check(name, got, want, dtype, tag):
+        errs = []
+        for what, a, b in zip(("out", "dx", "dt"), got, want):
+            errs.append(max_abs(a, b))
+            if what == "dt":
+                tol = dict(atol=0.0, rtol=1e-4)
+            else:
+                tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else \
+                    dict(atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(a.float(), b.float(), **tol,
+                                       msg=lambda m, w=what: f"{name} {tag} {w}: {m}")
+        return errs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        y, gout = y32.to(dtype), g32.to(dtype)
+        tag = str(dtype)[6:]
+        # dense route: #12 / #13 on the gathered [B, N, epn, C] messages
+        msg = y[bidx, esrc]
+        out = tseg.fused_agg_fwd(msg, em, t)
+        dm, dt = tseg.fused_agg_bwd(msg, em, t, gout)
+        ref, _, plain_bwd = grads(lambda m, tt: tseg.knn_edge_softmax_aggregate(m, em, tt),
+                                  msg, gout)
+        want = plain_bwd()
+        torch.cuda.synchronize()
+        errs = check("knn", (out, dm, dt), (ref, *want), dtype, tag)
+        if not (bool((out[:, 100] == 0).all()) and bool((dm[em == 0] == 0).all())):
+            raise AssertionError("knn: a node without edges or a masked slot is not 0")
+        f_ms, fp_ms = timed_pair(lambda: tseg.fused_agg_fwd(msg, em, t),
+                                 lambda: tseg.knn_edge_softmax_aggregate(msg, em, t))
+        b_ms, bp_ms = timed_pair(lambda: tseg.fused_agg_bwd(msg, em, t, gout), plain_bwd)
+        gbs = 2 * msg.numel() * msg.element_size() / b_ms / 1e6
+        log(f"[3 kernel] fused_knn_softmax_aggregate B={B} N={N} epn={epn} C={C} {tag}: "
+            f"max_abs_err out {errs[0]:.3e} dmessages {errs[1]:.3e} dt {errs[2]:.3e} "
+            f"(f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 rel); empty node exactly 0 | fwd "
+            f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | bwd kernel {b_ms:.4f} ms "
+            f"({gbs:.0f} GB/s of messages + dmessages), plain autograd bwd {bp_ms:.4f} ms "
+            f"| {card}")
+        if dtype == torch.bfloat16:
+            report["fused_knn_softmax_aggregate"] = dict(ms=f_ms, plain_ms=fp_ms,
+                                                         max_abs_err=errs[0])
+            report["fused_knn_softmax_aggregate_bwd"] = dict(ms=b_ms, plain_ms=bp_ms,
+                                                             max_abs_err=max(errs[1:]))
+        del msg, dm, ref, want, plain_bwd
+
+        # banded route: #14 / #15 on the node messages, then the whole op
+        out, stats = tband.banded_core_fwd(y, offs, bm, t, save_stats=True)
+        dy, dt = tband.banded_core_bwd(y, offs, bm, t, stats, gout)
+        ref, _, plain_bwd = grads(lambda yy, tt: tband.banded_core_plain(yy, offs, bm, tt),
+                                  y, gout)
+        want = plain_bwd()
+        torch.cuda.synchronize()
+        errs = check("banded core", (out, dy, dt), (ref, *want), dtype, tag)
+        f_ms, fp_ms = timed_pair(lambda: tband.banded_core_fwd(y, offs, bm, t, True),
+                                 lambda: tband.banded_core_plain(y, offs, bm, t))
+        b_ms, bp_ms = timed_pair(lambda: tband.banded_core_bwd(y, offs, bm, t, stats, gout),
+                                 plain_bwd)
+        whole = [grads(lambda yy, tt, k=k: tband.banded_aggregate(yy, offs, bm, *u, tt,
+                                                                  use_kernels=k), y, gout)
+                 for k in (True, False)]
+        werrs = check("banded op", (whole[0][0], *whole[0][2]()),
+                      (whole[1][0], *whole[1][2]()), dtype, tag)
+        if not bool((whole[0][0][:, 100] == 0).all()):
+            raise AssertionError("banded: a node without edges is not exactly 0")
+        log(f"[3 kernel] banded_aggregate B={B} N={N} epn={epn} C={C} {tag}, residual rows "
+            f"{u_rows} + 1 sentinel: core max_abs_err out {errs[0]:.3e} dy {errs[1]:.3e} dt "
+            f"{errs[2]:.3e}; whole op (core + exact rows) out {werrs[0]:.3e} dy "
+            f"{werrs[1]:.3e} dt {werrs[2]:.3e} (f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 "
+            f"rel); empty node exactly 0 | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | "
+            f"bwd kernel {b_ms:.4f} ms, plain autograd bwd {bp_ms:.4f} ms | {card}")
+        if dtype == torch.bfloat16:
+            report["banded_aggregate"] = dict(ms=f_ms, plain_ms=fp_ms,
+                                              max_abs_err=max(errs[0], werrs[0]))
+            report["banded_aggregate_bwd"] = dict(ms=b_ms, plain_ms=bp_ms,
+                                                  max_abs_err=max(errs[1:] + werrs[1:]))
+        del out, stats, dy, ref, want, plain_bwd, whole
+    return report
 
 
 def _write_yaml(path, cfg):
@@ -308,12 +487,17 @@ COUNTERS = (("ln_relu_region_mean", "ln_pool", "LAUNCHES"),
             ("masked_flash_attention_dropout", "attention", "LAUNCHES_DROPOUT"),
             ("flash_bwd_dq", "attention", "LAUNCHES_DQ"),
             ("flash_bwd_dkv", "attention", "LAUNCHES_DKV"),
-            ("keep_mask", "philox", "LAUNCHES"))
+            ("keep_mask", "philox", "LAUNCHES"),
+            ("fused_knn_softmax_aggregate", "segment", "LAUNCHES"),
+            ("fused_knn_softmax_aggregate_bwd", "segment", "LAUNCHES_BWD"),
+            ("banded_aggregate", "banded", "LAUNCHES"),
+            ("banded_aggregate_bwd", "banded", "LAUNCHES_BWD"))
 
 
 def _counter_modules():
-    from advmil_tpu_torch.ops import attention, ln_pool, philox
-    return {"ln_pool": ln_pool, "attention": attention, "philox": philox}
+    from advmil_tpu_torch.ops import attention, banded, ln_pool, philox, segment
+    return {"ln_pool": ln_pool, "attention": attention, "philox": philox,
+            "segment": segment, "banded": banded}
 
 
 def reset_counters():
@@ -345,6 +529,7 @@ def make_data():
     log(f"[4 train] synthetic cfg_nlst-width data: 38 patients, 1024-d, regions "
         f"{int(counts[1:36].min())}-{int(counts[1:36].max())}, a test bag of 2048 and "
         f"training bags of 700 and 1000 ({time.perf_counter() - t0:.1f} s)")
+    paths["region_counts"] = [int(c) for c in counts]
     return paths
 
 
@@ -499,17 +684,19 @@ def phase_gpu_vs_cpu(handler):
             raise AssertionError(f"GPU vs CPU {k} differs by {d}")
 
 
-def phase_gpu_vs_cpu_train(handler):
-    """Phase 7: the gradients of one adversarial step (D phase, then G phase
-    against the frozen D) in f32 with dropout off and zero noise, on the card
-    (kernels) and on the CPU (plain versions), on the long training batch."""
+def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train"):
+    """Phase 7 (and 11): the gradients of one adversarial step (D phase, then
+    G phase against the frozen D) in f32 with dropout off and zero noise, on
+    the card (kernels) and on the CPU (plain versions), on `batch` (default:
+    the long training batch)."""
     import torch
     from advmil_tpu_torch import losses
     from advmil_tpu_torch.models.layers import set_dropout_rates
     from advmil_tpu_torch.train.handler import build_models
 
-    _, batcher = handler.loaders["train"]
-    batch = list(batcher.epoch_batches())[-1]     # the largest bucket (1,024 regions)
+    if batch is None:
+        _, batcher = handler.loaders["train"]
+        batch = list(batcher.epoch_batches())[-1]     # the largest bucket (1,024 regions)
     cfg = dict(handler.cfg, precision="f32")
     grads = {}
     for dev in ("cuda", "cpu"):
@@ -520,11 +707,12 @@ def phase_gpu_vs_cpu_train(handler):
         set_dropout_rates(D.to(dev), 0.0)
         feats, mask, label, smask = (torch.from_numpy(a).to(dev) for a in (
             batch.feats, batch.mask, batch.label, batch.sample_mask))
+        extra = {k: torch.from_numpy(v).to(dev) for k, v in batch.extra.items()} or None
         t, e = label[:, 0], label[:, 1]
         G.eval()
         D.train()
         with torch.no_grad():
-            pred = G(feats, mask, zero_noise=True)
+            pred = G(feats, mask, extra, zero_noise=True)
         f_real, f_fake = D(feats, (t[:, None], pred), mask)
         losses.real_fake_loss(f_real.float(), f_fake.float(), cfg["loss_netD"],
                               real_weight=(e == 1).float() * smask,
@@ -532,7 +720,7 @@ def phase_gpu_vs_cpu_train(handler):
         G.train()
         D.eval()
         D.requires_grad_(False)
-        pred = G(feats, mask, zero_noise=True)
+        pred = G(feats, mask, extra, zero_noise=True)
         total = (handler.sup_loss_fn(pred[:, 0], t, e, weight=smask)
                  + cfg["loss_gan_coef"] * losses.fake_generator_loss(
                      D(feats, pred, mask).float(), weight=smask)
@@ -546,11 +734,142 @@ def phase_gpu_vs_cpu_train(handler):
     diffs = {k: max_abs(grads["cuda"][k], grads["cpu"][k]) for k in grads["cpu"]}
     worst = max(diffs, key=diffs.get)
     scale = max(float(g.abs().max()) for g in grads["cpu"].values())
-    log(f"[7 gpu-vs-cpu train] f32 step on batch {tuple(batch.feats.shape)}: gradients of "
+    log(f"[{tag}] f32 step on batch {tuple(batch.feats.shape)}: gradients of "
         f"{len(diffs)} G and D tensors, max |diff| {diffs[worst]:.3e} at {worst} (bound "
         f"1e-4; largest |grad| {scale:.3e})")
     if not diffs[worst] <= 1e-4:
         raise AssertionError(f"GPU vs CPU gradient {worst} differs by {diffs[worst]}")
+
+
+def make_graph_data(paths):
+    """Phase 8's data: the tissue graphs of the phase-4 patients (per slide,
+    `graphs/<sid>.npz` with `edge_index` [2, E] (dst, src)), and a split
+    without the two bags that are not 1,024-4,096 nodes apart from the one
+    16,000-node training bag: P0000 (32,768) and P0036 (11,200)."""
+    import numpy as np
+    from advmil_tpu_torch.utils.io import read_datasplit_npz
+    t0 = time.perf_counter()
+    root = osp.join(WORK_DIR, "data")
+    gdir = osp.join(root, "graphs")
+    os.makedirs(gdir, exist_ok=True)
+    rng = np.random.default_rng(11)
+    for i, regions in enumerate(paths["region_counts"]):
+        n = 16 * regions
+        ei = tissue_graph(n, rng)
+        np.savez(osp.join(gdir, f"S{i:04d}.npz"), edge_index=ei, edge_latent=ei,
+                 num_nodes=np.asarray(n))
+    train, val, test = read_datasplit_npz(paths["data_split_path"].format(0))
+    drop = {"P0000", "P0036"}
+    np.savez(osp.join(root, "graph-split-fold0.npz"),
+             train_patients=np.asarray([p for p in train if p not in drop]),
+             val_patients=np.asarray(val),
+             test_patients=np.asarray([p for p in test if p not in drop]))
+    sizes = [16 * c for i, c in enumerate(paths["region_counts"]) if i not in (0, 36)]
+    log(f"[8 graph] tissue kNN graphs (k=8, raster ~48 wide, short rows and holes): "
+        f"{len(sizes)} patients of {min(sizes[:-1])}-{max(sizes[:-1])} nodes and a "
+        f"training bag of {sizes[-1]} ({time.perf_counter() - t0:.1f} s)")
+    return {"path_graph": gdir,
+            "data_split_path": osp.join(root, "graph-split-fold{}.npz")}
+
+
+def _graph_cfg(paths, gpaths, run, **over):
+    return _smoke_cfg(paths, bcb_mode="graph", num_graph_layers=3,
+                      path_graph=gpaths["path_graph"],
+                      data_split_path=gpaths["data_split_path"],
+                      save_path=osp.join(WORK_DIR, run), test_load_path=osp.join(WORK_DIR, run),
+                      test_save_path=osp.join(WORK_DIR, run + "_test_{}-{}"),
+                      test_mask_ratio=0.0, **over)
+
+
+def _check_run(handler, metrics, splits, csv_fmt):
+    """Every split's C-index in [0, 1] and its CSV predictions finite in
+    [0, 1]; parameters on the card."""
+    import numpy as np
+    for split in splits:
+        preds = _read_csv_preds(osp.join(handler.save_dir, csv_fmt.format(split)))
+        if not (len(preds) and np.all(np.isfinite(preds)) and preds.min() >= 0
+                and preds.max() <= 1):
+            raise AssertionError(f"{split} predictions not finite in [0, 1]")
+        ci = dict(metrics[split])["cindex"]
+        if not 0.0 <= ci <= 1.0:
+            raise AssertionError(f"{split} C-index {ci!r} not in [0, 1]")
+    if not all(p.is_cuda for m in (handler.gen_model, handler.disc_model)
+               for p in m.parameters()):
+        raise AssertionError("parameters are not on cuda")
+
+
+def phase_graph_train(paths, gpaths, banded: bool):
+    """Phases 8 and 9: PatchGCN training through `advmil_tpu_torch.main` at
+    full width, bf16, on the banded route (2 epochs) or the dense route
+    (`graph_banded: off`, 1 epoch)."""
+    from advmil_tpu_torch import main as port_main
+    run = "graph_run" if banded else "graph_run_dense"
+    cfg = _graph_cfg(paths, gpaths, run, test=False, epochs=2 if banded else 1, es_warmup=0,
+                     graph_banded="auto" if banded else "off")
+    yaml_path = osp.join(WORK_DIR, f"{run}.yaml")
+    _write_yaml(yaml_path, cfg)
+    reset_counters()
+    [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "adv"])
+    launches = read_counters()
+    need = (("banded_aggregate", "banded_aggregate_bwd") if banded else
+            ("fused_knn_softmax_aggregate", "fused_knn_softmax_aggregate_bwd"))
+    for name in need + ("ln_relu_region_mean", "ln_relu_region_mean_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the graph "
+                                 f"{'banded' if banded else 'dense'} training path")
+    _check_run(handler, metrics, ("train", "validation", "test"), "train_best_pred_{}.csv")
+    phase = "8 graph train banded" if banded else "9 graph train dense"
+    route = ""
+    for split, (_, batcher) in handler.loaders.items():
+        if batcher.band_on != banded:
+            raise AssertionError(f"{split}: the batcher took the wrong route")
+        if banded:
+            if not 0.7 <= batcher.coverage <= 0.99:
+                raise AssertionError(f"{split}: band coverage {batcher.coverage} not in "
+                                     "[0.7, 0.99]")
+            tabs = list(batcher._tab_cache.values())
+            if not tabs or any(not (t["band_urows"] < t["_bucket_n"]).any() for t in tabs):
+                raise AssertionError(f"{split}: a bag without residual rows")
+            route += f" {split} coverage {batcher.coverage:.3f} ({len(tabs)} bags, all " \
+                     "with residual rows);"
+    rates = " ".join(f"epoch {i + 1} {b / s:.2f} ({b} bags, {s:.3f} s);"
+                     for i, (b, s) in enumerate(handler.train_timings))
+    log(f"[{phase}] exec{route} C-index train {dict(metrics['train'])['cindex']:.4f} "
+        f"validation {dict(metrics['validation'])['cindex']:.4f} test "
+        f"{dict(metrics['test'])['cindex']:.4f}; predictions finite in [0, 1] | launches "
+        f"{launches}")
+    log(f"[{phase}] training bags/s: {rates}")
+    return handler, launches
+
+
+def phase_graph_test(paths, gpaths):
+    """Phase 10: graph test mode from phase 8's best checkpoint."""
+    from advmil_tpu_torch import main as port_main
+    cfg = _graph_cfg(paths, gpaths, "graph_run", test=True)
+    yaml_path = osp.join(WORK_DIR, "graph_test.yaml")
+    _write_yaml(yaml_path, cfg)
+    reset_counters()
+    [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "adv"])
+    launches = read_counters()
+    for name in ("banded_aggregate", "ln_relu_region_mean"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the graph test-mode path")
+    _check_run(handler, metrics, ("exec-test",), "test_mode_best_pred_{}.csv")
+    b, sec = handler.eval_timings[-1]
+    log(f"[10 graph test] exec-test C-index {dict(metrics['exec-test'])['cindex']:.6f} "
+        f"(best checkpoint of phase 8), {b / sec:.2f} bags/s ({b} bags, {sec:.3f} s) | "
+        f"launches {launches}")
+    return launches
+
+
+def _two_bag_batch(handler):
+    """The first two bags of the training loader's first batch, with their
+    graph tables (a small batch for the CPU side of phase 11)."""
+    from advmil_tpu_torch.data.bags import Batch
+    _, batcher = handler.loaders["train"]
+    b = next(iter(batcher.epoch_batches()))
+    return Batch(idx=b.idx[:2], feats=b.feats[:2], mask=b.mask[:2], label=b.label[:2],
+                 sample_mask=b.sample_mask[:2], extra={k: v[:2] for k, v in b.extra.items()})
 
 
 SOURCES = {
@@ -564,7 +883,22 @@ SOURCES = {
     "flash_bwd_dq": ("advmil_tpu_torch/csrc/flash_bwd.cu", "advmil_tpu/ops/attention.py:138"),
     "flash_bwd_dkv": ("advmil_tpu_torch/csrc/flash_bwd.cu", "advmil_tpu/ops/attention.py:182"),
     "keep_mask": ("advmil_tpu_torch/csrc/keep_mask.cu", "advmil_tpu/ops/attention.py:505"),
+    "fused_knn_softmax_aggregate": ("advmil_tpu_torch/csrc/knn_agg.cu",
+                                    "advmil_tpu/ops/segment.py:162"),
+    "fused_knn_softmax_aggregate_bwd": ("advmil_tpu_torch/csrc/knn_agg.cu",
+                                        "advmil_tpu/ops/segment.py:167"),
+    "banded_aggregate": ("advmil_tpu_torch/csrc/banded.cu",
+                         "advmil_tpu/ops/banded_pallas.py:89"),
+    "banded_aggregate_bwd": ("advmil_tpu_torch/csrc/banded.cu",
+                             "advmil_tpu/ops/banded_pallas.py:123"),
 }
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -572,17 +906,28 @@ def main():
         raise SystemExit("chip_smoke.py runs from the root of a checkout: "
                          "advmil_tpu_torch/ not found beside it")
     sys.path.insert(0, ROOT)
-    card = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    card = timed("1 device", phase_device)
+    timed("2 build", phase_build)
     reset_counters()
-    report = phase_kernels(card)
+    report = timed("3 kernels", phase_kernels, card)
     oracle_launches = read_counters()["keep_mask"]
-    paths = make_data()
-    train_handler, train_launches = phase_train(paths)
-    handler, test_launches = phase_slice(paths)
-    phase_gpu_vs_cpu(handler)
-    phase_gpu_vs_cpu_train(train_handler)
+    paths = timed("4 data", make_data)
+    train_handler, train_launches = timed("4 train", phase_train, paths)
+    handler, test_launches = timed("5 slice", phase_slice, paths)
+    timed("6 gpu-vs-cpu", phase_gpu_vs_cpu, handler)
+    timed("7 gpu-vs-cpu train", phase_gpu_vs_cpu_train, train_handler)
+    gpaths = timed("8 graph data", make_graph_data, paths)
+    banded_handler, banded_launches = timed("8 graph train banded", phase_graph_train, paths,
+                                            gpaths, True)
+    dense_handler, dense_launches = timed("9 graph train dense", phase_graph_train, paths,
+                                          gpaths, False)
+    graph_test_launches = timed("10 graph test", phase_graph_test, paths, gpaths)
+    for h, route in ((banded_handler, "banded"), (dense_handler, "dense")):
+        timed(f"11 graph gpu-vs-cpu train {route}", phase_gpu_vs_cpu_train, h,
+              _two_bag_batch(h), f"11 graph gpu-vs-cpu train {route}")
     shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
+    log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
     import torch
     kernels = []
@@ -592,7 +937,10 @@ def main():
         if name == "keep_mask":        # the tests' oracle: no model path runs it
             entry.update(launches=oracle_launches, main_path=False)
         else:
-            by_path = {"train": train_launches[name], "test_mode": test_launches[name]}
+            by_path = {"train": train_launches[name], "test_mode": test_launches[name],
+                       "graph_train_banded": banded_launches[name],
+                       "graph_train_dense": dense_launches[name],
+                       "graph_test_mode": graph_test_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
         entry.update(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
         kernels.append(entry)

@@ -1,7 +1,7 @@
-"""The weight bridge (advmil_tpu_torch.bridge) on the cfg_nlst G and D trees:
-flax -> torch -> flax round trips exactly, every flax leaf lands on a port
-parameter (strict load), and the parameter counts are those of the ESAT
-main path."""
+"""The weight bridge (advmil_tpu_torch.bridge) on the cfg_nlst G and D trees
+and on a PatchGCN G at the same widths: flax -> torch -> flax round trips
+exactly, every flax leaf lands on a port parameter (strict load), and the
+parameter counts are those of the ESAT main path and of the graph path."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +16,7 @@ from advmil_tpu_torch.models import gan as tgan
 
 G_PARAMS = 1_653_314
 D_PARAMS = 206_338
+G_GRAPH_PARAMS = 2_392_516   # PatchGCN 1024-384-384, 2 graph layers, head 384-1
 
 
 def _flatten(tree, prefix=()):
@@ -45,11 +46,23 @@ def nlst_trees():
     tG = tgan.Generator(tbb.load_backbone("patch", [1024, 384, 384]), 384, 1, (0, 1))
     tD = tgan.PrjDiscriminator(1024, 128, 1, (64, 128), prj_path="x",
                                inner_product="instance")
+    # PatchGCN: GENConv t, layer0_conv / layer1 (DeepGCN block), gate
+    jGg = jgan.Generator(backbone=jbb.load_backbone("graph", [1024, 384, 384],
+                                                    num_graph_layers=2),
+                         dim_in=384, dim_out=1, noise=(0, 1), hops=1)
+    edges = {"edge_src": jnp.zeros((1, 16, 9), jnp.int32),
+             "edge_mask": jnp.ones((1, 16, 9), jnp.float32)}
+    pGg = jGg.init({"params": jax.random.PRNGKey(5), "noise": jax.random.PRNGKey(6),
+                    "dropout": jax.random.PRNGKey(7)}, x, m, edges, zero_noise=True,
+                   deterministic=True)["params"]
+    tGg = tgan.Generator(tbb.load_backbone("graph", [1024, 384, 384], num_graph_layers=2),
+                         384, 1, (0, 1))
     to_np = lambda p: jax.tree_util.tree_map(np.asarray, dict(p))  # noqa: E731
-    return {"G": (to_np(pG), tG), "D": (to_np(pD), tD)}
+    return {"G": (to_np(pG), tG), "D": (to_np(pD), tD), "G_graph": (to_np(pGg), tGg)}
 
 
-@pytest.mark.parametrize("net,count", [("G", G_PARAMS), ("D", D_PARAMS)])
+@pytest.mark.parametrize("net,count", [("G", G_PARAMS), ("D", D_PARAMS),
+                                       ("G_graph", G_GRAPH_PARAMS)])
 def test_round_trip_is_exact(nlst_trees, net, count):
     params, module = nlst_trees[net]
     assert sum(v.size for v in _flatten(params).values()) == count

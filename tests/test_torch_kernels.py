@@ -213,3 +213,155 @@ def test_keep_mask_kernel_is_bit_exact(cuda_device, BH, Lq, Lk, p):
 def test_philox_header_matches_curand(cuda_device):
     ours, ref = tphilox.check_against_curand(4096, cuda_device)
     assert torch.equal(ours, ref)
+
+
+# ---------------------------------------------------------------------------
+# the graph aggregation kernels (#12-#15) and GENConv on the card
+# ---------------------------------------------------------------------------
+
+from advmil_tpu_torch.models import backbones as tbb   # noqa: E402
+from advmil_tpu_torch.ops import banded as tband   # noqa: E402
+from advmil_tpu_torch.ops import segment as tseg   # noqa: E402
+
+# f32: values and gradients 1e-5, dt 1e-4 relative (a sum over every node
+# and channel); bf16: 2e-2 + 2e-2 relative (bf16 storage of both outputs)
+_GRAPH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+              torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _raster_tables(B, N, W, epn, seed, irregular=20):
+    """B raster kNN bags of N nodes on a W-wide grid, with dropped and
+    irregular edges and one node without edges: dense tables [B, N, epn] and
+    the batcher's band tables, with sentinel u_rows slots."""
+    rng = np.random.default_rng(seed)
+    offs = [-W - 1, -W, -W + 1, -1, 0, 1, W - 1, W, W + 1][:epn]
+    dense, band = [], []
+    for b in range(B):
+        esrc = np.zeros((N, epn), np.int32)
+        em = np.zeros((N, epn), np.float32)
+        for s, o in enumerate(offs):
+            tgt = np.arange(N) + o
+            ok = (tgt >= 0) & (tgt < N) & (rng.random(N) >= 0.05)
+            esrc[ok, s], em[ok, s] = tgt[ok], 1.0
+        for _ in range(irregular):
+            n, s = rng.integers(N), rng.integers(epn)
+            esrc[n, s], em[n, s] = rng.integers(N), 1.0
+        em[7 + b] = 0.0
+        dense.append((esrc, em))
+        band.append(tseg.build_band_tables(esrc, em)[:2])
+    u_slots = 8 + max(tseg.band_coverage(*d)[2] for d in dense)
+    ut = [tband.build_u_tables(*d, bm, u_slots=u_slots) for d, (_, bm) in zip(dense, band)]
+    tabs = {"edge_src": np.stack([d[0] for d in dense]),
+            "edge_mask": np.stack([d[1] for d in dense]),
+            "band_offs": np.stack([o for o, _ in band]),
+            "band_mask": np.stack([bm for _, bm in band]),
+            "band_urows": np.stack([u[0] for u in ut]),
+            "band_usrc": np.stack([u[1] for u in ut]),
+            "band_uemask": np.stack([u[2] for u in ut]),
+            "band_uinv": np.stack([tband.build_u_inv(u[0], N) for u in ut])}
+    assert (tabs["band_urows"] == N).any() and (tabs["band_urows"] < N).any()
+    return tabs
+
+
+def _op_grads(fn, x, t, g):
+    xx = x.detach().clone().requires_grad_(True)
+    tt = t.detach().clone().requires_grad_(True)
+    out = fn(xx, tt)
+    out.backward(g)
+    return out.detach(), xx.grad, tt.grad
+
+
+def _assert_graph_close(got, want, dtype):
+    for name, a, b in zip(("out", "dx"), got[:2], want[:2]):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), **_GRAPH_TOL[dtype],
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    assert got[2].dtype == torch.float32 and got[2].shape == (1,)
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=1e-4,
+                               msg=lambda m: f"dt: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,epn,C", [(2, 4096, 9, 384), (3, 77, 16, 40), (1, 50, 1, 7)])
+def test_knn_agg_kernels_match_plain(cuda_device, B, N, epn, C, dtype):
+    """#12 / #13 against the plain op and its autograd backward, with nodes
+    without edges (exactly 0) and masked slots holding large junk."""
+    gen = torch.Generator(device=cuda_device).manual_seed(N)
+    msg = torch.randn(B, N, epn, C, device=cuda_device, generator=gen).to(dtype)
+    em = (torch.rand(B, N, epn, device=cuda_device, generator=gen) < 0.8).float()
+    em[:, :3] = 0.0
+    msg[:, 3:, -1] = torch.where(em[:, 3:, -1:] > 0, msg[:, 3:, -1], 300.0).to(dtype)
+    g = torch.randn(B, N, C, device=cuda_device, generator=gen).to(dtype)
+    t = torch.tensor([1.3], device=cuda_device)
+    before = (tseg.LAUNCHES, tseg.LAUNCHES_BWD)
+    got = _op_grads(lambda m, tt: tseg.fused_knn_softmax_aggregate(m, em, tt), msg, t, g)
+    torch.cuda.synchronize()
+    assert (tseg.LAUNCHES, tseg.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    want = _op_grads(lambda m, tt: tseg.knn_edge_softmax_aggregate(m, em, tt), msg, t, g)
+    _assert_graph_close(got, want, dtype)
+    assert torch.all(got[0][:, :3] == 0) and torch.all(got[1][em == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,W,C", [(2, 4096, 48, 384), (3, 150, 12, 40), (1, 30, 4, 7)])
+def test_banded_kernels_match_plain(cuda_device, B, N, W, C, dtype):
+    """#14 / #15 (the banded core) against the plain core and its autograd
+    backward; then the whole banded op with residual rows, sentinel u_rows
+    slots and a node without edges against its plain twin and against the
+    dense op on the full edge tables."""
+    tabs = {k: torch.from_numpy(v).to(cuda_device)
+            for k, v in _raster_tables(B, N, W, 9, seed=N).items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(W)
+    y = torch.randn(B, N, C, device=cuda_device, generator=gen).to(dtype)
+    g = torch.randn(B, N, C, device=cuda_device, generator=gen).to(dtype)
+    t = torch.tensor([0.8], device=cuda_device)
+    offs, bm = tabs["band_offs"], tabs["band_mask"]
+    before = (tband.LAUNCHES, tband.LAUNCHES_BWD)
+    got = _op_grads(lambda yy, tt: tband.banded_core(yy, offs, bm, tt), y, t, g)
+    torch.cuda.synchronize()
+    assert (tband.LAUNCHES, tband.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    want = _op_grads(lambda yy, tt: tband.banded_core_plain(yy, offs, bm, tt), y, t, g)
+    _assert_graph_close(got, want, dtype)
+    with torch.no_grad():   # no backward can run: the forward writes no stats
+        torch.testing.assert_close(tband.banded_core(y, offs, bm, t), got[0], atol=0, rtol=0)
+
+    u = [tabs[k] for k in ("band_urows", "band_usrc", "band_uemask", "band_uinv")]
+    got = _op_grads(lambda yy, tt: tband.banded_aggregate(yy, offs, bm, *u, tt), y, t, g)
+    want = _op_grads(lambda yy, tt: tband.banded_aggregate(yy, offs, bm, *u, tt,
+                                                           use_kernels=False), y, t, g)
+    _assert_graph_close(got, want, dtype)
+    assert torch.all(got[0][torch.arange(B), 7 + torch.arange(B)] == 0)
+    bidx = torch.arange(B, device=cuda_device)[:, None, None]
+    dense = _op_grads(lambda yy, tt: tseg.knn_edge_softmax_aggregate(   # f32 gather
+        yy.float()[bidx, tabs["edge_src"].long()], tabs["edge_mask"], tt).to(dtype), y, t, g)
+    _assert_graph_close(got, dense, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["banded", "dense"])
+def test_gradients_reach_genconv_t_fc_and_mlp0_on_cuda(cuda_device, route):
+    """PatchGCN on the card in train mode: the aggregation kernels run
+    forward and backward, and gradients reach GENConv's t, the embedding fc
+    and mlp0 through them."""
+    tabs = _raster_tables(2, 256, 16, 9, seed=1)
+    keys = (tuple(k for k in tabs if k.startswith("band_")) if route == "banded"
+            else ("edge_src", "edge_mask"))
+    extra = {k: torch.from_numpy(tabs[k]).to(cuda_device) for k in keys}
+    model = tl.init_parameters(tbb.load_backbone("graph", [64, 32, 32], num_graph_layers=2),
+                               seed=3).to(cuda_device).train()
+    rngs = tl.Rngs(torch.Generator(device=cuda_device).manual_seed(3),
+                   torch.Generator().manual_seed(4))
+    x = torch.randn(2, 256, 64, device=cuda_device)
+    mask = torch.ones(2, 256, device=cuda_device)
+    mask[1, 200:] = 0.0
+    mods = (tband, tband) if route == "banded" else (tseg, tseg)
+    before = (mods[0].LAUNCHES, mods[1].LAUNCHES_BWD)
+    model(x, mask, extra, rngs).square().sum().backward()
+    torch.cuda.synchronize()
+    assert mods[0].LAUNCHES >= before[0] + 2 and mods[1].LAUNCHES_BWD >= before[1] + 2
+    for p in (model.layer0_conv.t, model.layer1.conv.t, model.fc.weight,
+              model.layer0_conv.mlp0.weight):
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+        assert p.grad.abs().sum() > 0
