@@ -6,6 +6,8 @@ attribute names, so a path maps onto a state_dict key by joining with '.',
 with these rules:
 
 - Dense `kernel [in, out]` becomes `weight [out, in]`;
+- Conv `kernel [kh, kw, in, out]` (flax's HWIO; the ksize-3 patch embedding's
+  `Conv_0`) becomes `weight [out, in, kh, kw]` (torch's OIHW);
 - LayerNorm `scale` becomes `weight`;
 - the packed attention `in_proj` keeps q | k | v on the output axis (the
   same packing as torch's `in_proj_weight`), so it needs no reordering;
@@ -56,10 +58,10 @@ def flax_to_torch(params: dict) -> dict:
         *mods, leaf = path
         mods = [_TOP_RENAME.get(mods[0], mods[0])] + mods[1:] if mods else mods
         if leaf == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: only Dense kernels are "
-                                 f"bridged, got shape {arr.shape}")
-            leaf, arr = "weight", arr.T
+            if arr.ndim not in (2, 4):
+                raise ValueError(f"{'/'.join(path)}: only Dense and 2-D Conv kernels "
+                                 f"are bridged, got shape {arr.shape}")
+            leaf, arr = "weight", (arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1))
         elif leaf == "scale":
             leaf = "weight"
         elif leaf not in ("bias", "t"):
@@ -79,6 +81,8 @@ def torch_to_flax(state_dict: dict) -> dict:
         if leaf == "weight":
             if arr.ndim == 2:
                 leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+            elif arr.ndim == 4:
+                leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
             else:
                 leaf = "scale"
         flat[tuple(mods + [leaf])] = arr

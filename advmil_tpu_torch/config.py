@@ -27,6 +27,10 @@ PORT_DEFAULTS = {
     "use_pallas": True,            # hand-written attention kernel on long bags
     "flash_min_len": 512,          # eval floors the gate at max(this, 2048)
     "use_fused_lnpool": True,      # hand-written LN+ReLU+region-mean kernel
+    # hand-written Dense+LN+ReLU+region-mean kernels in G's patch embedding; off
+    # (the JAX package's default) until a bench cell decides
+    "use_fused_embedding": False,
+    "use_coords_pe": False,        # feed region coords (path_coordx5) to ESAT
     "tra_backbone": "Transformer",  # Transformer | Identity (no encoder)
     # PatchGCN (bcb_mode: graph), the JAX package's defaults
     "num_graph_layers": 1,
@@ -189,10 +193,6 @@ def _not_ported(cfg: dict) -> list:
         ("graph_grid_resident", bool, "A13"),
         ("semi_training", bool, "A11"),
         ("time_format", lambda v: v == "quantile", "A8"),
-        ("use_coords_pe", bool, "A2"),
-        ("use_fused_embedding", bool, "B4"),
-        ("disc_netx_backbone", lambda v: v not in (None, "avgpool"), "A3"),
-        ("disc_netx_ksize", lambda v: v not in (None, 1), "A3"),
         ("log_plot", bool, "A9"),
         ("accum_steps", lambda v: int(v or 1) > 1, "A6"),
         ("train_sampling", lambda v: v is not None, "A8"),
@@ -217,6 +217,13 @@ def check_configs(cfg: dict):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {cfg.get('device')!r}")
     if cfg.get("precision") not in ("f32", "bf16", "bfloat16"):
         raise ValueError(f"precision must be f32 or bf16, got {cfg.get('precision')!r}")
+    if cfg.get("disc_netx_backbone") not in (None, "avgpool", "gapool"):
+        raise ValueError("disc_netx_backbone must be avgpool or gapool, got "
+                         f"{cfg['disc_netx_backbone']!r}")
+    if cfg.get("disc_netx_ksize") not in (None, 1, 3):
+        raise ValueError(f"disc_netx_ksize must be 1 or 3, got {cfg['disc_netx_ksize']!r}")
+    if cfg.get("use_coords_pe") and not cfg.get("path_coordx5"):
+        raise ValueError("use_coords_pe needs path_coordx5 (per-slide region coordinates)")
     if cfg.get("bcb_mode") == "graph":
         assert cfg["graph_edge_agg"] in ("spatial", "latent"), \
             "graph_edge_agg must be spatial/latent"

@@ -1,4 +1,6 @@
-// Fused LayerNorm -> ReLU -> 16-row region mean, forward.
+// Fused LayerNorm -> ReLU -> 16-row region mean, forward (and, as its
+// POOL = false instantiation, the plain LayerNorm -> ReLU of
+// advmil_tpu/ops/ln_pool.py:_lnrelu_fwd_kernel / _lnrelu_bwd_kernel).
 //
 // Replaces the Pallas TPU kernel advmil_tpu/ops/ln_pool.py:_fwd_kernel
 // (wrapper ln_relu_region_mean). For h [M, D] (M % 16 == 0):
@@ -30,16 +32,19 @@ constexpr int kMaxBwdBlocks = 512;
 // Blocks of the backward for M rows (see launch_bwd): one warp per region up
 // to a cap, so the per-block partial sums stay few.
 __host__ __device__ inline int ln_pool_bwd_blocks(int M) {
-  const int regions = M / kRegion;
+  const int regions = (M + kRegion - 1) / kRegion;
   const int want = (regions + kWarpsPerBlock - 1) / kWarpsPerBlock;
   return want < 1 ? 1 : (want > kMaxBwdBlocks ? kMaxBwdBlocks : want);
 }
 
-template <typename T, int NC>
+// POOL = false is the plain LN -> ReLU (ln_relu below): the same warp walks
+// the same 16 rows and writes each normalised row instead of their mean; M
+// need not be a multiple of 16 there, so rows at or beyond M are skipped.
+template <typename T, int NC, bool POOL>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 ln_relu_region_mean_kernel(const T* __restrict__ h, const float* __restrict__ scale,
                            const float* __restrict__ bias, T* __restrict__ out,
-                           int regions, int D, float eps) {
+                           int regions, int M, int D, float eps) {
   const int lane = threadIdx.x & 31;
   const int region = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (region >= regions) return;
@@ -55,6 +60,7 @@ ln_relu_region_mean_kernel(const T* __restrict__ h, const float* __restrict__ sc
   const T* row = h + static_cast<size_t>(region) * kRegion * D;
 #pragma unroll 2
   for (int i = 0; i < kRegion; ++i, row += D) {
+    if (!POOL && region * kRegion + i >= M) break;  // warp-uniform
     float x[NC];
     float s = 0.f;
 #pragma unroll
@@ -71,18 +77,26 @@ ln_relu_region_mean_kernel(const T* __restrict__ h, const float* __restrict__ sc
     }
     const float inv = rsqrtf(warp_sum(q) * inv_d + eps);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[j] += fmaxf((x[j] - mu) * inv * sc[j] + bi[j], 0.f);
+    for (int j = 0; j < NC; ++j) {
+      const float y = fmaxf((x[j] - mu) * inv * sc[j] + bi[j], 0.f);
+      if (POOL) {
+        acc[j] += y;
+      } else if (j < nc) {
+        out[(static_cast<size_t>(region) * kRegion + i) * D + lane + 32 * j] = from_f32<T>(y);
+      }
+    }
   }
+  if (!POOL) return;
   T* o = out + static_cast<size_t>(region) * D;
 #pragma unroll
   for (int j = 0; j < NC; ++j)
     if (j < nc) o[lane + 32 * j] = from_f32<T>(acc[j] * (1.f / kRegion));
 }
 
-template <typename T>
+template <typename T, bool POOL>
 cudaError_t launch(const void* h, const void* scale, const void* bias, void* out,
                    int M, int D, float eps, cudaStream_t stream) {
-  const int regions = M / kRegion;
+  const int regions = (M + kRegion - 1) / kRegion;
   const dim3 grid((regions + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
   const int nc = D / 32;
@@ -90,11 +104,11 @@ cudaError_t launch(const void* h, const void* scale, const void* bias, void* out
     kernel<<<grid, block, 0, stream>>>(static_cast<const T*>(h),
                                        static_cast<const float*>(scale),
                                        static_cast<const float*>(bias),
-                                       static_cast<T*>(out), regions, D, eps);
+                                       static_cast<T*>(out), regions, M, D, eps);
   };
-  if (nc <= 4) args(ln_relu_region_mean_kernel<T, 4>);
-  else if (nc <= 12) args(ln_relu_region_mean_kernel<T, 12>);
-  else args(ln_relu_region_mean_kernel<T, 32>);
+  if (nc <= 4) args(ln_relu_region_mean_kernel<T, 4, POOL>);
+  else if (nc <= 12) args(ln_relu_region_mean_kernel<T, 12, POOL>);
+  else args(ln_relu_region_mean_kernel<T, 32, POOL>);
   return cudaGetLastError();
 }
 
@@ -121,14 +135,17 @@ cudaError_t launch(const void* h, const void* scale, const void* bias, void* out
 // small (at most kMaxBwdBlocks rows).
 // ---------------------------------------------------------------------------
 
-template <typename T, int NC>
+// POOL = false is ln_relu's backward: g is [M, D] in its storage dtype G (one
+// cotangent row per row of h, read once, not upcast in device memory) and is
+// not divided by 16; rows at or beyond M are skipped.
+template <typename T, typename G, int NC, bool POOL>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-ln_relu_region_mean_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
+ln_relu_region_mean_bwd_kernel(const G* __restrict__ g, const T* __restrict__ h,
                                const float* __restrict__ scale,
                                const float* __restrict__ bias, T* __restrict__ dh,
                                float* __restrict__ part_dscale,
-                               float* __restrict__ part_dbias, int regions, int D,
-                               float eps) {
+                               float* __restrict__ part_dbias, int regions, int M,
+                               int D, float eps) {
   __shared__ float s_red[kWarpsPerBlock][32 * NC];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -145,11 +162,20 @@ ln_relu_region_mean_bwd_kernel(const float* __restrict__ g, const T* __restrict_
   for (int region = blockIdx.x * kWarpsPerBlock + warp; region < regions;
        region += gridDim.x * kWarpsPerBlock) {
     float gr[NC];
-    const float* gp = g + static_cast<size_t>(region) * D;
+    if (POOL) {
+      const G* gp = g + static_cast<size_t>(region) * D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) gr[j] = j < nc ? gp[lane + 32 * j] * (1.f / kRegion) : 0.f;
+      for (int j = 0; j < NC; ++j)
+        gr[j] = j < nc ? to_f32(gp[lane + 32 * j]) * (1.f / kRegion) : 0.f;
+    }
     const size_t base = static_cast<size_t>(region) * kRegion * D;
     for (int i = 0; i < kRegion; ++i) {
+      if (!POOL) {
+        if (region * kRegion + i >= M) break;  // warp-uniform
+        const G* gp = g + base + static_cast<size_t>(i) * D;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) gr[j] = j < nc ? to_f32(gp[lane + 32 * j]) : 0.f;
+      }
       const T* row = h + base + static_cast<size_t>(i) * D;
       float x[NC];
       float s = 0.f;
@@ -219,24 +245,24 @@ __global__ void sum_partials_kernel(const float* __restrict__ part_dscale,
   dbias[c] = b;
 }
 
-template <typename T>
+template <typename T, typename G, bool POOL>
 cudaError_t launch_bwd(const void* g, const void* h, const void* scale, const void* bias,
                        void* dh, void* dscale, void* dbias, void* partials, int M, int D,
                        float eps, cudaStream_t stream) {
-  const int regions = M / kRegion;
+  const int regions = (M + kRegion - 1) / kRegion;
   const int nblocks = ln_pool_bwd_blocks(M);
   float* part_dscale = static_cast<float*>(partials);
   float* part_dbias = part_dscale + static_cast<size_t>(nblocks) * D;
   const int nc = D / 32;
   auto args = [&](auto kernel) {
     kernel<<<nblocks, 32 * kWarpsPerBlock, 0, stream>>>(
-        static_cast<const float*>(g), static_cast<const T*>(h),
+        static_cast<const G*>(g), static_cast<const T*>(h),
         static_cast<const float*>(scale), static_cast<const float*>(bias),
-        static_cast<T*>(dh), part_dscale, part_dbias, regions, D, eps);
+        static_cast<T*>(dh), part_dscale, part_dbias, regions, M, D, eps);
   };
-  if (nc <= 4) args(ln_relu_region_mean_bwd_kernel<T, 4>);
-  else if (nc <= 12) args(ln_relu_region_mean_bwd_kernel<T, 12>);
-  else args(ln_relu_region_mean_bwd_kernel<T, 32>);
+  if (nc <= 4) args(ln_relu_region_mean_bwd_kernel<T, G, 4, POOL>);
+  else if (nc <= 12) args(ln_relu_region_mean_bwd_kernel<T, G, 12, POOL>);
+  else args(ln_relu_region_mean_bwd_kernel<T, G, 32, POOL>);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_partials_kernel<<<(D + 255) / 256, 256, 0, stream>>>(
@@ -262,11 +288,41 @@ extern "C" int advmil_ln_relu_region_mean_bwd(const void* g, const void* h,
                                               float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == advmil::kF32)
-    return advmil::launch_bwd<float>(g, h, scale, bias, dh, dscale, dbias, partials, M,
-                                     D, eps, s);
+    return advmil::launch_bwd<float, float, true>(g, h, scale, bias, dh, dscale, dbias,
+                                                  partials, M, D, eps, s);
   if (dtype == advmil::kBF16)
-    return advmil::launch_bwd<__nv_bfloat16>(g, h, scale, bias, dh, dscale, dbias,
-                                             partials, M, D, eps, s);
+    return advmil::launch_bwd<__nv_bfloat16, float, true>(g, h, scale, bias, dh, dscale,
+                                                          dbias, partials, M, D, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ln_relu's backward (replaces advmil_tpu/ops/ln_pool.py:_lnrelu_bwd_kernel):
+// g and h [M, D] in one dtype (f32 or bf16), any M > 0 -> dh [M, D] in that
+// dtype, dscale / dbias [D] f32; partials as above.
+extern "C" int advmil_ln_relu_bwd(const void* g, const void* h, const void* scale,
+                                  const void* bias, void* dh, void* dscale, void* dbias,
+                                  void* partials, int M, int D, int dtype, float eps,
+                                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == advmil::kF32)
+    return advmil::launch_bwd<float, float, false>(g, h, scale, bias, dh, dscale, dbias,
+                                                   partials, M, D, eps, s);
+  if (dtype == advmil::kBF16)
+    return advmil::launch_bwd<__nv_bfloat16, __nv_bfloat16, false>(
+        g, h, scale, bias, dh, dscale, dbias, partials, M, D, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ln_relu's forward (replaces advmil_tpu/ops/ln_pool.py:_lnrelu_fwd_kernel):
+// h [M, D] -> relu(LN(h) * scale + bias) [M, D] in h's dtype, any M > 0.
+extern "C" int advmil_ln_relu(const void* h, const void* scale, const void* bias,
+                              void* out, int M, int D, int dtype, float eps,
+                              void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == advmil::kF32)
+    return advmil::launch<float, false>(h, scale, bias, out, M, D, eps, s);
+  if (dtype == advmil::kBF16)
+    return advmil::launch<__nv_bfloat16, false>(h, scale, bias, out, M, D, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -279,9 +335,9 @@ extern "C" int advmil_ln_relu_region_mean(const void* h, const void* scale,
                                           void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == advmil::kF32)
-    return advmil::launch<float>(h, scale, bias, out, M, D, eps, s);
+    return advmil::launch<float, true>(h, scale, bias, out, M, D, eps, s);
   if (dtype == advmil::kBF16)
-    return advmil::launch<__nv_bfloat16>(h, scale, bias, out, M, D, eps, s);
+    return advmil::launch<__nv_bfloat16, true>(h, scale, bias, out, M, D, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -30,7 +30,7 @@ import torch
 from ..ops.banded import build_u_inv, build_u_tables
 from ..ops.segment import band_coverage, build_band_tables
 from ..utils.func import random_mask_square_instance
-from ..utils.io import read_patch_feature, retrieve_from_table
+from ..utils.io import read_patch_coord, read_patch_feature, retrieve_from_table
 
 BAND_KEYS = ("band_offs", "band_mask", "band_urows", "band_usrc", "band_uemask",
              "band_uinv")
@@ -62,7 +62,7 @@ class BagDataset:
     def __init__(self, patient_ids: list, patch_path: str, label_path: str,
                  mode: str = "patch", read_format: str = "pt",
                  time_format: str = "ratio", ratio_mask=None, graph_path=None,
-                 edge_agg: str = "spatial",
+                 coord_path=None, edge_agg: str = "spatial",
                  rng: np.random.Generator | None = None, cache: bool = True):
         if mode not in ("patch", "graph"):
             raise NotImplementedError(f"bag mode {mode!r} is not ported yet "
@@ -70,6 +70,7 @@ class BagDataset:
         assert edge_agg in ("spatial", "latent")
         self.mode = mode
         self.graph_path = graph_path
+        self.coord_path = coord_path
         self.edge_agg = edge_agg
         if ratio_mask is not None and ratio_mask > 1e-5:
             assert ratio_mask <= 1
@@ -116,7 +117,18 @@ class BagDataset:
                 "label": np.asarray(self.pid2label[pid], np.float32)}
         if self.mode == "graph":
             item["edge_index"] = self._load_edges(pid)
+        elif self.coord_path:
+            item["coords"] = np.concatenate(
+                [read_patch_coord(self._coord_file(sid)) for sid in self.pid2sid[pid]], axis=0)
         return item
+
+    def _coord_file(self, sid: str) -> str:
+        for ext in ("h5", "npz", "npy"):
+            path = osp.join(self.coord_path, f"{sid}.{ext}")
+            if osp.exists(path):
+                return path
+        raise FileNotFoundError(f"no coord file for slide {sid} under "
+                                f"{self.coord_path} (tried .h5/.npz/.npy)")
 
     def _load_edges(self, pid: str) -> np.ndarray:
         """The patient's [2, E] (dst, src) edge table: the slides' tables
@@ -167,6 +179,7 @@ def prepare_dataset(patient_ids: list, cfg: dict, **kws) -> BagDataset:
         patient_ids, cfg["path_patch"], cfg["path_label"], cfg["bcb_mode"],
         read_format=cfg["feat_format"], time_format=cfg["time_format"],
         ratio_mask=ratio_mask, graph_path=cfg.get("path_graph"),
+        coord_path=cfg.get("path_coordx5") if cfg.get("use_coords_pe", False) else None,
         edge_agg=cfg.get("graph_edge_agg", "spatial"), rng=kws.get("rng"),
         cache=cfg.get("cache_bags", True))
 
@@ -179,7 +192,7 @@ class Batch:
     mask: np.ndarray         # [B, N] 1 = real patch
     label: np.ndarray        # [B, 2] (t, e)
     sample_mask: np.ndarray  # [B] 1 = real bag (0 = duplicated tail filler)
-    extra: dict = field(default_factory=dict)   # graph mode: [B, ...] tables
+    extra: dict = field(default_factory=dict)   # graph tables or region coords, [B, ...]
 
 
 class BucketBatcher:
@@ -406,5 +419,14 @@ class BucketBatcher:
             per = [self._graph_tables(it, bucket_n) for it in items]
             for k in (BAND_KEYS if self.band_on else DENSE_KEYS):
                 extra[k] = np.stack([t[k] for t in per])
+        elif "coords" in items[0]:
+            # region-level coordinates: one per 16 patches
+            Lb = bucket_n // 16
+            rc = np.zeros((bb, Lb, 2), np.float32)
+            for j, it in enumerate(items):
+                c = it["coords"]
+                L = min(c.shape[0], Lb)
+                rc[j, :L] = c[:L]
+            extra["coords"] = rc
         return Batch(idx=np.asarray(ids, np.int32), feats=feats, mask=mask,
                      label=label, sample_mask=sample_mask, extra=extra)

@@ -4,7 +4,8 @@ slice (ROADMAP A12).
 
 Call convention as in `advmil_tpu/models/backbones.py`: backbone(x, mask,
 extra) with x [B, N, C] padded patch features and mask [B, N] (1 = real
-patch); returns the bag embedding [B, dim_out]. In graph mode `extra` is the
+patch); returns the bag embedding [B, dim_out]. In patch mode `extra` is None
+or the region coordinates [B, L, 2] (`use_coords_pe`). In graph mode it is the
 batch's dict of graph tables (data/bags.py): the band tables of the banded
 route or `edge_src` / `edge_mask` of the dense route.
 """
@@ -18,24 +19,29 @@ from torch import nn
 from ..ops.banded import banded_aggregate
 from ..ops.masked import masked_softmax, region_mask_from_patch_mask
 from ..ops.segment import fused_knn_softmax_aggregate, knn_edge_softmax_aggregate
-from .layers import (XAVIER, AvgPoolPatchEmbedding, Dense, Dropout, GAPool,
-                     GatedAttention, LayerNorm, Rngs, TransformerEncoderLayer)
+from ..ops.pe import compute_pe
+from .layers import (XAVIER, Dense, Dropout, GAPool, GatedAttention, LayerNorm, Rngs,
+                     TransformerEncoderLayer, make_embedding_layer)
 
 
 class DualTransHS(nn.Module):
-    """Transformer-based ESAT: 4x4-region avg-pool patch embedding ->
-    transformer encoder layer(s) -> global attention pooling."""
+    """Transformer-based ESAT: 4x4-region patch embedding -> optional 2-D
+    sin-cos positional embedding of the region coordinates (`extra`
+    [B, L, 2]) -> transformer encoder layer(s) -> global attention pooling."""
 
     def __init__(self, dims: Sequence[int], nhead: int = 8, num_layers: int = 1,
+                 emb_ksize: int = 1, emb_backbone: str = "avgpool",
                  tra_backbone: str = "Transformer", dropout: float = 0.25,
-                 use_pallas: bool = True, use_lnpool: bool = True,
-                 flash_min_len: int = 512, dtype=torch.float32):
+                 use_pallas: bool = True, use_fused_embed: bool = False,
+                 use_lnpool: bool = True, flash_min_len: int = 512, dtype=torch.float32):
         super().__init__()
         dim_in, dim_hid, dim_out = dims
         assert dim_hid == dim_out
         assert tra_backbone in ("Transformer", "Identity")
-        self.patch_embedding = AvgPoolPatchEmbedding(
-            dim_in, dim_hid, use_lnpool=use_lnpool, dtype=dtype)
+        self.dim_hid = dim_hid
+        self.patch_embedding = make_embedding_layer(
+            emb_backbone, dim_in, dim_hid, ksize=emb_ksize, use_fused=use_fused_embed,
+            use_lnpool=use_lnpool, dtype=dtype)
         self.num_layers = num_layers if tra_backbone == "Transformer" else 0
         for i in range(self.num_layers):
             self.add_module(f"encoder_{i}", TransformerEncoderLayer(
@@ -45,11 +51,11 @@ class DualTransHS(nn.Module):
                            dtype=dtype)
 
     def forward(self, x, mask, extra=None, rng: Rngs | None = None):
-        if extra is not None:
-            raise NotImplementedError("region-coordinate positional embedding "
-                                      "is not ported yet (ROADMAP A2)")
         h = self.patch_embedding(x, mask)                 # [B, L, hid]
         rmask = region_mask_from_patch_mask(mask)         # [B, L]
+        if extra is not None:                             # region coords [B, L, 2]
+            pe = compute_pe(extra, ndim=self.dim_hid, dtype=h.dtype)
+            h = h + pe * rmask[..., None].to(h.dtype)
         for i in range(self.num_layers):
             h = getattr(self, f"encoder_{i}")(h, rmask, rng)
         return self.pool(h, rmask, rng)
@@ -153,6 +159,7 @@ class PatchGCN(nn.Module):
 
 
 def load_backbone(mode: str, dims: Sequence[int], use_pallas: bool = True,
+                  use_fused_embed: bool = False,
                   use_lnpool: bool = True, tra_backbone: str = "Transformer",
                   flash_min_len: int = 512, num_graph_layers: int = 1,
                   dtype=torch.float32) -> nn.Module:
@@ -161,8 +168,8 @@ def load_backbone(mode: str, dims: Sequence[int], use_pallas: bool = True,
     dims = list(dims)[:3]
     if mode == "patch":
         return DualTransHS(dims, nhead=8, num_layers=1, tra_backbone=tra_backbone,
-                           dropout=0.25,
-                           use_pallas=use_pallas, use_lnpool=use_lnpool,
+                           dropout=0.25, use_pallas=use_pallas,
+                           use_fused_embed=use_fused_embed, use_lnpool=use_lnpool,
                            flash_min_len=flash_min_len, dtype=dtype)
     if mode == "graph":
         return PatchGCN(dims, num_layers=num_graph_layers, dropout=0.25,

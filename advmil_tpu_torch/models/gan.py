@@ -18,8 +18,8 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_mean, region_mask_from_patch_mask
-from .layers import (TORCH, AvgPoolPatchEmbedding, BottleneckMLP, Dense,
-                     GAPool, MLPBlock, NoiseMLPHead, Rngs, apply_out_scale)
+from .layers import (TORCH, BottleneckMLP, Dense, GAPool, MLPBlock, NoiseMLPHead, Rngs,
+                     apply_out_scale, make_embedding_layer)
 
 
 class Generator(nn.Module):
@@ -57,16 +57,18 @@ class Generator(nn.Module):
 
 
 class EmbedXLayer(nn.Module):
-    """Discriminator X tower: region avg-pool embedding -> bottleneck fc1 ->
+    """Discriminator X tower: region patch embedding (`backbone` avgpool or
+    gapool, `ksize` 1 or 3; dropout-free either way) -> bottleneck fc1 ->
     GAPool -> bottleneck fc2. Returns (bag [B, C'], instances [B, L, C'],
     region mask [B, L], patch embedding [B, L, C']); pass the last back as
     `emb` to score the same x again without recomputing it."""
 
     def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.25,
+                 ksize: int = 1, backbone: str = "avgpool",
                  use_lnpool: bool = True, dtype=torch.float32):
         super().__init__()
-        self.embedding = AvgPoolPatchEmbedding(in_dim, out_dim,
-                                               use_lnpool=use_lnpool, dtype=dtype)
+        self.embedding = make_embedding_layer(backbone, in_dim, out_dim, ksize=ksize,
+                                              use_lnpool=use_lnpool, dtype=dtype)
         self.fc1 = BottleneckMLP(out_dim, dropout, dtype)
         self.pool = GAPool(out_dim, out_dim, dropout, TORCH, dtype)
         self.fc2 = BottleneckMLP(out_dim, dropout, dtype)
@@ -109,11 +111,13 @@ class PrjDiscriminator(nn.Module):
                  nety_hid_dims: Sequence[int], prj_path: str = "x",
                  inner_product: str = "bag", netx_dropout: float = 0.25,
                  nety_norm: bool = False, nety_dropout: float = 0.0,
+                 netx_ksize: int = 1, netx_backbone: str = "avgpool",
                  use_lnpool: bool = True, dtype=torch.float32):
         super().__init__()
         assert inner_product in ("bag", "instance")
         self.prj_path, self.inner_product = prj_path, inner_product
         self.net_pair_one = EmbedXLayer(netx_in_dim, netx_out_dim, netx_dropout,
+                                        ksize=netx_ksize, backbone=netx_backbone,
                                         use_lnpool=use_lnpool, dtype=dtype)
         self.net_pair_two = EmbedYLayer(nety_in_dim, nety_hid_dims,
                                         norm=nety_norm, dropout=nety_dropout,
@@ -149,9 +153,11 @@ class Discriminator(nn.Module):
     def __init__(self, netx_in_dim: int, netx_out_dim: int, nety_in_dim: int,
                  nety_hid_dims: Sequence[int], netx_dropout: float = 0.25,
                  nety_norm: bool = False, nety_dropout: float = 0.0,
+                 netx_ksize: int = 1, netx_backbone: str = "avgpool",
                  use_lnpool: bool = True, dtype=torch.float32):
         super().__init__()
         self.net_pair_one = EmbedXLayer(netx_in_dim, netx_out_dim, netx_dropout,
+                                        ksize=netx_ksize, backbone=netx_backbone,
                                         use_lnpool=use_lnpool, dtype=dtype)
         self.net_pair_two = EmbedYLayer(nety_in_dim, nety_hid_dims,
                                         norm=nety_norm, dropout=nety_dropout,

@@ -1,6 +1,7 @@
 """Shared layers of the ESAT path: flax-compatible Dense and LayerNorm,
-dropout, MLP blocks, global attention pooling, the region patch embedding,
-the masked transformer encoder and the noise-MLP generator head.
+dropout, MLP blocks, global attention pooling, the region patch embeddings
+(mean or attention pooled, pointwise or 3x3 convolution, optionally one fused
+op), the masked transformer encoder and the noise-MLP generator head.
 
 Counterparts of `advmil_tpu/models/layers.py`, with the flax names kept as
 module attribute names so a flax parameter tree maps onto the `state_dict`
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import masked_flash_attention
+from ..ops.fused_embed import fused_region_embedding
 from ..ops.ln_pool import LN_EPS, S2, ln_relu_region_mean
 from ..ops.masked import masked_mean, masked_softmax
 
@@ -128,13 +130,41 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class RegionConv(nn.Module):
+    """flax `nn.Conv(out, (k, k), padding="SAME")` over the 4x4 grid of each
+    region: [R, 4, 4, C] -> [R, 4, 4, out]. Weight [out, in, k, k] (torch's
+    OIHW; flax keeps HWIO, `bridge.py` permutes), torch Conv2d's default init
+    U(+-1 / sqrt(in * k * k)) for weight and bias. As in flax, where the layer
+    sets no dtype, the convolution runs in the promotion of input and
+    parameters: f32."""
+
+    def __init__(self, in_dim: int, out_dim: int, ksize: int):
+        super().__init__()
+        if ksize % 2 != 1:
+            raise ValueError(f"region convolution needs an odd kernel size, got {ksize}")
+        self.in_dim, self.ksize = in_dim, ksize
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim, ksize, ksize))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        bound = 1.0 / math.sqrt(self.in_dim * self.ksize ** 2)
+        nn.init.uniform_(self.weight, -bound, bound, generator=generator)
+        nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+
+    def forward(self, x):
+        h = F.conv2d(x.float().permute(0, 3, 1, 2), self.weight, self.bias,
+                     padding=self.ksize // 2)
+        return h.permute(0, 2, 3, 1)
+
+
 def init_parameters(model: nn.Module, seed: int) -> nn.Module:
-    """Draw every Dense's parameters from one CPU generator seeded with
-    `seed`, in module registration order (the port's own init; it does not
-    reproduce jax.random draws)."""
+    """Draw every Dense's and RegionConv's parameters from one CPU generator
+    seeded with `seed`, in module registration order (the port's own init; it
+    does not reproduce jax.random draws)."""
     g = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
-        if isinstance(m, Dense):
+        if isinstance(m, (Dense, RegionConv)):
             m.reset_parameters(g)
     return model
 
@@ -212,37 +242,100 @@ class GatedAttention(nn.Module):
         return self.attention_c(a * b)
 
 
-class AvgPoolPatchEmbedding(nn.Module):
-    """[B, N, C] -> [B, N/16, out_dim]: pointwise Dense + LN + ReLU, then the
-    mean over each 4x4 region of 16 consecutive patches (ksize 1).
+class _PatchProjection(nn.Module):
+    """Base of the patch embeddings: the per-patch projection under flax's
+    auto-names, `Dense_0` (ksize 1, pointwise) or `Conv_0` (a ksize x ksize
+    convolution over each region's 4x4 grid), then `LayerNorm_0`; torch init
+    in G and D alike (Conv2d origin in the reference)."""
 
-    At out_dim % 128 == 0 with `use_lnpool` (the JAX package's gate) the
-    LN + ReLU + region mean runs as one fused op (`ops.ln_pool`), whose
-    fully padded regions are zeroed here with the region mask.
+    def __init__(self, in_dim: int, out_dim: int, ksize: int, dtype):
+        super().__init__()
+        self.out_dim, self.dtype, self.ksize = out_dim, dtype, ksize
+        if ksize == 1:
+            self.Dense_0 = Dense(in_dim, out_dim, TORCH, dtype)
+        else:
+            self.Conv_0 = RegionConv(in_dim, out_dim, ksize)
+        self.LayerNorm_0 = LayerNorm(out_dim, dtype)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N, C] -> [B, N, out_dim], before the LayerNorm."""
+        if self.ksize == 1:
+            return self.Dense_0(x)
+        B, N, C = x.shape
+        return self.Conv_0(x.reshape(B * N // S2, 4, 4, C)).reshape(B, N, self.out_dim)
+
+
+class AvgPoolPatchEmbedding(_PatchProjection):
+    """[B, N, C] -> [B, N/16, out_dim]: per-patch Dense (ksize 1) or ksize x
+    ksize convolution over each region's 4x4 grid (stride 1, SAME padding),
+    LN, ReLU, then the mean over each 4x4 region of 16 consecutive patches.
+
+    Three routes, the JAX package's gates:
+    - `use_fused` at ksize 1: Dense + LN + ReLU + region mean as one op
+      (`ops.fused_embed`), under the same parameter names `Dense_0` /
+      `LayerNorm_0`;
+    - else, at out_dim % 128 == 0 with `use_lnpool`: the projection, then
+      LN + ReLU + region mean as one op (`ops.ln_pool`);
+    - else the plain layers and a masked mean.
+    The two fused ops average whole regions; their fully padded regions are
+    zeroed here with the region mask.
     """
 
-    def __init__(self, in_dim: int, out_dim: int, use_lnpool: bool = True,
+    def __init__(self, in_dim: int, out_dim: int, ksize: int = 1,
+                 use_fused: bool = False, use_lnpool: bool = True,
                  dtype=torch.float32):
-        super().__init__()
-        self.out_dim = out_dim
+        super().__init__(in_dim, out_dim, ksize, dtype)
+        self.use_fused = bool(use_fused) and ksize == 1
         self.use_lnpool = use_lnpool
-        # torch init in G and D alike (Conv2d origin in the reference)
-        self.Dense_0 = Dense(in_dim, out_dim, TORCH, dtype)
-        self.LayerNorm_0 = LayerNorm(out_dim, dtype)
+
+    def forward(self, x, mask):
+        B, N, C = x.shape
+        L = N // S2
+        ln = self.LayerNorm_0
+        if self.use_fused:
+            out = fused_region_embedding(x.reshape(B * N, C).to(self.dtype),
+                                         self.Dense_0.weight.t(), self.Dense_0.bias,
+                                         ln.weight, ln.bias)
+        else:
+            h = self.project(x)
+            if not (self.use_lnpool and self.out_dim % 128 == 0):
+                h = torch.relu(ln(h)).reshape(B, L, S2, self.out_dim)
+                return masked_mean(h, mask.reshape(B, L, S2)[..., None], dim=-2)
+            out = ln_relu_region_mean(h.reshape(B * N, self.out_dim), ln.weight, ln.bias)
+            out = out.to(self.dtype)
+        out = out.reshape(B, L, self.out_dim)
+        rmask = mask.reshape(B, L, S2).bool().any(dim=-1)
+        return out * rmask[..., None].to(out.dtype)
+
+
+class GAPoolPatchEmbedding(_PatchProjection):
+    """The patch embedding that pools each 4x4 region with global attention
+    instead of a mean: projection (as above), LN, ReLU, then a dropout-free
+    `GAPool` (`pool`) over the 16 patches of every region."""
+
+    def __init__(self, in_dim: int, out_dim: int, ksize: int = 1, dtype=torch.float32):
+        super().__init__(in_dim, out_dim, ksize, dtype)
+        self.pool = GAPool(out_dim, out_dim, 0.0, TORCH, dtype)
 
     def forward(self, x, mask):
         B, N, _ = x.shape
         L = N // S2
-        h = self.Dense_0(x)
-        if self.use_lnpool and self.out_dim % 128 == 0:
-            out = ln_relu_region_mean(h.reshape(B * N, self.out_dim),
-                                      self.LayerNorm_0.weight,
-                                      self.LayerNorm_0.bias)
-            out = out.reshape(B, L, self.out_dim)
-            rmask = mask.reshape(B, L, S2).bool().any(dim=-1)
-            return out * rmask[..., None].to(out.dtype)
-        h = torch.relu(self.LayerNorm_0(h)).reshape(B, L, S2, self.out_dim)
-        return masked_mean(h, mask.reshape(B, L, S2)[..., None], dim=-2)
+        h = torch.relu(self.LayerNorm_0(self.project(x))).reshape(B * L, S2, self.out_dim)
+        pooled = self.pool(h, mask.reshape(B * L, S2))
+        return pooled.reshape(B, L, self.out_dim)
+
+
+def make_embedding_layer(backbone: str, in_dim: int, out_dim: int, ksize: int = 1,
+                         use_fused: bool = False, use_lnpool: bool = True,
+                         dtype=torch.float32) -> nn.Module:
+    """Embedding-layer factory: `avgpool` or `gapool` (cfg
+    `disc_netx_backbone`; ESAT's `emb_backbone`)."""
+    if backbone == "gapool":
+        return GAPoolPatchEmbedding(in_dim, out_dim, ksize=ksize, dtype=dtype)
+    if backbone == "avgpool":
+        return AvgPoolPatchEmbedding(in_dim, out_dim, ksize=ksize, use_fused=use_fused,
+                                     use_lnpool=use_lnpool, dtype=dtype)
+    raise NotImplementedError(f"{backbone} has not implemented.")
 
 
 def _masked_mha(q, k, v, mask, use_pallas: bool, flash_min_len: int,

@@ -41,6 +41,14 @@ _SIGNATURES = {
     "advmil_ln_relu_region_mean": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "advmil_ln_relu_region_mean_bwd": [_P] * 8 + [_I, _I, _I, _F, _P],
     "advmil_ln_pool_bwd_blocks": [_I],                       # returns a count
+    "advmil_ln_relu": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "advmil_ln_relu_bwd": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "advmil_fused_embed_fwd": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
+    "advmil_fused_embed_bwd_dh": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "advmil_fused_embed_row_blocks": [_I],                   # returns a count
+    "advmil_fused_embed_dw": [_P] * 4 + [_I, _I, _I, _I, _P],
+    "advmil_fused_embed_dw_slabs": [_I, _I, _I],             # returns a count
+    "advmil_fused_embed_dx": [_P] * 3 + [_I, _I, _I, _I, _P],
     "advmil_flash_fwd": [_P] * 6 + [_I] * 6 + _DROP + [_P],
     "advmil_flash_bwd_dq": [_P] * 8 + [_I] * 6 + _DROP + [_P],
     "advmil_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + _DROP + [_P],

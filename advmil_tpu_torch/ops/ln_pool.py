@@ -13,6 +13,11 @@ is no fallback from the kernels to the plain version.
 Padding contract (as in the JAX package): callers pad bags in whole 16-patch
 regions; fully padded regions produce finite values that the caller zeroes
 with its region mask.
+
+`ln_relu` is the same normalisation without the pool (counterpart of
+`advmil_tpu/ops/ln_pool.py::ln_relu`): [M, D] -> [M, D], any M, the
+`POOL = false` instantiation of the same two kernels. As in the JAX package
+it is a public op with its own gradient that no model calls.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ S2 = 16          # patches per region (4x4)
 LN_EPS = 1e-6    # flax LayerNorm default
 LAUNCHES = 0      # forward kernel launches since the last reset (chip_smoke reads it)
 LAUNCHES_BWD = 0  # backward kernel launches since the last reset
+LAUNCHES_LNRELU = 0      # ln_relu forward launches
+LAUNCHES_LNRELU_BWD = 0  # ln_relu backward launches
 
 
 def ln_relu_region_mean_plain(h: torch.Tensor, scale: torch.Tensor,
@@ -38,13 +45,16 @@ def ln_relu_region_mean_plain(h: torch.Tensor, scale: torch.Tensor,
     return y.reshape(M // S2, S2, D).mean(dim=1).to(h.dtype)
 
 
-def _check(name: str, h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+def _check(name: str, h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+           pool: bool = True):
     if h.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {h.device}")
+    if h.dim() != 2:
+        raise ValueError(f"{name}: h must be [M, D], got {tuple(h.shape)}")
     M, D = h.shape
-    if M % S2 or D % 32 or not 32 <= D <= 1024:
-        raise ValueError(f"{name}: needs M % 16 == 0 and D a multiple of 32 in "
-                         f"[32, 1024], got {(M, D)}")
+    if (pool and M % S2) or D % 32 or not 32 <= D <= 1024:
+        raise ValueError(f"{name}: needs {'M % 16 == 0 and ' if pool else ''}D a "
+                         f"multiple of 32 in [32, 1024], got {(M, D)}")
     if h.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {h.dtype}")
     if scale.shape != (D,) or bias.shape != (D,):
@@ -137,3 +147,100 @@ def ln_relu_region_mean(h: torch.Tensor, scale: torch.Tensor,
     if h.device.type != "cuda":
         raise ValueError(f"ln_relu_region_mean: unsupported device {h.device}")
     return LnReluRegionMean.apply(h, scale, bias)
+
+
+# ---------------------------------------------------------------------------
+# ln_relu: the same LayerNorm -> ReLU without the region mean
+# ---------------------------------------------------------------------------
+
+def ln_relu_plain(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: f32 LN statistics like flax, output in h.dtype."""
+    hf = h.float()
+    mu = hf.mean(dim=-1, keepdim=True)
+    var = ((hf - mu) ** 2).mean(dim=-1, keepdim=True)
+    xhat = (hf - mu) * torch.rsqrt(var + LN_EPS)
+    return torch.relu(xhat * scale.float() + bias.float()).to(h.dtype)
+
+
+def ln_relu_fwd(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel: [M, D] -> [M, D] in h.dtype."""
+    global LAUNCHES_LNRELU
+    _check("ln_relu", h, scale, bias, pool=False)
+    M, D = h.shape
+    h = h.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda("ln_relu", h, scale, bias)
+    out = torch.empty_like(h)
+    if M == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(h.device):
+        rc = lib.advmil_ln_relu(h.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), M, D, _build.DTYPE_CODES[h.dtype],
+                                LN_EPS, _build.stream_of(h))
+    _build.check(rc, "ln_relu")
+    LAUNCHES_LNRELU += 1
+    return out
+
+
+def ln_relu_bwd(g: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor):
+    """Launch the backward kernel: (dh [M, D] in h.dtype, dscale [D] f32,
+    dbias [D] f32). The cotangent g [M, D] is read in h's dtype: a full-size
+    cotangent is the backward's largest read, so it is not upcast in device
+    memory (as `_lnrelu_bwd_rule` of the JAX package keeps it)."""
+    global LAUNCHES_LNRELU_BWD
+    _check("ln_relu_bwd", h, scale, bias, pool=False)
+    M, D = h.shape
+    if g.shape != h.shape:
+        raise ValueError(f"ln_relu_bwd: g {tuple(g.shape)} for h {(M, D)}")
+    g = g.to(h.dtype).contiguous()
+    h = h.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda("ln_relu_bwd", g, h, scale, bias)
+    dh = torch.empty_like(h)
+    dscale = torch.zeros(D, dtype=torch.float32, device=h.device)
+    dbias = torch.zeros(D, dtype=torch.float32, device=h.device)
+    if M == 0:
+        return dh, dscale, dbias
+    lib = _build.load()
+    nblocks = lib.advmil_ln_pool_bwd_blocks(M)
+    partials = torch.empty((2, nblocks, D), dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        rc = lib.advmil_ln_relu_bwd(
+            g.data_ptr(), h.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            dh.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(),
+            M, D, _build.DTYPE_CODES[h.dtype], LN_EPS, _build.stream_of(h))
+    _build.check(rc, "ln_relu_bwd")
+    LAUNCHES_LNRELU_BWD += 1
+    return dh, dscale, dbias
+
+
+class LnRelu(torch.autograd.Function):
+    """ln_relu on the card: kernel forward, kernel backward (counterpart of
+    the JAX package's `_lnrelu_fwd_rule` / `_lnrelu_bwd_rule`)."""
+
+    @staticmethod
+    def forward(ctx, h, scale, bias):
+        ctx.save_for_backward(h, scale, bias)
+        return ln_relu_fwd(h, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, scale, bias = ctx.saved_tensors
+        dh, dscale, dbias = ln_relu_bwd(g, h, scale, bias)
+        return dh, dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def ln_relu(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """relu(LayerNorm(h) * scale + bias) over the last axis of [M, D], LN
+    statistics in f32 with eps 1e-6, output in h.dtype (f32 or bf16). The
+    kernels take any M and any D that is a multiple of 32 from 32 to 1024.
+    Differentiable in h, scale and bias on both devices."""
+    if h.device.type == "cpu":
+        return ln_relu_plain(h, scale, bias)
+    if h.device.type != "cuda":
+        raise ValueError(f"ln_relu: unsupported device {h.device}")
+    return LnRelu.apply(h, scale, bias)

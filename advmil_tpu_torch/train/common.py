@@ -80,14 +80,18 @@ class HandlerCommon:
     def _ship(self, batch, train: bool = False) -> dict:
         """Host batch -> device tensors; feats in bf16 under precision bf16.
         A training batch also carries label, sample_mask and visible (all 1:
-        every label is visible outside semi-supervised training). Graph
-        tables go under `extra` as int32 / f32 tensors."""
+        every label is visible outside semi-supervised training). `extra` is
+        what the backbone takes as its third argument: the dict of graph
+        tables (int32 / f32 tensors) in graph mode, the region coordinates
+        [B, L, 2] in patch mode with `use_coords_pe`."""
         feats = torch.from_numpy(batch.feats).to(self.device)
         if self.cfg["precision"] in ("bf16", "bfloat16"):
             feats = feats.to(torch.bfloat16)
         out = {"feats": feats,
                "mask": torch.from_numpy(batch.mask).to(self.device)}
-        if batch.extra:
+        if "coords" in batch.extra:
+            out["extra"] = torch.from_numpy(batch.extra["coords"]).to(self.device)
+        elif batch.extra:
             out["extra"] = {k: torch.from_numpy(v).to(self.device)
                             for k, v in batch.extra.items()}
         if train:

@@ -44,6 +44,7 @@ def build_models(cfg: dict):
     dtype = compute_dtype_of(cfg["precision"])
     backbone = load_backbone(cfg["bcb_mode"], sparse_str(cfg["bcb_dims"]),
                              use_pallas=cfg["use_pallas"],
+                             use_fused_embed=cfg["use_fused_embedding"],
                              use_lnpool=cfg["use_fused_lnpool"],
                              tra_backbone=cfg["tra_backbone"],
                              flash_min_len=int(cfg["flash_min_len"]),
@@ -61,7 +62,8 @@ def build_models(cfg: dict):
                    nety_in_dim=dy.in_dim,
                    nety_hid_dims=tuple(sparse_str(dy.hid_dims)),
                    netx_dropout=dx.dropout, nety_norm=dy.norm,
-                   nety_dropout=dy.dropout,
+                   nety_dropout=dy.dropout, netx_ksize=getattr(dx, "ksize", None) or 1,
+                   netx_backbone=getattr(dx, "backbone", None) or "avgpool",
                    use_lnpool=cfg["use_fused_lnpool"], dtype=dtype)
     if cfg["disc_type"] == "prj":
         disc = PrjDiscriminator(prj_path=cfg["disc_prj_path"],

@@ -96,6 +96,21 @@ def read_patch_feature(path: str) -> np.ndarray:
                      "and .npy)")
 
 
+def read_patch_coord(path: str) -> np.ndarray:
+    """Read an [L, 2] coordinate matrix from .npy or .npz (key `coords`)."""
+    ext = osp.splitext(path)[1]
+    if ext == ".npy":
+        return np.load(path)
+    if ext == ".npz":
+        with np.load(path) as z:
+            return z["coords"]
+    if ext == ".h5":
+        raise NotImplementedError(
+            f"{path}: reading .h5 coordinates needs h5py, which the port does not "
+            "depend on; convert the `coords` dataset to .npz or .npy")
+    raise ValueError(f"Unsupported coord format {ext}")
+
+
 def read_datasplit_npz(path: str):
     data_npz = np.load(path)
     pids_train = [str(s) for s in data_npz["train_patients"]]

@@ -12,7 +12,11 @@ Phases, each printed on its own line:
      path's shapes, in f32 and bf16, with CUDA-event timings: LN-pool forward
      and backward, flash forward (p = 0 and p = 0.25), flash dQ and dK/dV
      (p = 0 and 0.25), the keep-mask kernel (bit for bit) and philox.cuh
-     against cuRAND's Philox4x32-10.
+     against cuRAND's Philox4x32-10; the plain LN+ReLU kernels and the fused
+     Dense+LN+ReLU+pool kernels (forward, parameter backward, dx) with the
+     library pair they replace (F.linear + LN-pool) timed beside them. Each
+     kernel's bound (bytes over 3.35 TB/s against operations over the peak of
+     their type) is computed from the inputs it was timed on.
   4. training: the cfg_nlst adversarial training at full width through
      `advmil_tpu_torch.main` with `test: False` (synthetic data with two long
      training bags that engage flash with dropout, seeded random init, bf16,
@@ -32,6 +36,14 @@ Phases, each printed on its own line:
  10. graph test mode from phase 8's best checkpoint.
  11. one graph training step's gradients in f32 on the card against the CPU,
      on each route.
+ 12. the phase-4 training again with `use_fused_embedding: True` (G's patch
+     embedding through the fused kernels), then test mode from its best
+     checkpoint; bags/s printed beside phase 4's, no gain claimed.
+ 13. one fused training step's gradients in f32, card against CPU, and the
+     fused step against the unfused step on the card.
+ 14. one epoch with `use_coords_pe: True` and one with `disc_netx_ksize: 3`
+     on a small split, and the ksize-3 step's f32 gradients card against CPU
+     (cuDNN's TF32 is off: phase 1).
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -60,27 +72,76 @@ def max_abs(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+SPIN_CYCLES = 1_500_000   # ~0.8 ms of device time
+
+
+def _event_times(fn, reps):
+    """ms of `reps` single calls of `fn` between CUDA events. A spin kernel
+    goes first, so that the host enqueues the call while the device is still
+    busy: the events then bracket device time alone, not the host's way to the
+    launch (0.05-0.15 ms through a Python wrapper, more than some kernels)."""
+    import torch
+    out = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return out
+
+
 def timed_pair(kernel_fn, plain_fn, reps=10):
     """Median ms of each, timed with CUDA events in turns plain, kernel,
     kernel, plain after a warm-up."""
     import torch
-
-    def run(fn):
-        out = []
-        for _ in range(reps):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            out.append(s.elapsed_time(e))
-        return out
-
     for fn in (kernel_fn, plain_fn, kernel_fn, plain_fn):
         fn()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = run(plain_fn), run(kernel_fn), run(kernel_fn), run(plain_fn)
+    p1, k1, k2, p2 = (_event_times(fn, reps) for fn in (plain_fn, kernel_fn, kernel_fn, plain_fn))
     return statistics.median(k1 + k2), statistics.median(p1 + p2)
+
+
+def timed_one(fn, reps=20):
+    """Median ms of `fn` over `reps` calls, CUDA events, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(_event_times(fn, reps))
+
+
+# published peaks of one H100 SXM: device memory, bf16 tensor cores, f32 CUDA cores
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes, ops, kind):
+    """The least ms the card could take: the bytes the function must move
+    (inputs read once, outputs written once) over the memory rate, against its
+    operations over the peak of their type (`kind`: bf16 tensor cores for
+    products of bf16 inputs, else f32)."""
+    t_b, t_o = moved_bytes / PEAK["bytes"] * 1e3, ops / PEAK[kind] * 1e3
+    return dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def away_from_relu_edge(pre, g, rows_per_g):
+    """g with the rows zeroed whose ReLU input `pre` has an element within 2e-5
+    of 0 (a few per cent of the regions): a rounding difference flips the ReLU
+    mask there, and then kernel and plain differ by the whole cotangent,
+    whichever is right."""
+    near = (pre.abs() < 2e-5).any(dim=1).reshape(-1, rows_per_g).any(dim=1)
+    return g * (~near)[:, None].to(g.dtype)
+
+
+def pre_relu(h32, scale, bias):
+    mu = h32.mean(dim=-1, keepdim=True)
+    var = ((h32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (h32 - mu) * (var + 1e-6).rsqrt() * scale + bias
 
 
 def phase_device():
@@ -144,7 +205,9 @@ def phase_kernels(card):
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
                 if D == 384:
-                    report["ln_relu_region_mean"] = dict(ms=k_ms, plain_ms=p_ms)
+                    report["ln_relu_region_mean"] = dict(
+                        ms=k_ms, plain_ms=p_ms, library_ms=None,
+                        **bound(nbytes(h, got, scale, bias), 10 * h.numel(), "f32"))
     report["ln_relu_region_mean"]["max_abs_err"] = worst
 
     # flash forward: B=1 ragged bag (last 300 keys masked) + 1 fully masked bag
@@ -175,11 +238,36 @@ def phase_kernels(card):
             f"{p_ms:.4f} ms | {card}")
         if dtype == torch.bfloat16:
             worst = err
-            report["masked_flash_attention"] = dict(ms=k_ms, plain_ms=p_ms)
+            lib_ms = timed_one(_sdpa(q1, k1, v1, m1, 0.0))
+            keys = int(m1.sum())
+            report["masked_flash_attention"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                **bound(nbytes(q1, k1, v1, q1, m1) + 4 * H * L, 4 * L * keys * H * Dh, "bf16"))
+            log(f"[3 kernel] masked_flash_attention bf16: F.scaled_dot_product_attention "
+                f"(same q, k, v, key mask, p=0) {lib_ms:.4f} ms | {card}")
     report["masked_flash_attention"]["max_abs_err"] = worst
     report.update(_kernels_training(card, dev, g))
     report.update(_kernels_graph(card, dev, g))
+    report.update(_kernels_embed(card, dev, g))
     return report
+
+
+def _sdpa(q, k, v, mask, p, dout=None):
+    """The library yardstick of the flash kernels: one
+    `F.scaled_dot_product_attention` call on the same q, k, v [B, L, H, Dh] and
+    key mask (its own dropout stream at p > 0); with `dout`, its backward
+    (dq, dk and dv in one call). Timed only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    keep = mask.bool()[:, None, None, :]
+    if dout is None:
+        return lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=keep,
+            dropout_p=p)
+    leaves = [t.detach().transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep, dropout_p=p)
+    do = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
 def _kernels_training(card, dev, g):
@@ -221,7 +309,10 @@ def _kernels_training(card, dev, g):
             if dtype == torch.bfloat16:
                 worst = max(worst, *errs)
                 if D == 384:
-                    report["ln_relu_region_mean_bwd"] = dict(ms=k_ms, plain_ms=p_ms)
+                    report["ln_relu_region_mean_bwd"] = dict(
+                        ms=k_ms, plain_ms=p_ms, library_ms=None,
+                        **bound(nbytes(h, h, scale, bias, scale, bias) + 4 * gout.numel(),
+                                25 * h.numel(), "f32"))
     report["ln_relu_region_mean_bwd"]["max_abs_err"] = worst
 
     # flash at the training shape: B=2 L=1024 H=8 Dh=48, one ragged bag and one
@@ -267,13 +358,26 @@ def _kernels_training(card, dev, g):
                 line += f" | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms"
             log(f"{line} | dq kernel {dq_ms:.4f} ms, dk/dv kernel {dkv_ms:.4f} ms, plain "
                 f"autograd bwd (dq, dk, dv) {plain_ms:.4f} ms | {card}")
+            if dtype == torch.bfloat16:
+                lib_f, lib_b = timed_one(_sdpa(q, k, v, mask, p)), \
+                    timed_one(_sdpa(q, k, v, mask, p, dout))
+                log(f"[3 kernel] flash bf16 p={p}: F.scaled_dot_product_attention forward "
+                    f"{lib_f:.4f} ms, its backward (dq, dk, dv in one call) {lib_b:.4f} ms "
+                    f"| {card}")
             if dtype == torch.bfloat16 and p:
+                # products over the real keys of the ragged bag; the masked bag needs none
+                pairs = L * int(mask.sum()) * H * Dh
+                io = nbytes(q, k, v, out)
                 report["masked_flash_attention_dropout"] = dict(
-                    ms=f_ms, plain_ms=fp_ms, max_abs_err=errs["out"])
-                report["flash_bwd_dq"] = dict(ms=dq_ms, plain_ms=plain_ms,
-                                              max_abs_err=errs["dq"])
-                report["flash_bwd_dkv"] = dict(ms=dkv_ms, plain_ms=plain_ms,
-                                               max_abs_err=max(errs["dk"], errs["dv"]))
+                    ms=f_ms, plain_ms=fp_ms, max_abs_err=errs["out"], library_ms=lib_f,
+                    **bound(io + nbytes(mask, lse), 4 * pairs, "bf16"))
+                report["flash_bwd_dq"] = dict(
+                    ms=dq_ms, plain_ms=plain_ms, max_abs_err=errs["dq"], library_ms=lib_b,
+                    **bound(io + nbytes(dout, dq, mask, lse), 6 * pairs, "bf16"))
+                report["flash_bwd_dkv"] = dict(
+                    ms=dkv_ms, plain_ms=plain_ms, max_abs_err=max(errs["dk"], errs["dv"]),
+                    library_ms=lib_b,
+                    **bound(io + nbytes(dout, dk, dv, mask, lse), 8 * pairs, "bf16"))
 
     # the keep-mask oracle, bit for bit, and philox.cuh against cuRAND
     km = philox.keep_mask(seed, B * H, L, L, 0.25, device=dev)
@@ -291,7 +395,8 @@ def _kernels_training(card, dev, g):
     log(f"[3 kernel] keep_mask [{B * H}, {L}, {L}] p=0.25: bit-exact against the torch "
         f"Philox (keep rate {rate:.5f}) | kernel {k_ms:.4f} ms | plain {p_ms:.4f} ms | "
         f"philox.cuh == curand_Philox4x32_10 on {ours.shape[0]} counters | {card}")
-    report["keep_mask"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs(km, kp))
+    report["keep_mask"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs(km, kp),
+                               library_ms=None, **bound(nbytes(km), 0, "f32"))
     return report
 
 
@@ -426,10 +531,12 @@ def _kernels_graph(card, dev, g):
             f"({gbs:.0f} GB/s of messages + dmessages), plain autograd bwd {bp_ms:.4f} ms "
             f"| {card}")
         if dtype == torch.bfloat16:
-            report["fused_knn_softmax_aggregate"] = dict(ms=f_ms, plain_ms=fp_ms,
-                                                         max_abs_err=errs[0])
-            report["fused_knn_softmax_aggregate_bwd"] = dict(ms=b_ms, plain_ms=bp_ms,
-                                                             max_abs_err=max(errs[1:]))
+            report["fused_knn_softmax_aggregate"] = dict(
+                ms=f_ms, plain_ms=fp_ms, max_abs_err=errs[0], library_ms=None,
+                **bound(nbytes(msg, em, out), 8 * msg.numel(), "f32"))
+            report["fused_knn_softmax_aggregate_bwd"] = dict(
+                ms=b_ms, plain_ms=bp_ms, max_abs_err=max(errs[1:]), library_ms=None,
+                **bound(nbytes(msg, dm, em, gout), 16 * msg.numel(), "f32"))
         del msg, dm, ref, want, plain_bwd
 
         # banded route: #14 / #15 on the node messages, then the whole op
@@ -458,11 +565,183 @@ def _kernels_graph(card, dev, g):
             f"rel); empty node exactly 0 | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | "
             f"bwd kernel {b_ms:.4f} ms, plain autograd bwd {bp_ms:.4f} ms | {card}")
         if dtype == torch.bfloat16:
-            report["banded_aggregate"] = dict(ms=f_ms, plain_ms=fp_ms,
-                                              max_abs_err=max(errs[0], werrs[0]))
-            report["banded_aggregate_bwd"] = dict(ms=b_ms, plain_ms=bp_ms,
-                                                  max_abs_err=max(errs[1:] + werrs[1:]))
+            # the core reads y once and writes out and its statistics once; the
+            # operations run over the epn band slots of every node and channel
+            report["banded_aggregate"] = dict(
+                ms=f_ms, plain_ms=fp_ms, max_abs_err=max(errs[0], werrs[0]), library_ms=None,
+                **bound(nbytes(y, offs, bm, out, *stats), 8 * epn * y.numel(), "f32"))
+            report["banded_aggregate_bwd"] = dict(
+                ms=b_ms, plain_ms=bp_ms, max_abs_err=max(errs[1:] + werrs[1:]),
+                library_ms=None,
+                **bound(nbytes(y, offs, bm, gout, dy, *stats), 16 * epn * y.numel(), "f32"))
         del out, stats, dy, ref, want, plain_bwd, whole
+    return report
+
+
+def _kernels_embed(card, dev, g):
+    """Phase 3, the patch-embedding kernels: the plain LN+ReLU (#3 / #4) and
+    the fused Dense+LN+ReLU+pool (#9 forward, #11 parameter backward, #10 dx),
+    each against its plain version, with the library pair the fusion replaces
+    (F.linear + the LN-pool kernels) timed beside it. Cotangents are zeroed
+    where a ReLU input lies within 2e-5 of 0 (`away_from_relu_edge`)."""
+    import torch
+    import torch.nn.functional as F
+    from advmil_tpu_torch.ops import fused_embed as fe
+    from advmil_tpu_torch.ops import ln_pool
+    report = {}
+
+    # #3 / #4: bounds f32 1e-5 (values and dh), bf16 2e-2 + 2e-2 rel; dscale and
+    # dbias (sums over M rows) 1e-3 + 1e-4 rel, as the LN-pool backward's
+    M = 32768
+    worst = [0.0, 0.0]
+    for D in (768, 384):
+        h32 = torch.randn(M, D, device=dev, generator=g)
+        scale = 1.0 + 0.1 * torch.randn(D, device=dev, generator=g)
+        bias = 0.1 * torch.randn(D, device=dev, generator=g)
+        g32 = away_from_relu_edge(pre_relu(h32, scale, bias),
+                                  torch.randn(M, D, device=dev, generator=g), 1)
+        for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=0.0)),
+                           (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))):
+            h = h32.to(dtype)
+            gout = away_from_relu_edge(pre_relu(h.float(), scale, bias), g32, 1).to(dtype)
+            out = ln_pool.ln_relu_fwd(h, scale, bias)
+            got = ln_pool.ln_relu_bwd(gout, h, scale, bias)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (h, scale, bias)]
+            ref = ln_pool.ln_relu_plain(*leaves)
+            plain_bwd = lambda: torch.autograd.grad(ref, leaves, gout, retain_graph=True)  # noqa: E731
+            want = plain_bwd()
+            torch.cuda.synchronize()
+            errs = [max_abs(out, ref)] + [max_abs(a, b) for a, b in zip(got, want)]
+            torch.testing.assert_close(out.float(), ref.float(), **tol)
+            torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+            for a, b in zip(got[1:], want[1:]):
+                torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+            f_ms, fp_ms = timed_pair(lambda: ln_pool.ln_relu_fwd(h, scale, bias),
+                                     lambda: ln_pool.ln_relu_plain(h, scale, bias))
+            b_ms, bp_ms = timed_pair(lambda: ln_pool.ln_relu_bwd(gout, h, scale, bias),
+                                     plain_bwd)
+            log(f"[3 kernel] ln_relu M={M} D={D} {str(dtype)[6:]}: max_abs_err out "
+                f"{errs[0]:.3e} dh {errs[1]:.3e} (f32 1e-5, bf16 2e-2 + 2e-2 rel) dscale "
+                f"{errs[2]:.3e} dbias {errs[3]:.3e} (1e-3 + 1e-4 rel) | fwd kernel {f_ms:.4f} "
+                f"ms ({2 * nbytes(h) / f_ms / 1e6:.0f} GB/s), plain {fp_ms:.4f} ms | bwd "
+                f"kernel {b_ms:.4f} ms ({3 * nbytes(h) / b_ms / 1e6:.0f} GB/s of g + h + dh), "
+                f"plain autograd bwd {bp_ms:.4f} ms | {card}")
+            if dtype == torch.bfloat16:
+                worst = [max(worst[0], errs[0]), max(worst[1], *errs[1:])]
+                if D == 768:
+                    report["ln_relu"] = dict(
+                        ms=f_ms, plain_ms=fp_ms, library_ms=None,
+                        **bound(nbytes(h, out, scale, bias), 10 * h.numel(), "f32"))
+                    report["ln_relu_bwd"] = dict(
+                        ms=b_ms, plain_ms=bp_ms, library_ms=None,
+                        **bound(nbytes(gout, h, got[0], scale, bias, scale, bias),
+                                25 * h.numel(), "f32"))
+        del h32, g32, h, gout, out, got, leaves, ref, want, plain_bwd
+    report["ln_relu"]["max_abs_err"], report["ln_relu_bwd"]["max_abs_err"] = worst
+
+    # #9 / #10 / #11 at one batch_token_budget batch (M = 32,768 patches of
+    # 1,024 features), D = 384 (G) and 128, and a ragged M (M % 64 != 0).
+    # Bounds: values f32 1e-5 + 1e-4 rel; gradients f32 2e-4 + 1e-3 rel (the
+    # JAX package's own for this op's sums over M); bf16 2e-2 + 2e-2 rel
+    # against the plain versions with the kernels' roundings.
+    K = 1024
+    worst = {"out": 0.0, "dx": 0.0, "dparams": 0.0}
+    for M, D in ((32768, 384), (32768, 128), (16 * 67, 384)):
+        x32 = torch.randn(M, K, device=dev, generator=g)
+        x32[16:32] = 0.0                                  # a fully zero (padded) region
+        w = torch.randn(K, D, device=dev, generator=g) / K ** 0.5
+        b = 0.1 * torch.randn(D, device=dev, generator=g)
+        scale = 1.0 + 0.1 * torch.randn(D, device=dev, generator=g)
+        bias = 0.1 * torch.randn(D, device=dev, generator=g)
+        g32 = torch.randn(M // 16, D, device=dev, generator=g)
+        g32[1] = 0.0                                      # as the region mask makes it
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            wt, bt = w.t().contiguous().to(dtype), b.to(dtype)     # the unfused layer's
+            pre = pre_relu(x.float() @ w.to(dtype).float() + b, scale, bias)
+            gout = away_from_relu_edge(pre, g32, 16)
+            del pre
+            out = fe.fused_region_embedding_fwd(x, w, b, scale, bias)
+            dh, dw, db, dsc, dbi = fe.fused_region_embedding_bwd_dparams(gout, x, w, b, scale,
+                                                                         bias)
+            dx = fe.fused_region_embedding_bwd_dx(dh, w)
+            ref = fe.fused_region_embedding_plain(x, w, b, scale, bias)
+            want = fe.fused_region_embedding_bwd_plain(gout, x, w, b, scale, bias)
+            torch.cuda.synchronize()
+            f32 = dtype == torch.float32
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **(dict(atol=1e-5, rtol=1e-4) if f32 else
+                                          dict(atol=2e-2, rtol=2e-2)))
+            tol = dict(atol=2e-4, rtol=1e-3) if f32 else dict(atol=2e-2, rtol=2e-2)
+            errs = {"out": max_abs(out, ref)}
+            for name, a, e in zip(("dx", "dw", "db", "dscale", "dbias"),
+                                  (dx, dw, db, dsc, dbi), want):
+                errs[name] = max_abs(a, e)
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"fused embedding {name}: non-finite values")
+                torch.testing.assert_close(a.float(), e.float(), **tol,
+                                           msg=lambda m, n=name: f"fused embedding {n}: {m}")
+            if not bool((dx[16:32] == 0).all()):
+                raise AssertionError("fused embedding: dx of the zero-cotangent region is not 0")
+            line = (f"[3 kernel] fused_region_embedding M={M} K={K} D={D} {str(dtype)[6:]}: "
+                    f"max_abs_err out {errs['out']:.3e} dx {errs['dx']:.3e} dw {errs['dw']:.3e} "
+                    f"db {errs['db']:.3e} dscale {errs['dscale']:.3e} dbias "
+                    f"{errs['dbias']:.3e} (f32 out 1e-5 + 1e-4 rel, grads 2e-4 + 1e-3 rel; "
+                    f"bf16 2e-2 + 2e-2 rel)")
+            if M < 32768:
+                log(f"{line} | ragged M | {card}")
+                continue
+            leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b, scale, bias)]
+            pout = fe.fused_region_embedding_plain(*leaves)
+            plain_bwd = lambda: torch.autograd.grad(pout, leaves, gout.to(dtype), retain_graph=True)  # noqa: E731
+            f_ms, fp_ms = timed_pair(
+                lambda: fe.fused_region_embedding_fwd(x, w, b, scale, bias),
+                lambda: fe.fused_region_embedding_plain(x, w, b, scale, bias))
+            p_ms, pp_ms = timed_pair(
+                lambda: fe.fused_region_embedding_bwd_dparams(gout, x, w, b, scale, bias),
+                plain_bwd)
+            x_ms = timed_one(lambda: fe.fused_region_embedding_bwd_dx(dh, w))
+            # the pair the switch replaces, never called on the fused path:
+            # F.linear + LN-pool forward; LN-pool backward + F.linear's backward
+            lib_f = timed_one(lambda: ln_pool.ln_relu_region_mean_fwd(F.linear(x, wt, bt),
+                                                                      scale, bias))
+            hh = F.linear(x, wt, bt)
+            lin = [t.detach().clone().requires_grad_(True) for t in (wt, bt)]
+            hl = F.linear(x, *lin)
+
+            def lib_params():
+                d = ln_pool.ln_relu_region_mean_bwd(gout, hh, scale, bias)[0]
+                return torch.autograd.grad(hl, lin, d, retain_graph=True)
+
+            lib_p = timed_one(lib_params)
+            lib_x = timed_one(lambda: torch.matmul(dh, wt))
+            prod = 2 * M * K * D
+            kind = "f32" if f32 else "bf16"
+            log(f"{line} | fwd kernel {f_ms:.4f} ms ({prod / f_ms / 1e9:.1f} TFLOP/s), plain "
+                f"{fp_ms:.4f} ms, F.linear + LN-pool kernel {lib_f:.4f} ms | dparams kernels "
+                f"(dh, dW) {p_ms:.4f} ms, plain autograd bwd (all five) {pp_ms:.4f} ms, "
+                f"LN-pool bwd kernel + F.linear's dW, db {lib_p:.4f} ms | dx kernel {x_ms:.4f} "
+                f"ms, torch.matmul {lib_x:.4f} ms | {card}")
+            if not f32:
+                worst = {"out": max(worst["out"], errs["out"]), "dx": max(worst["dx"], errs["dx"]),
+                         "dparams": max(worst["dparams"], errs["dw"], errs["db"],
+                                        errs["dscale"], errs["dbias"])}
+                if D == 384:
+                    small = nbytes(b, scale, bias)
+                    report["fused_region_embedding"] = dict(
+                        ms=f_ms, plain_ms=fp_ms, library_ms=lib_f,
+                        **bound(nbytes(x, w, out) + small, prod, kind))
+                    report["fused_region_embedding_bwd_dparams"] = dict(
+                        ms=p_ms, plain_ms=pp_ms, library_ms=lib_p,
+                        **bound(nbytes(x, w, gout, dw) + 3 * small, 2 * prod, kind))
+                    report["fused_region_embedding_bwd_dx"] = dict(
+                        ms=x_ms, plain_ms=pp_ms, library_ms=lib_x,
+                        **bound(nbytes(dh, w, dx), prod, kind))
+            del leaves, pout, plain_bwd, hh, hl, lin
+        del x32, x, out, dh, dw, dx, ref, want
+    report["fused_region_embedding"]["max_abs_err"] = worst["out"]
+    report["fused_region_embedding_bwd_dparams"]["max_abs_err"] = worst["dparams"]
+    report["fused_region_embedding_bwd_dx"]["max_abs_err"] = worst["dx"]
     return report
 
 
@@ -491,13 +770,21 @@ COUNTERS = (("ln_relu_region_mean", "ln_pool", "LAUNCHES"),
             ("fused_knn_softmax_aggregate", "segment", "LAUNCHES"),
             ("fused_knn_softmax_aggregate_bwd", "segment", "LAUNCHES_BWD"),
             ("banded_aggregate", "banded", "LAUNCHES"),
-            ("banded_aggregate_bwd", "banded", "LAUNCHES_BWD"))
+            ("banded_aggregate_bwd", "banded", "LAUNCHES_BWD"),
+            ("ln_relu", "ln_pool", "LAUNCHES_LNRELU"),
+            ("ln_relu_bwd", "ln_pool", "LAUNCHES_LNRELU_BWD"),
+            ("fused_region_embedding", "fused_embed", "LAUNCHES"),
+            ("fused_region_embedding_bwd_dx", "fused_embed", "LAUNCHES_BWD_DX"),
+            ("fused_region_embedding_bwd_dparams", "fused_embed", "LAUNCHES_BWD_DPARAMS"))
+# kernels that no model path runs: ops with their own gradient (as in the JAX
+# package) or the tests' oracle; their launches are those of phase 3
+OFF_PATH = ("keep_mask", "ln_relu", "ln_relu_bwd", "fused_region_embedding_bwd_dx")
 
 
 def _counter_modules():
-    from advmil_tpu_torch.ops import attention, banded, ln_pool, philox, segment
+    from advmil_tpu_torch.ops import attention, banded, fused_embed, ln_pool, philox, segment
     return {"ln_pool": ln_pool, "attention": attention, "philox": philox,
-            "segment": segment, "banded": banded}
+            "segment": segment, "banded": banded, "fused_embed": fused_embed}
 
 
 def reset_counters():
@@ -533,14 +820,16 @@ def make_data():
     return paths
 
 
-def _smoke_cfg(paths, **over):
+def _smoke_cfg(paths, run="run", **over):
     from advmil_tpu_torch.config import read_yaml
     cfg = read_yaml(osp.join(ROOT, "config", "cfg_nlst.yaml"))
-    run = osp.join(WORK_DIR, "run")
+    test_dir = "test_{}-{}" if run == "run" else run + "_test_{}-{}"
+    run = osp.join(WORK_DIR, run)
     cfg.update(path_patch=paths["path_patch"], path_label=paths["path_label"],
+               path_coordx5=paths["path_coordx5"],
                data_split_path=paths["data_split_path"], data_split_seed=0,
                save_path=run, test_load_path=run,
-               test_save_path=osp.join(WORK_DIR, "test_{}-{}"), device="cuda")
+               test_save_path=osp.join(WORK_DIR, test_dir), device="cuda")
     cfg.update(over)
     return cfg
 
@@ -552,30 +841,37 @@ def _read_csv_preds(path):
     return np.asarray([float(r.split(",")[-1]) for r in rows])
 
 
-def phase_train(paths):
-    """Phase 4: `exec` at full cfg_nlst width, bf16, 2 epochs, on the card."""
+def phase_train(paths, tag="4 train", run="run", fused=False):
+    """Phase 4 (and 12 with `fused`): `exec` at full cfg_nlst width, bf16, 2
+    epochs, on the card."""
     import json as _json
     import numpy as np
     from advmil_tpu_torch import main as port_main
 
-    cfg = _smoke_cfg(paths, test=False, epochs=2, es_warmup=0)
-    yaml_path = osp.join(WORK_DIR, "cfg_nlst_train.yaml")
+    cfg = _smoke_cfg(paths, run, test=False, epochs=2, es_warmup=0,
+                     use_fused_embedding=fused)
+    yaml_path = osp.join(WORK_DIR, f"cfg_nlst_train_{run}.yaml")
     _write_yaml(yaml_path, cfg)
     reset_counters()
     [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "adv"])
     launches = read_counters()
 
-    for name in ("ln_relu_region_mean", "ln_relu_region_mean_bwd", "masked_flash_attention",
-                 "masked_flash_attention_dropout", "flash_bwd_dq", "flash_bwd_dkv"):
+    need = ("ln_relu_region_mean", "ln_relu_region_mean_bwd", "masked_flash_attention",
+            "masked_flash_attention_dropout", "flash_bwd_dq", "flash_bwd_dkv")
+    if fused:
+        need += ("fused_region_embedding", "fused_region_embedding_bwd_dparams")
+    for name in need:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the training path")
+    if launches["fused_region_embedding_bwd_dx"]:
+        raise AssertionError("the dx kernel ran although the patch features need no gradient")
     run = handler.save_dir
     for f in ("train_modelG-best.ckpt", "train_modelD-best.ckpt", "train_modelG-last.ckpt",
               "train_modelD-last.ckpt", "train_metrics-best.txt"):
         if not osp.exists(osp.join(run, f)):
             raise AssertionError(f"training wrote no {f}")
     losses = []
-    with open(osp.join(run, "run_scalars.jsonl")) as f:
+    with open(osp.join(run, f"{osp.basename(run)}_scalars.jsonl")) as f:
         for line in f:
             rec = _json.loads(line)
             losses += [v for k, v in rec.items() if k.startswith("train_batch/Loss")]
@@ -595,24 +891,24 @@ def phase_train(paths):
         raise AssertionError("parameters are not on cuda")
     rates = " ".join(f"epoch {i + 1} {b / s:.2f} ({b} bags, {s:.3f} s);"
                      for i, (b, s) in enumerate(handler.train_timings))
-    log(f"[4 train] exec: {len(losses)} finite losses logged; best/last checkpoints; "
+    log(f"[{tag}] exec: {len(losses)} finite losses logged; best/last checkpoints; "
         f"C-index train {dict(metrics['train'])['cindex']:.4f} validation "
         f"{dict(metrics['validation'])['cindex']:.4f} test "
         f"{dict(metrics['test'])['cindex']:.4f}; predictions finite in [0, 1] | "
         f"launches {launches}")
-    log(f"[4 train] training bags/s: {rates}")
+    log(f"[{tag}] training bags/s: {rates}")
     return handler, launches
 
 
-def phase_slice(paths):
-    """Phase 5: test mode through the same entry point, loading the best
-    checkpoint phase 4 wrote."""
+def phase_slice(paths, tag="5 slice", run="run", fused=False):
+    """Phase 5 (and 12 with `fused`): test mode through the same entry point,
+    loading the best checkpoint the training phase wrote."""
     import numpy as np
     import torch
     from advmil_tpu_torch import main as port_main
 
-    cfg = _smoke_cfg(paths, test=True)
-    yaml_path = osp.join(WORK_DIR, "cfg_nlst_smoke.yaml")
+    cfg = _smoke_cfg(paths, run, test=True, use_fused_embedding=fused)
+    yaml_path = osp.join(WORK_DIR, f"cfg_nlst_smoke_{run}.yaml")
     _write_yaml(yaml_path, cfg)
 
     reset_counters()
@@ -645,14 +941,15 @@ def phase_slice(paths):
                and all(p.is_cuda for p in handler.disc_model.parameters()))
     if not on_cuda:
         raise AssertionError("feats / parameters are not on cuda")
-    for name in ("ln_relu_region_mean", "masked_flash_attention"):
+    for name in ("ln_relu_region_mean", "masked_flash_attention") + \
+            (("fused_region_embedding",) if fused else ()):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the test-mode path")
     (b1, s1), (b2, s2) = handler.eval_timings[-2:]
-    log(f"[5 slice] exec-test C-index {ci:.6f} (best checkpoint of phase 4) | CSV "
+    log(f"[{tag}] exec-test C-index {ci:.6f} (best checkpoint of its training phase) | CSV "
         f"{osp.relpath(csv_path, ROOT)} with {len(preds)} rows | feats bf16 and params "
         f"on cuda | launches {launches}")
-    log(f"[5 slice] eval bags/s: test-mode pass {b1 / s1:.2f} ({b1} bags, {s1:.3f} s); "
+    log(f"[{tag}] eval bags/s: test-mode pass {b1 / s1:.2f} ({b1} bags, {s1:.3f} s); "
         f"30-sample pass {b2 / s2:.2f} ({b2} bags, {s2:.3f} s)")
     return handler, launches
 
@@ -684,61 +981,135 @@ def phase_gpu_vs_cpu(handler):
             raise AssertionError(f"GPU vs CPU {k} differs by {d}")
 
 
-def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train"):
-    """Phase 7 (and 11): the gradients of one adversarial step (D phase, then
-    G phase against the frozen D) in f32 with dropout off and zero noise, on
-    the card (kernels) and on the CPU (plain versions), on `batch` (default:
-    the long training batch)."""
+def _step_grads(handler, batch, dev, **over):
+    """The gradients of one adversarial step (D phase, then G phase against
+    the frozen D) in f32 with dropout off and zero noise, with `handler`'s
+    weights, on device `dev`; `over` overrides config keys."""
     import torch
     from advmil_tpu_torch import losses
     from advmil_tpu_torch.models.layers import set_dropout_rates
     from advmil_tpu_torch.train.handler import build_models
 
+    cfg = dict(handler.cfg, precision="f32", **over)
+    G, D = build_models(cfg)
+    G.load_state_dict(handler.gen_model.state_dict())
+    D.load_state_dict(handler.disc_model.state_dict())
+    set_dropout_rates(G.to(dev), 0.0)
+    set_dropout_rates(D.to(dev), 0.0)
+    feats, mask, label, smask = (torch.from_numpy(a).to(dev) for a in (
+        batch.feats, batch.mask, batch.label, batch.sample_mask))
+    if "coords" in batch.extra:
+        extra = torch.from_numpy(batch.extra["coords"]).to(dev)
+    else:
+        extra = {k: torch.from_numpy(v).to(dev) for k, v in batch.extra.items()} or None
+    t, e = label[:, 0], label[:, 1]
+    G.eval()
+    D.train()
+    with torch.no_grad():
+        pred = G(feats, mask, extra, zero_noise=True)
+    f_real, f_fake = D(feats, (t[:, None], pred), mask)
+    losses.real_fake_loss(f_real.float(), f_fake.float(), cfg["loss_netD"],
+                          real_weight=(e == 1).float() * smask,
+                          fake_weight=smask).backward()
+    G.train()
+    D.eval()
+    D.requires_grad_(False)
+    pred = G(feats, mask, extra, zero_noise=True)
+    total = (handler.sup_loss_fn(pred[:, 0], t, e, weight=smask)
+             + cfg["loss_gan_coef"] * losses.fake_generator_loss(
+                 D(feats, pred, mask).float(), weight=smask)
+             + losses.loss_reg_l1(G.parameters(), cfg["loss_regl1_coef"]))
+    total.backward()
+    return {f"{tag}.{n}": p.grad.detach().cpu()
+            for tag, m in (("G", G), ("D", D))
+            for n, p in m.named_parameters() if p.grad is not None}
+
+
+def _compare_grads(tag, what, a, b, shape, bound_=1e-4):
+    if set(a) != set(b) or len(b) < 40:
+        raise AssertionError(f"{tag}: gradients missing on one side")
+    diffs = {k: max_abs(a[k], b[k]) for k in b}
+    worst = max(diffs, key=diffs.get)
+    scale = max(float(g.abs().max()) for g in b.values())
+    log(f"[{tag}] f32 step on batch {shape}, {what}: gradients of {len(diffs)} G and D "
+        f"tensors, max |diff| {diffs[worst]:.3e} at {worst} (bound {bound_}; largest |grad| "
+        f"{scale:.3e})")
+    if not diffs[worst] <= bound_:
+        raise AssertionError(f"{tag}, {what}: gradient {worst} differs by {diffs[worst]}")
+
+
+def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train"):
+    """Phases 7, 11, 13 and 14: one adversarial step's gradients in f32 on the
+    card (kernels) against the CPU (plain versions), on `batch` (default: the
+    long training batch)."""
     if batch is None:
         _, batcher = handler.loaders["train"]
         batch = list(batcher.epoch_batches())[-1]     # the largest bucket (1,024 regions)
-    cfg = dict(handler.cfg, precision="f32")
-    grads = {}
-    for dev in ("cuda", "cpu"):
-        G, D = build_models(cfg)
-        G.load_state_dict(handler.gen_model.state_dict())
-        D.load_state_dict(handler.disc_model.state_dict())
-        set_dropout_rates(G.to(dev), 0.0)
-        set_dropout_rates(D.to(dev), 0.0)
-        feats, mask, label, smask = (torch.from_numpy(a).to(dev) for a in (
-            batch.feats, batch.mask, batch.label, batch.sample_mask))
-        extra = {k: torch.from_numpy(v).to(dev) for k, v in batch.extra.items()} or None
-        t, e = label[:, 0], label[:, 1]
-        G.eval()
-        D.train()
-        with torch.no_grad():
-            pred = G(feats, mask, extra, zero_noise=True)
-        f_real, f_fake = D(feats, (t[:, None], pred), mask)
-        losses.real_fake_loss(f_real.float(), f_fake.float(), cfg["loss_netD"],
-                              real_weight=(e == 1).float() * smask,
-                              fake_weight=smask).backward()
-        G.train()
-        D.eval()
-        D.requires_grad_(False)
-        pred = G(feats, mask, extra, zero_noise=True)
-        total = (handler.sup_loss_fn(pred[:, 0], t, e, weight=smask)
-                 + cfg["loss_gan_coef"] * losses.fake_generator_loss(
-                     D(feats, pred, mask).float(), weight=smask)
-                 + losses.loss_reg_l1(G.parameters(), cfg["loss_regl1_coef"]))
-        total.backward()
-        grads[dev] = {f"{tag}.{n}": p.grad.detach().cpu()
-                      for tag, m in (("G", G), ("D", D))
-                      for n, p in m.named_parameters() if p.grad is not None}
-    if set(grads["cuda"]) != set(grads["cpu"]) or len(grads["cpu"]) < 40:
-        raise AssertionError("gradients missing on one device")
-    diffs = {k: max_abs(grads["cuda"][k], grads["cpu"][k]) for k in grads["cpu"]}
-    worst = max(diffs, key=diffs.get)
-    scale = max(float(g.abs().max()) for g in grads["cpu"].values())
-    log(f"[{tag}] f32 step on batch {tuple(batch.feats.shape)}: gradients of "
-        f"{len(diffs)} G and D tensors, max |diff| {diffs[worst]:.3e} at {worst} (bound "
-        f"1e-4; largest |grad| {scale:.3e})")
-    if not diffs[worst] <= 1e-4:
-        raise AssertionError(f"GPU vs CPU gradient {worst} differs by {diffs[worst]}")
+    before = read_counters()
+    grads = {dev: _step_grads(handler, batch, dev) for dev in ("cuda", "cpu")}
+    if handler.cfg["use_fused_embedding"]:
+        now = read_counters()
+        for name in ("fused_region_embedding", "fused_region_embedding_bwd_dparams"):
+            if now[name] <= before[name]:
+                raise AssertionError(f"{tag}: the step on the card did not launch {name}")
+    _compare_grads(tag, "card against CPU", grads["cuda"], grads["cpu"],
+                   tuple(batch.feats.shape))
+    return batch, grads["cuda"]
+
+
+def phase_fused_vs_unfused(handler, batch, fused_grads):
+    """Phase 13, second half: the same step on the card with the unfused
+    patch embedding (Dense + LN-pool kernels) and the same weights."""
+    before = read_counters()
+    plain = _step_grads(handler, batch, "cuda", use_fused_embedding=False)
+    now = read_counters()
+    if now["fused_region_embedding"] != before["fused_region_embedding"] or \
+            now["ln_relu_region_mean_bwd"] < before["ln_relu_region_mean_bwd"] + 2:
+        raise AssertionError("13 fused-vs-unfused: the unfused step did not run LN-pool for "
+                             "both G and D")
+    _compare_grads("13 fused-vs-unfused", "fused against unfused on the card", fused_grads,
+                   plain, tuple(batch.feats.shape))
+
+
+def make_small_split(paths):
+    """Phase 14's split: 10 training patients of 64-256 regions, the
+    validation split and the test split without its 2,048-region bag."""
+    import numpy as np
+    from advmil_tpu_torch.utils.io import read_datasplit_npz
+    train, val, test = read_datasplit_npz(paths["data_split_path"].format(0))
+    drop = {"P0000", "P0036", "P0037"}
+    root = osp.dirname(paths["path_label"])
+    np.savez(osp.join(root, "small-split-fold0.npz"),
+             train_patients=np.asarray([p for p in train if p not in drop][:10]),
+             val_patients=np.asarray(val),
+             test_patients=np.asarray([p for p in test if p not in drop]))
+    return osp.join(root, "small-split-fold{}.npz")
+
+
+def phase_option_run(paths, small_split, name, **over):
+    """Phase 14: one training epoch through `advmil_tpu_torch.main` with a
+    patch-embedding option switched on, on the small split."""
+    from advmil_tpu_torch import main as port_main
+    cfg = _smoke_cfg(paths, f"run_{name}", test=False, epochs=1, es_warmup=0,
+                     data_split_path=small_split, **over)
+    yaml_path = osp.join(WORK_DIR, f"cfg_nlst_{name}.yaml")
+    _write_yaml(yaml_path, cfg)
+    reset_counters()
+    [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "adv"])
+    launches = read_counters()
+    _check_run(handler, metrics, ("train", "validation", "test"), "train_best_pred_{}.csv")
+    batch = next(iter(handler.loaders["train"][1].epoch_batches()))
+    extra = handler._ship(batch).get("extra")
+    if over.get("use_coords_pe") and (extra is None or tuple(extra.shape) != (
+            batch.feats.shape[0], batch.feats.shape[1] // 16, 2)):
+        raise AssertionError("use_coords_pe: no [B, L, 2] region coordinates reached the model")
+    b, sec = handler.train_timings[-1]
+    used = {k: v for k, v in launches.items() if v}
+    log(f"[14 {name}] exec with {over}: C-index train {dict(metrics['train'])['cindex']:.4f} "
+        f"validation {dict(metrics['validation'])['cindex']:.4f} test "
+        f"{dict(metrics['test'])['cindex']:.4f}; predictions finite in [0, 1]; {b / sec:.2f} "
+        f"bags/s ({b} bags, {sec:.3f} s) | launches {used}")
+    return handler, launches
 
 
 def make_graph_data(paths):
@@ -862,14 +1233,18 @@ def phase_graph_test(paths, gpaths):
     return launches
 
 
+def _first_bags(b, n):
+    """The first n bags of a batch, with their extra tables."""
+    from advmil_tpu_torch.data.bags import Batch
+    return Batch(idx=b.idx[:n], feats=b.feats[:n], mask=b.mask[:n], label=b.label[:n],
+                 sample_mask=b.sample_mask[:n], extra={k: v[:n] for k, v in b.extra.items()})
+
+
 def _two_bag_batch(handler):
     """The first two bags of the training loader's first batch, with their
     graph tables (a small batch for the CPU side of phase 11)."""
-    from advmil_tpu_torch.data.bags import Batch
     _, batcher = handler.loaders["train"]
-    b = next(iter(batcher.epoch_batches()))
-    return Batch(idx=b.idx[:2], feats=b.feats[:2], mask=b.mask[:2], label=b.label[:2],
-                 sample_mask=b.sample_mask[:2], extra={k: v[:2] for k, v in b.extra.items()})
+    return _first_bags(next(iter(batcher.epoch_batches())), 2)
 
 
 SOURCES = {
@@ -891,12 +1266,20 @@ SOURCES = {
                          "advmil_tpu/ops/banded_pallas.py:89"),
     "banded_aggregate_bwd": ("advmil_tpu_torch/csrc/banded.cu",
                              "advmil_tpu/ops/banded_pallas.py:123"),
+    "ln_relu": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:198"),
+    "ln_relu_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:204"),
+    "fused_region_embedding": ("advmil_tpu_torch/csrc/fused_embed.cu",
+                               "advmil_tpu/ops/fused_embed.py:35"),
+    "fused_region_embedding_bwd_dx": ("advmil_tpu_torch/csrc/fused_embed.cu",
+                                      "advmil_tpu/ops/fused_embed.py:76"),
+    "fused_region_embedding_bwd_dparams": ("advmil_tpu_torch/csrc/fused_embed.cu",
+                                           "advmil_tpu/ops/fused_embed.py:85"),
 }
 
 
-def timed(name, fn, *args):
+def timed(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -911,7 +1294,7 @@ def main():
     timed("2 build", phase_build)
     reset_counters()
     report = timed("3 kernels", phase_kernels, card)
-    oracle_launches = read_counters()["keep_mask"]
+    kernel_phase_launches = read_counters()
     paths = timed("4 data", make_data)
     train_handler, train_launches = timed("4 train", phase_train, paths)
     handler, test_launches = timed("5 slice", phase_slice, paths)
@@ -926,6 +1309,34 @@ def main():
     for h, route in ((banded_handler, "banded"), (dense_handler, "dense")):
         timed(f"11 graph gpu-vs-cpu train {route}", phase_gpu_vs_cpu_train, h,
               _two_bag_batch(h), f"11 graph gpu-vs-cpu train {route}")
+
+    fused_handler, fused_launches = timed("12 fused train", phase_train, paths,
+                                          "12 fused train", "run_fused", True)
+    # G's embedding went through #9 / #11; #1 / #2 ran for D's tower only: with
+    # the same data and call as phase 4, every launch #1 / #2 lost is one of #9 / #11
+    for plain, fused in (("ln_relu_region_mean", "fused_region_embedding"),
+                         ("ln_relu_region_mean_bwd", "fused_region_embedding_bwd_dparams")):
+        if train_launches[plain] != fused_launches[plain] + fused_launches[fused]:
+            raise AssertionError(
+                f"{plain}: {train_launches[plain]} launches unfused, {fused_launches[plain]} "
+                f"+ {fused_launches[fused]} {fused} with use_fused_embedding")
+    rate = lambda h: " / ".join(f"{b / sec:.2f}" for b, sec in h.train_timings)  # noqa: E731
+    log(f"[12 fused train] training bags/s, epochs 1 / 2: fused {rate(fused_handler)} beside "
+        f"phase 4's unfused {rate(train_handler)} (same data, same call, one run each: no "
+        f"gain claimed) | {card}")
+    _, fused_test_launches = timed("12 fused slice", phase_slice, paths, "12 fused slice",
+                                   "run_fused", True)
+    batch, fused_grads = timed("13 fused gpu-vs-cpu train", phase_gpu_vs_cpu_train,
+                               fused_handler, None, "13 fused gpu-vs-cpu train")
+    timed("13 fused-vs-unfused", phase_fused_vs_unfused, fused_handler, batch, fused_grads)
+    small_split = make_small_split(paths)
+    _, pe_launches = timed("14 coords_pe", phase_option_run, paths, small_split, "coords_pe",
+                           use_coords_pe=True)
+    k3_handler, k3_launches = timed("14 netx_ksize3", phase_option_run, paths, small_split,
+                                    "netx_ksize3", disc_netx_ksize=3)
+    k3_batch = next(iter(k3_handler.loaders["train"][1].epoch_batches()))
+    timed("14 netx_ksize3 gpu-vs-cpu train", phase_gpu_vs_cpu_train, k3_handler,
+          _first_bags(k3_batch, 2), "14 netx_ksize3 gpu-vs-cpu train")
     shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
@@ -934,17 +1345,24 @@ def main():
     for name, (src, replaces) in SOURCES.items():
         r = report[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces}
-        if name == "keep_mask":        # the tests' oracle: no model path runs it
-            entry.update(launches=oracle_launches, main_path=False)
+        if name in OFF_PATH:
+            entry.update(launches=kernel_phase_launches[name], main_path=False)
         else:
             by_path = {"train": train_launches[name], "test_mode": test_launches[name],
                        "graph_train_banded": banded_launches[name],
                        "graph_train_dense": dense_launches[name],
-                       "graph_test_mode": graph_test_launches[name]}
+                       "graph_test_mode": graph_test_launches[name],
+                       "fused_train": fused_launches[name],
+                       "fused_test_mode": fused_test_launches[name],
+                       "coords_pe_train": pe_launches[name],
+                       "netx_ksize3_train": k3_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
-        entry.update(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
+        if entry["launches"] <= 0:
+            raise AssertionError(f"kernel {name} was never launched")
+        entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")})
         kernels.append(entry)
-    assert all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"]) for k in kernels)
+    assert all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms"))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

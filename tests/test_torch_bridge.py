@@ -103,8 +103,11 @@ def test_npz_round_trip(nlst_trees, tmp_path):
 
 def test_unknown_leaf_is_refused():
     with pytest.raises(ValueError):
-        bridge.flax_to_torch({"conv": {"kernel": np.zeros((3, 3, 4, 8))}})
+        bridge.flax_to_torch({"conv": {"kernel": np.zeros((3, 4, 8))}})   # a 1-D conv
     with pytest.raises(ValueError):
         bridge.flax_to_torch({"emb": {"embedding": np.zeros((3, 4))}})
     assert torch.equal(bridge.flax_to_torch({"n": {"scale": np.ones(2)}})["n.weight"],
                        torch.ones(2))
+    # a 2-D conv kernel is carried: flax HWIO -> torch OIHW
+    assert bridge.flax_to_torch({"c": {"kernel": np.zeros((3, 3, 4, 8))}})["c.weight"].shape \
+        == (8, 4, 3, 3)

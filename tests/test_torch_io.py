@@ -57,7 +57,7 @@ _UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True}}
 @pytest.mark.parametrize("key,value,item", [
     ("bcb_mode", "graph", "A13"), ("bcb_mode", "abmil", "A12"),
     ("semi_training", True, "A11"), ("time_format", "quantile", "A8"),
-    ("use_fused_embedding", True, "B4"), ("dp_devices", 2, "A14")])
+    ("dp_devices", 2, "A14")])
 def test_check_configs_rejects_unported_modes(key, value, item):
     tconfig.check_configs(_nlst_test_cfg())
     over = {key: value, **_UNPORTED_WITH.get((key, value), {})}
@@ -65,6 +65,21 @@ def test_check_configs_rejects_unported_modes(key, value, item):
         tconfig.check_configs(_nlst_test_cfg(**{key: value}))
     with pytest.raises(NotImplementedError, match=item):
         tconfig.check_configs(_nlst_test_cfg(**over))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("use_fused_embedding", True), ("use_coords_pe", True), ("disc_netx_ksize", 3),
+    ("disc_netx_backbone", "gapool")])
+def test_check_configs_accepts_the_patch_embedding_family(key, value):
+    """Keys the port used to reject: each is read now (the models they build
+    are held against flax in test_torch_fused.py)."""
+    cfg = _nlst_test_cfg(path_coordx5="/coords", **{key: value})
+    tconfig.check_configs(cfg)
+    assert tconfig.PORT_DEFAULTS["use_fused_embedding"] is False    # the JAX default
+    with pytest.raises(ValueError):
+        tconfig.check_configs(_nlst_test_cfg(disc_netx_backbone="maxpool"))
+    with pytest.raises(ValueError, match="path_coordx5"):
+        tconfig.check_configs(_nlst_test_cfg(use_coords_pe=True, path_coordx5=None))
 
 
 def test_check_configs_keeps_reference_checks():

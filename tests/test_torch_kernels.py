@@ -365,3 +365,164 @@ def test_gradients_reach_genconv_t_fc_and_mlp0_on_cuda(cuda_device, route):
               model.layer0_conv.mlp0.weight):
         assert p.grad is not None and torch.isfinite(p.grad).all()
         assert p.grad.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the fused patch embedding (Dense + LN + ReLU + pool) and the plain LN + ReLU
+# ---------------------------------------------------------------------------
+
+from advmil_tpu_torch.ops import fused_embed as tfe   # noqa: E402
+
+
+def _away_from_relu_edge(pre: torch.Tensor, g: torch.Tensor, rows_per_g: int) -> torch.Tensor:
+    """g with the rows zeroed whose ReLU input `pre` has an element within 2e-5
+    of 0 (a few per cent of the regions): there a rounding difference flips the
+    ReLU mask, and the gradients differ by the whole cotangent, whichever
+    version is right."""
+    near = (pre.abs() < 2e-5).any(dim=1)
+    near = near.reshape(-1, rows_per_g).any(dim=1)
+    return g * (~near)[:, None].to(g.dtype)
+
+
+def _pre_relu(h32, scale, bias):
+    mu = h32.mean(dim=-1, keepdim=True)
+    var = ((h32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (h32 - mu) * torch.rsqrt(var + 1e-6) * scale + bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("M,D", [(32768, 768), (32768, 384), (37, 64), (16, 1024)])
+def test_ln_relu_kernels_match_plain(cuda_device, M, D, dtype, tol):
+    h, scale, bias = _ln_inputs(M, D, seed=M + D, device=cuda_device)
+    h = h.to(dtype)
+    g = torch.randn(M, D, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(1)).to(dtype)
+    g = _away_from_relu_edge(_pre_relu(h.float(), scale, bias), g, 1)
+    f0, b0 = tlnp.LAUNCHES_LNRELU, tlnp.LAUNCHES_LNRELU_BWD
+    leaves = [t.detach().clone().requires_grad_(True) for t in (h, scale, bias)]
+    out = tlnp.ln_relu(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (tlnp.LAUNCHES_LNRELU, tlnp.LAUNCHES_LNRELU_BWD) == (f0 + 1, b0 + 1)
+    assert out.dtype == dtype and got[0].dtype == dtype and got[1].dtype == torch.float32
+    pl = [t.detach().clone().requires_grad_(True) for t in (h, scale, bias)]
+    ref = tlnp.ln_relu_plain(*pl)
+    want = torch.autograd.grad(ref, pl, g)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+    for a, b in zip(got[1:], want[1:]):     # sums over M rows
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=1e-3)
+
+
+def _embed_case(M, K, D, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=gen)
+    if M >= 32:
+        x[16:32] = 0.0                                  # a fully zero (padded) region
+    w = torch.randn(K, D, generator=gen) / K ** 0.5
+    b = 0.1 * torch.randn(D, generator=gen)
+    scale = 1.0 + 0.1 * torch.randn(D, generator=gen)
+    bias = 0.1 * torch.randn(D, generator=gen)
+    g = torch.randn(M // 16, D, generator=gen)
+    if M >= 32:
+        g[1] = 0.0                                      # as the region mask makes it
+    x, w, b, scale, bias, g = (t.to(device) for t in (x, w, b, scale, bias, g))
+    x = x.to(dtype)
+    h = x.float() @ w.to(dtype).float() + b
+    return x, w, b, scale, bias, _away_from_relu_edge(_pre_relu(h, scale, bias), g, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,D", [(4096, 1024, 384), (4096, 1024, 128), (16 * 67, 128, 96),
+                                   (48, 64, 32), (16, 32, 256)])
+def test_fused_embed_kernels_match_plain(cuda_device, M, K, D, dtype):
+    """#9, #11 and #10 through the autograd Function (x requires grad, so dx is
+    launched) against the plain forward and the written-out backward; ragged M
+    (M % 64 != 0), a zero region with a zero cotangent."""
+    x, w, b, scale, bias, g = _embed_case(M, K, D, dtype, cuda_device)
+    before = (tfe.LAUNCHES, tfe.LAUNCHES_BWD_DPARAMS, tfe.LAUNCHES_BWD_DX)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b, scale, bias)]
+    out = tfe.fused_region_embedding(*leaves)
+    got = torch.autograd.grad(out, leaves, g.to(dtype))
+    torch.cuda.synchronize()
+    assert (tfe.LAUNCHES, tfe.LAUNCHES_BWD_DPARAMS, tfe.LAUNCHES_BWD_DX) == \
+        tuple(n + 1 for n in before)
+    assert out.dtype == dtype and got[0].dtype == dtype
+    assert all(t.dtype == torch.float32 for t in got[1:])
+    ref = tfe.fused_region_embedding_plain(x, w, b, scale, bias)
+    want = tfe.fused_region_embedding_bwd_plain(g.to(dtype), x, w, b, scale, bias)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+        tol = dict(atol=2e-4, rtol=1e-3)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+        tol = dict(atol=2e-2, rtol=2e-2)
+    for name, a, e in zip(("dx", "dw", "db", "dscale", "dbias"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), e.float(), **tol, msg=lambda m, n=name: f"{n}: {m}")
+    if M >= 32:
+        assert bool((got[0][16:32] == 0).all())         # zero cotangent -> dx exactly 0
+
+
+@pytest.mark.cuda
+def test_fused_embed_skips_dx_and_takes_empty_input(cuda_device):
+    x, w, b, scale, bias, g = _embed_case(64, 64, 32, torch.float32, cuda_device)
+    leaves = [x] + [t.detach().clone().requires_grad_(True) for t in (w, b, scale, bias)]
+    n_dx = tfe.LAUNCHES_BWD_DX
+    tfe.fused_region_embedding(*leaves).backward(g)
+    assert tfe.LAUNCHES_BWD_DX == n_dx and leaves[1].grad is not None   # x is data: no dx
+    empty = tfe.fused_region_embedding(x[:0], w, b, scale, bias)
+    assert empty.shape == (0, 32)
+    assert tlnp.ln_relu(x[:0, :32], scale, bias).shape == (0, 32)
+
+
+@pytest.mark.cuda
+def test_fused_embed_and_ln_relu_refuse_what_the_kernels_do_not_take(cuda_device):
+    x, w, b, scale, bias, g = _embed_case(64, 64, 32, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding(x[:40], w, b, scale, bias)             # M % 16
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding(x.half(), w, b, scale, bias)           # dtype
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding(x, w.bfloat16(), b, scale, bias)       # w not f32
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding(x, w, b.cpu(), scale, bias)            # device
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding(x, w[:, :20], b[:20], scale[:20], bias[:20])   # D % 32
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding(x, torch.zeros(64, 512, device=cuda_device),
+                                   *(torch.zeros(512, device=cuda_device),) * 3)  # D > 384
+    with pytest.raises(ValueError):
+        tfe.fused_region_embedding_bwd_dparams(g[:2], x, w, b, scale, bias)       # g shape
+    with pytest.raises(ValueError):
+        tlnp.ln_relu(x[:, :20], scale[:20], bias[:20])                    # D % 32
+    with pytest.raises(ValueError):
+        tlnp.ln_relu_bwd(x[:8, :32], x[:, :32], scale, bias)              # g shape
+
+
+@pytest.mark.cuda
+def test_fused_patch_embedding_layer_on_cuda(cuda_device):
+    """The layer with `use_fused` launches #9 / #11 (not #1 / #2), gives its
+    Dense_0 and LayerNorm_0 their gradients, zeroes padded regions, and agrees
+    with the unfused layer in f32."""
+    fused = tl.init_parameters(tl.AvgPoolPatchEmbedding(64, 128, use_fused=True), seed=1)
+    plain = tl.AvgPoolPatchEmbedding(64, 128)
+    plain.load_state_dict(fused.state_dict())
+    fused.to(cuda_device), plain.to(cuda_device)
+    x = torch.randn(2, 256, 64, device=cuda_device)
+    mask = torch.ones(2, 256, device=cuda_device)
+    mask[1, 128:] = 0.0
+    x = x * mask[..., None]
+    n = (tfe.LAUNCHES, tfe.LAUNCHES_BWD_DPARAMS, tlnp.LAUNCHES, tlnp.LAUNCHES_BWD)
+    out = fused(x, mask)
+    out.square().sum().backward()
+    assert (tfe.LAUNCHES, tfe.LAUNCHES_BWD_DPARAMS, tlnp.LAUNCHES, tlnp.LAUNCHES_BWD) == \
+        (n[0] + 1, n[1] + 1, n[2], n[3])
+    assert bool((out[1, 8:] == 0).all())
+    ref = plain(x, mask)
+    ref.square().sum().backward()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    for (k, p), q in zip(fused.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(p.grad, q.grad, atol=2e-4, rtol=1e-3, msg=k)
