@@ -41,7 +41,14 @@
 //    keeps the kernel clear of spills at Dh = 48.
 // Register tiles of 8 x 2 scores keep the FMA pipes fed without tensor
 // cores; wgmma / TMA are later work.
+//
+// The dK/dV kernel here serves f32 inputs (exact f32 FMAs); for bf16 inputs
+// dK and dV come from the tensor-core kernel of flash_dkv_mma.cu, which
+// computes the same function. The dQ kernel serves both dtypes.
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_mma.cuh"
 #include "philox.cuh"
 
 namespace advmil {
@@ -333,12 +340,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ qs, const T* __restrict__ k,
   }
 }
 
-struct BwdArgs {
-  const void *qs, *k, *v, *dout, *mask, *lse, *dvec;
-  void *dq, *dk, *dv;
-  int B, Lq, Lk, H;
-};
-
 template <typename T, int DH, bool DROP>
 cudaError_t launch_dq(const BwdArgs& a, const DropoutArgs& drop, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DH>();
@@ -377,7 +378,11 @@ cudaError_t dispatch_bwd(int which, const BwdArgs& a, int Dh, const DropoutArgs&
                          cudaStream_t s) {
 #define ADVMIL_BWD_CASE(DH)                                                    \
   case DH:                                                                     \
-    return which == 0 ? launch_dq<T, DH, DROP>(a, d, s) : launch_dkv<T, DH, DROP>(a, d, s);
+    if (which == 0) return launch_dq<T, DH, DROP>(a, d, s);                    \
+    if constexpr (std::is_same<T, float>::value)                               \
+      return launch_dkv<T, DH, DROP>(a, d, s);                                 \
+    else                                                                       \
+      return cudaErrorInvalidValue;  /* bf16 dK/dV: flash_dkv_mma.cu */
   switch (Dh) {
     ADVMIL_BWD_CASE(16)
     ADVMIL_BWD_CASE(32)
@@ -399,6 +404,8 @@ int bwd_entry(int which, const BwdArgs& a, int Dh, int dropout, const DropoutArg
 int bwd_dtype(int which, const BwdArgs& a, int Dh, int dtype, int dropout,
               const DropoutArgs& d, cudaStream_t s) {
   if (dtype == kF32) return bwd_entry<float>(which, a, Dh, dropout, d, s);
+  if (dtype == kBF16 && which == 1)
+    return static_cast<int>(flash_dkv_mma(a, Dh, dropout != 0, d, s));
   if (dtype == kBF16) return bwd_entry<__nv_bfloat16>(which, a, Dh, dropout, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,7 +34,12 @@
 // l, l+32, ... in registers. Inputs are read in the JAX layout [B, L, H, Dh]
 // directly (no fold / transpose copies). Tensor cores (wgmma) and TMA are
 // later work; f32 math here also meets the f32 tolerance of the tests.
+//
+// This kernel serves f32 inputs, whose exact f32 FMAs the f32 tolerances rest
+// on. bf16 inputs go to the tensor-core kernel of flash_fwd_mma.cu, which
+// computes the same function.
 #include "common.cuh"
+#include "flash_mma.cuh"
 #include "philox.cuh"
 
 namespace advmil {
@@ -225,10 +230,11 @@ cudaError_t dispatch_drop(const void* q, const void* k, const void* v,
 
 // q [B, Lq, H, Dh] (pre-scaled), k / v [B, Lk, H, Dh], all f32 or all bf16 and
 // contiguous; mask [B, Lk] f32; out [B, Lq, H, Dh] in q's dtype; lse [B*H, Lq]
-// f32. Dh in {16, 32, 48, 64, 128}; B*H <= 65535; Lq, Lk > 0 (checked by the
-// Python wrapper). dropout != 0 applies attention dropout with the Philox
-// stream of (seed_hi << 32 | seed_lo): keep when bits >= threshold, kept
-// probabilities scaled by inv_keep. Returns cudaGetLastError() after launch.
+// f32. Dh in {16, 32, 48, 64, 128}; B*H <= 65535; 0 < Lq, 0 < Lk <= 2^19
+// (checked by the Python wrapper). dropout != 0 applies attention dropout
+// with the Philox stream of (seed_hi << 32 | seed_lo): keep when bits >=
+// threshold, kept probabilities scaled by inv_keep. Returns
+// cudaGetLastError() after launch.
 extern "C" int advmil_flash_fwd(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, void* lse, int B,
                                 int Lq, int Lk, int H, int Dh, int dtype,
@@ -240,7 +246,6 @@ extern "C" int advmil_flash_fwd(const void* q, const void* k, const void* v,
     return advmil::dispatch_drop<float>(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, d,
                                         dropout != 0, s);
   if (dtype == advmil::kBF16)
-    return advmil::dispatch_drop<__nv_bfloat16>(q, k, v, mask, out, lse, B, Lq, Lk, H,
-                                                 Dh, d, dropout != 0, s);
+    return advmil::flash_fwd_mma(q, k, v, mask, out, lse, B, Lq, Lk, H, Dh, dropout != 0, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

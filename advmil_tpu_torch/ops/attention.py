@@ -17,6 +17,14 @@ Dispatch: a CPU tensor goes to the plain `masked_attention_reference`
 (autograd through plain torch ops, with the materialised Philox mask); a
 CUDA tensor goes to `MaskedFlashAttention`, whose forward is
 `csrc/flash_fwd.cu` and whose backward is `csrc/flash_bwd.cu`, or raises.
+For bf16 tensors the forward and the dK/dV backward are the tensor-core
+kernels of `csrc/flash_fwd_mma.cu` and `csrc/flash_dkv_mma.cu` (behind the
+same entry points): they round P, the dropped P and dS to bf16 before the
+second products, skip key tiles without a real key, and compute the same
+function. `masked_attention_rounded` is the plain version with those
+roundings: the oracle that holds the bf16 kernels within `rounded_tol`, a
+bound far below the values compared, where the plain version can only hold
+them within bf16's own noise.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ LAUNCHES_DROPOUT = 0   # of those, the launches with dropout_p > 0
 LAUNCHES_DQ = 0    # dQ backward kernel launches
 LAUNCHES_DKV = 0   # dK/dV backward kernel launches
 HEAD_DIMS = (16, 32, 48, 64, 128)   # head dims the kernels are built for
+MAX_KEYS = 1 << 19   # the bf16 forward lists its key tiles in shared memory (csrc/mma.cuh)
 
 
 def masked_attention_reference(q, k, v, mask, dropout_p: float = 0.0,
@@ -51,6 +60,60 @@ def masked_attention_reference(q, k, v, mask, dropout_p: float = 0.0,
         probs = probs * drop.reshape(B, H, Lq, -1).to(probs.dtype) \
             * (1.0 / (1.0 - dropout_p))
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def masked_attention_rounded(q, k, v, mask, dout=None, dropout_p: float = 0.0,
+                             seed: int | None = None):
+    """(out, dq, dk, dv) of the plain version (`out` alone without `dout`),
+    forward and backward written out in f32 with the roundings of the bf16
+    kernels: q is scaled in its own dtype; the forward rounds the
+    unnormalised, dropped weights exp(s - m) to bf16 before P.V while the row
+    sum adds them unrounded; the dK/dV backward rounds the dropped
+    probabilities and dS to bf16 before its second products; dQ keeps dS in
+    f32 (its kernel computes in f32). Masked keys are selected to 0, so a
+    fully masked bag gives exact zeros."""
+    B, Lq, H, Dh = q.shape
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(Dh)
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(f32)
+
+    qs, kf, vf = (q * scale).to(f32), k.to(f32), v.to(f32)
+    real = mask[:, None, None, :] > 0
+    zero = torch.zeros((), dtype=f32, device=q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    m = s.masked_fill(~real, -1e30).amax(dim=-1, keepdim=True)
+    p_un = torch.where(real, torch.exp(s - m), zero)
+    l = p_un.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    keep = 1.0
+    if dropout_p > 0.0:
+        keep = philox.keep_mask_plain(seed, B * H, Lq, k.shape[1], dropout_p,
+                                      device=q.device).reshape(B, H, Lq, -1) \
+            * (1.0 / (1.0 - dropout_p))
+    out = torch.einsum("bhqk,bkhd->bqhd", rnd(p_un * keep), vf) / l.permute(0, 2, 1, 3)
+    out = out.to(q.dtype)
+    if dout is None:
+        return out
+    do = dout.to(q.dtype).to(f32)
+    p = torch.where(real, torch.exp(s - (m + torch.log(l))), zero)
+    dvec = (do * out.to(f32)).sum(-1).permute(0, 2, 1)[..., None]     # [B, H, Lq, 1]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vf) * keep - dvec)
+    dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p * keep), do)
+    dk = torch.einsum("bhqk,bqhd->bkhd", rnd(ds), qs)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return out, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rounded_tol(want) -> dict:
+    """atol / rtol of a bf16 kernel's result against `want`, the same tensor
+    from `masked_attention_rounded`. Relative: one bf16 ulp of the result (at
+    most 2^-7) and a little. Absolute: the kernel's exponentials (ex2.approx)
+    differ from the oracle's in the last bits, so here and there a P or dS
+    rounds the other way, by one ulp of an element that may be among the
+    largest; the result then moves by that ulp times an operand, which is
+    bounded by one bf16 ulp of the largest result: 2^-7 of it."""
+    return dict(atol=float(want.detach().abs().max()) / 128, rtol=1e-2)
 
 
 def _dropout_args(dropout_p: float, seed: int | None) -> list:
@@ -78,7 +141,7 @@ def _check(name, q, k, v, mask):
         raise ValueError(f"{name}: q, k, v must all be f32 or all bf16")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {Dh} not in {HEAD_DIMS}")
-    if B * H > 65535 or Lq == 0 or Lk == 0:
+    if B * H > 65535 or Lq == 0 or Lk == 0 or Lk > MAX_KEYS:
         raise ValueError(f"{name}: unsupported sizes B*H={B * H}, Lq={Lq}, Lk={Lk}")
 
 

@@ -11,8 +11,10 @@ Phases, each printed on its own line:
   3. kernels against their plain PyTorch versions on the card, at the main
      path's shapes, in f32 and bf16, with CUDA-event timings: LN-pool forward
      and backward, flash forward (p = 0 and p = 0.25), flash dQ and dK/dV
-     (p = 0 and 0.25), the keep-mask kernel (bit for bit) and philox.cuh
-     against cuRAND's Philox4x32-10; the plain LN+ReLU kernels and the fused
+     (p = 0 and 0.25) with their TFLOP/s over the real keys, a mask with a
+     fully masked key tile inside a bag, the p = 0 forward at L = 4,096 and
+     against the plain attention branch at L = 256 .. 2,048, the keep-mask
+     kernel (bit for bit) and philox.cuh against cuRAND's Philox4x32-10; the plain LN+ReLU kernels and the fused
      Dense+LN+ReLU+pool kernels (forward, parameter backward, dx) with the
      library pair they replace (F.linear + LN-pool) timed beside them. Each
      kernel's bound (bytes over 3.35 TB/s against operations over the peak of
@@ -228,28 +230,135 @@ def phase_kernels(card):
             raise AssertionError("flash: the fully masked bag is not exactly 0")
         if not bool(torch.isfinite(lse[:H]).all()):
             raise AssertionError("flash: non-finite lse on the ragged bag")
+        tight = _flash_tight((got,), (q, k, v, mask), "flash forward") if dtype == torch.bfloat16 \
+            else ""
         q1, k1, v1, m1 = q[:1], k[:1], v[:1], mask[:1]
         k_ms, p_ms = timed_pair(lambda: attn.flash_attention_fwd(q1, k1, v1, m1),
                                 lambda: attn.masked_attention_reference(q1, k1, v1, m1))
-        tflops = 4 * L * L * H * Dh / k_ms / 1e9
+        keys = int(m1.sum())
+        tflops = 4 * L * keys * H * Dh / k_ms / 1e9
         log(f"[3 kernel] masked_flash_attention B=1 L={L} H={H} Dh={Dh} "
-            f"{str(dtype)[6:]}: max_abs_err {err:.3e} (atol {atol}); fully masked "
-            f"bag exactly 0 | kernel {k_ms:.4f} ms ({tflops:.2f} TFLOP/s) | plain "
-            f"{p_ms:.4f} ms | {card}")
+            f"{str(dtype)[6:]}: max_abs_err {err:.3e} (atol {atol}){tight}; fully masked "
+            f"bag exactly 0 | kernel {k_ms:.4f} ms ({tflops:.2f} TFLOP/s over the {keys} "
+            f"real keys) | plain {p_ms:.4f} ms | {card}")
         if dtype == torch.bfloat16:
             worst = err
             lib_ms = timed_one(_sdpa(q1, k1, v1, m1, 0.0))
-            keys = int(m1.sum())
             report["masked_flash_attention"] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 **bound(nbytes(q1, k1, v1, q1, m1) + 4 * H * L, 4 * L * keys * H * Dh, "bf16"))
             log(f"[3 kernel] masked_flash_attention bf16: F.scaled_dot_product_attention "
                 f"(same q, k, v, key mask, p=0) {lib_ms:.4f} ms | {card}")
     report["masked_flash_attention"]["max_abs_err"] = worst
+    _kernels_flash_extra(card, dev, g)
     report.update(_kernels_training(card, dev, g))
     report.update(_kernels_graph(card, dev, g))
     report.update(_kernels_embed(card, dev, g))
     return report
+
+
+def _flash_tight(got, args, what):
+    """Hold the bf16 flash kernels' results `got` (out, or out, dq, dk, dv)
+    against the plain version that rounds where they round
+    (`masked_attention_rounded(*args)`), within `rounded_tol` (2^-7 of the
+    largest value + 1e-2 relative): a bound far below the values themselves,
+    which a dropped term of dS or a few keys never visited exceed, while the
+    plain version's bound is as large as bf16's noise on the scores. Returns
+    the errors for the log line."""
+    import torch
+    from advmil_tpu_torch.ops import attention as attn
+    want = attn.masked_attention_rounded(*args)
+    want = (want,) if len(got) == 1 else want
+    errs = []
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        tol = attn.rounded_tol(b)
+        errs.append(f"{name} {max_abs(a, b):.3e} (atol {tol['atol']:.1e})")
+        torch.testing.assert_close(a.float(), b.float(), **tol,
+                                   msg=lambda m, n=name: f"{what}, {n} against the rounding "
+                                                         f"plain version: {m}")
+    return (f", against the plain version with the kernels' roundings {' '.join(errs)}, rtol "
+            f"{tol['rtol']}")
+
+
+def _kernels_flash_extra(card, dev, g):
+    """Phase 3, flash beyond the two main shapes: a mask with a fully masked
+    64-key tile inside a real bag (the kernels skip such tiles), forward and
+    backward, f32 and bf16; the p = 0 forward at L = 4,096; and the bf16
+    forward against the plain branch of `_masked_mha` at the bucket lengths
+    around the gate, one batch_token_budget batch (2,048 regions) each."""
+    import torch
+    from advmil_tpu_torch.models import layers
+    from advmil_tpu_torch.ops import attention as attn
+    H, Dh = 8, 48
+
+    B, L = 2, 1024
+    q32, k32, v32, do32 = (torch.randn(B, L, H, Dh, device=dev, generator=g) for _ in range(4))
+    mask = torch.ones(B, L, device=dev)
+    mask[0, 256:320] = 0.0            # key tile 4 of bag 0 holds no real key
+    mask[0, 500:530] = 0.0            # a hole across a tile edge
+    mask[0, L - 100:] = 0.0
+    mask[1] = 0.0
+    for p in (0.0, 0.25):
+        sd = 0xC0FFEE if p else None
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            q, k, v, dout = (t.to(dtype) for t in (q32, k32, v32, do32))
+            out, lse = attn.flash_attention_fwd(q, k, v, mask, p, sd)
+            got = (out,) + attn.flash_attention_bwd(q, k, v, mask, out, lse, dout, p, sd)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            ref = attn.masked_attention_reference(*leaves, mask, p, sd)
+            want = (ref,) + torch.autograd.grad(ref, leaves, dout)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                errs.append(f"{name} {max_abs(a, b):.3e}")
+                torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                           msg=lambda m, n=name: f"flash interior tile {n}: {m}")
+                if not bool((a[1] == 0).all()):
+                    raise AssertionError(f"flash interior tile {name}: masked bag not exactly 0")
+            for name, a in (("dk", got[2]), ("dv", got[3])):
+                if not bool((a[0][mask[0] == 0] == 0).all()):
+                    raise AssertionError(f"flash interior tile {name}: a masked key's gradient "
+                                         "is not exactly 0")
+            tight = _flash_tight(got, (q, k, v, mask, dout, p, sd), "flash interior tile") \
+                if dtype == torch.bfloat16 else ""
+            log(f"[3 kernel] flash, a fully masked key tile inside the bag, B={B} L={L} H={H} "
+                f"Dh={Dh} p={p} {str(dtype)[6:]}: max_abs_err {' '.join(errs)} (atol {tol}, rtol "
+                f"{tol}){tight}; masked keys' dk, dv and the masked bag exactly 0 | {card}")
+
+    L = 4096
+    q, k, v = (torch.randn(1, L, H, Dh, device=dev, generator=g).bfloat16() for _ in range(3))
+    mask = torch.ones(1, L, device=dev)
+    mask[0, L - 300:] = 0.0
+    got, _ = attn.flash_attention_fwd(q, k, v, mask)
+    want = attn.masked_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0.0)
+    tight = _flash_tight((got,), (q, k, v, mask), "flash forward L=4096")
+    k_ms, p_ms = timed_pair(lambda: attn.flash_attention_fwd(q, k, v, mask),
+                            lambda: attn.masked_attention_reference(q, k, v, mask), reps=5)
+    lib_ms = timed_one(_sdpa(q, k, v, mask, 0.0))
+    keys = int(mask.sum())
+    log(f"[3 kernel] masked_flash_attention B=1 L={L} H={H} Dh={Dh} bfloat16: max_abs_err "
+        f"{max_abs(got, want):.3e} (atol 0.02){tight} | kernel {k_ms:.4f} ms "
+        f"({4 * L * keys * H * Dh / k_ms / 1e9:.2f} TFLOP/s over the {keys} real keys) | plain "
+        f"{p_ms:.4f} ms | F.scaled_dot_product_attention {lib_ms:.4f} ms | {card}")
+    del q, k, v, got, want
+
+    drop = layers.Dropout(0.25).eval()
+    parts = []
+    for L in (256, 512, 1024, 2048):
+        B = 2048 // L
+        q, k, v = (torch.randn(B, L, H, Dh, device=dev, generator=g).bfloat16() for _ in range(3))
+        mask = torch.ones(B, L, device=dev)
+        mask[:, L - L // 8:] = 0.0
+        k_ms, p_ms = timed_pair(
+            lambda: attn.flash_attention_fwd(q, k, v, mask),
+            lambda: layers._masked_mha(q, k, v, mask, False, 0, drop, None))
+        parts.append(f"L={L} (B={B}) kernel {k_ms:.4f} ms, plain branch {p_ms:.4f} ms")
+    log(f"[3 kernel] flash forward (bf16, p=0) against the plain branch of _masked_mha, one "
+        f"2,048-region batch per bucket length, H={H} Dh={Dh}, 1/8 of each bag masked: "
+        f"{'; '.join(parts)} | the gates stay at 2,048 (eval) and flash_min_len (training) | "
+        f"{card}")
 
 
 def _sdpa(q, k, v, mask, p, dout=None):
@@ -345,19 +454,25 @@ def _kernels_training(card, dev, g):
                 torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
                 if not bool((a[1] == 0).all()):
                     raise AssertionError(f"flash {name}: fully masked bag not exactly 0")
+            tight = _flash_tight((out, dq, dk, dv), (q, k, v, mask, dout, p, sd),
+                                 f"flash p={p}") if dtype == torch.bfloat16 else ""
             dq_ms, plain_ms = timed_pair(lambda: attn.flash_bwd_dq(ops, p, sd), plain_bwd)
             dkv_ms, _ = timed_pair(lambda: attn.flash_bwd_dkv(ops, p, sd), plain_bwd)
+            # products over the real keys of the ragged bag; the masked bag needs none
+            pairs = L * int(mask.sum()) * H * Dh
             line = (f"[3 kernel] flash B={B} L={L} H={H} Dh={Dh} p={p} {str(dtype)[6:]}: "
                     f"max_abs_err out {errs['out']:.3e} dq {errs['dq']:.3e} dk "
-                    f"{errs['dk']:.3e} dv {errs['dv']:.3e} (atol {tol}, rtol {tol}); "
+                    f"{errs['dk']:.3e} dv {errs['dv']:.3e} (atol {tol}, rtol {tol}){tight}; "
                     f"fully masked bag exactly 0")
             if p:
                 f_ms, fp_ms = timed_pair(
                     lambda: attn.flash_attention_fwd(q, k, v, mask, p, sd),
                     lambda: attn.masked_attention_reference(q, k, v, mask, p, sd))
-                line += f" | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms"
-            log(f"{line} | dq kernel {dq_ms:.4f} ms, dk/dv kernel {dkv_ms:.4f} ms, plain "
-                f"autograd bwd (dq, dk, dv) {plain_ms:.4f} ms | {card}")
+                line += (f" | fwd kernel {f_ms:.4f} ms ({4 * pairs / f_ms / 1e9:.2f} TFLOP/s), "
+                         f"plain {fp_ms:.4f} ms")
+            log(f"{line} | dq kernel {dq_ms:.4f} ms ({6 * pairs / dq_ms / 1e9:.2f} TFLOP/s), "
+                f"dk/dv kernel {dkv_ms:.4f} ms ({8 * pairs / dkv_ms / 1e9:.2f} TFLOP/s over the "
+                f"real keys), plain autograd bwd (dq, dk, dv) {plain_ms:.4f} ms | {card}")
             if dtype == torch.bfloat16:
                 lib_f, lib_b = timed_one(_sdpa(q, k, v, mask, p)), \
                     timed_one(_sdpa(q, k, v, mask, p, dout))
@@ -365,8 +480,6 @@ def _kernels_training(card, dev, g):
                     f"{lib_f:.4f} ms, its backward (dq, dk, dv in one call) {lib_b:.4f} ms "
                     f"| {card}")
             if dtype == torch.bfloat16 and p:
-                # products over the real keys of the ragged bag; the masked bag needs none
-                pairs = L * int(mask.sum()) * H * Dh
                 io = nbytes(q, k, v, out)
                 report["masked_flash_attention_dropout"] = dict(
                     ms=f_ms, plain_ms=fp_ms, max_abs_err=errs["out"], library_ms=lib_f,
@@ -1251,12 +1364,15 @@ SOURCES = {
     "ln_relu_region_mean": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:67"),
     "ln_relu_region_mean_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu",
                                 "advmil_tpu/ops/ln_pool.py:74"),
-    "masked_flash_attention": ("advmil_tpu_torch/csrc/flash_fwd.cu",
+    # the bf16 kernels, which the main path runs; the f32 ones and the C entry
+    # points are in flash_fwd.cu / flash_bwd.cu
+    "masked_flash_attention": ("advmil_tpu_torch/csrc/flash_fwd_mma.cu",
                                "advmil_tpu/ops/attention.py:85"),
-    "masked_flash_attention_dropout": ("advmil_tpu_torch/csrc/flash_fwd.cu",
+    "masked_flash_attention_dropout": ("advmil_tpu_torch/csrc/flash_fwd_mma.cu",
                                        "advmil_tpu/ops/attention.py:85"),
     "flash_bwd_dq": ("advmil_tpu_torch/csrc/flash_bwd.cu", "advmil_tpu/ops/attention.py:138"),
-    "flash_bwd_dkv": ("advmil_tpu_torch/csrc/flash_bwd.cu", "advmil_tpu/ops/attention.py:182"),
+    "flash_bwd_dkv": ("advmil_tpu_torch/csrc/flash_dkv_mma.cu",
+                      "advmil_tpu/ops/attention.py:182"),
     "keep_mask": ("advmil_tpu_torch/csrc/keep_mask.cu", "advmil_tpu/ops/attention.py:505"),
     "fused_knn_softmax_aggregate": ("advmil_tpu_torch/csrc/knn_agg.cu",
                                     "advmil_tpu/ops/segment.py:162"),

@@ -59,10 +59,24 @@ def _attn_inputs(B, L, H, Dh, device, seed=11):
     return q, k, v, mask
 
 
+def _assert_tight(got, q, k, v, mask, dout=None, p=0.0, seed=None):
+    """The bf16 tensor-core kernels against the plain version that rounds
+    where they round, within `rounded_tol`: far below the values compared,
+    so a dropped term of dS or a few keys never visited fail here, where the
+    bounds against the plain version (as large as bf16's noise on the scores)
+    can let them pass."""
+    want = tattn.masked_attention_rounded(q, k, v, mask, dout, p, seed)
+    want = (want,) if dout is None else want
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), **tattn.rounded_tol(b),
+                                   msg=lambda m, n=name: f"{n} (rounding plain version): {m}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,L,H,Dh", [(2, 2048, 8, 48), (3, 130, 2, 16),
-                                      (2, 77, 4, 64), (2, 200, 1, 128)])
+                                      (2, 77, 4, 64), (2, 200, 1, 128),
+                                      (2, 150, 3, 32), (2, 4096, 2, 48)])
 def test_flash_kernel_matches_plain(cuda_device, B, L, H, Dh, dtype, tol):
     q, k, v, mask = _attn_inputs(B, L, H, Dh, cuda_device)
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -73,6 +87,8 @@ def test_flash_kernel_matches_plain(cuda_device, B, L, H, Dh, dtype, tol):
     want = tattn.masked_attention_reference(q, k, v, mask)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0.0)
     assert torch.all(out[-1] == 0) and lse.shape == (B * H, L)
+    if dtype == torch.bfloat16:
+        _assert_tight((out,), q, k, v, mask)
     # lse of the ragged bag is the log-sum-exp of its unmasked logits
     qs = (q[0] * (1.0 / Dh ** 0.5)).float()      # pre-scaled in its dtype
     s = torch.einsum("qhd,khd->hqk", qs, k[0].float())
@@ -164,7 +180,8 @@ def _flash_grads(fn, q, k, v, mask, dout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [0.0, 0.25])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("B,L,H,Dh", [(2, 1024, 8, 48), (3, 130, 2, 16), (2, 77, 4, 64)])
+@pytest.mark.parametrize("B,L,H,Dh", [(2, 1024, 8, 48), (3, 130, 2, 16), (2, 77, 4, 64),
+                                      (2, 200, 1, 128), (2, 150, 3, 32), (2, 4096, 2, 48)])
 def test_flash_fwd_bwd_kernels_match_plain(cuda_device, B, L, H, Dh, dtype, tol, p):
     q, k, v, mask = _attn_inputs(B, L, H, Dh, cuda_device)
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -183,6 +200,80 @@ def test_flash_fwd_bwd_kernels_match_plain(cuda_device, B, L, H, Dh, dtype, tol,
         assert a.dtype == dtype and torch.isfinite(a).all(), name
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
         assert torch.all(a[-1] == 0), f"{name}: fully masked bag not exactly 0"
+    if dtype == torch.bfloat16:
+        _assert_tight(got, q, k, v, mask, dout, p, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.25])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,Lq,Lk,H,Dh", [(2, 300, 1024, 4, 48), (3, 1000, 200, 2, 32),
+                                          (2, 1, 65, 2, 16),
+                                          (4, 1024, 300, 8, 16)])   # a grid of 8-warp blocks
+def test_flash_kernels_skip_masked_tiles_and_take_lq_unlike_lk(cuda_device, B, Lq, Lk, H, Dh,
+                                                               dtype, tol, p):
+    """Lq != Lk, and a mask with holes: a whole 64-key tile masked inside bag
+    0 (the bf16 kernels skip it), a hole across a tile edge, a ragged tail and
+    a fully masked last bag. Forward, dQ and dK/dV launched directly."""
+    g = torch.Generator().manual_seed(Lq + Lk)
+    q, dout = (torch.randn(B, Lq, H, Dh, generator=g).to(cuda_device).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, Lk, H, Dh, generator=g).to(cuda_device).to(dtype) for _ in range(2))
+    mask = torch.ones(B, Lk, device=cuda_device)
+    if Lk >= 200:
+        mask[0, 64:128] = 0.0
+        mask[0, 185:197] = 0.0
+    mask[0, Lk - 7:] = 0.0
+    mask[-1] = 0.0
+    seed = 0xABCD_EF01_2345 if p else None
+    out, lse = tattn.flash_attention_fwd(q, k, v, mask, p, seed)
+    got = (out,) + tattn.flash_attention_bwd(q, k, v, mask, out, lse, dout, p, seed)
+    torch.cuda.synchronize()
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = tattn.masked_attention_reference(*leaves, mask, p, seed)
+    want = (ref.detach(),) + torch.autograd.grad(ref, leaves, dout)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+        assert torch.all(a[-1] == 0), f"{name}: fully masked bag not exactly 0"
+    for name, a in (("dk", got[2]), ("dv", got[3])):
+        assert torch.all(a[0][mask[0] == 0] == 0), f"{name}: a masked key got a gradient"
+    if dtype == torch.bfloat16:
+        _assert_tight(got, q, k, v, mask, dout, p, seed)
+    assert torch.all(lse[-H:] == lse[-1, -1]) and float(lse[-1, -1]) < -9e29   # -1e30 + log(1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.25, 0.6])
+def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p):
+    """The tensor-core forward and dK/dV kernels share one Philox block between
+    lanes; their keep bits must still be the per-element stream that the dQ
+    kernel regenerates and the keep-mask kernel writes. With q = 0 the
+    probabilities are uniform, so with v = I the forward's output, and with
+    dO = I the dV of the same backward call that runs the dQ kernel, are
+    non-zero exactly where an element was kept."""
+    BH, L, Dh, seed = 6, 128, 128, (1 << 63) + 99
+    q = torch.zeros(1, L, BH, Dh, device=cuda_device, dtype=torch.bfloat16)
+    eye = torch.eye(L, device=cuda_device, dtype=torch.bfloat16)[None, :, None, :].expand(
+        1, L, BH, Dh).contiguous()
+    mask = torch.ones(1, L, device=cuda_device)
+    keep = tphilox.keep_mask(seed, BH, L, L, p, device=cuda_device)          # [BH, Lq, Lk]
+    before = (tattn.LAUNCHES_DROPOUT, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV)
+    out, lse = tattn.flash_attention_fwd(q, eye, eye, mask, p, seed)
+    dq, dk, dv = tattn.flash_attention_bwd(q, eye, eye, mask, out, lse, eye, p, seed)
+    torch.cuda.synchronize()
+    assert (tattn.LAUNCHES_DROPOUT, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV) == tuple(
+        n + 1 for n in before)
+    assert torch.equal((out[0] != 0).permute(1, 0, 2).float(), keep)        # out[i, h, j]
+    assert torch.equal((dv[0] != 0).permute(1, 2, 0).float(), keep)         # dv[j, h, i]
+    _assert_tight((out, dq, dk, dv), q, eye, eye, mask, eye, p, seed)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_more_keys_than_the_tile_list_holds(cuda_device):
+    q = torch.zeros(1, 1, 1, 16, device=cuda_device)
+    k = torch.zeros(1, tattn.MAX_KEYS + 1, 1, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        tattn.flash_attention_fwd(q, k, k, torch.ones(1, tattn.MAX_KEYS + 1, device=cuda_device))
 
 
 @pytest.mark.cuda
