@@ -42,11 +42,9 @@
 // Register tiles of 8 x 2 scores keep the FMA pipes fed without tensor
 // cores; wgmma / TMA are later work.
 //
-// The dK/dV kernel here serves f32 inputs (exact f32 FMAs); for bf16 inputs
-// dK and dV come from the tensor-core kernel of flash_dkv_mma.cu, which
-// computes the same function. The dQ kernel serves both dtypes.
-#include <type_traits>
-
+// The kernels here serve f32 inputs (exact f32 FMAs); for bf16 inputs dQ and
+// dK / dV come from the tensor-core kernels of flash_dq_mma.cu and
+// flash_dkv_mma.cu, which compute the same function.
 #include "common.cuh"
 #include "flash_mma.cuh"
 #include "philox.cuh"
@@ -378,11 +376,7 @@ cudaError_t dispatch_bwd(int which, const BwdArgs& a, int Dh, const DropoutArgs&
                          cudaStream_t s) {
 #define ADVMIL_BWD_CASE(DH)                                                    \
   case DH:                                                                     \
-    if (which == 0) return launch_dq<T, DH, DROP>(a, d, s);                    \
-    if constexpr (std::is_same<T, float>::value)                               \
-      return launch_dkv<T, DH, DROP>(a, d, s);                                 \
-    else                                                                       \
-      return cudaErrorInvalidValue;  /* bf16 dK/dV: flash_dkv_mma.cu */
+    return which == 0 ? launch_dq<T, DH, DROP>(a, d, s) : launch_dkv<T, DH, DROP>(a, d, s);
   switch (Dh) {
     ADVMIL_BWD_CASE(16)
     ADVMIL_BWD_CASE(32)
@@ -404,9 +398,9 @@ int bwd_entry(int which, const BwdArgs& a, int Dh, int dropout, const DropoutArg
 int bwd_dtype(int which, const BwdArgs& a, int Dh, int dtype, int dropout,
               const DropoutArgs& d, cudaStream_t s) {
   if (dtype == kF32) return bwd_entry<float>(which, a, Dh, dropout, d, s);
-  if (dtype == kBF16 && which == 1)
-    return static_cast<int>(flash_dkv_mma(a, Dh, dropout != 0, d, s));
-  if (dtype == kBF16) return bwd_entry<__nv_bfloat16>(which, a, Dh, dropout, d, s);
+  if (dtype == kBF16)  // the tensor-core kernels of flash_dq_mma.cu / flash_dkv_mma.cu
+    return static_cast<int>(which == 0 ? flash_dq_mma(a, Dh, dropout != 0, d, s)
+                                       : flash_dkv_mma(a, Dh, dropout != 0, d, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -77,39 +77,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Lk * H + hh) * DH;
   const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Lk * H + hh) * DH;
   const float* mb = mask + static_cast<size_t>(b) * Lk;
-  const int key_tiles = (Lk + kTile - 1) / kTile;
 
   load_tile_async<DH, kBQ, kThreads>(sQ, qb, row_stride, q0, Lq, tid);
   cp_async_commit();
 
-  // Which key tiles hold a real key (1), or 64 of them (2): flags first, then
-  // warp 0 compacts them in place into the list of tiles to visit, entry
-  // 2 * tile + (all 64 keys real).
-#pragma unroll 4  // independent loads: let them overlap
-  for (int tt = warp; tt < key_tiles; tt += NW) {
-    const int c0 = tt * kTile + lane, c1 = c0 + 32;
-    const bool v0 = c0 < Lk && mb[c0] > 0.f;
-    const bool v1 = c1 < Lk && mb[c1] > 0.f;
-    const unsigned any = __ballot_sync(0xffffffffu, v0 || v1);
-    const unsigned all = __ballot_sync(0xffffffffu, v0 && v1);
-    if (lane == 0) sList[tt] = any ? (all == 0xffffffffu ? 2 : 1) : 0;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int base = 0; base < key_tiles; base += 32) {
-      const int tt = base + lane;
-      const int flag = tt < key_tiles ? sList[tt] : 0;
-      __syncwarp();
-      const unsigned act = __ballot_sync(0xffffffffu, flag != 0);
-      if (flag) sList[n + __popc(act & ((1u << lane) - 1u))] = 2 * tt + (flag == 2 ? 1 : 0);
-      n += __popc(act);
-      __syncwarp();
-    }
-    if (lane == 0) sCount = n;
-  }
-  __syncthreads();
-  const int n_active = sCount;
+  const int n_active = active_key_tiles<NW>(mb, Lk, sList, &sCount, warp, lane);
 
   // One commit per call, with or without a tile, so that the group count
   // seen by cp_async_wait is the same in every thread and iteration.

@@ -19,6 +19,10 @@ cudaError_t flash_fwd_mma(const void* q, const void* k, const void* v, const voi
                           void* out, void* lse, int B, int Lq, int Lk, int H, int Dh,
                           bool dropout, const DropoutArgs& d, cudaStream_t stream);
 
+// flash_dq_mma.cu: bf16 qs, k, v, dout; f32 mask, lse, dvec, dq.
+cudaError_t flash_dq_mma(const BwdArgs& a, int Dh, bool dropout, const DropoutArgs& d,
+                         cudaStream_t stream);
+
 // flash_dkv_mma.cu: bf16 qs, k, v, dout; f32 mask, lse, dvec, dk, dv.
 cudaError_t flash_dkv_mma(const BwdArgs& a, int Dh, bool dropout, const DropoutArgs& d,
                           cudaStream_t stream);

@@ -11,7 +11,8 @@
 //
 // Every matrix product is computed here: bf16 on the tensor cores through
 // nvcuda::wmma (m16n16k16, f32 accumulators), f32 with plain FMAs (true f32,
-// no TF32). No library GEMM is called.
+// no TF32); the bf16 dx product is the wgmma kernel of fused_embed_dx.cu. No
+// library GEMM is called.
 //
 // What bounds them on the card (M = 32,768, K = 1,024, D = 384, bf16): the
 // forward does 25.8 GFLOP, 26 us at 989 TFLOP/s, against 68 MB or 20 us at
@@ -676,7 +677,7 @@ cudaError_t launch_dw(const void* x, const void* dh, void* dw, void* partials, i
 }
 
 // dx [M, K] in x's type = dh W^T: b(k = column of dh, n = row of W) = W[n * D + k],
-// W already in x's type.
+// W already in x's type. Built for f32 only: bf16 goes to dx_wgmma.
 template <typename T>
 cudaError_t launch_dx(const void* dh, const void* w, void* dx, int M, int K, int D,
                       cudaStream_t stream) {
@@ -693,6 +694,10 @@ cudaError_t launch_dx(const void* dh, const void* w, void* dx, int M, int K, int
                                             static_cast<size_t>(D), D);
   return cudaGetLastError();
 }
+
+// fused_embed_dx.cu: dx = dh W^T for bf16 operands, on wgmma.
+cudaError_t dx_wgmma(const void* dh, const void* w, void* dx, int M, int K, int D,
+                     cudaStream_t stream);
 
 }  // namespace fe
 }  // namespace advmil
@@ -769,7 +774,6 @@ extern "C" int advmil_fused_embed_dx(const void* dh, const void* w, void* dx, in
                                      int D, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == advmil::kF32) return advmil::fe::launch_dx<float>(dh, w, dx, M, K, D, s);
-  if (dtype == advmil::kBF16)
-    return advmil::fe::launch_dx<__nv_bfloat16>(dh, w, dx, M, K, D, s);
+  if (dtype == advmil::kBF16) return advmil::fe::dx_wgmma(dh, w, dx, M, K, D, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,7 +27,7 @@ namespace advmil {
 
 constexpr int kTile = 64;          // rows of a tile in the cp.async ring
 constexpr int kMmaStages = 3;      // cp.async ring depth
-// A forward block has 4 or 8 warps, each owning 16 query rows. 8 warps halve
+// A forward or dQ block has 4 or 8 warps, each owning 16 query rows. 8 warps halve
 // the times the K and V tiles cross from L2 to shared memory, which is what
 // bounds a large grid; 4 warps give a small grid twice the blocks to spread.
 // The launcher takes 8 warps once the 4-warp grid has this many blocks per SM.
@@ -97,6 +97,42 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* tile,
     const __nv_bfloat16* src = ok ? base + static_cast<size_t>(r0 + r) * row_stride + c * 8 : base;
     cp_async_16(tile + r * tile_pitch<DH>() + c * 8, src, ok);
   }
+}
+
+// Which key tiles of 64 hold a real key: warp by warp the flags (1: a real
+// key, 2: 64 of them) go into `list` (one int per key tile, shared memory),
+// then warp 0 compacts them in place into the tiles to visit, in order, as
+// entries 2 * tile + (all 64 keys real). Returns their number through `count`
+// (one int of shared memory). Every thread of a block of NW warps calls it.
+template <int NW>
+__device__ __forceinline__ int active_key_tiles(const float* __restrict__ mb, int Lk, int* list,
+                                                int* count, int warp, int lane) {
+  const int key_tiles = (Lk + kTile - 1) / kTile;
+#pragma unroll 4  // independent loads: let them overlap
+  for (int tt = warp; tt < key_tiles; tt += NW) {
+    const int c0 = tt * kTile + lane, c1 = c0 + 32;
+    const bool v0 = c0 < Lk && mb[c0] > 0.f;
+    const bool v1 = c1 < Lk && mb[c1] > 0.f;
+    const unsigned any = __ballot_sync(0xffffffffu, v0 || v1);
+    const unsigned all = __ballot_sync(0xffffffffu, v0 && v1);
+    if (lane == 0) list[tt] = any ? (all == 0xffffffffu ? 2 : 1) : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < key_tiles; base += 32) {
+      const int tt = base + lane;
+      const int flag = tt < key_tiles ? list[tt] : 0;
+      __syncwarp();
+      const unsigned act = __ballot_sync(0xffffffffu, flag != 0);
+      if (flag) list[n + __popc(act & ((1u << lane) - 1u))] = 2 * tt + (flag == 2 ? 1 : 0);
+      n += __popc(act);
+      __syncwarp();
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
 }
 
 // Four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of

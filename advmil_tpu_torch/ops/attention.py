@@ -17,14 +17,14 @@ Dispatch: a CPU tensor goes to the plain `masked_attention_reference`
 (autograd through plain torch ops, with the materialised Philox mask); a
 CUDA tensor goes to `MaskedFlashAttention`, whose forward is
 `csrc/flash_fwd.cu` and whose backward is `csrc/flash_bwd.cu`, or raises.
-For bf16 tensors the forward and the dK/dV backward are the tensor-core
-kernels of `csrc/flash_fwd_mma.cu` and `csrc/flash_dkv_mma.cu` (behind the
-same entry points): they round P, the dropped P and dS to bf16 before the
-second products, skip key tiles without a real key, and compute the same
-function. `masked_attention_rounded` is the plain version with those
-roundings: the oracle that holds the bf16 kernels within `rounded_tol`, a
-bound far below the values compared, where the plain version can only hold
-them within bf16's own noise.
+For bf16 tensors the forward, the dQ and the dK/dV backward are the
+tensor-core kernels of `csrc/flash_fwd_mma.cu`, `csrc/flash_dq_mma.cu` and
+`csrc/flash_dkv_mma.cu` (behind the same entry points): they round P, the
+dropped P and dS to bf16 before the second products, skip key tiles without
+a real key, and compute the same function. `masked_attention_rounded` is the
+plain version with those roundings: the oracle that holds the bf16 kernels
+within `rounded_tol`, a bound far below the values compared, where the plain
+version can only hold them within bf16's own noise.
 """
 from __future__ import annotations
 
@@ -68,10 +68,9 @@ def masked_attention_rounded(q, k, v, mask, dout=None, dropout_p: float = 0.0,
     forward and backward written out in f32 with the roundings of the bf16
     kernels: q is scaled in its own dtype; the forward rounds the
     unnormalised, dropped weights exp(s - m) to bf16 before P.V while the row
-    sum adds them unrounded; the dK/dV backward rounds the dropped
-    probabilities and dS to bf16 before its second products; dQ keeps dS in
-    f32 (its kernel computes in f32). Masked keys are selected to 0, so a
-    fully masked bag gives exact zeros."""
+    sum adds them unrounded; the backward rounds the dropped probabilities
+    (dV) and dS (dK and dQ) to bf16 before its second products. Masked keys
+    are selected to 0, so a fully masked bag gives exact zeros."""
     B, Lq, H, Dh = q.shape
     f32 = torch.float32
     scale = 1.0 / math.sqrt(Dh)
@@ -101,7 +100,7 @@ def masked_attention_rounded(q, k, v, mask, dout=None, dropout_p: float = 0.0,
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vf) * keep - dvec)
     dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p * keep), do)
     dk = torch.einsum("bhqk,bqhd->bkhd", rnd(ds), qs)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", rnd(ds), kf) * scale
     return out, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -18,8 +18,9 @@ in W's dtype and db / dscale / dbias in their parameters' dtypes.
 Dispatch: a CPU tensor goes to `fused_region_embedding_plain` (autograd
 through plain torch ops); a CUDA tensor goes to `FusedRegionEmbedding`, whose
 forward and backward are the hand-written kernels of `csrc/fused_embed.cu`
-(the matrix products included: no library GEMM on this path), or raises. There
-is no fallback from the kernels to the plain version.
+and, for the bf16 dx product, `csrc/fused_embed_dx.cu` (the matrix products
+included: no library GEMM on this path), or raises. There is no fallback
+from the kernels to the plain version.
 
 On an H100 (M = 32,768, K = 1,024, D = 384, bf16) the forward is bound by its
 25.8 GFLOP (26 us at 989 TFLOP/s; its 68 MB take 20 us at 3.35 TB/s). One
@@ -30,8 +31,10 @@ backward of the parameters runs the row kernel once more, which writes dh
 [M, D] in x's dtype (25 MB in bf16) with per-block partials of db / dscale /
 dbias, then the tiled product dW = x^T dh in slabs over M; dx = dh W^T reads
 the same dh and is launched only when x needs a gradient (never in the
-models: the patch features are data). All sums across blocks are per-block
-partials added in a fixed order: no atomics, the same gradients every run.
+models: the patch features are data); in bf16 it is a wgmma kernel (TMA
+loads, a resident 128-row dh panel, W streamed through an mbarrier ring).
+All sums across blocks are per-block partials added in a fixed order: no
+atomics, the same gradients every run.
 
 Padding contract (as in the JAX package): callers pad bags in whole 16-patch
 regions; fully padded regions produce finite values that the caller zeroes
@@ -63,15 +66,11 @@ def fused_region_embedding_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tens
     return y.reshape(M // S2, S2, -1).mean(dim=1).to(x.dtype)
 
 
-def fused_region_embedding_bwd_plain(g, x, w, b, scale, bias):
-    """The backward written out with the kernels' roundings, (dx, dW, db,
-    dscale, dbias): dh is rounded to x's dtype before the two products dW =
-    x^T dh and dx = dh W^T, as the TPU kernels round it (`dh.astype(x.dtype)`),
-    and db is summed from the unrounded dh. In f32 it equals autograd through
-    `fused_region_embedding_plain`; in bf16 autograd keeps dh in f32, so this
-    is the version the bf16 kernels are held against."""
-    wt = w.to(x.dtype).float()
-    h = x.float() @ wt + b.float()
+def fused_region_embedding_dh_plain(g, x, w, b, scale, bias):
+    """(dh, xhat, gy) in f32 for the cotangent g [M / 16, D]: the gradient at
+    h = x W + b, the normalised rows and the cotangent behind the ReLU, as the
+    row kernel forms them in backward mode (dh not yet rounded to x's dtype)."""
+    h = x.float() @ w.to(x.dtype).float() + b.float()
     mu = h.mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(((h - mu) ** 2).mean(dim=-1, keepdim=True) + LN_EPS)
     xhat = (h - mu) * inv
@@ -80,10 +79,40 @@ def fused_region_embedding_bwd_plain(g, x, w, b, scale, bias):
     gx = gy * scale.float()
     dh = inv * (gx - gx.mean(dim=-1, keepdim=True)
                 - xhat * (gx * xhat).mean(dim=-1, keepdim=True))
-    dh_r = dh.to(x.dtype).float()
-    return ((dh_r @ wt.t()).to(x.dtype), (x.float().t() @ dh_r).to(w.dtype),
+    return dh, xhat, gy
+
+
+def fused_region_embedding_bwd_plain(g, x, w, b, scale, bias):
+    """The backward written out with the kernels' roundings, (dx, dW, db,
+    dscale, dbias): dh is rounded to x's dtype before the two products dW =
+    x^T dh and dx = dh W^T, as the TPU kernels round it (`dh.astype(x.dtype)`),
+    and db is summed from the unrounded dh. In f32 it equals autograd through
+    `fused_region_embedding_plain`; in bf16 autograd keeps dh in f32, so this
+    is the version the bf16 kernels are held against."""
+    dh, xhat, gy = fused_region_embedding_dh_plain(g, x, w, b, scale, bias)
+    dh_r = dh.to(x.dtype)
+    return (fused_region_embedding_bwd_dx_plain(dh_r, w),
+            (x.float().t() @ dh_r.float()).to(w.dtype),
             dh.sum(dim=0).to(b.dtype), (gy * xhat).sum(dim=0).to(scale.dtype),
             gy.sum(dim=0).to(bias.dtype))
+
+
+def fused_region_embedding_bwd_dx_plain(dh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx = dh W^T from a given dh, as the dx kernel forms it: W rounded to
+    dh's dtype, the sum over D in f32, one rounding to dh's dtype. Held against
+    the kernel's own dh it differs from the kernel only by the order of the
+    f32 sum and that last rounding (`dx_tol`). The oracle of the tests and the
+    card checks; no model path calls it."""
+    return (dh.float() @ w.to(dh.dtype).float().t()).to(dh.dtype)
+
+
+def dx_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 dx kernel against
+    `fused_region_embedding_bwd_dx_plain` on the same dh: one bf16 ulp
+    relative (2^-7: a sum that lands on the other side of a rounding edge),
+    and 2^-8 of the largest |dx| absolute for sums that cancel. A tile that
+    loses a 64-wide chunk of D is off by a share of the values themselves."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 256)
 
 
 def _check(name: str, x, w, b, scale, bias):

@@ -12,13 +12,15 @@ Phases, each printed on its own line:
      path's shapes, in f32 and bf16, with CUDA-event timings: LN-pool forward
      and backward, flash forward (p = 0 and p = 0.25), flash dQ and dK/dV
      (p = 0 and 0.25) with their TFLOP/s over the real keys, a mask with a
-     fully masked key tile inside a bag, the p = 0 forward at L = 4,096 and
-     against the plain attention branch at L = 256 .. 2,048, the keep-mask
-     kernel (bit for bit) and philox.cuh against cuRAND's Philox4x32-10; the plain LN+ReLU kernels and the fused
-     Dense+LN+ReLU+pool kernels (forward, parameter backward, dx) with the
-     library pair they replace (F.linear + LN-pool) timed beside them. Each
-     kernel's bound (bytes over 3.35 TB/s against operations over the peak of
-     their type) is computed from the inputs it was timed on.
+     fully masked key tile inside a bag, the p = 0 forward and the backward at
+     L = 4,096 (8-warp blocks), the forward against the plain attention branch
+     at L = 256 .. 2,048, the keep-mask kernel (bit for bit) and philox.cuh
+     against cuRAND's Philox4x32-10; the plain LN+ReLU kernels and the fused
+     Dense+LN+ReLU+pool kernels (forward, parameter backward, dx; dx also
+     against the plain product of the kernel's own dh) with the library pair
+     they replace (F.linear + LN-pool) timed beside them. Each kernel's bound
+     (bytes over 3.35 TB/s against operations over the peak of their type) is
+     computed from the inputs it was timed on.
   4. training: the cfg_nlst adversarial training at full width through
      `advmil_tpu_torch.main` with `test: False` (synthetic data with two long
      training bags that engage flash with dropout, seeded random init, bf16,
@@ -283,7 +285,8 @@ def _flash_tight(got, args, what):
 def _kernels_flash_extra(card, dev, g):
     """Phase 3, flash beyond the two main shapes: a mask with a fully masked
     64-key tile inside a real bag (the kernels skip such tiles), forward and
-    backward, f32 and bf16; the p = 0 forward at L = 4,096; and the bf16
+    backward, f32 and bf16; the p = 0 forward and the backward (p = 0 and
+    0.25) at L = 4,096, where forward and dQ run 8-warp blocks; and the bf16
     forward against the plain branch of `_masked_mha` at the bucket lengths
     around the gate, one batch_token_budget batch (2,048 regions) each."""
     import torch
@@ -342,7 +345,36 @@ def _kernels_flash_extra(card, dev, g):
         f"{max_abs(got, want):.3e} (atol 0.02){tight} | kernel {k_ms:.4f} ms "
         f"({4 * L * keys * H * Dh / k_ms / 1e9:.2f} TFLOP/s over the {keys} real keys) | plain "
         f"{p_ms:.4f} ms | F.scaled_dot_product_attention {lib_ms:.4f} ms | {card}")
-    del q, k, v, got, want
+    del got, want
+    # the backward at L = 4,096: the grid is large enough for dQ's 8-warp blocks
+    dout = torch.randn(1, L, H, Dh, device=dev, generator=g).bfloat16()
+    for p in (0.0, 0.25):
+        sd = 0xBEEF if p else None
+        out, lse = attn.flash_attention_fwd(q, k, v, mask, p, sd)
+        ops = attn.flash_bwd_inputs(q, k, v, mask, out, lse, dout)
+        got = (out,) + attn.flash_attention_bwd(q, k, v, mask, out, lse, dout, p, sd)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        ref = attn.masked_attention_reference(*leaves, mask, p, sd)
+        want = (ref,) + torch.autograd.grad(ref, leaves, dout)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            errs.append(f"{name} {max_abs(a, b):.3e}")
+            torch.testing.assert_close(a.float(), b.float(), atol=3e-2, rtol=3e-2,
+                                       msg=lambda m, n=name: f"flash L=4096 {n}: {m}")
+        del leaves, ref, want
+        tight = _flash_tight(got, (q, k, v, mask, dout, p, sd), f"flash L=4096 p={p}")
+        dq_ms = timed_one(lambda: attn.flash_bwd_dq(ops, p, sd), reps=10)
+        dkv_ms = timed_one(lambda: attn.flash_bwd_dkv(ops, p, sd), reps=10)
+        lib_ms = timed_one(_sdpa(q, k, v, mask, p, dout), reps=10)
+        pairs = L * keys * H * Dh
+        log(f"[3 kernel] flash backward B=1 L={L} H={H} Dh={Dh} p={p} bfloat16: max_abs_err "
+            f"{' '.join(errs)} (atol 0.03, rtol 0.03){tight} | dq kernel {dq_ms:.4f} ms "
+            f"({6 * pairs / dq_ms / 1e9:.2f} TFLOP/s), dk/dv kernel {dkv_ms:.4f} ms "
+            f"({8 * pairs / dkv_ms / 1e9:.2f} TFLOP/s over the {keys} real keys) | "
+            f"F.scaled_dot_product_attention's backward (dq, dk, dv) {lib_ms:.4f} ms | {card}")
+        del out, lse, ops, got
+    del q, k, v, dout
 
     drop = layers.Dropout(0.25).eval()
     parts = []
@@ -796,11 +828,19 @@ def _kernels_embed(card, dev, g):
                                            msg=lambda m, n=name: f"fused embedding {n}: {m}")
             if not bool((dx[16:32] == 0).all()):
                 raise AssertionError("fused embedding: dx of the zero-cotangent region is not 0")
+            # dx against the plain product of the kernel's own dh: only the order
+            # of the f32 sum and the last rounding differ (2^-7 rel + 2^-8 of max |dx|)
+            own = fe.fused_region_embedding_bwd_dx_plain(dh, w)
+            own_tol = fe.dx_tol(own)
+            torch.testing.assert_close(dx.float(), own.float(), **own_tol,
+                                       msg=lambda m: f"fused embedding dx against its own dh: {m}")
             line = (f"[3 kernel] fused_region_embedding M={M} K={K} D={D} {str(dtype)[6:]}: "
                     f"max_abs_err out {errs['out']:.3e} dx {errs['dx']:.3e} dw {errs['dw']:.3e} "
                     f"db {errs['db']:.3e} dscale {errs['dscale']:.3e} dbias "
                     f"{errs['dbias']:.3e} (f32 out 1e-5 + 1e-4 rel, grads 2e-4 + 1e-3 rel; "
-                    f"bf16 2e-2 + 2e-2 rel)")
+                    f"bf16 2e-2 + 2e-2 rel); dx against the plain product of its own dh "
+                    f"{max_abs(dx, own):.3e} (atol {own_tol['atol']:.1e}, rtol 2^-7)")
+            del own
             if M < 32768:
                 log(f"{line} | ragged M | {card}")
                 continue
@@ -1365,12 +1405,12 @@ SOURCES = {
     "ln_relu_region_mean_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu",
                                 "advmil_tpu/ops/ln_pool.py:74"),
     # the bf16 kernels, which the main path runs; the f32 ones and the C entry
-    # points are in flash_fwd.cu / flash_bwd.cu
+    # points are in flash_fwd.cu / flash_bwd.cu / fused_embed.cu
     "masked_flash_attention": ("advmil_tpu_torch/csrc/flash_fwd_mma.cu",
                                "advmil_tpu/ops/attention.py:85"),
     "masked_flash_attention_dropout": ("advmil_tpu_torch/csrc/flash_fwd_mma.cu",
                                        "advmil_tpu/ops/attention.py:85"),
-    "flash_bwd_dq": ("advmil_tpu_torch/csrc/flash_bwd.cu", "advmil_tpu/ops/attention.py:138"),
+    "flash_bwd_dq": ("advmil_tpu_torch/csrc/flash_dq_mma.cu", "advmil_tpu/ops/attention.py:138"),
     "flash_bwd_dkv": ("advmil_tpu_torch/csrc/flash_dkv_mma.cu",
                       "advmil_tpu/ops/attention.py:182"),
     "keep_mask": ("advmil_tpu_torch/csrc/keep_mask.cu", "advmil_tpu/ops/attention.py:505"),
@@ -1386,7 +1426,7 @@ SOURCES = {
     "ln_relu_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:204"),
     "fused_region_embedding": ("advmil_tpu_torch/csrc/fused_embed.cu",
                                "advmil_tpu/ops/fused_embed.py:35"),
-    "fused_region_embedding_bwd_dx": ("advmil_tpu_torch/csrc/fused_embed.cu",
+    "fused_region_embedding_bwd_dx": ("advmil_tpu_torch/csrc/fused_embed_dx.cu",
                                       "advmil_tpu/ops/fused_embed.py:76"),
     "fused_region_embedding_bwd_dparams": ("advmil_tpu_torch/csrc/fused_embed.cu",
                                            "advmil_tpu/ops/fused_embed.py:85"),

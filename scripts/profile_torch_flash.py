@@ -6,21 +6,25 @@
     python3 scripts/profile_torch_flash.py --mutants
 
 Builds the kernels, prints the ptxas lines (registers, spills, shared memory)
-of the flash kernels, holds the bf16 forward and dK/dV kernels against the
-plain version (within the card tests' bounds) and against the plain version
-that rounds where they round (within `rounded_tol`) over ragged shapes, every
-head dim, Lq != Lk, masks with holes and fully masked tiles, checks the
-dropout keep bits of both kernels bit for bit against the keep-mask kernel,
-and then times forward, dQ and dK/dV at the main path's shapes (CUDA events
-behind a spin kernel, medians) beside `F.scaled_dot_product_attention` on the
-same inputs, with the achieved TFLOP/s over the real keys. JSON lines go to
-stdout and to `chiprun_out/profile_torch_flash*.jsonl`.
+of the flash kernels, holds the bf16 forward, dQ and dK/dV kernels against
+the plain version (within the card tests' bounds) and against the plain
+version that rounds where they round (within `rounded_tol`) over ragged
+shapes, every head dim, Lq != Lk, masks with holes and fully masked tiles,
+checks the dropout keep bits of all three kernels bit for bit against the
+keep-mask kernel, and then times forward, dQ and dK/dV at the main path's
+shapes (CUDA events behind a spin kernel, medians) beside
+`F.scaled_dot_product_attention` and its backward on the same inputs, with
+the achieved TFLOP/s over the real keys, and the device time of each kernel
+behind one forward and one backward call from torch.profiler. JSON lines go
+to stdout and to `chiprun_out/profile_torch_flash*.jsonl`.
 
 `--variant` times a build with one textual change (`VARIANTS`): the kernels
 without their exponentials or without their mma.sync products (wrong results,
-so the checks are skipped), or with 8-warp forward blocks always / never.
-`--mutants` builds each fault of `MUTANTS` (a real key tile skipped, a term of
-dS dropped) and reports which of the two bounds catches it at the main path's
+so the checks are skipped), with 8-warp forward and dQ blocks always / never,
+or with dQ's 8-warp blocks one to an SM (no register cap). `--mutants` builds
+each fault of `MUTANTS` (a real key tile skipped, a term of dS dropped in
+dK/dV, the same term dropped in dQ at every second key and at one key in
+sixteen) and reports which of the two bounds catches it at the main path's
 shapes; it fails unless `rounded_tol` catches every one. Variants and mutants
 are built from a copy of the sources under `chiprun_out/`, removed afterwards:
 the package's own sources and build directory are not touched.
@@ -61,13 +65,28 @@ VARIANTS = {
       "mma.sync"""),
     "wide": ("mma.cuh", "kWideMinBlocksPerSm = 3;", "kWideMinBlocksPerSm = 0;"),
     "narrow": ("mma.cuh", "kWideMinBlocksPerSm = 3;", "kWideMinBlocksPerSm = 1000000;"),
+    # dQ's 8-warp blocks one to an SM: 255 registers and no spills in place of 128 and two blocks
+    "dq_wide_one_block": ("flash_dq_mma.cu", "__launch_bounds__(32 * NW, DH > 64 ? 1 : 2)",
+                          "__launch_bounds__(32 * NW, (DH > 64 || NW == 8) ? 1 : 2)"),
 }
+_DQ_DS = ("s[j][1] = p1 * (d1 - dv0);\n      s[j][2] = p2 * (d2 - dv1);\n"
+          "      s[j][3] = p3 * (d3 - dv1);")
 MUTANTS = {
-    # the forward never visits key tile 2 (keys 128..191), real or not
-    "fwd_skips_a_real_tile": ("flash_fwd_mma.cu", "sList[tt] = any ?", "sList[tt] = any && tt != 2 ?"),
+    # the forward and dQ never visit key tile 2 (keys 128..191), real or not
+    "fwd_skips_a_real_tile": ("mma.cuh", "list[tt] = any ?", "list[tt] = any && tt != 2 ?"),
     # dK/dV: dS loses its - dvec term for every second query of the upper key rows
     "dkv_drops_a_term_of_ds": ("flash_dkv_mma.cu", "dp[j][1] = p1 * (d1 - dvv.y);",
                                "dp[j][1] = p1 * d1;"),
+    # dQ: dS loses its - dvec term for every second key (large enough for both bounds) ...
+    "dq_drops_a_term_of_ds": ("flash_dq_mma.cu", _DQ_DS,
+                              "s[j][1] = p1 * d1;\n      s[j][2] = p2 * (d2 - dv1);\n"
+                              "      s[j][3] = p3 * d3;"),
+    # ... and for one key in sixteen (one column of each A fragment of dS K)
+    "dq_drops_a_term_of_ds_at_one_key_in_16": (
+        "flash_dq_mma.cu", _DQ_DS,
+        "s[j][1] = p1 * (d1 - ((j % 2 == 0 && t == 0) ? 0.f : dv0));\n"
+        "      s[j][2] = p2 * (d2 - dv1);\n"
+        "      s[j][3] = p3 * (d3 - ((j % 2 == 0 && t == 0) ? 0.f : dv1));"),
 }
 
 
@@ -152,7 +171,7 @@ def check_case(B, Lq, Lk, H, Dh, kind, p, dev):
     ref = attn.masked_attention_reference(*leaves, mask, p, seed)
     want = torch.autograd.grad(ref, leaves, do)
     rnd = attn.masked_attention_rounded(q, k, v, mask, do, p, seed)
-    errs, errs_r, ok, tight_ok, worst = {}, {}, True, True, 0.0
+    errs, errs_r, shares, ok, tight_ok = {}, {}, {}, True, True
     # the card tests' bounds: forward at p = 0 2e-2 abs; else 3e-2 abs + rel
     for name, a, b_, c in (("out", out, ref.detach(), rnd[0]), ("dq", dq, want[0], rnd[1]),
                            ("dk", dk, want[1], rnd[2]), ("dv", dv, want[2], rnd[3])):
@@ -162,13 +181,13 @@ def check_case(B, Lq, Lk, H, Dh, kind, p, dev):
         tol, rtol = (2e-2, 0.0) if name == "out" and not p else (3e-2, 3e-2)
         ok = ok and bool(torch.isfinite(a).all()) and bool(((a - b_).abs() <= tol + rtol * b_.abs()).all())
         t = attn.rounded_tol(c)
-        used = float(((a - c).abs() / (t["atol"] + t["rtol"] * c.abs())).max())
-        worst, tight_ok = max(worst, used), tight_ok and used <= 1.0
+        shares[name] = float(((a - c).abs() / (t["atol"] + t["rtol"] * c.abs())).max())
+        tight_ok = tight_ok and shares[name] <= 1.0
         if B > 1 and kind != "holes":
             ok = ok and bool((a[-1] == 0).all())
     emit(check=f"B={B} Lq={Lq} Lk={Lk} H={H} Dh={Dh} {kind} p={p}", ok=ok,
-         ok_vs_rounded_plain=tight_ok, largest_share_of_rounded_tol=worst,
-         err_vs_plain=errs, err_vs_rounded_plain=errs_r)
+         ok_vs_rounded_plain=tight_ok, largest_share_of_rounded_tol=max(shares.values()),
+         share_of_rounded_tol=shares, err_vs_plain=errs, err_vs_rounded_plain=errs_r)
     return ok, tight_ok
 
 
@@ -194,7 +213,9 @@ def run_mutants(dev):
 
 def check_keep_bits(dev):
     """q = 0 gives uniform probabilities; with v = I the forward's output is
-    non-zero exactly where an element was kept, and with dO = I so is dV."""
+    non-zero exactly where an element was kept, and with dO = I so is dV. For
+    dQ: k = I makes dQ[i, j] = dS[i, j]; an `out` of zeros makes dvec 0, and
+    v = dO = e_0 makes every dP 1, so dQ is non-zero exactly where kept."""
     BH, L, Dh, p, seed = 6, 128, 128, 0.4, (1 << 63) + 99
     q = torch.zeros(1, L, BH, Dh, device=dev, dtype=torch.bfloat16)
     eye = torch.eye(L, device=dev, dtype=torch.bfloat16)[None, :, None, :].expand(1, L, BH, Dh)
@@ -204,12 +225,17 @@ def check_keep_bits(dev):
     out, lse = attn.flash_attention_fwd(q, eye, eye, mask, p, seed)  # out[0, i, h, j] ~ keep[h, i, j]
     ops = attn.flash_bwd_inputs(q, eye, eye, mask, out, lse, eye)
     _, dv = attn.flash_bwd_dkv(ops, p, seed)                         # dv[0, j, h, i] ~ keep[h, i, j]
+    e0 = torch.zeros_like(eye)
+    e0[..., 0] = 1.0
+    ops = attn.flash_bwd_inputs(q, eye, e0, mask, torch.zeros_like(out), lse, e0)
+    dq = attn.flash_bwd_dq(ops, p, seed)                             # dq[0, i, h, j] ~ keep[h, i, j]
     torch.cuda.synchronize()
     fwd_ok = torch.equal((out[0] != 0).permute(1, 0, 2).float(), keep)
     dkv_ok = torch.equal((dv[0] != 0).permute(1, 2, 0).float(), keep)
+    dq_ok = torch.equal((dq[0] != 0).permute(1, 0, 2).float(), keep)
     emit(check="dropout keep bits against the keep-mask kernel", forward_bit_exact=fwd_ok,
-         dkv_bit_exact=dkv_ok, keep_rate=float(keep.mean()))
-    return fwd_ok and dkv_ok
+         dkv_bit_exact=dkv_ok, dq_bit_exact=dq_ok, keep_rate=float(keep.mean()))
+    return fwd_ok and dkv_ok and dq_ok
 
 
 def sdpa(q, k, v, mask, p, dout=None):
@@ -245,16 +271,28 @@ def time_case(B, L, H, Dh, p, reps, dev, card, masked_bag=True, tail=300):
 
 
 def kernel_times(dev, card, calls=10):
-    """Device time of each kernel behind one forward call (ours, then the
-    library's) at the eval shape, from torch.profiler: what the wrapper's own
-    kernels (the q scaling) and the library's mask handling add to the
-    attention kernel itself."""
+    """Device time of each kernel behind one forward call at the eval shape
+    and one backward call (dQ, dK, dV) at the training shape with dropout,
+    ours, then the library's, from torch.profiler: what the wrapper's own
+    kernels (the q scaling, dvec) and the library's mask handling add to the
+    attention kernels themselves."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v, _ = inputs(1, 2048, 2048, 8, 48, 2048, dev)
     mask = torch.ones(1, 2048, device=dev)
     mask[0, 2048 - 300:] = 0.0
-    for name, fn in (("flash_attention_fwd", lambda: attn.flash_attention_fwd(q, k, v, mask)),
-                     ("scaled_dot_product_attention", sdpa(q, k, v, mask, 0.0))):
+    qb, kb, vb, dob = inputs(2, 1024, 1024, 8, 48, 1024, dev)
+    mb = torch.ones(2, 1024, device=dev)
+    mb[0, 1024 - 300:] = 0.0
+    mb[1] = 0.0
+    outb, lseb = attn.flash_attention_fwd(qb, kb, vb, mb, 0.25, 77)
+    fwd_shape, bwd_shape = "B=1 L=2048 H=8 Dh=48 p=0 bf16", "B=2 L=1024 H=8 Dh=48 p=0.25 bf16"
+    for name, shape, fn in (
+            ("flash_attention_fwd", fwd_shape, lambda: attn.flash_attention_fwd(q, k, v, mask)),
+            ("scaled_dot_product_attention", fwd_shape, sdpa(q, k, v, mask, 0.0)),
+            ("flash_attention_bwd", bwd_shape,
+             lambda: attn.flash_attention_bwd(qb, kb, vb, mb, outb, lseb, dob, 0.25, 77)),
+            ("scaled_dot_product_attention backward", bwd_shape,
+             sdpa(qb, kb, vb, mb, 0.25, dob))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -266,7 +304,7 @@ def kernel_times(dev, card, calls=10):
             us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
             if us and ev.device_type.name == "CUDA":
                 rows[ev.key[:90]] = us / calls / 1e3
-        emit(kernels_of=name, shape="B=1 L=2048 H=8 Dh=48 p=0 bf16", ms_per_call=rows, card=card)
+        emit(kernels_of=name, shape=shape, ms_per_call=rows, card=card)
 
 
 def main():
@@ -276,8 +314,9 @@ def main():
     ap.add_argument("--variant", choices=sorted(VARIANTS),
                     help="time a build of the bf16 kernels without their exponentials (a "
                          "clamped FMA instead) or without their mma.sync products (wrong "
-                         "results: the checks are skipped), or with 8-warp forward blocks "
-                         "always (wide) or never (narrow)")
+                         "results: the checks are skipped), with 8-warp forward and dQ "
+                         "blocks always (wide) or never (narrow), or with dQ's 8-warp blocks "
+                         "one to an SM")
     ap.add_argument("--mutants", action="store_true",
                     help="build each fault of MUTANTS and report which bound catches it")
     args = ap.parse_args()

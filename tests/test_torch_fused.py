@@ -89,6 +89,30 @@ def test_fused_region_embedding_matches_jax(M):
         np.testing.assert_allclose(ex.numpy(), w, atol=2e-4, rtol=1e-3, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_from_its_own_dh_matches_jax(dtype):
+    """`fused_region_embedding_bwd_dx_plain` (the oracle the card holds the dx
+    kernel to) on the plain dh, rounded to x's dtype as the Pallas kernel
+    rounds it, against the dx of the Pallas VJP: in f32 within this file's
+    bound for the op's gradients, in bf16 within one bf16 ulp (`dx_tol`: 2^-7
+    relative + 2^-8 of the largest |dx| where the sum cancels)."""
+    M, K, D = 80, 128, 128
+    x, w, b, scale, bias, g = _embed_inputs(M, K, D, seed=7)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jfe.fused_region_embedding, jnp.asarray(x).astype(jdt),
+                         *(jnp.asarray(a) for a in (w, b, scale, bias)))
+        want = torch.from_numpy(np.array(vjp(jnp.asarray(g).astype(jdt))[0].astype(jnp.float32)))
+    tx, tw, tb, tsc, tbi, tg = (torch.from_numpy(a) for a in (x, w, b, scale, bias, g))
+    tx, tg = tx.to(dtype), tg.to(dtype).float()       # the cotangent arrives in x's dtype
+    dh, _, _ = tfe.fused_region_embedding_dh_plain(tg, tx, tw, tb, tsc, tbi)
+    got = tfe.fused_region_embedding_bwd_dx_plain(dh.to(dtype), tw)
+    assert got.dtype == dtype and bool((got[-16:] == 0).all())      # zero cotangent: exactly 0
+    tol = dict(atol=2e-4, rtol=1e-3) if dtype == torch.float32 else tfe.dx_tol(want)
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert torch.equal(got, tfe.fused_region_embedding_bwd_plain(tg, tx, tw, tb, tsc, tbi)[0])
+
+
 def test_fused_region_embedding_bf16_keeps_h_in_f32():
     """In bf16 the op rounds x and W only: it equals the f32 op on the rounded
     inputs up to the output's own rounding, which the unfused layer (Dense's

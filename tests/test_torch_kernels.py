@@ -246,8 +246,8 @@ def test_flash_kernels_skip_masked_tiles_and_take_lq_unlike_lk(cuda_device, B, L
 @pytest.mark.parametrize("p", [0.25, 0.6])
 def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p):
     """The tensor-core forward and dK/dV kernels share one Philox block between
-    lanes; their keep bits must still be the per-element stream that the dQ
-    kernel regenerates and the keep-mask kernel writes. With q = 0 the
+    lanes; their keep bits must still be the per-element stream that the
+    keep-mask kernel writes (the dQ kernel has its own test below). With q = 0 the
     probabilities are uniform, so with v = I the forward's output, and with
     dO = I the dV of the same backward call that runs the dQ kernel, are
     non-zero exactly where an element was kept."""
@@ -266,6 +266,30 @@ def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p)
     assert torch.equal((out[0] != 0).permute(1, 0, 2).float(), keep)        # out[i, h, j]
     assert torch.equal((dv[0] != 0).permute(1, 2, 0).float(), keep)         # dv[j, h, i]
     _assert_tight((out, dq, dk, dv), q, eye, eye, mask, eye, p, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.25, 0.6])
+def test_flash_bf16_dq_kernel_regenerates_the_keep_mask_bit_for_bit(cuda_device, p):
+    """The tensor-core dQ kernel shares one Philox block between two lanes, as
+    the forward does. With q = 0 the probabilities are uniform; k = I makes
+    dQ[i, j] = dS[i, j]; an `out` of zeros makes dvec 0, and v = dO = e_0 makes
+    every dP 1: dQ is then non-zero exactly where an element was kept."""
+    BH, L, Dh, seed = 6, 128, 128, (1 << 63) + 99
+    q = torch.zeros(1, L, BH, Dh, device=cuda_device, dtype=torch.bfloat16)
+    eye = torch.eye(L, device=cuda_device, dtype=torch.bfloat16)[None, :, None, :].expand(
+        1, L, BH, Dh).contiguous()
+    e0 = torch.zeros_like(eye)
+    e0[..., 0] = 1.0
+    mask = torch.ones(1, L, device=cuda_device)
+    keep = tphilox.keep_mask(seed, BH, L, L, p, device=cuda_device)          # [BH, Lq, Lk]
+    _, lse = tattn.flash_attention_fwd(q, eye, e0, mask, p, seed)
+    ops = tattn.flash_bwd_inputs(q, eye, e0, mask, torch.zeros_like(q), lse, e0)
+    before = tattn.LAUNCHES_DQ
+    dq = tattn.flash_bwd_dq(ops, p, seed)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES_DQ == before + 1
+    assert torch.equal((dq[0] != 0).permute(1, 0, 2).float(), keep)         # dq[i, h, j]
 
 
 @pytest.mark.cuda
@@ -555,6 +579,36 @@ def test_fused_embed_kernels_match_plain(cuda_device, M, K, D, dtype):
         torch.testing.assert_close(a.float(), e.float(), **tol, msg=lambda m, n=name: f"{n}: {m}")
     if M >= 32:
         assert bool((got[0][16:32] == 0).all())         # zero cotangent -> dx exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,D,dtype", [
+    (32768, 1024, 384, torch.bfloat16), (4096, 1024, 128, torch.bfloat16),
+    (16 * 67, 1024, 384, torch.bfloat16), (16 * 67, 128, 96, torch.bfloat16),
+    (48, 64, 32, torch.bfloat16), (16, 32, 256, torch.bfloat16), (16 * 9, 288, 320, torch.bfloat16),
+    (4096, 1024, 384, torch.float32), (16 * 67, 128, 96, torch.float32)])
+def test_fused_embed_dx_kernel_matches_the_plain_product_of_its_own_dh(cuda_device, M, K, D,
+                                                                        dtype):
+    """#10 alone, on a given dh: against `fused_region_embedding_bwd_dx_plain`
+    only the order of the f32 sum and the last rounding differ, so the bound is
+    `dx_tol` (one bf16 ulp relative + 2^-8 of the largest |dx|), which a tile
+    that loses a 64-wide chunk of D exceeds. Ragged M (not a multiple of 128),
+    K below one 128-column tile, D that is no multiple of 64, and zero rows,
+    whose dx is exactly 0."""
+    gen = torch.Generator().manual_seed(M + K + D)
+    dh = (torch.randn(M, D, generator=gen) / D ** 0.5).to(cuda_device).to(dtype)
+    if M >= 32:
+        dh[16:32] = 0.0
+    w = torch.randn(K, D, generator=gen).to(cuda_device)
+    before = tfe.LAUNCHES_BWD_DX
+    got = tfe.fused_region_embedding_bwd_dx(dh, w)
+    torch.cuda.synchronize()
+    assert tfe.LAUNCHES_BWD_DX == before + 1
+    assert got.dtype == dtype and got.shape == (M, K) and bool(torch.isfinite(got).all())
+    want = tfe.fused_region_embedding_bwd_dx_plain(dh, w)
+    torch.testing.assert_close(got.float(), want.float(), **tfe.dx_tol(want))
+    if M >= 32:
+        assert bool((got[16:32] == 0).all())
 
 
 @pytest.mark.cuda
