@@ -9,62 +9,46 @@
 // for the product, f32 accumulation, h = x W + b kept in f32 (never rounded),
 // LN statistics in f32 with eps inside the rsqrt.
 //
-// Every matrix product is computed here: bf16 on the tensor cores through
-// nvcuda::wmma (m16n16k16, f32 accumulators), f32 with plain FMAs (true f32,
-// no TF32); the bf16 dx product is the wgmma kernel of fused_embed_dx.cu. No
-// library GEMM is called.
+// Every matrix product is a hand-written kernel: the f32 ones here, with
+// plain FMAs (true f32, no TF32); the bf16 ones on the warpgroup tensor cores
+// (wgmma + TMA, csrc/wgmma.cuh): the row kernel of the forward and of dh in
+// fused_embed_rows.cu, dW = x^T dh in fused_embed_dw.cu, dx = dh W^T in
+// fused_embed_dx.cu. No library GEMM is called. This file holds the f32
+// kernels, the ordered sums and the C entry points.
 //
-// What bounds them on the card (M = 32,768, K = 1,024, D = 384, bf16): the
-// forward does 25.8 GFLOP, 26 us at 989 TFLOP/s, against 68 MB or 20 us at
-// 3.35 TB/s, so the tensor cores bound it; in f32 the 67 TFLOP/s of the CUDA
-// cores do (385 us). The backward does two products for the parameters
-// (recompute h, then x^T dh) and one more for dx.
+// What bounds them on the card (M = 32,768, K = 1,024, D = 384): the forward
+// does 25.8 GFLOP, 385 us at the 67 TFLOP/s of the f32 CUDA cores (26 us on
+// the bf16 tensor cores, against 68 MB or 20 us at 3.35 TB/s). The backward
+// does two products for the parameters (recompute h, then x^T dh) and one
+// more for dx.
 //
-// Design.
+// Design of the f32 kernels.
 // - LN needs a whole row of h, so one block owns 128 full rows: a 128 x D
 //   tile of f32 accumulators held in registers across 16 warps (D <= 384: 96
 //   per thread, 512 threads: the whole register file), K walked in chunks of
-//   32 through shared memory; W arrives already rounded to x's type (the wrapper casts it once per call; it
-//   stays in L2: 0.75 MB in bf16). The bf16 kernels take W transposed,
-//   [D, K]: the tensor cores' B fragment wants the reduction index contiguous,
-//   and from a [K, D] tile wmma gathers it two bytes at a time (that alone
-//   cost a quarter of the forward's time); the f32 FMA path keeps [K, D], which its
-//   lane-contiguous columns read without bank conflicts. Every block reads
-//   all of W from L2; 128-row blocks halve the 64-row version's 390 MB of
-//   that. For the epilogue a warp holds 4 whole
-//   rows at a time, lane-contiguous columns, as the LN-pool kernels do (the
-//   wmma accumulators get there through a 64-row f32 tile in shared memory,
-//   twice), so mean and variance are warp shuffles; four such 4-row sums make
-//   one region.
+//   32 through shared memory; W [K, D] is read by every block from L2, its
+//   lane-contiguous columns without bank conflicts. A warp owns 8 whole rows,
+//   lane-contiguous columns, as the LN-pool kernels do, so mean and variance
+//   are warp shuffles; two warps' sums make one region.
 // - The TPU backward carried dW [K, D] in scratch across its sequential grid
 //   and recomputed h in both kernels. Here blocks run in any order, so the
 //   row kernel runs once more in backward mode and writes dh [M, D] (in x's
-//   type, M * D * 2 bytes = 25 MB in bf16: traffic the TPU kernels avoided by
-//   recomputing twice) with per-block partials of db / dscale / dbias; a
-//   tiled product then forms dW = x^T dh split over M into a fixed number of
-//   slabs, and dx = dh W^T reads the same dh only when x needs a gradient.
+//   type: traffic the TPU kernels avoided by recomputing twice) with
+//   per-block partials of db / dscale / dbias; a tiled product then forms
+//   dW = x^T dh split over M into a fixed number of slabs, and dx = dh W^T
+//   reads the same dh only when x needs a gradient.
 // - No atomics: per-block and per-slab partials are summed by a last pass
 //   in a fixed order, so the gradients are the same from run to run.
 // - Tiles reach shared memory through cp.async (16 bytes a thread, zero fill
 //   beyond the ragged edge) in a ring of 3 stages, one barrier per chunk, so
-//   the loads of two chunks are in flight while one is multiplied. A first
-//   version loaded synchronously through registers and spent its time
-//   waiting on one load after another (bf16 forward at M = 32,768, D = 384:
-//   0.55 ms then, 0.16 ms now, against 0.07 ms for cuBLAS + the LN-pool
-//   kernel; NVIDIA H100 80GB HBM3, 700 W). TMA and wgmma come later.
+//   the loads of two chunks are in flight while one is multiplied.
 // - Rows beyond M in the last block are zero-filled: h = b there, finite, and
 //   they write nothing; an all-zero x row has var = 0 and rsqrt(0 + eps) is
 //   finite, so a zero cotangent never meets a NaN.
-#include <mma.h>
-
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace advmil {
 namespace fe {
-
-using namespace nvcuda;
 
 constexpr int kThreads = 256;     // threads of the tiled products (8 warps)
 constexpr int kRowThreads = 512;  // threads of the row kernel (16 warps)
@@ -78,18 +62,6 @@ constexpr int kGN = 128;
 constexpr int kTargetBlocks = 264;  // blocks the dW product is split into (2 x 132 SMs)
 
 constexpr int kStages = 3;        // cp.async ring depth
-
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned int*>(&a);
-  raw.y = *reinterpret_cast<const unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 // 16 bytes from device memory to shared memory without passing registers;
 // with ok false nothing is read and the 16 bytes are zero-filled.
@@ -109,10 +81,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // (row_lim, col_lim) are zero-filled and not read. All addresses are 16-byte
 // aligned: the wrappers check the bases, and every stride is a multiple of 32
 // elements.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int dst_ld, const T* src, size_t src_ld,
+__device__ __forceinline__ void load_tile(float* dst, int dst_ld, const float* src, size_t src_ld,
                                           int rows, int cols, int row_lim, int col_lim) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 4;
   const int cv = cols / V;
   for (int i = threadIdx.x; i < rows * cv; i += blockDim.x) {
     const int r = i / cv;
@@ -123,27 +94,24 @@ __device__ __forceinline__ void load_tile(T* dst, int dst_ld, const T* src, size
 }
 
 // ---------------------------------------------------------------------------
-// The row kernel: h = x W + b for 64 rows, then the forward or the backward
+// The row kernel (f32): h = x W + b for 128 rows, then the forward or the backward
 // epilogue.
 // ---------------------------------------------------------------------------
 
 // Shared memory of the row kernel: a ring of 3 (A tile, B tile) stages, over
-// which the bf16 path lays the block's 128 x D f32 tile of h once the
-// products are done, and over which both paths later lay the warps' partial
-// sums; then the epilogue's operands: scale, bias and, backward, the
-// cotangent rows of the block's 8 regions, already divided by 16 (in shared
-// memory, not registers: beside 4 rows of h and the sums they would spill).
+// which the warps later lay their partial sums; then the epilogue's operands:
+// scale, bias and, backward, the cotangent rows of the block's 8 regions,
+// already divided by 16 (in shared memory, not registers: beside 4 rows of h
+// and the sums they would spill).
 struct RowSmem {
   int off_b, stage, off_p, total;
 };
 
-__host__ __device__ inline RowSmem row_smem(int D, int elt, bool bf16, bool bwd) {
+__host__ __device__ inline RowSmem row_smem(int D, bool bwd) {
   RowSmem s;
-  s.off_b = kRowsBM * (kBK + kPad) * elt;
-  s.stage = s.off_b + (bf16 ? D * (kBK + kPad) : kBK * (D + kPad)) * elt;
-  const int ring = kStages * s.stage;
-  const int htile = bf16 ? kRowsBM * (D + kPad) * 4 : 0;
-  s.off_p = ring > htile ? ring : htile;   // >= 16 warps x 3 x D floats of sums
+  s.off_b = kRowsBM * (kBK + kPad) * 4;
+  s.stage = s.off_b + kBK * (D + kPad) * 4;
+  s.off_p = kStages * s.stage;   // >= 16 warps x 3 x D floats of sums
   s.total = s.off_p + (bwd ? 2 + kRowsBM / kRegion : 2) * D * 4;
   return s;
 }
@@ -152,10 +120,10 @@ __host__ __device__ inline RowSmem row_smem(int D, int elt, bool bf16, bool bwd)
 // row i, column lane + 32 j; the rows lie in one region). Forward: returns
 // their ReLU sums in `acc` (the caller's slot of the region mean). Backward:
 // writes their dh rows and adds to the warp's db / dscale / dbias sums.
-template <typename T, int NC, bool BWD>
+template <int NC, bool BWD>
 __device__ __forceinline__ void ln_rows4(float (&v)[4][NC], int nc, int lane, float inv_d,
                                          float eps, const float* sc, const float* bi,
-                                         const float* gr, T* __restrict__ dh, int grow,
+                                         const float* gr, float* __restrict__ dh, int grow,
                                          bool live, int D, float (&acc)[3][NC]) {
   // sc, bi, gr: this lane's first column of scale, bias and the region's
   // cotangent row / 16 in shared memory; column j is 32 j further on
@@ -200,7 +168,7 @@ __device__ __forceinline__ void ln_rows4(float (&v)[4][NC], int nc, int lane, fl
           const float gy = (v[i][j] * sc[32 * j] + bi[32 * j] > 0.f) ? gr[32 * j] : 0.f;
           const float d = inv * (gy * sc[32 * j] - m1 - v[i][j] * m2);
           acc[0][j] += d;       // db, from the unrounded dh
-          if (live) dh[static_cast<size_t>(grow + i) * D + lane + 32 * j] = from_f32<T>(d);
+          if (live) dh[static_cast<size_t>(grow + i) * D + lane + 32 * j] = d;
         }
       }
     }
@@ -209,13 +177,13 @@ __device__ __forceinline__ void ln_rows4(float (&v)[4][NC], int nc, int lane, fl
 
 // Four rows of h, all of one region, into the epilogue; forward: acc[0]
 // gathers their ReLU sums; backward: acc holds the warp's db / dscale / dbias.
-template <typename T, int NC, bool BWD>
+template <int NC, bool BWD>
 __device__ __forceinline__ void finish4(float (&v4)[4][NC], int grow, int rloc, const float* Ps,
                                         int nc, int lane, float inv_d, float eps,
-                                        T* __restrict__ out, int M, int D,
+                                        float* __restrict__ out, int M, int D,
                                         float (&acc)[3][NC]) {
   // rloc: the rows' region within the block; Ps: scale, bias, the regions' g / 16
-  ln_rows4<T, NC, BWD>(v4, nc, lane, inv_d, eps, Ps + lane, Ps + D + lane,
+  ln_rows4<NC, BWD>(v4, nc, lane, inv_d, eps, Ps + lane, Ps + D + lane,
                        Ps + (2 + rloc) * D + lane, out, grow, grow < M, D, acc);
 }
 
@@ -231,26 +199,27 @@ __device__ __forceinline__ void epilogue_state(float (&acc)[3][NC], float (&bb)[
   }
 }
 
-template <typename T, int NC, bool BWD>
+template <int NC, bool BWD>
 __global__ void __launch_bounds__(kRowThreads)
-fused_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+fused_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ b, const float* __restrict__ scale,
                   const float* __restrict__ bias, const float* __restrict__ g,
-                  T* __restrict__ out, float* __restrict__ partials, int M, int K, int D,
+                  float* __restrict__ out, float* __restrict__ partials, int M, int K, int D,
                   float eps) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowSmem lay = row_smem(D, sizeof(T), kBf16, BWD);
+  const RowSmem lay = row_smem(D, BWD);
   float* Rs = reinterpret_cast<float*>(smem);  // over the ring, once it is idle
-  const int lda = kBK + kPad, ldb = kBf16 ? kBK + kPad : D + kPad;
+  const int lda = kBK + kPad, ldb = D + kPad;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nc = D >> 5;
   const int row0 = blockIdx.x * kRowsBM;
   const int nk = K / kBK;
   const float inv_d = 1.f / static_cast<float>(D);
-  auto stage_a = [&](int kt) { return reinterpret_cast<T*>(smem + (kt % kStages) * lay.stage); };
+  auto stage_a = [&](int kt) {
+    return reinterpret_cast<float*>(smem + (kt % kStages) * lay.stage);
+  };
   auto stage_b = [&](int kt) {
-    return reinterpret_cast<T*>(smem + (kt % kStages) * lay.stage + lay.off_b);
+    return reinterpret_cast<float*>(smem + (kt % kStages) * lay.stage + lay.off_b);
   };
   // chunk kt of x and W into its ring slot; always one commit, so that the
   // group count stays the chunk count
@@ -258,11 +227,8 @@ fused_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (kt < nk) {
       load_tile(stage_a(kt), lda, x + static_cast<size_t>(row0) * K + kt * kBK, K, kRowsBM, kBK,
                 M - row0, K - kt * kBK);
-      if (kBf16)  // w is [D, K]
-        load_tile(stage_b(kt), ldb, w + kt * kBK, K, D, kBK, D, K - kt * kBK);
-      else        // w is [K, D]
-        load_tile(stage_b(kt), ldb, w + static_cast<size_t>(kt) * kBK * D, D, kBK, D,
-                  K - kt * kBK, D);
+      load_tile(stage_b(kt), ldb, w + static_cast<size_t>(kt) * kBK * D, D, kBK, D,
+                K - kt * kBK, D);
     }
     cp_async_commit();
   };
@@ -292,108 +258,46 @@ fused_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   float acc[3][NC], bb[NC];  // see epilogue_state
 
-  if constexpr (kBf16) {
-    // 16 warps as 4 x 4: warp (wr, wc) owns rows 32 wr .. + 32 and the 16-column
-    // tiles wc * CT .. + CT (4 x CT x 16 = 32 NC columns)
-    constexpr int CT = NC / 2;
-    const int wr = warp >> 2, wc = warp & 3;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[2][CT];
+  // warp w owns rows 8 w .. + 8, every column (lane + 32 j)
+  float v[8][NC];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int t = 0; t < CT; ++t) wmma::fill_fragment(cf[r][t], 0.f);
-    for (int kt = 0; kt < nk; ++kt) {
-      advance(kt);
-      const T* As = stage_a(kt);
-      const T* Bs = stage_b(kt);
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          wmma::load_matrix_sync(af[r], As + (32 * wr + 16 * r) * lda + ks, lda);
-#pragma unroll
-        for (int t = 0; t < CT; ++t) {
-          const int col = (wc * CT + t) * 16;
-          if (col < D) {  // warp-uniform
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-            wmma::load_matrix_sync(bf, Bs + col * ldb + ks, ldb);
-#pragma unroll
-            for (int r = 0; r < 2; ++r) wmma::mma_sync(cf[r][t], af[r], bf, cf[r][t]);
-          }
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    // the ring is idle: h goes over it, so that every warp gets 8 whole rows,
-    // lane-contiguous columns, and no accumulator fragment stays in registers
-    float* Hs = reinterpret_cast<float*>(smem);
-    const int ldh = D + kPad;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int t = 0; t < CT; ++t) {
-        const int col = (wc * CT + t) * 16;
-        if (col < D)
-          wmma::store_matrix_sync(Hs + (32 * wr + 16 * r) * ldh + col, cf[r][t], ldh,
-                                  wmma::mem_row_major);
-      }
-    __syncthreads();
-    epilogue_state<NC>(acc, bb, b, nc, lane);
-#pragma unroll
-    for (int grp = 0; grp < 2; ++grp) {
-      float v4[4][NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-          v4[i][j] = j < nc ? Hs[(8 * warp + 4 * grp + i) * ldh + lane + 32 * j] + bb[j] : 0.f;
-      finish4<T, NC, BWD>(v4, row0 + 8 * warp + 4 * grp, warp / 2, Ps, nc, lane, inv_d, eps, out,
-                          M, D, acc);
-    }
-  } else {
-    // warp w owns rows 8 w .. + 8, every column (lane + 32 j)
-    float v[8][NC];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) v[i][j] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-      advance(kt);
-      const T* As = stage_a(kt);
-      const T* Bs = stage_b(kt);
+    for (int j = 0; j < NC; ++j) v[i][j] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    advance(kt);
+    const float* As = stage_a(kt);
+    const float* Bs = stage_b(kt);
 #pragma unroll 4
-      for (int kk = 0; kk < kBK; ++kk) {
-        float a[8];
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = As[(8 * warp + i) * lda + kk];
+      for (int i = 0; i < 8; ++i) a[i] = As[(8 * warp + i) * lda + kk];
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          if (j < nc) {
-            const float bv = Bs[kk * ldb + lane + 32 * j];
+      for (int j = 0; j < NC; ++j) {
+        if (j < nc) {
+          const float bv = Bs[kk * ldb + lane + 32 * j];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) v[i][j] = fmaf(a[i], bv, v[i][j]);
-          }
+          for (int i = 0; i < 8; ++i) v[i][j] = fmaf(a[i], bv, v[i][j]);
         }
       }
     }
-    cp_async_wait<0>();
-    epilogue_state<NC>(acc, bb, b, nc, lane);
+  }
+  cp_async_wait<0>();
+  epilogue_state<NC>(acc, bb, b, nc, lane);
 #pragma unroll
-    for (int grp = 0; grp < 2; ++grp) {
-      float v4[4][NC];
+  for (int grp = 0; grp < 2; ++grp) {
+    float v4[4][NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NC; ++j) v4[i][j] = v[4 * grp + i][j] + bb[j];
-      finish4<T, NC, BWD>(v4, row0 + 8 * warp + 4 * grp, warp / 2, Ps, nc, lane, inv_d, eps, out,
-                          M, D, acc);
-    }
+      for (int j = 0; j < NC; ++j) v4[i][j] = v[4 * grp + i][j] + bb[j];
+    finish4<NC, BWD>(v4, row0 + 8 * warp + 4 * grp, warp / 2, Ps, nc, lane, inv_d, eps, out, M,
+                     D, acc);
   }
 
   // every warp holds the sums of its 8 rows (half a region); they meet in
-  // shared memory, over the ring and h's tile, which nobody reads any more
+  // shared memory, over the ring, which nobody reads any more
   __syncthreads();
   constexpr int NQ = BWD ? 3 : 1;
 #pragma unroll
@@ -409,7 +313,7 @@ fused_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int region = blockIdx.x * (kRowsBM / kRegion) + r;
       if (region < regions)
         out[static_cast<size_t>(region) * D + c] =
-            from_f32<T>((Rs[(2 * r) * D + c] + Rs[(2 * r + 1) * D + c]) * (1.f / kRegion));
+            (Rs[(2 * r) * D + c] + Rs[(2 * r + 1) * D + c]) * (1.f / kRegion);
     }
   } else {
     // block partials of db / dscale / dbias: the warps' sums added in a fixed order
@@ -447,38 +351,35 @@ inline cudaError_t sum_rows(const float* part, float* out, int nrows, int ncols,
   return cudaGetLastError();
 }
 
-template <typename T, int NC, bool BWD>
+template <int NC, bool BWD>
 cudaError_t launch_rows_nc(const void* x, const void* w, const void* b, const void* scale,
                            const void* bias, const void* g, void* out, void* partials, int M,
                            int K, int D, float eps, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  const int bytes = row_smem(D, sizeof(T), kBf16, BWD).total;
-  auto kernel = fused_rows_kernel<T, NC, BWD>;
+  const int bytes = row_smem(D, BWD).total;
+  auto kernel = fused_rows_kernel<NC, BWD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (M + kRowsBM - 1) / kRowsBM;
   kernel<<<blocks, kRowThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(g), static_cast<T*>(out), static_cast<float*>(partials), M, K,
-      D, eps);
+      static_cast<const float*>(g), static_cast<float*>(out), static_cast<float*>(partials), M,
+      K, D, eps);
   return cudaGetLastError();
 }
 
-template <typename T, bool BWD>
+template <bool BWD>
 cudaError_t launch_rows(const void* x, const void* w, const void* b, const void* scale,
                         const void* bias, const void* g, void* out, void* partials, int M,
                         int K, int D, float eps, cudaStream_t stream) {
   if (D <= 128)
-    return launch_rows_nc<T, 4, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps,
-                                     stream);
-  return launch_rows_nc<T, 12, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps,
-                                    stream);
+    return launch_rows_nc<4, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps, stream);
+  return launch_rows_nc<12, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps, stream);
 }
 
 // ---------------------------------------------------------------------------
-// The plain tiled product C[m, n] = sum_k a(m, k) b(k, n) for dW and dx:
+// The plain tiled product C[m, n] = sum_k a(m, k) b(k, n) for dW and dx in f32:
 // 128 x 128 output tiles (64-wide ones move 1.5 times the bytes from L2 for
 // the same product), the reduction walked in chunks of 32, optionally
 // split into slabs (blockIdx.z) that each write their own partial C.
@@ -492,19 +393,12 @@ constexpr int kAsElems = kGM * (kBK + kPad) > kBK * (kGM + kPad) ? kGM * (kBK + 
 constexpr int kBsElems = kGN * (kBK + kPad) > kBK * (kGN + kPad) ? kGN * (kBK + kPad)
                                                                    : kBK * (kGN + kPad);
 
-// kStages x (A tile, B tile); the bf16 path lays its f32 output tile over the
-// ring once the products are done
-__host__ __device__ inline int gemm_smem_bytes(int elt, bool bf16) {
-  const int ring = kStages * (kAsElems + kBsElems) * elt;
-  const int ctile = bf16 ? kGM * (kGN + kPad) * 4 : 0;
-  return ring > ctile ? ring : ctile;
-}
+constexpr int kGemmSmemBytes = kStages * (kAsElems + kBsElems) * 4;  // kStages x (A, B)
 
-template <typename T, bool A_COL, bool B_COL, typename OutT>
+template <bool A_COL, bool B_COL>
 __global__ void __launch_bounds__(kThreads)
-gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B, OutT* __restrict__ C,
+gemm_tile_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
                  int Mc, int Nc, int Kr, size_t lda, size_t ldb, int slab_len) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int sa_ld = A_COL ? kGM + kPad : kBK + kPad;
   constexpr int sb_ld = B_COL ? kBK + kPad : kGN + kPad;
@@ -516,12 +410,12 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B, OutT* __restr
 
   const int nk = (kend - kbeg + kBK - 1) / kBK;
   auto stage_a = [&](int kt) {
-    return reinterpret_cast<T*>(smem) + (kt % kStages) * (kAsElems + kBsElems);
+    return reinterpret_cast<float*>(smem) + (kt % kStages) * (kAsElems + kBsElems);
   };
   auto prefetch = [&](int kt) {   // always one commit: the group count is the chunk count
     if (kt < nk) {
-      T* As = stage_a(kt);
-      T* Bs = As + kAsElems;
+      float* As = stage_a(kt);
+      float* Bs = As + kAsElems;
       const int k0 = kbeg + kt * kBK;
       if (A_COL)
         load_tile(As, sa_ld, A + static_cast<size_t>(k0) * lda + m0, lda, kBK, kGM, kend - k0,
@@ -546,100 +440,45 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B, OutT* __restr
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) prefetch(st);
 
-  if constexpr (kBf16) {
-    using ALayout = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    // 8 warps as 2 x 4: warp (wr, wc) owns rows 64 wr .. + 64, columns 32 wc .. + 32
-    const int wr = warp >> 2, wc = warp & 3;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[4][2];
+  // warp w owns rows 16 w .. + 16, lane the columns lane + 32 c
+  constexpr int NCOL = kGN / 32;
+  float acc[16][NCOL];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int t = 0; t < 2; ++t) wmma::fill_fragment(cf[r][t], 0.f);
-    for (int kt = 0; kt < nk; ++kt) {
-      advance(kt);
-      const T* As = stage_a(kt);
-      const T* Bs = As + kAsElems;
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> af[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = 64 * wr + 16 * r;
-          wmma::load_matrix_sync(af[r], A_COL ? As + ks * sa_ld + row : As + row * sa_ld + ks,
-                                 sa_ld);
-        }
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int col = 32 * wc + 16 * t;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-          wmma::load_matrix_sync(bf, B_COL ? Bs + col * sb_ld + ks : Bs + ks * sb_ld + col,
-                                 sb_ld);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) wmma::mma_sync(cf[r][t], af[r], bf, cf[r][t]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is idle: the output tile goes over it
-    float* Cs = reinterpret_cast<float*>(smem);
-    constexpr int ldc = kGN + kPad;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        wmma::store_matrix_sync(Cs + (64 * wr + 16 * r) * ldc + 32 * wc + 16 * t, cf[r][t], ldc,
-                                wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kGM * (kGN / 4); i += kThreads) {
-      const int r = i / (kGN / 4), c = (i - r * (kGN / 4)) << 2;
-      if (m0 + r < Mc && n0 + c < Nc) {
-        const float v[4] = {Cs[r * ldc + c], Cs[r * ldc + c + 1], Cs[r * ldc + c + 2],
-                            Cs[r * ldc + c + 3]};
-        store4(C + static_cast<size_t>(m0 + r) * Nc + n0 + c, v);
-      }
-    }
-  } else {
-    // warp w owns rows 16 w .. + 16, lane the columns lane + 32 c
-    constexpr int NCOL = kGN / 32;
-    float acc[16][NCOL];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-#pragma unroll
-      for (int c = 0; c < NCOL; ++c) acc[i][c] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-      advance(kt);
-      const T* As = stage_a(kt);
-      const T* Bs = As + kAsElems;
+    for (int c = 0; c < NCOL; ++c) acc[i][c] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    advance(kt);
+    const float* As = stage_a(kt);
+    const float* Bs = As + kAsElems;
 #pragma unroll 4
-      for (int kk = 0; kk < kBK; ++kk) {
-        float bv[NCOL];
+    for (int kk = 0; kk < kBK; ++kk) {
+      float bv[NCOL];
 #pragma unroll
-        for (int c = 0; c < NCOL; ++c)
-          bv[c] = B_COL ? Bs[(lane + 32 * c) * sb_ld + kk] : Bs[kk * sb_ld + lane + 32 * c];
+      for (int c = 0; c < NCOL; ++c)
+        bv[c] = B_COL ? Bs[(lane + 32 * c) * sb_ld + kk] : Bs[kk * sb_ld + lane + 32 * c];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float a = A_COL ? As[kk * sa_ld + 16 * warp + i] : As[(16 * warp + i) * sa_ld + kk];
+      for (int i = 0; i < 16; ++i) {
+        const float a = A_COL ? As[kk * sa_ld + 16 * warp + i] : As[(16 * warp + i) * sa_ld + kk];
 #pragma unroll
-          for (int c = 0; c < NCOL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
-        }
+        for (int c = 0; c < NCOL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
       }
     }
-    cp_async_wait<0>();
+  }
+  cp_async_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int m = m0 + 16 * warp + i;
-      if (m < Mc) {
+  for (int i = 0; i < 16; ++i) {
+    const int m = m0 + 16 * warp + i;
+    if (m < Mc) {
 #pragma unroll
-        for (int c = 0; c < NCOL; ++c)
-          if (n0 + lane + 32 * c < Nc)
-            C[static_cast<size_t>(m) * Nc + n0 + lane + 32 * c] = from_f32<OutT>(acc[i][c]);
-      }
+      for (int c = 0; c < NCOL; ++c)
+        if (n0 + lane + 32 * c < Nc)
+          C[static_cast<size_t>(m) * Nc + n0 + lane + 32 * c] = acc[i][c];
     }
   }
 }
 
-// Slabs the dW product is split into over M: enough blocks to fill the card,
+// Slabs the f32 dW product is split into over M: enough blocks to fill the card,
 // a function of the shapes alone (so the sum's order never changes).
 __host__ inline void dw_split(int M, int K, int D, int* slabs, int* slab_len) {
   const int tiles = ((K + kGM - 1) / kGM) * ((D + kGN - 1) / kGN);
@@ -653,51 +492,53 @@ __host__ inline void dw_split(int M, int K, int D, int* slabs, int* slab_len) {
   *slabs = (M + len - 1) / len;
 }
 
-// dW [K, D] f32 = x^T dh: a(m = column of x, k = row) = x[row * K + m].
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* dh, void* dw, void* partials, int M, int K,
-                      int D, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  int slabs, slab_len;
-  dw_split(M, K, D, &slabs, &slab_len);
-  const int bytes = gemm_smem_bytes(sizeof(T), kBf16);
-  auto kernel = gemm_tile_kernel<T, true, false, float>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// dW [K, D] = x^T dh in f32 (into `out`, or slabs of partials; see dw_split):
+// a(m = column of x, k = row) = x[row * K + m].
+cudaError_t launch_dw(const void* x, const void* dh, float* out, int M, int K, int D,
+                      int slab_len, int slabs, cudaStream_t stream) {
+  auto kernel = gemm_tile_kernel<true, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kGemmSmemBytes);
   if (err != cudaSuccess) return err;
-  float* target = static_cast<float*>(slabs > 1 ? partials : dw);
   const dim3 grid((D + kGN - 1) / kGN, (K + kGM - 1) / kGM, slabs);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(x),
-                                            static_cast<const T*>(dh), target, K, D, M,
-                                            static_cast<size_t>(K), static_cast<size_t>(D),
-                                            slab_len);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || slabs == 1) return err;
-  return sum_rows(target, static_cast<float*>(dw), slabs, K * D, stream);
-}
-
-// dx [M, K] in x's type = dh W^T: b(k = column of dh, n = row of W) = W[n * D + k],
-// W already in x's type. Built for f32 only: bf16 goes to dx_wgmma.
-template <typename T>
-cudaError_t launch_dx(const void* dh, const void* w, void* dx, int M, int K, int D,
-                      cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  const int bytes = gemm_smem_bytes(sizeof(T), kBf16);
-  auto kernel = gemm_tile_kernel<T, false, true, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((K + kGN - 1) / kGN, (M + kGM - 1) / kGM, 1);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(dh),
-                                            static_cast<const T*>(w), static_cast<T*>(dx), M,
-                                            K, D, static_cast<size_t>(D),
-                                            static_cast<size_t>(D), D);
+  kernel<<<grid, kThreads, kGemmSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dh), out, K, D, M,
+      static_cast<size_t>(K), static_cast<size_t>(D), slab_len);
   return cudaGetLastError();
 }
 
-// fused_embed_dx.cu: dx = dh W^T for bf16 operands, on wgmma.
+// dx [M, K] = dh W^T in f32: b(k = column of dh, n = row of W) = W[n * D + k].
+cudaError_t launch_dx(const void* dh, const void* w, void* dx, int M, int K, int D,
+                      cudaStream_t stream) {
+  auto kernel = gemm_tile_kernel<false, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kGemmSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((K + kGN - 1) / kGN, (M + kGM - 1) / kGM, 1);
+  kernel<<<grid, kThreads, kGemmSmemBytes, stream>>>(
+      static_cast<const float*>(dh), static_cast<const float*>(w), static_cast<float*>(dx), M, K,
+      D, static_cast<size_t>(D), static_cast<size_t>(D), D);
+  return cudaGetLastError();
+}
+
+// The bf16 kernels, on wgmma + TMA: the row kernel (forward, or dh and the
+// blocks' partials of db / dscale / dbias; fused_embed_rows.cu), dW = x^T dh
+// in slabs (fused_embed_dw.cu) and dx = dh W^T (fused_embed_dx.cu).
+cudaError_t rows_wgmma(const void* x, const void* wt, const void* b, const void* scale,
+                       const void* bias, const void* g, void* out, void* partials, int M,
+                       int K, int D, float eps, bool bwd, cudaStream_t stream);
+void dw_wgmma_split(int M, int K, int D, int* slabs, int* slab_len);
+cudaError_t dw_wgmma(const void* x, const void* dh, float* out, int M, int K, int D,
+                     int slab_len, int slabs, cudaStream_t stream);
 cudaError_t dx_wgmma(const void* dh, const void* w, void* dx, int M, int K, int D,
                      cudaStream_t stream);
+
+// The slabs of the dW product for these shapes and dtype (a function of them
+// alone, so the order of its sums never changes).
+inline void dw_slabs(int M, int K, int D, int dtype, int* slabs, int* slab_len) {
+  if (dtype == kBF16) dw_wgmma_split(M, K, D, slabs, slab_len);
+  else dw_split(M, K, D, slabs, slab_len);
+}
 
 }  // namespace fe
 }  // namespace advmil
@@ -706,8 +547,9 @@ cudaError_t dx_wgmma(const void* dh, const void* w, void* dx, int M, int K, int 
 // == 0, M > 0, K % 32 == 0, D % 32 == 0, 32 <= D <= 384; x, dh, dx and w (W
 // rounded to x's type by the caller) in one dtype (f32 or bf16), their bases
 // aligned to 16 bytes; the forward and bwd_dh take w as [K, D] in f32 and
-// transposed, [D, K], in bf16; dx takes [K, D] in both; b, scale, bias, g and every gradient of a parameter in
-// f32. Each returns cudaGetLastError() after its last launch.
+// transposed, [D, K], in bf16; dx takes [K, D] in both; b, scale, bias, g and
+// every gradient of a parameter in f32. Each returns cudaGetLastError() after
+// its last launch.
 
 // x [M, K], w (see above), b / scale / bias [D] -> out [M / 16, D] in x's dtype.
 extern "C" int advmil_fused_embed_fwd(const void* x, const void* w, const void* b,
@@ -715,16 +557,16 @@ extern "C" int advmil_fused_embed_fwd(const void* x, const void* w, const void* 
                                       int K, int D, int dtype, float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == advmil::kF32)
-    return advmil::fe::launch_rows<float, false>(x, w, b, scale, bias, nullptr, out, nullptr,
-                                                 M, K, D, eps, s);
+    return advmil::fe::launch_rows<false>(x, w, b, scale, bias, nullptr, out, nullptr, M, K, D,
+                                          eps, s);
   if (dtype == advmil::kBF16)
-    return advmil::fe::launch_rows<__nv_bfloat16, false>(x, w, b, scale, bias, nullptr, out,
-                                                         nullptr, M, K, D, eps, s);
+    return advmil::fe::rows_wgmma(x, w, b, scale, bias, nullptr, out, nullptr, M, K, D, eps,
+                                  false, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Blocks of the row kernel for M rows: the backward's partials hold
-// blocks * 3 * D floats.
+// Blocks of the row kernel for M rows (128 rows each in both dtypes): the
+// backward's partials hold blocks * 3 * D floats.
 extern "C" int advmil_fused_embed_row_blocks(int M) {
   return (M + advmil::fe::kRowsBM - 1) / advmil::fe::kRowsBM;
 }
@@ -738,11 +580,9 @@ extern "C" int advmil_fused_embed_bwd_dh(const void* g, const void* x, const voi
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == advmil::kF32)
-    err = advmil::fe::launch_rows<float, true>(x, w, b, scale, bias, g, dh, partials, M, K, D,
-                                               eps, s);
+    err = advmil::fe::launch_rows<true>(x, w, b, scale, bias, g, dh, partials, M, K, D, eps, s);
   else if (dtype == advmil::kBF16)
-    err = advmil::fe::launch_rows<__nv_bfloat16, true>(x, w, b, scale, bias, g, dh, partials,
-                                                       M, K, D, eps, s);
+    err = advmil::fe::rows_wgmma(x, w, b, scale, bias, g, dh, partials, M, K, D, eps, true, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return err;
@@ -750,30 +590,37 @@ extern "C" int advmil_fused_embed_bwd_dh(const void* g, const void* x, const voi
                               advmil_fused_embed_row_blocks(M), 3 * D, s);
 }
 
-// Slabs of the dW product for these shapes: its partials hold slabs * K * D
-// floats (unused when it is 1).
-extern "C" int advmil_fused_embed_dw_slabs(int M, int K, int D) {
+// Slabs of the dW product for these shapes and dtype: its partials hold
+// slabs * K * D floats (unused when it is 1).
+extern "C" int advmil_fused_embed_dw_slabs(int M, int K, int D, int dtype) {
   int slabs, slab_len;
-  advmil::fe::dw_split(M, K, D, &slabs, &slab_len);
+  advmil::fe::dw_slabs(M, K, D, dtype, &slabs, &slab_len);
   return slabs;
 }
 
-// x [M, K], dh [M, D] (one dtype) -> dw [K, D] f32.
+// x [M, K], dh [M, D] (one dtype) -> dw [K, D] f32: the slabs' products, then
+// their sum in slab order.
 extern "C" int advmil_fused_embed_dw(const void* x, const void* dh, void* dw, void* partials,
                                      int M, int K, int D, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == advmil::kF32)
-    return advmil::fe::launch_dw<float>(x, dh, dw, partials, M, K, D, s);
-  if (dtype == advmil::kBF16)
-    return advmil::fe::launch_dw<__nv_bfloat16>(x, dh, dw, partials, M, K, D, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != advmil::kF32 && dtype != advmil::kBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int slabs, slab_len;
+  advmil::fe::dw_slabs(M, K, D, dtype, &slabs, &slab_len);
+  float* target = static_cast<float*>(slabs > 1 ? partials : dw);
+  const cudaError_t err =
+      dtype == advmil::kBF16
+          ? advmil::fe::dw_wgmma(x, dh, target, M, K, D, slab_len, slabs, s)
+          : advmil::fe::launch_dw(x, dh, target, M, K, D, slab_len, slabs, s);
+  if (err != cudaSuccess || slabs == 1) return err;
+  return advmil::fe::sum_rows(target, static_cast<float*>(dw), slabs, K * D, s);
 }
 
 // dh [M, D], w [K, D] (both x's dtype) -> dx [M, K] in x's dtype.
 extern "C" int advmil_fused_embed_dx(const void* dh, const void* w, void* dx, int M, int K,
                                      int D, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == advmil::kF32) return advmil::fe::launch_dx<float>(dh, w, dx, M, K, D, s);
+  if (dtype == advmil::kF32) return advmil::fe::launch_dx(dh, w, dx, M, K, D, s);
   if (dtype == advmil::kBF16) return advmil::fe::dx_wgmma(dh, w, dx, M, K, D, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

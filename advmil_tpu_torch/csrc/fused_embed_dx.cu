@@ -193,9 +193,8 @@ dx_wgmma_kernel(const __grid_constant__ CUtensorMap map_dh,
       wg::wgmma_fence();
 #pragma unroll
       for (int s = 0; s < wg::kChunk / 16; ++s) {  // a half-empty last box multiplies its zeros
-        wg::wgmma_m64n128k16(acc0, da + 2 * s, db + 2 * s, (kc | s) != 0);
-        wg::wgmma_m64n128k16(acc1, da + 2 * s + (64 * wg::kRowBytes >> 4), db + 2 * s,
-                             (kc | s) != 0);
+        wg::wgmma<0, 0>(acc0, da + 2 * s, db + 2 * s, (kc | s) != 0);
+        wg::wgmma<0, 0>(acc1, da + 2 * s + (64 * wg::kRowBytes >> 4), db + 2 * s, (kc | s) != 0);
       }
       wg::wgmma_commit();
       if (kc > 0) {  // the previous chunk's products are done: its stage is free

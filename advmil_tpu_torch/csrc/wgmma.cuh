@@ -1,18 +1,26 @@
-// Building blocks of the Hopper warpgroup products (fused_embed_dx.cu first;
-// the other fused-embedding products are meant to follow): TMA tile loads
+// Building blocks of the Hopper warpgroup products of the fused embedding
+// (fused_embed_dx.cu, fused_embed_rows.cu, fused_embed_dw.cu): TMA tile loads
 // into the 128-byte-swizzled layout, for one block or multicast to the blocks
-// of a cluster, mbarriers, the shared-memory matrix descriptor,
-// wgmma.mma_async m64n128k16 (bf16 in, f32 in registers) and its fences, and
-// the way from an accumulator fragment to 16-byte stores.
+// of a cluster, mbarriers, the shared-memory matrix descriptors of K-major and
+// MN-major operands, wgmma.mma_async m64nNk16 (bf16 in, f32 in registers) and
+// its fences, and the way from an accumulator fragment to 16-byte stores.
 //
-// Layout of an operand tile in shared memory (both operands K-major: the
-// reduction index is the contiguous one, as dh [M, D] and W [K, D] lie in
-// device memory): rows of 64 bf16 = 128 bytes, row r at byte 128 r of a tile
+// Layout of an operand tile in shared memory, as a TMA box of 64-element rows
+// writes it: rows of 64 bf16 = 128 bytes, row r at byte 128 r of a tile
 // whose base is a multiple of 1024; within a row the eight 16-byte units sit
 // at unit ^ (r % 8). That is what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes and what a descriptor with layout type 1 reads; 8 rows (1024 bytes)
 // are one period of the pattern, so a tile may start at any multiple of 8
-// rows, and a k-step of 16 elements moves the descriptor's start by 32 bytes.
+// rows.
+// - K-major operand (the reduction index contiguous, as dh [M, D] and W
+//   [K, D] are for dx = dh W^T, or x [M, K] and W^T [D, K] for h = x W): a
+//   row is one row of the operand, 64 reduction elements; a k-step of 16
+//   elements moves the descriptor's start by 32 bytes.
+// - MN-major operand (the row index of the product contiguous, as x [M, K]
+//   and dh [M, D] are for dW = x^T dh, whose reduction index is M): a row is
+//   one reduction index, 64 neighbouring output rows (or columns); a k-step
+//   of 16 reduction rows moves the start by 2,048 bytes, and 64-wide blocks
+//   of the operand's other index lie `lbo` bytes apart.
 //
 // Accumulator fragment of m64nNk16 (f32), thread = warp w of the warpgroup,
 // lane = 4 g + t: d[4 j], d[4 j + 1] = C[16 w + g][8 j + 2 t, + 1] and
@@ -99,6 +107,23 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// ---- warp roles ----
+
+// Move registers between the warpgroups of a block (every warp of a
+// warpgroup executes it): a producer gives up what its consumers take. The
+// 4 sub-partitions of an SM each hold 16,384 registers and one warp of each
+// warpgroup. A block launches with 168 a thread for 384 threads, and the
+// consumers take only what the producer gives up: 128 (168 - P) >= 256 (C -
+// 168), as 40 + 232 + 232 or 24 + 240 + 240 (32 + 240 + 240 hung the card).
+template <int N>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---- TMA ----
 
 // Start the copy of the box at (c0, c1) of a 2-d tensor map (c0 along the
@@ -169,6 +194,16 @@ __device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
          (static_cast<uint64_t>(kTileAlign >> 4) << 32) | (1ull << 62);
 }
 
+// Descriptor of an MN-major operand tile in the layout above: the leading
+// offset is the distance between 64-wide blocks of the operand's M or N index
+// (one TMA box each), the stride offset the 1024 bytes between groups of 8
+// reduction rows, layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t mn_operand_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16) |
+         (static_cast<uint64_t>(kTileAlign >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -183,22 +218,65 @@ __device__ __forceinline__ void wgmma_wait() {
 #define ADVMIL_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define ADVMIL_D16(i) ADVMIL_D4(i), ADVMIL_D4(i + 4), ADVMIL_D4(i + 8), ADVMIL_D4(i + 12)
 
-// d (64 x 128, f32) = a (64 x 16) b^T (128 x 16) + (accumulate ? d : 0), both
-// operands from shared memory, K-major. Asynchronous: fence before, commit
-// and wait after.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b, int accumulate) {
+// d (64 x N, f32) = a (64 x 16) b^T (N x 16) + (accumulate ? d : 0), both
+// operands bf16 from shared memory; N = 128, 192 or 256, chosen by the size of
+// d (N / 2 accumulators a thread). TA / TB: 0 for a K-major operand
+// (operand_desc), 1 for an MN-major one (mn_operand_desc). Asynchronous: fence
+// before, commit and wait after.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                      int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : ADVMIL_D16(0), ADVMIL_D16(16), ADVMIL_D16(32), ADVMIL_D16(48)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : ADVMIL_D16(0), ADVMIL_D16(16), ADVMIL_D16(32), ADVMIL_D16(48), ADVMIL_D16(64),
+        ADVMIL_D16(80)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : ADVMIL_D16(0), ADVMIL_D16(16), ADVMIL_D16(32), ADVMIL_D16(48), ADVMIL_D16(64),
+        ADVMIL_D16(80), ADVMIL_D16(96), ADVMIL_D16(112)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 #undef ADVMIL_D16

@@ -17,24 +17,24 @@ in W's dtype and db / dscale / dbias in their parameters' dtypes.
 
 Dispatch: a CPU tensor goes to `fused_region_embedding_plain` (autograd
 through plain torch ops); a CUDA tensor goes to `FusedRegionEmbedding`, whose
-forward and backward are the hand-written kernels of `csrc/fused_embed.cu`
-and, for the bf16 dx product, `csrc/fused_embed_dx.cu` (the matrix products
-included: no library GEMM on this path), or raises. There is no fallback
-from the kernels to the plain version.
+forward and backward are hand-written kernels (the matrix products included:
+no library GEMM on this path), or raises. There is no fallback from the
+kernels to the plain version. f32 runs as plain FMAs (`csrc/fused_embed.cu`);
+bf16 on the warpgroup tensor cores with TMA loads (`csrc/wgmma.cuh`): the row
+kernel `csrc/fused_embed_rows.cu`, dW `csrc/fused_embed_dw.cu`, dx
+`csrc/fused_embed_dx.cu`.
 
 On an H100 (M = 32,768, K = 1,024, D = 384, bf16) the forward is bound by its
 25.8 GFLOP (26 us at 989 TFLOP/s; its 68 MB take 20 us at 3.35 TB/s). One
-block owns 128 whole rows (LayerNorm needs a row's every column) and walks K
-through a cp.async ring; bf16 products run on the tensor cores (wmma), f32
-ones as plain FMAs. The
-backward of the parameters runs the row kernel once more, which writes dh
-[M, D] in x's dtype (25 MB in bf16) with per-block partials of db / dscale /
-dbias, then the tiled product dW = x^T dh in slabs over M; dx = dh W^T reads
-the same dh and is launched only when x needs a gradient (never in the
-models: the patch features are data); in bf16 it is a wgmma kernel (TMA
-loads, a resident 128-row dh panel, W streamed through an mbarrier ring).
-All sums across blocks are per-block partials added in a fixed order: no
-atomics, the same gradients every run.
+block owns 128 whole rows (LayerNorm needs a row's every column), and a
+warp's 16 rows of the product's accumulators are one region, so the
+LayerNorm, the ReLU and the region mean run on the accumulators in registers.
+The backward of the parameters runs the row kernel once more, which writes
+dh [M, D] in x's dtype (25 MB in bf16) with per-block partials of db / dscale
+/ dbias, then the product dW = x^T dh in slabs over M; dx = dh W^T reads the
+same dh and is launched only when x needs a gradient (never in the models:
+the patch features are data). All sums across blocks are per-block partials
+added in a fixed order: no atomics, the same gradients every run.
 
 Padding contract (as in the JAX package): callers pad bags in whole 16-patch
 regions; fully padded regions produce finite values that the caller zeroes
@@ -115,6 +115,32 @@ def dx_tol(want: torch.Tensor) -> dict:
     return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 256)
 
 
+def fwd_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 forward kernel against
+    `fused_region_embedding_plain` on the same inputs: the same arithmetic,
+    so only the order of the f32 sums and the last rounding to bf16 differ:
+    one bf16 ulp relative (2^-7) and 2^-10 of the largest |out| absolute for
+    region means that cancel to near 0."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 1024)
+
+
+def dh_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 dh (the row kernel in backward mode) against
+    `fused_region_embedding_dh_plain` rounded to bf16: one bf16 ulp relative
+    and 2^-10 of the largest |dh| for elements whose three terms cancel."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 1024)
+
+
+def dw_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 dW product against `x.float().t() @
+    dh.float()` on the kernel's own dh: exact bf16 products summed in f32 in
+    another order, over M terms: 2^-16 relative and 2^-16 of the largest |dW|
+    absolute (the kernel used at most 0.0103 of a bound 16 times as wide on
+    an H100). A slab or a 64-row chunk of M left out is off by a share of the
+    values themselves."""
+    return dict(rtol=2.0 ** -16, atol=float(want.detach().abs().max()) / 65536)
+
+
 def _check(name: str, x, w, b, scale, bias):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {x.device}")
@@ -142,7 +168,7 @@ def _kernel_operands(name: str, x, w, transposed: bool = False):
     """x contiguous and W rounded to x's dtype (one cast per call; the
     kernels copy both into shared memory 16 bytes at a time, so their bases
     must be aligned to 16 bytes). `transposed`: W as [D, K] for the bf16 row
-    kernels, whose tensor-core B fragments want K contiguous (a copy of
+    kernel, whose tensor-core B operand wants K contiguous (a copy of
     nothing when w is the transposed view of a torch Linear weight)."""
     x = x.contiguous()
     w = w.detach().to(x.dtype)
@@ -198,7 +224,7 @@ def fused_region_embedding_bwd_dparams(g, x, w, b, scale, bias):
     code = _build.DTYPE_CODES[x.dtype]
     partials = torch.empty((lib.advmil_fused_embed_row_blocks(M), 3, D),
                            dtype=torch.float32, device=x.device)
-    slabs = lib.advmil_fused_embed_dw_slabs(M, K, D)
+    slabs = lib.advmil_fused_embed_dw_slabs(M, K, D, code)
     dw_partials = torch.empty((slabs if slabs > 1 else 0, K, D), dtype=torch.float32,
                               device=x.device)
     with torch.cuda.device(x.device):

@@ -16,8 +16,10 @@ Phases, each printed on its own line:
      L = 4,096 (8-warp blocks), the forward against the plain attention branch
      at L = 256 .. 2,048, the keep-mask kernel (bit for bit) and philox.cuh
      against cuRAND's Philox4x32-10; the plain LN+ReLU kernels and the fused
-     Dense+LN+ReLU+pool kernels (forward, parameter backward, dx; dx also
-     against the plain product of the kernel's own dh) with the library pair
+     Dense+LN+ReLU+pool kernels (forward, parameter backward, dx; in bf16
+     also against the tight bounds of `ops/fused_embed.py`: the forward, dh,
+     dW and dx against their plain versions on the kernels' own
+     intermediates) with the library pair
      they replace (F.linear + LN-pool) timed beside them. Each kernel's bound
      (bytes over 3.35 TB/s against operations over the peak of their type) is
      computed from the inputs it was timed on.
@@ -120,6 +122,12 @@ def timed_one(fn, reps=20):
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
 
 
+def share_of(got, want, atol, rtol):
+    """The largest |got - want| as a share of atol + rtol |want| (1: at the bound)."""
+    a, e = got.float(), want.float()
+    return float(((a - e).abs() / (atol + rtol * e.abs())).max())
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -172,10 +180,15 @@ def phase_build():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(osp.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.build_info.get("log", ""))
-    regs = [ln.strip() for ln in _build.build_info.get("log", "").splitlines()
-            if "registers" in ln or "spill" in ln]
+    lines = _build.build_info.get("log", "").splitlines()
+    regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    # C7520 / C7511: ptxas serialized a kernel's wgmmas (about half the rate)
+    serialized = sorted({ln.strip() for ln in lines if "Potential Performance Loss" in ln})
     log(f"[2 build] {osp.basename(_build.build_info['path'])} in {secs:.1f} s "
-        f"(nvcc {_build.build_info['seconds']:.1f} s); ptxas lines: {len(regs)}")
+        f"(nvcc {_build.build_info['seconds']:.1f} s); ptxas lines: {len(regs)}; wgmma "
+        f"serialized: {len(serialized)}")
+    for ln in serialized:
+        log(f"[2 build] {ln}")
     return secs
 
 
@@ -788,7 +801,10 @@ def _kernels_embed(card, dev, g):
     # 1,024 features), D = 384 (G) and 128, and a ragged M (M % 64 != 0).
     # Bounds: values f32 1e-5 + 1e-4 rel; gradients f32 2e-4 + 1e-3 rel (the
     # JAX package's own for this op's sums over M); bf16 2e-2 + 2e-2 rel
-    # against the plain versions with the kernels' roundings.
+    # against the plain versions with the kernels' roundings, and the tight
+    # bounds that only the sums' order and the last rounding fill: the
+    # forward within fwd_tol, dh within dh_tol of the plain dh rounded, dW
+    # within dw_tol of the plain product of the kernel's own dh.
     K = 1024
     worst = {"out": 0.0, "dx": 0.0, "dparams": 0.0}
     for M, D in ((32768, 384), (32768, 128), (16 * 67, 384)):
@@ -841,6 +857,8 @@ def _kernels_embed(card, dev, g):
                     f"bf16 2e-2 + 2e-2 rel); dx against the plain product of its own dh "
                     f"{max_abs(dx, own):.3e} (atol {own_tol['atol']:.1e}, rtol 2^-7)")
             del own
+            if not f32:
+                line += _embed_tight(out, ref, dh, dw, gout, x, w, b, scale, bias)
             if M < 32768:
                 log(f"{line} | ragged M | {card}")
                 continue
@@ -896,6 +914,27 @@ def _kernels_embed(card, dev, g):
     report["fused_region_embedding_bwd_dparams"]["max_abs_err"] = worst["dparams"]
     report["fused_region_embedding_bwd_dx"]["max_abs_err"] = worst["dx"]
     return report
+
+
+def _embed_tight(out, ref, dh, dw, gout, x, w, b, scale, bias):
+    """The bf16 #9 / #11 against their tight bounds (ops/fused_embed.py:
+    fwd_tol, dh_tol, dw_tol); raises past one, returns the shares used."""
+    import torch
+    from advmil_tpu_torch.ops import fused_embed as fe
+    dh_ref = fe.fused_region_embedding_dh_plain(gout, x, w, b, scale, bias)[0].bfloat16()
+    own = x.float().t() @ dh.float()
+    shares = []
+    for name, got, want, tol in (("out", out, ref, fe.fwd_tol(ref)),
+                                 ("dh", dh, dh_ref, fe.dh_tol(dh_ref)),
+                                 ("dW", dw, own, fe.dw_tol(own))):
+        share = share_of(got, want, **tol)
+        if not share <= 1.0:
+            raise AssertionError(f"fused embedding bf16 {name}: {share:.2f} times its tight bound")
+        shares.append(f"{name} {share:.2f}")
+    del dh_ref, own
+    torch.cuda.synchronize()
+    return ("; tight bounds (fwd_tol, dh_tol, dw_tol against dW of its own dh) used: "
+            + ", ".join(shares))
 
 
 def _write_yaml(path, cfg):
@@ -1424,11 +1463,13 @@ SOURCES = {
                              "advmil_tpu/ops/banded_pallas.py:123"),
     "ln_relu": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:198"),
     "ln_relu_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:204"),
-    "fused_region_embedding": ("advmil_tpu_torch/csrc/fused_embed.cu",
+    "fused_region_embedding": ("advmil_tpu_torch/csrc/fused_embed_rows.cu",
                                "advmil_tpu/ops/fused_embed.py:35"),
     "fused_region_embedding_bwd_dx": ("advmil_tpu_torch/csrc/fused_embed_dx.cu",
                                       "advmil_tpu/ops/fused_embed.py:76"),
-    "fused_region_embedding_bwd_dparams": ("advmil_tpu_torch/csrc/fused_embed.cu",
+    # two launches: the row kernel in backward mode (dh), then dW = x^T dh
+    # (csrc/fused_embed_dw.cu)
+    "fused_region_embedding_bwd_dparams": ("advmil_tpu_torch/csrc/fused_embed_rows.cu",
                                            "advmil_tpu/ops/fused_embed.py:85"),
 }
 

@@ -5,6 +5,8 @@ library pair it replaces, on one CUDA GPU.
     python3 scripts/profile_fused_embed.py
     python3 scripts/profile_fused_embed.py --dx [--other-csrc DIR] [--variants a,b] [--reps 20]
     python3 scripts/profile_fused_embed.py --dx-mutant
+    python3 scripts/profile_fused_embed.py --fwd --dparams [--other-csrc DIR] [--variants a,b]
+    python3 scripts/profile_fused_embed.py --mutants
 
 Without arguments, for M = 32,768 patches of K = 1,024 features, D = 384 and
 128, bf16 and f32: five calls each of the forward (#9), the parameter backward
@@ -34,6 +36,28 @@ stdout and to `chiprun_out/profile_fused_embed_dx.jsonl`.
 output tile and fails unless `dx_tol` catches it at D = 128 and 384. Variants
 and the mutant are built from a patched copy of the sources under
 `chiprun_out/`, removed afterwards; the shipped sources hold no switch.
+
+`--fwd` / `--dparams`: the bf16 row kernel (#9; `csrc/fused_embed_rows.cu`)
+and the parameter backward (#11: the row kernel in backward mode, then dW =
+x^T dh, `csrc/fused_embed_dw.cu`), both on wgmma + TMA. First the checks
+(`EMBED_SHAPES`: D = 32 .. 384, ragged M, narrow K, a zero region): the
+forward against `fused_region_embedding_plain` within `fwd_tol`, dh against
+`fused_region_embedding_dh_plain` rounded within `dh_tol`, dW against the
+plain product of the kernel's own dh within `dw_tol`, db / dscale / dbias and
+every value also within the plain bounds (2e-2 + 2e-2 relative), and two
+calls bit for bit. Then times at M = 32,768, K = 1,024, D = 384 and 128 of
+the C entry points (the wrapper's cast of W not included) beside the library
+pair (`F.linear` + the LN-pool kernel; the LN-pool backward + `F.linear`'s
+dW, db), the dh and the dW launch apart, with `--other-csrc` and `--variants`
+(`ROW_VARIANTS`) in the same turns; then one call of each under
+`torch.profiler`, for the share of the ordered sums. JSON lines to stdout and
+`chiprun_out/profile_fused_embed_rows.jsonl`.
+
+`--mutants`: three faulty builds (`EMBED_MUTANTS`: a 64-wide K chunk dropped
+in one row tile; one M slab dropped from dW; a column beyond D let into the
+LayerNorm's variance at D = 96), each held to the plain and the tight bounds
+over `MUTANT_CASES` (rows of mean 0 to 1 for the LayerNorm one); fails
+unless each is caught by its tight bound.
 """
 import argparse
 import json
@@ -75,6 +99,52 @@ DX_VARIANTS = {
 }
 
 
+_ROWS, _DW = "fused_embed_rows.cu", "fused_embed_dw.cu"
+_ROW_K_STEPS = "for (int s = 0; s < wg::kChunk / 16; ++s) {  // K beyond the edge is zero fill"
+_DW_K_STEPS = "for (int s = 0; s < kDwChunkRows / 16; ++s)  // 16 reduction rows: 2,048 bytes"
+# name: (file, text, replacement) triples; each text must occur exactly once in its file.
+# The no_* variants give wrong results and are only timed.
+ROW_VARIANTS = {
+    "no_store": [(_ROWS, "if (live && c < D)", "if (live && c < 0)"),
+                 (_ROWS, "if (row < M && col < D)", "if (row < 0 && col < D)"),
+                 (_DW, "      if (col < D)", "      if (col < 0)")],
+    "no_mma": [(_ROWS, _ROW_K_STEPS, "for (int s = 0; s < (D < 0 ? wg::kChunk / 16 : 0); ++s) {"),
+               (_DW, _DW_K_STEPS, "for (int s = 0; s < (D < 0 ? kDwChunkRows / 16 : 0); ++s)")],
+    "stages2": [(_ROWS, "kRowMaxStages = 6;", "kRowMaxStages = 2;"),
+                (_DW, "kDwMaxStages = 6;", "kDwMaxStages = 2;")],
+    "stages4": [(_ROWS, "kRowMaxStages = 6;", "kRowMaxStages = 4;"),
+                (_DW, "kDwMaxStages = 6;", "kDwMaxStages = 4;")],
+    # (one block alone would load all of W^T's D rows as one box: above TMA's 256 at D = 384)
+    "cluster4": [(_ROWS, "kRowCluster = 2;", "kRowCluster = 4;")],
+}
+ROW_VARIANTS["loads_only"] = ROW_VARIANTS["no_store"] + ROW_VARIANTS["no_mma"]
+# the backward row kernel without its epilogue (dh, sums): the products and loads alone
+ROW_VARIANTS["bwd_no_epilogue"] = [
+    (_ROWS, "    const int tid = threadIdx.x;\n    consumer_barrier();",
+     "    const int tid = threadIdx.x;\n    if (D > 0) {\n      wg::cluster_sync();\n"
+     "      return;\n    }\n    consumer_barrier();")]
+EMBED_MUTANTS = {
+    "K chunk 1 dropped in row tile 1": [
+        (_ROWS, _ROW_K_STEPS,
+         "for (int s = 0; s < ((kc == 1 && blockIdx.x == 1) ? 0 : wg::kChunk / 16); ++s) {")],
+    "slab 1 of M dropped from dW": [
+        (_DW, _DW_K_STEPS, "for (int s = 0; s < (blockIdx.z == 1 ? 0 : kDwChunkRows / 16); ++s)")],
+    "8 columns beyond D in the variance": [
+        (_ROWS, "if (p * S::kN + 8 * j < D) {", "if (p * S::kN + 8 * j < D + 8) {")],
+}
+# (M, K, D, mean of b, a zero region): the checks of right kernels
+EMBED_SHAPES = [(32768, 1024, 384, 0.0, True), (32768, 1024, 128, 0.0, True),
+                (16 * 67, 1024, 384, 0.0, True), (16 * 67, 128, 96, 0.0, True),
+                (48, 64, 32, 0.0, True), (16, 32, 256, 0.0, True), (4096, 1024, 320, 0.0, True),
+                (16 * 9, 288, 64, 0.0, True), (4096, 1024, 96, 1.0, True)]
+# rows of mean 0.3 .. 1 without a zero region: there a zero row's variance is
+# b's own, which the variance mutant changes many times over in any case
+MUTANT_CASES = [(32768, 1024, 384, 0.0, True), (32768, 1024, 128, 0.0, True),
+                (16 * 67, 1024, 384, 0.0, True), (32768, 1024, 96, 0.0, True),
+                (32768, 1024, 96, 0.3, False), (32768, 1024, 96, 0.5, False),
+                (32768, 1024, 96, 1.0, False), (16 * 67, 1024, 96, 0.5, False)]
+
+
 def emit(**rec):
     print(json.dumps(rec), flush=True)
     OUT.append(rec)
@@ -96,18 +166,19 @@ def load_from(csrc, build_dir):
 
 def build_patched(name, fname, changes):
     """The library built from a copy of the package's sources in which each
-    `old` of `changes` (which must occur once in `fname`) reads `new`; (lib,
-    directory)."""
+    `old` of `changes` (which must occur once in its file) reads `new`;
+    `changes` holds (old, new) pairs in `fname` or (file, old, new) triples.
+    Returns (lib, directory)."""
     from advmil_tpu_torch.ops import _build
-    tmp = Path(ROOT) / "chiprun_out" / f"dx_{name}"
+    tmp = Path(ROOT) / "chiprun_out" / f"patched_{name.replace(' ', '_')}"
     shutil.rmtree(tmp, ignore_errors=True)
     shutil.copytree(_build.CSRC, tmp / "csrc")
-    text = (tmp / "csrc" / fname).read_text()
-    for old, new in changes:
+    for change in changes:
+        f, old, new = change if len(change) == 3 else (fname, *change)
+        text = (tmp / "csrc" / f).read_text()
         if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to change occurs {text.count(old)} times in {fname}")
-        text = text.replace(old, new)
-    (tmp / "csrc" / fname).write_text(text)
+            raise SystemExit(f"{name}: the text to change occurs {text.count(old)} times in {f}")
+        (tmp / "csrc" / f).write_text(text.replace(old, new))
     return load_from(tmp / "csrc", tmp / "_build"), tmp
 
 
@@ -227,6 +298,237 @@ def run_dx_mutant(dev):
         raise SystemExit("the dx mutant passed dx_tol")
 
 
+def embed_case(M, K, D, b_mean, dev, zero_region=True, seed=0):
+    """bf16 x [M, K] (rows 16 .. 31 zero with `zero_region`), f32 parameters
+    (b around `b_mean`: the rows' mean), and a cotangent zeroed on the zero
+    region and wherever a ReLU input lies within 2e-5 of 0 (there a rounding
+    flips the mask)."""
+    import torch
+
+    import chip_smoke
+    g = torch.Generator(device=dev).manual_seed(seed + M + K + D)
+    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    if M >= 32 and zero_region:
+        x[16:32] = 0.0
+    w = torch.randn(K, D, device=dev, generator=g) / K ** 0.5
+    b = b_mean + 0.1 * torch.randn(D, device=dev, generator=g)
+    scale = 1.0 + 0.1 * torch.randn(D, device=dev, generator=g)
+    bias = 0.1 * torch.randn(D, device=dev, generator=g)
+    gout = torch.randn(M // 16, D, device=dev, generator=g)
+    if M >= 32 and zero_region:
+        gout[1] = 0.0
+    pre = chip_smoke.pre_relu(x.float() @ w.bfloat16().float() + b, scale, bias)
+    return x, w, b, scale, bias, chip_smoke.away_from_relu_edge(pre, gout, 16)
+
+
+def fwd_of(lib, x, wt, b, scale, bias):
+    """The forward from `lib`'s C entry point (wt = W^T [D, K] in bf16)."""
+    import torch
+    from advmil_tpu_torch.ops import _build
+    from advmil_tpu_torch.ops.ln_pool import LN_EPS
+    (M, K), D = x.shape, wt.shape[0]
+    out = torch.empty((M // 16, D), dtype=x.dtype, device=x.device)
+    _build.check(lib.advmil_fused_embed_fwd(x.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                                            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), M,
+                                            K, D, 1, LN_EPS, _build.stream_of(x)),
+                 "advmil_fused_embed_fwd")
+    return out
+
+
+def dh_of(lib, gout, x, wt, b, scale, bias):
+    """(dh, [db, dscale, dbias]) from `lib`'s backward row kernel."""
+    import torch
+    from advmil_tpu_torch.ops import _build
+    from advmil_tpu_torch.ops.ln_pool import LN_EPS
+    (M, K), D = x.shape, wt.shape[0]
+    dh = torch.empty((M, D), dtype=x.dtype, device=x.device)
+    sums = torch.empty((3, D), dtype=torch.float32, device=x.device)
+    part = torch.empty((lib.advmil_fused_embed_row_blocks(M), 3, D), dtype=torch.float32,
+                       device=x.device)
+    _build.check(lib.advmil_fused_embed_bwd_dh(gout.data_ptr(), x.data_ptr(), wt.data_ptr(),
+                                               b.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                               dh.data_ptr(), part.data_ptr(), sums.data_ptr(), M,
+                                               K, D, 1, LN_EPS, _build.stream_of(x)),
+                 "advmil_fused_embed_bwd_dh")
+    return dh, sums
+
+
+def dw_of(lib, x, dh, part):
+    """dW [K, D] f32 from `lib`'s product; `part` holds the slabs' partials."""
+    import torch
+    from advmil_tpu_torch.ops import _build
+    (M, K), D = x.shape, dh.shape[1]
+    dw = torch.empty((K, D), dtype=torch.float32, device=x.device)
+    _build.check(lib.advmil_fused_embed_dw(x.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+                                           part.data_ptr(), M, K, D, 1, _build.stream_of(x)),
+                 "advmil_fused_embed_dw")
+    return dw
+
+
+def dw_scratch(lib, M, K, D, dev):
+    import torch
+    slabs = lib.advmil_fused_embed_dw_slabs(M, K, D, 1)
+    return torch.empty((slabs if slabs > 1 else 0, K, D), dtype=torch.float32, device=dev)
+
+
+def check_embed(lib, cases, dev, tag):
+    """Each case against the plain bounds and the tight ones; returns the
+    records (shares of each bound, bit-for-bit repeat)."""
+    import torch
+
+    import chip_smoke
+    from advmil_tpu_torch.ops import fused_embed as fe
+    recs = []
+    for M, K, D, b_mean, zero_region in cases:
+        x, w, b, scale, bias, gout = embed_case(M, K, D, b_mean, dev, zero_region)
+        wt = w.bfloat16().t().contiguous()
+        part = dw_scratch(lib, M, K, D, dev)
+        out = fwd_of(lib, x, wt, b, scale, bias)
+        dh, sums = dh_of(lib, gout, x, wt, b, scale, bias)
+        dw = dw_of(lib, x, dh, part)
+        again = (fwd_of(lib, x, wt, b, scale, bias), *dh_of(lib, gout, x, wt, b, scale, bias))
+        same = all(torch.equal(u, v) for u, v in zip((out, dh, sums), again)) and \
+            torch.equal(dw, dw_of(lib, x, again[1], part))
+        torch.cuda.synchronize()
+        ref = fe.fused_region_embedding_plain(x, w, b, scale, bias)
+        dh_ref = fe.fused_region_embedding_dh_plain(gout, x, w, b, scale, bias)[0].bfloat16()
+        _, dw_ref, *sums_ref = fe.fused_region_embedding_bwd_plain(gout, x, w, b, scale, bias)
+        own = x.float().t() @ dh.float()
+        share = chip_smoke.share_of
+        plain = {"out": share(out, ref, 2e-2, 2e-2), "dw": share(dw, dw_ref, 2e-2, 2e-2),
+                 "db_dscale_dbias": max(share(a, e, 2e-2, 2e-2) for a, e in zip(sums, sums_ref))}
+        tight = {"out": share(out, ref, **fe.fwd_tol(ref)),
+                 "dh": share(dh, dh_ref, **fe.dh_tol(dh_ref)),
+                 "dw": share(dw, own, **fe.dw_tol(own))}
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, dh, dw, sums))
+        zero = bool((dh[16:32] == 0).all()) if M >= 32 and zero_region else True
+        rec = dict(check=f"{tag} M={M} K={K} D={D} b_mean={b_mean} bf16", share_of_plain=plain,
+                   share_of_tight=tight, bit_for_bit=same, finite=finite,
+                   zero_region_dh_exactly_zero=zero,
+                   ok=finite and zero and same and max(plain.values()) <= 1.0
+                   and max(tight.values()) <= 1.0)
+        emit(**rec)
+        recs.append(rec)
+        del x, w, out, dh, dw, part, ref, dh_ref, dw_ref, own
+    return recs
+
+
+def ptxas_report(prefixes):
+    """ptxas lines of the kernels whose names contain one of `prefixes`, and
+    every 'Potential Performance Loss' line (C7520 / C7511: wgmma serialized)."""
+    from advmil_tpu_torch.ops import _build
+    lines = _build.build_info.get("log", "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and any(p in ln for p in prefixes):
+            emit(ptxas=ln.split("'")[1], used=" ".join(x.strip() for x in lines[i + 1:i + 4]))
+    serialized = sorted({ln.strip() for ln in lines if "Potential Performance Loss" in ln})
+    emit(ptxas_performance_warnings=serialized)
+
+
+def run_embed(args, card, dev):
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from advmil_tpu_torch.ops import _build
+    from advmil_tpu_torch.ops import ln_pool
+    lib = _build.load()
+    ptxas_report(("rows_wgmma", "dw_wgmma"))
+    ok = all(r["ok"] for r in check_embed(lib, EMBED_SHAPES, dev, "embed"))
+    emit(all_embed_checks_ok=ok)
+    others, tmps = {}, []
+    if args.other_csrc:
+        others["other_csrc"] = load_from(args.other_csrc,
+                                         osp.join(ROOT, "chiprun_out", "other_build"))
+    for name in filter(None, (args.variants or "").split(",")):
+        others[name], tmp = build_patched(name, _ROWS, ROW_VARIANTS[name])
+        tmps.append(tmp)
+    M, K = 32768, 1024
+    for D in (384, 128):
+        x, w, b, scale, bias, gout = embed_case(M, K, D, 0.0, dev)
+        wt = w.bfloat16().t().contiguous()     # W^T [D, K]: also F.linear's weight
+        bl = b.bfloat16()
+        libs = {"kernel": lib, **others}
+        parts = {n: dw_scratch(lb, M, K, D, dev) for n, lb in libs.items()}
+        dhs = {n: dh_of(lb, gout, x, wt, b, scale, bias)[0] for n, lb in libs.items()}
+        flop = 2 * M * K * D
+        small = 3 * D * 4
+        if args.fwd:
+            arms = {n: (lambda lb=lb: fwd_of(lb, x, wt, b, scale, bias)) for n, lb in libs.items()}
+            arms["library"] = lambda: ln_pool.ln_relu_region_mean_fwd(F.linear(x, wt, bl), scale,
+                                                                     bias)
+            times = turns(arms, args.reps)
+            moved = x.numel() * 2 + wt.numel() * 2 + M // 16 * D * 2 + small
+            emit(time=f"fwd #9 M={M} K={K} D={D} bf16", card=card,
+                 bound_ms=max(flop / 989e12, moved / 3.35e12) * 1e3,
+                 **{f"{n}_ms": statistics.median(v) for n, v in times.items()},
+                 kernel_tflops=flop / statistics.median(times["kernel"]) / 1e9)
+        if args.dparams:
+            arms = {}
+            for n, lb in libs.items():
+                arms[f"{n}_dh"] = lambda lb=lb: dh_of(lb, gout, x, wt, b, scale, bias)
+                arms[f"{n}_dw"] = lambda lb=lb, n=n: dw_of(lb, x, dhs[n], parts[n])
+            hh = F.linear(x, wt, bl)
+            lin = [t.detach().clone().requires_grad_(True) for t in (wt, bl)]
+            hl = F.linear(x, *lin)
+
+            def lib_params():
+                d = ln_pool.ln_relu_region_mean_bwd(gout, hh, scale, bias)[0]
+                return torch.autograd.grad(hl, lin, d, retain_graph=True)
+
+            arms["library"] = lib_params
+            times = turns(arms, args.reps)
+            med = {n: statistics.median(v) for n, v in times.items()}
+            moved = x.numel() * 2 + wt.numel() * 2 + gout.numel() * 4 + K * D * 4 + 3 * small
+            emit(time=f"dparams #11 M={M} K={K} D={D} bf16", card=card,
+                 bound_ms=max(2 * flop / 989e12, moved / 3.35e12) * 1e3,
+                 **{f"{n}_ms": v for n, v in med.items()},
+                 **{f"{n}_dh_plus_dw_ms": med[f"{n}_dh"] + med[f"{n}_dw"] for n in libs},
+                 dh_tflops=flop / med["kernel_dh"] / 1e9, dw_tflops=flop / med["kernel_dw"] / 1e9)
+            del hh, hl, lin
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fwd_of(lib, x, wt, b, scale, bias)
+                dh_of(lib, gout, x, wt, b, scale, bias)
+                dw_of(lib, x, dhs["kernel"], parts["kernel"])
+            torch.cuda.synchronize()
+        rows = [(getattr(ev, "self_device_time_total", 0), ev) for ev in prof.key_averages()]
+        emit(profile=f"M={M} K={K} D={D} bf16, device ms per launch", card=card,
+             kernels={ev.key[:90]: us / ev.count / 1e3 for us, ev in rows
+                      if us > 0 and ev.device_type.name != "CPU"})
+        del x, w, wt, dhs, parts
+    for tmp in tmps:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not ok:
+        raise SystemExit("an embedding check failed")
+
+
+def turns(arms, reps):
+    """CUDA-event times of each arm, in turns a, b, .., b, a (medians later)."""
+    order = list(arms) + list(arms)[::-1]
+    times = {n: [] for n in arms}
+    for n in order:
+        times[n] += event_ms(arms[n], reps)
+    return times
+
+
+def run_embed_mutants(dev):
+    caught_all = True
+    for name, changes in EMBED_MUTANTS.items():
+        lib, tmp = build_patched(name, _ROWS, changes)
+        cases = [c for c in MUTANT_CASES if (c[2] == 96) == ("beyond D" in name)]
+        recs = check_embed(lib, cases, dev, f"mutant '{name}'")
+        shutil.rmtree(tmp, ignore_errors=True)
+        caught = [max(r["share_of_tight"].values()) > 1.0 for r in recs]
+        passes_plain = [max(r["share_of_plain"].values()) <= 1.0 for r in recs]
+        emit(mutant=name, caught_by_tight_bounds=caught, passes_plain_bounds=passes_plain,
+             tight_share=[max(r["share_of_tight"].values()) for r in recs])
+        caught_all = caught_all and any(caught)
+    if not caught_all:
+        raise SystemExit("a mutant passed every tight bound")
+
+
 def run_profile(card, dev):
     import torch
     import torch.nn.functional as F
@@ -280,9 +582,16 @@ def main():
     ap.add_argument("--dx-mutant", action="store_true",
                     help="build the dx kernel with a chunk of D dropped; fail unless dx_tol "
                          "catches it")
-    ap.add_argument("--other-csrc", help="with --dx: another csrc tree whose dx is timed too")
-    ap.add_argument("--variants", help="with --dx: comma-separated names of DX_VARIANTS to build "
-                                       "and time beside the kernel")
+    ap.add_argument("--fwd", action="store_true", help="check and time the bf16 forward (#9)")
+    ap.add_argument("--dparams", action="store_true",
+                    help="check and time the bf16 parameter backward (#11: dh, then dW)")
+    ap.add_argument("--mutants", action="store_true",
+                    help="build #9 / #11 with three faults; fail unless the tight bounds "
+                         "catch them")
+    ap.add_argument("--other-csrc", help="with --dx / --fwd / --dparams: another csrc tree timed "
+                                         "in the same turns")
+    ap.add_argument("--variants", help="comma-separated names of DX_VARIANTS (with --dx) or "
+                                       "ROW_VARIANTS (with --fwd / --dparams) to build and time")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
 
@@ -301,6 +610,17 @@ def main():
                 run_dx_mutant(dev)
         finally:
             with open(osp.join(ROOT, "chiprun_out", "profile_fused_embed_dx.jsonl"), "w") as f:
+                for rec in OUT:
+                    f.write(json.dumps(rec) + "\n")
+        return
+    if args.fwd or args.dparams or args.mutants:
+        try:
+            if args.fwd or args.dparams:
+                run_embed(args, card, dev)
+            if args.mutants:
+                run_embed_mutants(dev)
+        finally:
+            with open(osp.join(ROOT, "chiprun_out", "profile_fused_embed_rows.jsonl"), "w") as f:
                 for rec in OUT:
                     f.write(json.dumps(rec) + "\n")
         return

@@ -113,6 +113,76 @@ def test_dx_from_its_own_dh_matches_jax(dtype):
     assert torch.equal(got, tfe.fused_region_embedding_bwd_plain(tg, tx, tw, tb, tsc, tbi)[0])
 
 
+def _share(got, want, atol, rtol):
+    """The largest |got - want| as a share of atol + rtol |want| (1: at the bound)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _plain_with_wide_variance(x, w, b, scale, bias, extra):
+    """The forward with `extra` zero columns beyond D let into the variance
+    (h there is 0; the mean still divides by D): the fault the bf16 row
+    kernel's per-tile column test keeps out."""
+    M, D = x.shape[0], w.shape[1]
+    h = x.float() @ w.to(x.dtype).float() + b
+    mu = h.mean(dim=-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(dim=-1, keepdim=True) + extra * mu ** 2 / D
+    y = torch.relu((h - mu) * torch.rsqrt(var + tlnp.LN_EPS) * scale + bias)
+    return y.reshape(M // 16, 16, -1).mean(dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("bound", ["fwd_tol", "dh_tol", "dw_tol"])
+def test_tight_bounds_hold_right_versions_and_catch_mutants(bound):
+    """The bounds the card holds the bf16 row kernel (#9, dh of #11) and the
+    dW product to. A right version stays inside: the JAX Pallas forward
+    (interpret mode) against the plain forward; dh and dW = x^T dh formed in
+    f64 and rounded as the kernels round, against the f32 plain versions. Each
+    mutant of the card's `--mutants` falls outside: a 64-wide K chunk dropped
+    for one 128-row tile (forward and dh), 8 zero columns beyond D in the
+    variance at D = 96 with rows of mean 0.5 (which the plain bounds, 2e-2 +
+    2e-2 relative, let pass), and 64 rows of M left out of dW. Compared on the
+    real regions (the padded one's rows have the variance of b alone, which the
+    variance mutant changes many times over), with the cotangent zeroed where a
+    ReLU input lies within 2e-5 of 0 (a rounding flips the mask there)."""
+    M, K, D = 512, 256, 96
+    x, w, b, scale, bias, g = _embed_inputs(M, K, D, seed=11)
+    b = b + 0.5                                          # rows of mean ~0.5
+    tx, tw, tb, tsc, tbi, tg = (torch.from_numpy(a) for a in (x, w, b, scale, bias, g))
+    h = tx.bfloat16().float() @ tw.bfloat16().float() + tb
+    mu, var = h.mean(-1, keepdim=True), h.var(-1, unbiased=False, keepdim=True)
+    near = (((h - mu) * torch.rsqrt(var + tlnp.LN_EPS) * tsc + tbi).abs() < 2e-5).any(dim=1)
+    tg = tg * (~near.reshape(-1, 16).any(dim=1))[:, None]
+    tx = tx.bfloat16()
+    x_drop = tx.clone()
+    x_drop[128:256, 64:128] = 0
+    if bound == "fwd_tol":
+        with pltpu.force_tpu_interpret_mode():
+            jout = jfe.fused_region_embedding(jnp.asarray(x).astype(jnp.bfloat16),
+                                              *(jnp.asarray(a) for a in (w, b, scale, bias)))
+        want = tfe.fused_region_embedding_plain(tx, tw, tb, tsc, tbi)[:-1]
+        right = torch.from_numpy(np.array(jout.astype(jnp.float32)))[:-1]
+        wide = _plain_with_wide_variance(tx, tw, tb, tsc, tbi, 8)[:-1]
+        assert _share(wide, want, 2e-2, 2e-2) <= 1.0      # the plain bound lets it pass
+        mutants = [tfe.fused_region_embedding_plain(x_drop, tw, tb, tsc, tbi)[:-1], wide]
+    elif bound == "dh_tol":
+        dh = tfe.fused_region_embedding_dh_plain(tg, tx, tw, tb, tsc, tbi)[0]
+        want = dh.bfloat16()
+        right = tfe.fused_region_embedding_dh_plain(tg.double(), tx.double(),
+                                                    tw.bfloat16().double(),
+                                                    tb.double(), tsc.double(),
+                                                    tbi.double())[0].bfloat16()
+        mutants = [tfe.fused_region_embedding_dh_plain(tg, x_drop, tw, tb, tsc, tbi)[0].bfloat16()]
+    else:
+        dh = tfe.fused_region_embedding_dh_plain(tg, tx, tw, tb, tsc, tbi)[0].bfloat16()
+        want = tx.float().t() @ dh.float()
+        right = (tx.double().t() @ dh.double()).float()
+        mutants = [tx[64:].float().t() @ dh[64:].float()]
+    tol = getattr(tfe, bound)(want)
+    assert _share(right, want, **tol) <= 0.5
+    for mutant in mutants:
+        assert _share(mutant, want, **tol) > 1.5
+
+
 def test_fused_region_embedding_bf16_keeps_h_in_f32():
     """In bf16 the op rounds x and W only: it equals the f32 op on the rounded
     inputs up to the output's own rounding, which the unfused layer (Dense's

@@ -612,6 +612,58 @@ def test_fused_embed_dx_kernel_matches_the_plain_product_of_its_own_dh(cuda_devi
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [16 * 67, 32768])
+@pytest.mark.parametrize("K", [64, 1024])
+@pytest.mark.parametrize("D", [32, 96, 128, 384])
+def test_fused_embed_bf16_kernels_within_their_tight_bounds(cuda_device, M, K, D):
+    """#9 and #11 in bf16 (the wgmma row kernel, forward and backward mode,
+    and the dW product): the forward within `fwd_tol` of the plain forward,
+    dh within `dh_tol` of the plain dh rounded to bf16, dW within `dw_tol` of
+    the plain product of the kernel's own dh, db / dscale / dbias within the
+    plain bounds; a zero region with a zero cotangent gets a dh of exactly 0,
+    and two calls give the same bits (no atomics). D = 32 and 96 leave part of
+    the row kernel's columns and of TMA's boxes beyond D; M = 16 * 67 leaves
+    the last block's rows beyond M."""
+    x, w, b, scale, bias, g = _embed_case(M, K, D, torch.bfloat16, cuda_device)
+    runs = [(tfe.fused_region_embedding_fwd(x, w, b, scale, bias),
+             *tfe.fused_region_embedding_bwd_dparams(g, x, w, b, scale, bias)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, again in zip(*runs):
+        assert torch.equal(a, again)
+    out, dh, dw, db, dscale, dbias = runs[0]
+    assert all(bool(torch.isfinite(t).all()) for t in runs[0])
+    ref = tfe.fused_region_embedding_plain(x, w, b, scale, bias)
+    torch.testing.assert_close(out.float(), ref.float(), **tfe.fwd_tol(ref))
+    dh_ref = tfe.fused_region_embedding_dh_plain(g, x, w, b, scale, bias)[0].bfloat16()
+    torch.testing.assert_close(dh.float(), dh_ref.float(), **tfe.dh_tol(dh_ref))
+    own = x.float().t() @ dh.float()
+    torch.testing.assert_close(dw, own, **tfe.dw_tol(own))
+    want = tfe.fused_region_embedding_bwd_plain(g, x, w, b, scale, bias)
+    for a, e in zip((db, dscale, dbias), want[2:]):
+        torch.testing.assert_close(a, e, atol=2e-2, rtol=2e-2)
+    assert bool((dh[16:32] == 0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_build_without_serialized_products(cuda_device, tmp_path):
+    """The wgmma sources compiled as the library compiles them: ptxas reports
+    no "Potential Performance Loss" (C7520: a branch, a C++ wait loop or a
+    warp role read from threadIdx around a wgmma; C7511: too few registers
+    for the wgmma pipeline), either of which serializes the products."""
+    import subprocess
+    from advmil_tpu_torch.ops import _build
+    jobs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                              str(tmp_path / f"{name}.o"), str(_build.CSRC / f"{name}.cu")],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in ("fused_embed_rows", "fused_embed_dw", "fused_embed_dx")]
+    logs = [job.communicate()[0] for job in jobs]
+    assert all(job.returncode == 0 for job in jobs), "\n".join(logs)
+    for log in logs:
+        assert "wgmma_kernel" in log                      # ptxas reported the kernels
+        assert "Potential Performance Loss" not in log, log
+
+
+@pytest.mark.cuda
 def test_fused_embed_skips_dx_and_takes_empty_input(cuda_device):
     x, w, b, scale, bias, g = _embed_case(64, 64, 32, torch.float32, cuda_device)
     leaves = [x] + [t.detach().clone().requires_grad_(True) for t in (w, b, scale, bias)]
