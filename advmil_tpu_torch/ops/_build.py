@@ -56,8 +56,8 @@ _SIGNATURES = {
     "advmil_philox_check": [_P, _P, _I, _P],
     "advmil_knn_agg_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "advmil_knn_agg_bwd": [_P] * 7 + [_I] * 4 + [_P],
-    "advmil_banded_fwd": [_P] * 8 + [_I] * 5 + [_P],
-    "advmil_banded_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "advmil_banded_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "advmil_banded_bwd": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -17,9 +17,12 @@ which differentiates the pre-overwrite core output.
 Dispatch of `banded_core`: a CPU tensor goes to `banded_core_plain`
 (autograd through plain torch ops); a CUDA tensor goes to `BandedCore`,
 whose forward and backward are the hand-written kernels of
-`csrc/banded.cu`, or raises. The kernels read a neighbour row straight from
-device memory, so unlike the TPU kernel (one 128-row block of neighbours)
-they take any offset.
+`csrc/banded.cu`, or raises. The kernels stage a window of rows in shared
+memory and read a row that lies outside it straight from device memory, so
+unlike the TPU kernel (one 128-row block of neighbours) they take any
+offset. The forward saves lse = m + log(den) and the f32 output for the
+backward; `banded_core_stats_plain` and `banded_core_bwd_plain` are the
+plain versions of that arithmetic.
 """
 from __future__ import annotations
 
@@ -52,10 +55,67 @@ def banded_core_plain(y: torch.Tensor, offs: torch.Tensor, band_mask: torch.Tens
     only (the dense softmax aggregation of the gathered band rows). The
     gather runs in f32, so its backward sums a row's slot gradients in f32
     and rounds once, as the kernel does."""
+    return banded_core_stats_plain(y, offs, band_mask, t)[0]
+
+
+def banded_core_stats_plain(y: torch.Tensor, offs: torch.Tensor, band_mask: torch.Tensor,
+                            t: torch.Tensor):
+    """Plain version of the forward kernel with its statistics: (out [B, N, C]
+    in y's dtype, (lse, out32)), lse = m + log(max(den, 1e-16)) and out32 the
+    output before its rounding, both [B, N, C] f32. m is the max of t * v over
+    a node's banded slots (0 without one) and den the sum of exp(t * v - m),
+    so exp(t * v - lse) is a slot's softmax weight; a node without edges has
+    lse = log(1e-16) and is read by no slot of the backward."""
     B, N, C = y.shape
     src, on = _band_sources(offs, band_mask)
-    msg = torch.gather(y.float(), 1, src.reshape(B, -1, 1).expand(B, src[0].numel(), C))
-    return knn_edge_softmax_aggregate(msg.reshape(B, N, -1, C), on, t).to(y.dtype)
+    msg = torch.gather(y.float(), 1, src.reshape(B, -1, 1).expand(B, src[0].numel(),
+                                                                   C)).reshape(B, N, -1, C)
+    mb = on[..., None]
+    masked = torch.where(mb, msg * t.float().reshape(()), float("-inf"))
+    m = masked.amax(dim=2)
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    ex = torch.exp(masked - m[:, :, None])
+    den = ex.sum(dim=2).clamp_min(1e-16)
+    out32 = (ex * msg).sum(dim=2) / den
+    return out32.to(y.dtype), (m + torch.log(den), out32)
+
+
+def banded_core_bwd_plain(y: torch.Tensor, offs: torch.Tensor, band_mask: torch.Tensor,
+                          t: torch.Tensor, stats, g: torch.Tensor):
+    """Plain version of the backward kernel, from the forward's statistics
+    (lse, out32): (dy in y's dtype, dt [1] f32) for the cotangent g, in the
+    kernel's gather form. Row r was read by slot s of node n = r - offs[s]
+    (where n lies in the bag and band_mask[n, s] > 0) with the weight
+    p = exp(t * y[r] - lse[n]); with h = g[n] * (y[r] - out[n]),
+        dy[r] = sum_s p * (g[n] + t * h),   dt = sum_{r, s} p * h * y[r].
+    Each (n, s) lands in exactly one row r: no scatter."""
+    lse, out32 = stats
+    B, N, C = y.shape
+    epn = band_mask.shape[2]
+    r = torch.arange(N, device=y.device)
+    n = r[None, :, None] - offs[:, None, :].long()                    # [B, N, epn]
+    nc = n.clamp(0, N - 1)
+    on = (n >= 0) & (n < N) & (torch.gather(band_mask, 1, nc) > 0)
+    yr, tt = y.float()[:, :, None], t.float().reshape(())
+    idx = nc.reshape(B, -1, 1).expand(B, N * epn, C)
+    at = lambda a: torch.gather(a.float(), 1, idx).reshape(B, N, epn, C)  # noqa: E731
+    gn = at(g)
+    p = torch.where(on[..., None], torch.exp(yr * tt - at(lse)), 0.0)
+    h = gn * (yr - at(out32))
+    dy = (p * (gn + tt * h)).sum(dim=2)
+    dt = (p * h * yr).sum().reshape(1)
+    return dy.to(y.dtype), dt
+
+
+def banded_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 kernels against the plain version on the same
+    inputs (`banded_core_plain` and its autograd backward). Both compute in
+    f32 and round once to bf16; only the order of the f32 sums differs. So a
+    value may land one bf16 ulp away, on the other side of a rounding edge
+    (2^-7 relative), and sums that cancel to near 0 keep the f32 noise of
+    their terms (2^-10 of the largest |value| absolute). A slot dropped or
+    read from the wrong row is off by a share of the values themselves."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 1024)
 
 
 def _check(name, y, offs, band_mask, t):
@@ -83,9 +143,9 @@ def _operands(y, offs, band_mask, t):
 def banded_core_fwd(y: torch.Tensor, offs: torch.Tensor, band_mask: torch.Tensor,
                     t: torch.Tensor, save_stats: bool = False):
     """Launch the forward kernel: (out [B, N, C] in y's dtype, stats), stats =
-    (m, den, out32) [B, N, C] f32 for the backward when `save_stats`, else
-    None; out32 is out before its rounding to y's dtype (out itself for
-    f32)."""
+    (lse, out32) [B, N, C] f32 for the backward when `save_stats`, else None
+    (as `banded_core_stats_plain`); out32 is out before its rounding to y's
+    dtype (out itself for f32)."""
     global LAUNCHES
     _check("banded_core", y, offs, band_mask, t)
     y, offs, bm, tt = _operands(y, offs, band_mask, t)
@@ -95,16 +155,18 @@ def banded_core_fwd(y: torch.Tensor, offs: torch.Tensor, band_mask: torch.Tensor
     stats = None
     if save_stats:
         f32 = lambda: torch.empty(y.shape, dtype=torch.float32, device=y.device)  # noqa: E731
-        stats = (f32(), f32(), out if y.dtype == torch.float32 else f32())
+        stats = (f32(), out if y.dtype == torch.float32 else f32())
     if y.numel() == 0:
         return out, stats
-    ptr = lambda i: stats[i].data_ptr() if stats else None  # noqa: E731
+    lse = out32 = None   # null pointers: the kernel skips those stores
+    if stats:
+        lse = stats[0].data_ptr()
+        out32 = None if stats[1] is out else stats[1].data_ptr()
     lib = _build.load()
     with torch.cuda.device(y.device):
         rc = lib.advmil_banded_fwd(y.data_ptr(), offs.data_ptr(), bm.data_ptr(),
-                                   tt.data_ptr(), out.data_ptr(), ptr(0), ptr(1),
-                                   ptr(2) if stats and stats[2] is not out else None,
-                                   B, N, C, bm.shape[2], _build.DTYPE_CODES[y.dtype],
+                                   tt.data_ptr(), out.data_ptr(), lse, out32, B, N, C,
+                                   bm.shape[2], _build.DTYPE_CODES[y.dtype],
                                    _build.stream_of(y))
     _build.check(rc, "banded_core")
     LAUNCHES += 1
@@ -112,17 +174,17 @@ def banded_core_fwd(y: torch.Tensor, offs: torch.Tensor, band_mask: torch.Tensor
 
 
 def banded_core_bwd(y, offs, band_mask, t, stats, g):
-    """Launch the backward kernel from the forward's stats (m, den, out32):
+    """Launch the backward kernel from the forward's stats (lse, out32):
     (dy in y's dtype, dt [1] f32) for the cotangent g [B, N, C] (taken in
-    y's dtype)."""
+    y's dtype); `banded_core_bwd_plain` is its plain version."""
     global LAUNCHES_BWD
     _check("banded_core_bwd", y, offs, band_mask, t)
     y, offs, bm, tt = _operands(y, offs, band_mask, t)
-    m, den, out = (s.to(torch.float32).contiguous() for s in stats)
-    if not (g.shape == out.shape == m.shape == den.shape == y.shape):
+    lse, out = (s.to(torch.float32).contiguous() for s in stats)
+    if not (g.shape == out.shape == lse.shape == y.shape):
         raise ValueError("banded_core_bwd: g and the stats must have y's shape")
     g = g.to(y.dtype).contiguous()
-    _build.require_cuda("banded_core_bwd", y, offs, bm, tt, m, den, out, g)
+    _build.require_cuda("banded_core_bwd", y, offs, bm, tt, lse, out, g)
     B, N, C = y.shape
     dy = torch.empty_like(y)
     dt = torch.zeros(1, dtype=torch.float32, device=y.device)
@@ -132,9 +194,8 @@ def banded_core_bwd(y, offs, band_mask, t, stats, g):
     lib = _build.load()
     with torch.cuda.device(y.device):
         rc = lib.advmil_banded_bwd(y.data_ptr(), offs.data_ptr(), bm.data_ptr(),
-                                   tt.data_ptr(), m.data_ptr(), den.data_ptr(),
-                                   out.data_ptr(), g.data_ptr(), dy.data_ptr(),
-                                   partials.data_ptr(), dt.data_ptr(), B, N, C,
+                                   tt.data_ptr(), lse.data_ptr(), out.data_ptr(), g.data_ptr(),
+                                   dy.data_ptr(), partials.data_ptr(), dt.data_ptr(), B, N, C,
                                    bm.shape[2], _build.DTYPE_CODES[y.dtype],
                                    _build.stream_of(y))
     _build.check(rc, "banded_core_bwd")
@@ -145,7 +206,7 @@ def banded_core_bwd(y, offs, band_mask, t, stats, g):
 class BandedCore(torch.autograd.Function):
     """The banded core on the card: kernel forward, kernel backward.
     Gradients go to y and t. The forward writes the stats the backward
-    reads (m, den, f32 out) only when `save_stats`, i.e. when a backward can
+    reads (lse, f32 out) only when `save_stats`, i.e. when a backward can
     run."""
 
     @staticmethod

@@ -688,13 +688,22 @@ def _kernels_graph(card, dev, g):
             f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | bwd kernel {b_ms:.4f} ms "
             f"({gbs:.0f} GB/s of messages + dmessages), plain autograd bwd {bp_ms:.4f} ms "
             f"| {card}")
-        if dtype == torch.bfloat16:
-            report["fused_knn_softmax_aggregate"] = dict(
-                ms=f_ms, plain_ms=fp_ms, max_abs_err=errs[0], library_ms=None,
-                **bound(nbytes(msg, em, out), 8 * msg.numel(), "f32"))
-            report["fused_knn_softmax_aggregate_bwd"] = dict(
-                ms=b_ms, plain_ms=bp_ms, max_abs_err=max(errs[1:]), library_ms=None,
-                **bound(nbytes(msg, dm, em, gout), 16 * msg.numel(), "f32"))
+        # the path gathers its messages in f32 (models/backbones.py, ops/banded.py):
+        # the f32 rows are the kernels' entries, the bf16 ones go beside them
+        rows = (dict(ms=f_ms, plain_ms=fp_ms, max_abs_err=errs[0], library_ms=None,
+                     **bound(nbytes(msg, em, out), 8 * msg.numel(), "f32")),
+                dict(ms=b_ms, plain_ms=bp_ms, max_abs_err=max(errs[1:]), library_ms=None,
+                     **bound(nbytes(msg, dm, em, gout), 16 * msg.numel(), "f32")))
+        for name, r in zip(("fused_knn_softmax_aggregate", "fused_knn_softmax_aggregate_bwd"),
+                           rows):
+            if dtype == torch.float32:
+                report[name] = dict(r, dtype="f32")
+            else:
+                report[name]["bf16"] = {k: r[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                                          "bound_ms", "bound_by")}
+        log(f"[3 kernel] fused_knn_softmax_aggregate {tag}: bound fwd {rows[0]['bound_ms']:.4f} "
+            f"ms, bwd {rows[1]['bound_ms']:.4f} ms (bytes of messages, mask, cotangent and "
+            f"outputs over 3.35 TB/s) | {card}")
         del msg, dm, ref, want, plain_bwd
 
         # banded route: #14 / #15 on the node messages, then the whole op
@@ -714,17 +723,27 @@ def _kernels_graph(card, dev, g):
                  for k in (True, False)]
         werrs = check("banded op", (whole[0][0], *whole[0][2]()),
                       (whole[1][0], *whole[1][2]()), dtype, tag)
+        tight = ""
+        if dtype == torch.bfloat16:
+            # both round once from f32: within a bf16 ulp (`banded_tol`)
+            shares = [share_of(a, b, **tband.banded_tol(b.float()))
+                      for a, b in ((out, ref), (dy, want[0]))]
+            if max(shares) > 1:
+                raise AssertionError(f"banded core bf16: outside banded_tol (shares out "
+                                     f"{shares[0]:.3f}, dy {shares[1]:.3f})")
+            tight = f"; banded_tol used out {shares[0]:.3f} dy {shares[1]:.3f}"
         if not bool((whole[0][0][:, 100] == 0).all()):
             raise AssertionError("banded: a node without edges is not exactly 0")
         log(f"[3 kernel] banded_aggregate B={B} N={N} epn={epn} C={C} {tag}, residual rows "
             f"{u_rows} + 1 sentinel: core max_abs_err out {errs[0]:.3e} dy {errs[1]:.3e} dt "
             f"{errs[2]:.3e}; whole op (core + exact rows) out {werrs[0]:.3e} dy "
             f"{werrs[1]:.3e} dt {werrs[2]:.3e} (f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 "
-            f"rel); empty node exactly 0 | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | "
+            f"rel){tight}; empty node exactly 0 | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | "
             f"bwd kernel {b_ms:.4f} ms, plain autograd bwd {bp_ms:.4f} ms | {card}")
         if dtype == torch.bfloat16:
-            # the core reads y once and writes out and its statistics once; the
-            # operations run over the epn band slots of every node and channel
+            # the core reads y once and writes out and its statistics (lse, f32
+            # out) once; the backward reads y, g and the statistics and writes dy;
+            # the operations run over the epn band slots of every node and channel
             report["banded_aggregate"] = dict(
                 ms=f_ms, plain_ms=fp_ms, max_abs_err=max(errs[0], werrs[0]), library_ms=None,
                 **bound(nbytes(y, offs, bm, out, *stats), 8 * epn * y.numel(), "f32"))
@@ -1502,6 +1521,10 @@ def main():
                                             gpaths, True)
     dense_handler, dense_launches = timed("9 graph train dense", phase_graph_train, paths,
                                           gpaths, False)
+    rate = lambda h: " / ".join(f"{b / sec:.2f}" for b, sec in h.train_timings)  # noqa: E731
+    log(f"[9 graph train dense] training bags/s: banded route (phase 8, epochs 1 / 2) "
+        f"{rate(banded_handler)} beside the dense route {rate(dense_handler)} (same data, one "
+        f"run each: no gain claimed) | {card}")
     graph_test_launches = timed("10 graph test", phase_graph_test, paths, gpaths)
     for h, route in ((banded_handler, "banded"), (dense_handler, "dense")):
         timed(f"11 graph gpu-vs-cpu train {route}", phase_gpu_vs_cpu_train, h,
@@ -1517,7 +1540,6 @@ def main():
             raise AssertionError(
                 f"{plain}: {train_launches[plain]} launches unfused, {fused_launches[plain]} "
                 f"+ {fused_launches[fused]} {fused} with use_fused_embedding")
-    rate = lambda h: " / ".join(f"{b / sec:.2f}" for b, sec in h.train_timings)  # noqa: E731
     log(f"[12 fused train] training bags/s, epochs 1 / 2: fused {rate(fused_handler)} beside "
         f"phase 4's unfused {rate(train_handler)} (same data, same call, one run each: no "
         f"gain claimed) | {card}")
@@ -1558,6 +1580,7 @@ def main():
             raise AssertionError(f"kernel {name} was never launched")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
+        entry.update({k: r[k] for k in ("dtype", "bf16") if k in r})
         kernels.append(entry)
     assert all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms"))
     log(json.dumps({"kernels": kernels}))

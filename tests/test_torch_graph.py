@@ -176,6 +176,73 @@ def test_banded_aggregation_and_grads_match_jax(N, W, C):
     np.testing.assert_allclose(float(tt.grad[0]), dt_pallas, rtol=5e-5)
 
 
+@pytest.mark.parametrize("N,W,C", [(150, 12, 24), (40, 6, 8)])
+def test_banded_stats_and_bwd_from_stats_match_jax(N, W, C):
+    """The plain statistics of the forward (lse = m + log den, out32) and the
+    plain backward from them (`banded_core_bwd_plain`: the arithmetic of the
+    #15 kernel) against the JAX package's banded kernels in interpret mode
+    (its m, den, and its backward from them) and against autograd through
+    `banded_core_plain`, in f32. A node without edges aggregates to exactly
+    0 and passes no gradient."""
+    d = _two_bags(N, W, C, seed=N + 1)
+    t = np.float32(0.8)
+    offs, bm, ty, tt, tg = (_tvec(d["offs"]), _tvec(d["bmask"]), _tvec(d["y"]), _tvec([t]),
+                            _tvec(d["g"]))
+    out, (lse, out32) = tbanded.banded_core_stats_plain(ty, offs, bm, tt)
+    dy, dt = tbanded.banded_core_bwd_plain(ty, offs, bm, tt, (lse, out32), tg)
+    ya, ta = _tvec(d["y"], True), _tvec([t], True)
+    ref = tbanded.banded_core_plain(ya, offs, bm, ta)
+    ref.backward(tg)
+    np.testing.assert_allclose(out.numpy(), ref.detach().numpy(), atol=TOL)
+    np.testing.assert_allclose(dy.numpy(), ya.grad.numpy(), atol=TOL)
+    np.testing.assert_allclose(float(dt[0]), float(ta.grad[0]), rtol=TOL)
+    dt_pallas = 0.0
+    for b in range(2):
+        args = (jnp.asarray(d["y"][b]), jnp.asarray(d["offs"][b]), jnp.asarray(d["bmask"][b]),
+                jnp.asarray(t))
+        (jout, m, den), _ = jbp._banded_core_fwd(*args, True, True)
+        jlse = np.asarray(m + jnp.log(jnp.maximum(den, 1e-16)))[:N, :C]
+        np.testing.assert_allclose(lse[b].numpy(), jlse, atol=TOL)
+        np.testing.assert_allclose(out32[b].numpy(), np.asarray(jout)[:N, :C], atol=TOL)
+        jdy, jdt = jbp._banded_core_bwd(*args, m, den, jout, jnp.asarray(d["g"][b]), True)
+        np.testing.assert_allclose(dy[b].numpy(), np.asarray(jdy), atol=TOL)
+        dt_pallas += float(jdt)
+        assert np.all(out[b, 17 + b].numpy() == 0.0)
+    # the Pallas dt is read off 1024 copies of each block partial (see above)
+    np.testing.assert_allclose(float(dt[0]), dt_pallas, rtol=5e-5)
+    g_empty = torch.zeros_like(tg)
+    g_empty[0, 17], g_empty[1, 18] = 1.0, 1.0
+    dy0, dt0 = tbanded.banded_core_bwd_plain(ty, offs, bm, tt, (lse, out32), g_empty)
+    assert torch.all(dy0 == 0) and float(dt0[0]) == 0.0
+
+
+@pytest.mark.parametrize("B,N,epn,C,span", [(2, 60, 9, 8, 40), (3, 10, 1, 4, 3),
+                                            (2, 30, 16, 5, 20)])
+def test_banded_bwd_plain_matches_autograd_for_any_offsets(B, N, epn, C, span):
+    """The plain backward from the statistics against autograd through
+    `banded_core_plain` on tables the batcher would not build: offsets that
+    differ from bag to bag and reach across most of the bag, slots whose
+    source lies outside it, node 3 without edges."""
+    rng = np.random.default_rng(N + epn)
+    offs = _tvec(np.stack([rng.choice(np.arange(-span, span + 1), size=epn, replace=False)
+                           for _ in range(B)]).astype(np.int32))
+    bm_np = (rng.random((B, N, epn)) < 0.85).astype(np.float32)
+    bm_np[:, 3] = 0.0
+    bm = _tvec(bm_np)
+    y = rng.normal(size=(B, N, C)).astype(np.float32)
+    g = _tvec(rng.normal(size=(B, N, C)).astype(np.float32))
+    t = np.float32(1.2)
+    out, stats = tbanded.banded_core_stats_plain(_tvec(y), offs, bm, _tvec([t]))
+    dy, dt = tbanded.banded_core_bwd_plain(_tvec(y), offs, bm, _tvec([t]), stats, g)
+    ya, ta = _tvec(y, True), _tvec([t], True)
+    ref = tbanded.banded_core_plain(ya, offs, bm, ta)
+    ref.backward(g)
+    np.testing.assert_allclose(out.numpy(), ref.detach().numpy(), atol=TOL)
+    np.testing.assert_allclose(dy.numpy(), ya.grad.numpy(), atol=TOL)
+    np.testing.assert_allclose(float(dt[0]), float(ta.grad[0]), rtol=TOL, atol=TOL)
+    assert torch.all(out[:, 3] == 0)
+
+
 def test_banded_sentinel_u_slots_change_nothing():
     """u tables padded far beyond the residual rows (sentinel u_rows = N,
     mask 0) give the same values and gradients (the JAX package's

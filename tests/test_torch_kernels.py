@@ -439,6 +439,10 @@ def test_banded_kernels_match_plain(cuda_device, B, N, W, C, dtype):
     assert (tband.LAUNCHES, tband.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
     want = _op_grads(lambda yy, tt: tband.banded_core_plain(yy, offs, bm, tt), y, t, g)
     _assert_graph_close(got, want, dtype)
+    if dtype == torch.bfloat16:   # one rounding each: within a bf16 ulp (banded_tol)
+        for name, a, b in zip(("out", "dy"), got[:2], want[:2]):
+            torch.testing.assert_close(a.float(), b.float(), **tband.banded_tol(b.float()),
+                                       msg=lambda m, name=name: f"{name} (banded_tol): {m}")
     with torch.no_grad():   # no backward can run: the forward writes no stats
         torch.testing.assert_close(tband.banded_core(y, offs, bm, t), got[0], atol=0, rtol=0)
 
@@ -452,6 +456,95 @@ def test_banded_kernels_match_plain(cuda_device, B, N, W, C, dtype):
     dense = _op_grads(lambda yy, tt: tseg.knn_edge_softmax_aggregate(   # f32 gather
         yy.float()[bidx, tabs["edge_src"].long()], tabs["edge_mask"], tt).to(dtype), y, t, g)
     _assert_graph_close(got, dense, dtype)
+
+
+def _hand_bands(B, N, epn, far, seed):
+    """offs [B, epn] different in every bag (with `far`: one slot at +600 and
+    one at -300, beyond what the kernels stage), band_mask [B, N, epn] with
+    ~15% of the slots off, slots whose source lies outside the bag, and node
+    3 of every bag without edges."""
+    rng = np.random.default_rng(seed)
+    offs = np.stack([rng.choice(np.arange(-12, 13), size=epn, replace=False) for _ in range(B)])
+    if far:
+        offs[:, 0], offs[:, -1] = 600, -300
+        offs[1:, 0] = 599
+    bm = (rng.random((B, N, epn)) < 0.85).astype(np.float32)
+    bm[:, 3] = 0.0
+    return torch.from_numpy(offs.astype(np.int32)), torch.from_numpy(bm)
+
+
+def _core_grads(y, offs, bm, t, g):
+    return _op_grads(lambda yy, tt: tband.banded_core(yy, offs, bm, tt), y, t, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,epn,C,far", [(2, 4096, 9, 40, True), (3, 20, 1, 8, False),
+                                           (2, 100, 16, 12, False), (2, 1000, 16, 20, True),
+                                           (1, 700, 5, 384, True)])
+def test_banded_kernels_on_hand_made_bands(cuda_device, B, N, epn, C, far, dtype):
+    """#14 / #15 on tables the batcher would not build: offsets that differ
+    from bag to bag, offsets beyond the staged window (read from device
+    memory), N below one step, epn 1 and 16, C not a multiple of 8 (element
+    loads). Against the plain version (f32 1e-5; bf16 the plain bound and
+    `banded_tol`); a node without edges is exactly 0 and passes no
+    gradient; dy and dt are the same bit for bit in a second run."""
+    offs, bm = (a.to(cuda_device) for a in _hand_bands(B, N, epn, far, seed=N + epn))
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    y = torch.randn(B, N, C, device=cuda_device, generator=gen).to(dtype)
+    g = torch.randn(B, N, C, device=cuda_device, generator=gen).to(dtype)
+    t = torch.tensor([1.1], device=cuda_device)
+    got = _core_grads(y, offs, bm, t, g)
+    again = _core_grads(y, offs, bm, t, g)
+    torch.cuda.synchronize()
+    want = _op_grads(lambda yy, tt: tband.banded_core_plain(yy, offs, bm, tt), y, t, g)
+    _assert_graph_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        for name, a, b in zip(("out", "dy"), got[:2], want[:2]):
+            torch.testing.assert_close(a.float(), b.float(), **tband.banded_tol(b.float()),
+                                       msg=lambda m, name=name: f"{name} (banded_tol): {m}")
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert torch.all(got[0][:, 3] == 0)
+    g_empty = torch.zeros_like(g)
+    g_empty[:, 3] = 1.0
+    none = _core_grads(y, offs, bm, t, g_empty)
+    assert torch.all(none[1] == 0) and torch.all(none[2] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_kernels_far_offsets_equal_near_ones(cuda_device, dtype):
+    """A slot whose offset lies beyond the staged window (read from device
+    memory) gives bit for bit what the same slot gives from the window. Bag 1
+    holds bag 0's rows twice, the second copy S rows further on, so that its
+    slot at offset 1 + S reads the rows that bag 0's slot at offset 1 reads;
+    nodes 0 .. S - 1 have edges."""
+    S, C = 900, 40
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rows = torch.randn(S + 1, C, device=cuda_device, generator=gen)
+    y = torch.zeros(2, 2 * S + 1, C, device=cuda_device)
+    y[0, :S + 1] = rows
+    y[1, :S], y[1, S + 1:] = rows[:S], rows[1:]
+    y = y.to(dtype)
+    bm = torch.zeros(2, 2 * S + 1, 2, device=cuda_device)
+    bm[:, :S] = 1.0
+    g = torch.randn(2, 2 * S + 1, C, device=cuda_device, generator=gen).to(dtype)
+    g[1] = g[0]
+    t = torch.tensor([1.2], device=cuda_device)
+    # forward: slots (0, 1) in bag 0 against (0, 1 + S) in bag 1
+    offs = torch.tensor([[0, 1], [0, 1 + S]], dtype=torch.int32, device=cuda_device)
+    out = _core_grads(y, offs, bm, t, g)[0]
+    # backward: one slot, 1 against 1 + S; row n + 1 of bag 0 is row n + 1 + S of bag 1
+    offs1, bm1 = offs[:, 1:].contiguous(), bm[..., 1:].contiguous()
+    got = _core_grads(y, offs1, bm1, t, g)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1, :S], out[0, :S])
+    assert torch.equal(got[1][1, S + 1:], got[1][0, 1:S + 1])
+    assert torch.all(got[1][1, :S + 1] == 0) and torch.all(got[1][0, S + 1:] == 0)
+    for o, b_ in ((offs, bm), (offs1, bm1)):
+        want = _op_grads(lambda yy, tt, o=o, b_=b_: tband.banded_core_plain(yy, o, b_, tt),
+                         y, t, g)
+        _assert_graph_close(_core_grads(y, o, b_, t, g), want, dtype)
 
 
 @pytest.mark.cuda
