@@ -66,7 +66,7 @@
 #include <atomic>
 
 #include "graph_agg.cuh"
-#include "mma.cuh"  // cp.async, fast_exp2, pack_bf16, kLog2e
+#include "mma.cuh"  // cp.async, fast_exp2, kLog2e
 
 namespace advmil {
 namespace {
@@ -99,59 +99,6 @@ __device__ __forceinline__ float fast_log(float x) {  // lg2.approx: 2^-22 absol
   return y * kLn2;
 }
 
-// 16 bytes of T as kVec floats, and back (bf16: round to nearest even).
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& w, float* v) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      v[2 * k] = __uint_as_float(u[k] << 16);
-      v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = __uint_as_float(u[k]);
-  }
-}
-template <typename T>
-__device__ __forceinline__ uint4 pack16(const float* v) {
-  if constexpr (sizeof(T) == 2) {
-    return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                      pack_bf16(v[6], v[7]));
-  } else {
-    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
-                      __float_as_uint(v[3]));
-  }
-}
-
-// The 16 bytes at p (kVec values of T, `valid` of them inside the row) from
-// device memory: one vector load with `vec`, else element by element with
-// zeros beyond the row.
-template <typename T>
-__device__ __forceinline__ uint4 load16(const T* p, int valid, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
-  constexpr int kVec = 16 / sizeof(T);
-  T e[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) e[j] = j < valid ? p[j] : from_f32<T>(0.f);
-  uint4 w;
-  memcpy(&w, e, 16);
-  return w;
-}
-template <typename T>
-__device__ __forceinline__ void store16(T* p, const uint4& w, int valid, bool vec) {
-  if (vec) {
-    *reinterpret_cast<uint4*>(p) = w;
-    return;
-  }
-  constexpr int kVec = 16 / sizeof(T);
-  T e[kVec];
-  memcpy(e, &w, 16);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j)
-    if (j < valid) p[j] = e[j];
-}
 // n f32 values (n = 4 or 8) from device memory into v / from v to device memory
 template <int n>
 __device__ __forceinline__ void load_f32(const float* p, float* v, int valid, bool vec) {

@@ -1,6 +1,9 @@
 // Shared helpers for the port's hand-written kernels: dtype codes shared with
-// the Python wrappers, f32 <-> storage conversions and warp reductions.
+// the Python wrappers, f32 <-> storage conversions, warp reductions and the
+// device's SM count.
 #pragma once
+
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,6 +32,22 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The SM count of the current device, asked for once per device.
+inline cudaError_t device_sm_count(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> count[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  *sms = dev < kMaxDevices ? count[dev].load(std::memory_order_relaxed) : 0;
+  if (*sms == 0) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) count[dev].store(*sms, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace advmil

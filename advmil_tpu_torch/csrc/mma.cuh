@@ -18,8 +18,6 @@
 // bank groups.
 #pragma once
 
-#include <atomic>
-
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -44,17 +42,9 @@ __host__ __device__ constexpr int tile_elems() { return ROWS * tile_pitch<DH>();
 // Whether a grid of `blocks` 4-warp blocks should run as half as many 8-warp
 // blocks on the current device, whose SM count is asked for once.
 inline cudaError_t use_wide_blocks(long blocks, bool* wide) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> sm_count[kMaxDevices];  // 0: not asked yet
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0;
+  const cudaError_t err = device_sm_count(&sms);
   if (err != cudaSuccess) return err;
-  int sms = dev < kMaxDevices ? sm_count[dev].load(std::memory_order_relaxed) : 0;
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) sm_count[dev].store(sms, std::memory_order_relaxed);
-  }
   *wide = blocks >= static_cast<long>(kWideMinBlocksPerSm) * sms;
   return cudaSuccess;
 }

@@ -39,7 +39,7 @@ _DROP = [_I, _U, _U, _U, _F]   # dropout on/off, seed lo / hi, threshold, 1/(1-p
 _SIGNATURES = {
     # name: argtypes (all return int: cudaError_t, or a count where named so)
     "advmil_ln_relu_region_mean": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "advmil_ln_relu_region_mean_bwd": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "advmil_ln_relu_region_mean_bwd": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
     "advmil_ln_pool_bwd_blocks": [_I],                       # returns a count
     "advmil_ln_relu": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "advmil_ln_relu_bwd": [_P] * 8 + [_I, _I, _I, _F, _P],

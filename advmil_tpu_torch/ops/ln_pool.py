@@ -45,6 +45,20 @@ def ln_relu_region_mean_plain(h: torch.Tensor, scale: torch.Tensor,
     return y.reshape(M // S2, S2, D).mean(dim=1).to(h.dtype)
 
 
+def bwd_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 backward kernel's dh against the plain
+    version's on the same bf16 h and g (`ln_relu_region_mean_plain` and its
+    autograd backward, whose dh is rounded to bf16 once). Both compute dh in
+    f32 and round once; only the order of the f32 sums (mean, variance and the
+    two means of the gradient) differs. So a value may land one bf16 ulp away,
+    on the other side of a rounding edge (2^-7 relative), and a dh whose terms
+    cancel to near 0 keeps their f32 noise (2^-10 of the largest |dh|
+    absolute). A term of the gradient dropped moves dh by a share of that term.
+    Where a ReLU input lies within f32 noise of 0, the two may take the ReLU
+    mask differently: callers zero the cotangent of such regions first."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 1024)
+
+
 def _check(name: str, h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            pool: bool = True):
     if h.device.type != "cuda":
@@ -59,6 +73,13 @@ def _check(name: str, h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{name}: unsupported dtype {h.dtype}")
     if scale.shape != (D,) or bias.shape != (D,):
         raise ValueError(f"{name}: scale and bias must be [D]")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned: the backward kernel stages its rows
+    by 16-byte copies (a view at an odd offset is copied once)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ln_relu_region_mean_fwd(h: torch.Tensor, scale: torch.Tensor,
@@ -87,23 +108,26 @@ def ln_relu_region_mean_fwd(h: torch.Tensor, scale: torch.Tensor,
 def ln_relu_region_mean_bwd(g: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor):
     """Launch the backward kernel: (dh [M, D] in h.dtype, dscale [D] f32,
-    dbias [D] f32) for the cotangent g [M/16, D] (taken in f32, as the TPU
-    rule `_bwd_rule` takes it)."""
+    dbias [D] f32) for the cotangent g [M/16, D]. The kernel reads g in its
+    storage dtype (f32 or bf16; another dtype is cast to f32) and converts it
+    to f32 exactly, as the TPU rule `_bwd_rule` takes it."""
     global LAUNCHES_BWD
     _check("ln_relu_region_mean_bwd", h, scale, bias)
     M, D = h.shape
     if g.shape != (M // S2, D):
         raise ValueError(f"ln_relu_region_mean_bwd: g {tuple(g.shape)} for h {(M, D)}")
-    g = g.to(torch.float32).contiguous()
-    h = h.contiguous()
+    if g.dtype not in _build.DTYPE_CODES:
+        g = g.to(torch.float32)
+    g, h = _aligned(g), _aligned(h)
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     _build.require_cuda("ln_relu_region_mean_bwd", g, h, scale, bias)
     dh = torch.empty_like(h)
-    dscale = torch.zeros(D, dtype=torch.float32, device=h.device)
-    dbias = torch.zeros(D, dtype=torch.float32, device=h.device)
     if M == 0:
-        return dh, dscale, dbias
+        return (dh, *(torch.zeros(D, dtype=torch.float32, device=h.device) for _ in range(2)))
+    # the kernel writes every column of dscale / dbias: no fill launches
+    dscale = torch.empty(D, dtype=torch.float32, device=h.device)
+    dbias = torch.empty(D, dtype=torch.float32, device=h.device)
     lib = _build.load()
     nblocks = lib.advmil_ln_pool_bwd_blocks(M)
     partials = torch.empty((2, nblocks, D), dtype=torch.float32, device=h.device)
@@ -111,7 +135,8 @@ def ln_relu_region_mean_bwd(g: torch.Tensor, h: torch.Tensor, scale: torch.Tenso
         rc = lib.advmil_ln_relu_region_mean_bwd(
             g.data_ptr(), h.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             dh.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(),
-            M, D, _build.DTYPE_CODES[h.dtype], LN_EPS, _build.stream_of(h))
+            M, D, _build.DTYPE_CODES[h.dtype], _build.DTYPE_CODES[g.dtype], LN_EPS,
+            _build.stream_of(h))
     _build.check(rc, "ln_relu_region_mean_bwd")
     LAUNCHES_BWD += 1
     return dh, dscale, dbias
@@ -195,16 +220,16 @@ def ln_relu_bwd(g: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
     M, D = h.shape
     if g.shape != h.shape:
         raise ValueError(f"ln_relu_bwd: g {tuple(g.shape)} for h {(M, D)}")
-    g = g.to(h.dtype).contiguous()
-    h = h.contiguous()
+    g, h = _aligned(g.to(h.dtype)), _aligned(h)
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     _build.require_cuda("ln_relu_bwd", g, h, scale, bias)
     dh = torch.empty_like(h)
-    dscale = torch.zeros(D, dtype=torch.float32, device=h.device)
-    dbias = torch.zeros(D, dtype=torch.float32, device=h.device)
     if M == 0:
-        return dh, dscale, dbias
+        return (dh, *(torch.zeros(D, dtype=torch.float32, device=h.device) for _ in range(2)))
+    # the kernel writes every column of dscale / dbias: no fill launches
+    dscale = torch.empty(D, dtype=torch.float32, device=h.device)
+    dbias = torch.empty(D, dtype=torch.float32, device=h.device)
     lib = _build.load()
     nblocks = lib.advmil_ln_pool_bwd_blocks(M)
     partials = torch.empty((2, nblocks, D), dtype=torch.float32, device=h.device)

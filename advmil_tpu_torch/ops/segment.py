@@ -29,6 +29,7 @@ LAUNCHES = 0       # forward kernel launches since the last reset (chip_smoke re
 LAUNCHES_BWD = 0   # backward kernel launches since the last reset
 MAX_EPN = 16       # incoming slots per node the kernels take (csrc/graph_agg.cuh)
 DT_PARTIALS = 1024  # per-block dt partials a backward kernel writes at most
+MAX_FWD_ELEMS = 2 ** 31 - 1  # the forward's 32-bit index math: rows * epn * C below this
 
 
 def knn_edge_softmax_aggregate(messages: torch.Tensor, edge_mask: torch.Tensor,
@@ -48,6 +49,18 @@ def knn_edge_softmax_aggregate(messages: torch.Tensor, edge_mask: torch.Tensor,
     ex = torch.exp(masked - mx)
     alpha = ex / ex.sum(dim=-2, keepdim=True).clamp_min(1e-16)
     return (alpha * m).sum(dim=-2).to(messages.dtype)
+
+
+def knn_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 forward kernel against the plain version on the
+    same bf16 messages, rounded to bf16 (`knn_edge_softmax_aggregate`). Both
+    compute the softmax and the weighted sum in f32 and round once; only the
+    f32 rounding of the exponentials and sums differs. So a value may land one
+    bf16 ulp away, on the other side of a rounding edge (2^-7 relative), and
+    a weighted sum that cancels to near 0 keeps the f32 noise of its terms
+    (2^-10 of the largest |value| absolute). A slot dropped or read from the
+    wrong place moves a value by a share of the messages themselves."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 1024)
 
 
 def _check(name: str, messages: torch.Tensor, edge_mask: torch.Tensor, t: torch.Tensor):
@@ -78,6 +91,9 @@ def fused_agg_fwd(messages: torch.Tensor, edge_mask: torch.Tensor,
     global LAUNCHES
     _check("fused_knn_softmax_aggregate", messages, edge_mask, t)
     msg, em, tt, rows, epn, C = _operands(messages, edge_mask, t)
+    if msg.numel() > MAX_FWD_ELEMS:
+        raise ValueError(f"fused_knn_softmax_aggregate: the kernel indexes rows * epn * C "
+                         f"= {msg.numel()} values in 32 bits (at most {MAX_FWD_ELEMS})")
     _build.require_cuda("fused_knn_softmax_aggregate", msg, em, tt)
     out = torch.empty(messages.shape[:-2] + (C,), dtype=msg.dtype, device=msg.device)
     if out.numel() == 0:

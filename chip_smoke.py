@@ -141,6 +141,27 @@ def bound(moved_bytes, ops, kind):
     return dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
 
 
+def device_ms_by_kernel(fn, calls=10):
+    """Device ms per call of each kernel that `fn` launches, by name
+    (torch.profiler over `calls` calls after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0 and ev.device_type.name != "CPU":
+            out[ev.key] = out.get(ev.key, 0.0) + us / calls / 1e3
+    return out
+
+
 def away_from_relu_edge(pre, g, rows_per_g):
     """g with the rows zeroed whose ReLU input `pre` has an element within 2e-5
     of 0 (a few per cent of the regions): a rounding difference flips the ReLU
@@ -433,7 +454,9 @@ def _kernels_training(card, dev, g):
     from advmil_tpu_torch.ops import philox
     report = {}
 
-    # LN-pool backward at M = 32768, D = 384 (G) and 128 (D's netx)
+    # LN-pool backward at M = 32768, D = 384 (G) and 128 (D's netx); bf16 also
+    # within bwd_tol (one rounding of dh from f32), on a cotangent zeroed for the
+    # regions with a ReLU input within 2e-5 of 0 (a rounding may flip the mask)
     worst = 0.0
     for D in (384, 128):
         h32 = torch.randn(32768, D, device=dev, generator=g)
@@ -452,21 +475,41 @@ def _kernels_training(card, dev, g):
             torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
             for a, b in zip(got[1:], want[1:]):
                 torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+            tight = ""
+            if dtype == torch.bfloat16:
+                g_edge = away_from_relu_edge(pre_relu(h.float(), scale, bias), gout, 16)
+                dh = ln_pool.ln_relu_region_mean_bwd(g_edge, h, scale, bias)[0]
+                dh_ref = torch.autograd.grad(out, leaves, g_edge, retain_graph=True)[0]
+                share = share_of(dh, dh_ref, **ln_pool.bwd_tol(dh_ref))
+                if not share <= 1.0:
+                    raise AssertionError(f"LN-pool backward bf16 D={D}: dh {share:.2f} times "
+                                         f"bwd_tol")
+                tight = f"; bwd_tol used {share:.3f}"
+                del dh, dh_ref, g_edge
             k_ms, p_ms = timed_pair(lambda: ln_pool.ln_relu_region_mean_bwd(gout, h, scale, bias),
                                     plain)
+            by_kernel = device_ms_by_kernel(
+                lambda: ln_pool.ln_relu_region_mean_bwd(gout, h, scale, bias))
+            tail = sum(v for k, v in by_kernel.items() if "partials" in k)
             gbs = 2 * h.numel() * h.element_size() / k_ms / 1e6
+            # bytes: h read, dh written, g as the kernel reads it, scale / bias
+            # read and dscale / dbias written; beside it the count with g in f32, as the
+            # earlier kernel read it
+            b_now = bound(nbytes(h, h, gout, scale, bias, scale, bias), 25 * h.numel(), "f32")
+            b_f32g = bound(nbytes(h, h, scale, bias, scale, bias) + 4 * gout.numel(),
+                           25 * h.numel(), "f32")
             log(f"[3 kernel] ln_relu_region_mean_bwd M=32768 D={D} {str(dtype)[6:]}: "
-                f"max_abs_err dh {errs[0]:.3e} (atol {tol}, rtol {tol}), dscale "
+                f"max_abs_err dh {errs[0]:.3e} (atol {tol}, rtol {tol}){tight}, dscale "
                 f"{errs[1]:.3e}, dbias {errs[2]:.3e} (atol 1e-3, rtol 1e-4) | kernel "
-                f"{k_ms:.4f} ms ({gbs:.0f} GB/s of h + dh) | plain autograd bwd "
-                f"{p_ms:.4f} ms | {card}")
+                f"{k_ms:.4f} ms ({gbs:.0f} GB/s of h + dh; tail {tail:.4f} ms, "
+                f"{tail / sum(by_kernel.values()):.1%} of the call's device time, torch.profiler) "
+                f"| bound {b_now['bound_ms']:.4f} ms (g as read; with g in f32 "
+                f"{b_f32g['bound_ms']:.4f}) | plain autograd bwd {p_ms:.4f} ms | {card}")
             if dtype == torch.bfloat16:
                 worst = max(worst, *errs)
                 if D == 384:
                     report["ln_relu_region_mean_bwd"] = dict(
-                        ms=k_ms, plain_ms=p_ms, library_ms=None,
-                        **bound(nbytes(h, h, scale, bias, scale, bias) + 4 * gout.numel(),
-                                25 * h.numel(), "f32"))
+                        ms=k_ms, plain_ms=p_ms, library_ms=None, **b_now)
     report["ln_relu_region_mean_bwd"]["max_abs_err"] = worst
 
     # flash at the training shape: B=2 L=1024 H=8 Dh=48, one ragged bag and one
@@ -678,13 +721,20 @@ def _kernels_graph(card, dev, g):
         errs = check("knn", (out, dm, dt), (ref, *want), dtype, tag)
         if not (bool((out[:, 100] == 0).all()) and bool((dm[em == 0] == 0).all())):
             raise AssertionError("knn: a node without edges or a masked slot is not 0")
+        knn_tight = ""
+        if dtype == torch.bfloat16:
+            # both round once from f32: within a bf16 ulp (`knn_tol`)
+            share = share_of(out, ref, **tseg.knn_tol(ref))
+            if not share <= 1.0:
+                raise AssertionError(f"knn forward bf16: {share:.2f} times knn_tol")
+            knn_tight = f"; knn_tol used out {share:.3f}"
         f_ms, fp_ms = timed_pair(lambda: tseg.fused_agg_fwd(msg, em, t),
                                  lambda: tseg.knn_edge_softmax_aggregate(msg, em, t))
         b_ms, bp_ms = timed_pair(lambda: tseg.fused_agg_bwd(msg, em, t, gout), plain_bwd)
         gbs = 2 * msg.numel() * msg.element_size() / b_ms / 1e6
         log(f"[3 kernel] fused_knn_softmax_aggregate B={B} N={N} epn={epn} C={C} {tag}: "
             f"max_abs_err out {errs[0]:.3e} dmessages {errs[1]:.3e} dt {errs[2]:.3e} "
-            f"(f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 rel); empty node exactly 0 | fwd "
+            f"(f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 rel){knn_tight}; empty node exactly 0 | fwd "
             f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | bwd kernel {b_ms:.4f} ms "
             f"({gbs:.0f} GB/s of messages + dmessages), plain autograd bwd {bp_ms:.4f} ms "
             f"| {card}")

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Device time of the banded graph aggregation kernels (#14 forward, #15
-backward; `csrc/banded.cu`) at phase 3's shape, against other builds of the
-same source in the same turns, on one CUDA GPU.
+"""Device time of the graph aggregation kernels at phase 3's shape, against
+other builds of the same source in the same turns, on one CUDA GPU: the
+banded kernels (#14 forward, #15 backward; `csrc/banded.cu`) or, with
+`--knn`, the dense kNN kernels (#12 forward, #13 backward; `csrc/knn_agg.cu`).
 
     python3 scripts/profile_graph_agg.py [--other-csrc DIR] [--variants a,b]
                                          [--other-variants a,b] [--f32] [--reps 20]
     python3 scripts/profile_graph_agg.py --mutants
+    python3 scripts/profile_graph_agg.py --knn [--other-csrc DIR] [--variants a,b]
+                                         [--other-variants a,b] [--only-other]
+    python3 scripts/profile_graph_agg.py --knn --mutants
 
 Inputs are `chip_smoke.py` phase 3's: B = 2 bags of N = 16,384 nodes on
 tissue-like 8-nearest-neighbour rasters (~48 wide), epn = 9, C = 384, y =
@@ -39,7 +43,19 @@ slot dropped, the backward's offset sign flipped for one slot, the staged
 window one row short, G2 without out), each checked in bf16; fails unless
 `banded_tol` catches every one, and records whether the plain bound does.
 
-JSON lines go to stdout and to `chiprun_out/profile_graph_agg.jsonl`.
+`--knn`: the messages of phase 3 gathered from y by the dense tables
+([2, 16,384, 9, 384]; a node without edges, masked slots holding 300.0),
+knn_agg.cu compiled alone per build, #12 checked (f32 within 1e-5; bf16
+within `segment.knn_tol` and the plain 2e-2 bound) and #12 / #13 timed in
+turns in f32 and bf16 (`KNN_VARIANTS`, `KNN_PARENT_VARIANTS` for the kernel
+before its redesign; `--only-other` times the other builds alone). With
+`--mutants`: three faulty forwards (`KNN_MUTANTS`: a slot dropped, a slot's
+mask ignored, the channel tail left unwritten), checked in bf16 at phase 3's
+shape and at C = 38 (a channel tail), outputs filled with NaN first; fails
+unless `knn_tol` catches every one.
+
+JSON lines go to stdout and to `chiprun_out/profile_graph_agg.jsonl`
+(`profile_graph_agg_knn.jsonl` with `--knn`).
 """
 import argparse
 import ctypes
@@ -173,6 +189,68 @@ MUTANTS = {
                         "const float h = gv[j] * yr[j];")],
 }
 
+
+# knn_agg.cu: the forward before its redesign (one thread per element, grid-stride)
+_K_LOOP = """  for (long long i = blockIdx.x * static_cast<long long>(kAggThreads) + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * kAggThreads) {
+    const long long r = i / C;
+    const int c = static_cast<int>(i - r * C);
+    const T* mp = msg + r * epn * C + c;"""
+_K_LAUNCH = """  knn_agg_fwd_kernel<T><<<agg_blocks(total), kAggThreads, 0, stream>>>("""
+_K_OUT = "    out[i] = from_f32<T>(sm.num / fmaxf(sm.den, 1e-16f));"
+_K_SOFTMAX = "    const SlotSoftmax sm = slot_softmax(v, on, epn, t, e);\n    out[i]"
+
+KNN_PARENT_VARIANTS = {
+    # a 2-D grid of 128-thread blocks (row, channel block): no division, no grid-stride loop
+    "grid2d": ([(_K_LOOP, """  {
+    const long long r = blockIdx.x;
+    const int c = blockIdx.y * 128 + threadIdx.x;
+    if (c >= C) return;
+    const long long i = r * C + c;
+    const T* mp = msg + r * epn * C + c;"""),
+                (_K_LAUNCH, """  knn_agg_fwd_kernel<T><<<dim3(rows, (C + 127) / 128), 128, 0, stream>>>(""")],
+               False),
+    # no division routine at all (right at C = 384 only)
+    "const_div": ([("    const long long r = i / C;\n    const int c = static_cast<int>(i - r * C);\n"
+                    "    const T* mp = msg",
+                    "    const long long r = i / 384;\n    const int c = static_cast<int>(i - r * 384);"
+                    "\n    const T* mp = msg")], False),
+    # the slot arrays unrolled to the 9 slots of the shape, not to 16
+    "epn9": ([("graph_agg.cuh", "constexpr int kMaxEpn = 16;", "constexpr int kMaxEpn = 9;")],
+             False),
+    # every load and the store, no softmax: the slots summed
+    "loads_only": ([(_K_SOFTMAX, "    SlotSoftmax sm{0.f, 1.f, 0.f};\n    for (int s = 0; s < "
+                                 "kMaxEpn; ++s) sm.num += v[s];\n    out[i]")], True),
+    # everything but the store
+    "no_store": ([(_K_OUT, "    if (sm.num == 1.2345e-30f) out[i] = from_f32<T>(sm.num);")], True),
+}
+_KN_EXP = "      const float e = expf(v[j] * t - mx[j]);"
+_KN_STORE = "  store16<T>(out + r * C + c0, pack16<T>(v), C - c0, vec);"
+_KN_BITS = "bits |= (em[s] > 0.f ? 1u : 0u) << s;"
+KNN_VARIANTS = {
+    # the exponentials replaced by their arguments
+    "no_exp": ([(_KN_EXP, "      const float e = v[j] * t - mx[j];")], True),
+    # plain cached loads in place of the streaming ones
+    "ldg": ([("raw[s] = vec ? ld_stream16(mp + s * C)",
+              "raw[s] = vec ? __ldg(reinterpret_cast<const uint4*>(mp + s * C))")], False),
+    # everything but the store
+    "no_store": ([(_KN_STORE, "  if (v[0] == 1.2345e-30f) " + _KN_STORE.strip())], True),
+    # every slot loaded and summed, no softmax
+    "loads_only": ([(_KN_EXP, "      const float e = 1.f;")], True),
+    # registers capped for 4 blocks of 256 threads an SM (bf16 takes 93 without)
+    "min_blocks4": ([("__global__ void __launch_bounds__(kAggThreads)\nknn_agg_fwd_kernel(",
+                      "__global__ void __launch_bounds__(kAggThreads, 4)\nknn_agg_fwd_kernel(")],
+                    False),
+    # one block width for every C: 32 threads of channels
+    "tx32": ([("const int narrower[] = {16, 8};", "const int narrower[] = {32};")], False),
+}
+KNN_MUTANTS = {
+    "slot 3 dropped": [(_KN_BITS, "bits |= (em[s] > 0.f && s != 3 ? 1u : 0u) << s;")],
+    "slot 5's mask ignored": [(_KN_BITS, "bits |= (em[s] > 0.f || s == 5 ? 1u : 0u) << s;")],
+    "the channel tail left unwritten": [
+        (_KN_STORE, "  if (vec || C - c0 >= kVec) " + _KN_STORE.strip())],
+}
+
 # ---------------------------------------------------------------------------
 
 
@@ -188,15 +266,15 @@ def api_of(csrc):
     return "lse" if "void* lse" in text else "stats3"
 
 
-def patched_tree(name, csrc, changes):
+def patched_tree(name, csrc, changes, source="banded.cu"):
     """A copy of `csrc` under the build root in which each `old` of
-    `changes` reads `new`: (old, new) pairs in banded.cu or (file, old, new)
+    `changes` reads `new`: (old, new) pairs in `source` or (file, old, new)
     triples; each `old` must occur once."""
     tmp = Path(BUILD_ROOT) / f"src_{name}"
     shutil.rmtree(tmp, ignore_errors=True)
     shutil.copytree(csrc, tmp)
     for change in changes:
-        f, old, new = change if len(change) == 3 else ("banded.cu", *change)
+        f, old, new = change if len(change) == 3 else (source, *change)
         text = (tmp / f).read_text()
         if text.count(old) != 1:
             raise SystemExit(f"{name}: the text to change occurs {text.count(old)} times in {f}")
@@ -204,8 +282,8 @@ def patched_tree(name, csrc, changes):
     return tmp
 
 
-def build_all(trees):
-    """{name: csrc dir} -> {name: (ctypes lib, api, ptxas log)}: banded.cu of
+def build_all(trees, source="banded.cu"):
+    """{name: csrc dir} -> {name: (ctypes lib, api, ptxas log)}: `source` of
     each tree compiled alone, every nvcc started at once."""
     from advmil_tpu_torch.ops import _build
     nvcc = _build._nvcc()
@@ -213,7 +291,7 @@ def build_all(trees):
     for name, csrc in trees.items():
         so = Path(BUILD_ROOT) / f"lib_{name}.so"
         so.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(Path(csrc) / "banded.cu")]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(Path(csrc) / source)]
         jobs[name] = (so, csrc, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -221,17 +299,26 @@ def build_all(trees):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
-        api = api_of(csrc)
         lib = ctypes.CDLL(str(so))
         P, I = ctypes.c_void_p, ctypes.c_int
-        npf, npb = (7, 10) if api == "lse" else (8, 11)
-        lib.advmil_banded_fwd.argtypes = [P] * npf + [I] * 5 + [P]
-        lib.advmil_banded_bwd.argtypes = [P] * npb + [I] * 5 + [P]
-        lib.advmil_banded_fwd.restype = lib.advmil_banded_bwd.restype = I
+        if source == "banded.cu":
+            api = api_of(csrc)
+            npf, npb = (7, 10) if api == "lse" else (8, 11)
+            lib.advmil_banded_fwd.argtypes = [P] * npf + [I] * 5 + [P]
+            lib.advmil_banded_bwd.argtypes = [P] * npb + [I] * 5 + [P]
+            lib.advmil_banded_fwd.restype = lib.advmil_banded_bwd.restype = I
+        else:
+            api = "knn"
+            lib.advmil_knn_agg_fwd.argtypes = [P] * 4 + [I] * 4 + [P]
+            lib.advmil_knn_agg_bwd.argtypes = [P] * 7 + [I] * 4 + [P]
+            lib.advmil_knn_agg_fwd.restype = lib.advmil_knn_agg_bwd.restype = I
         libs[name] = (lib, api, log)
         lines = log.splitlines()
+        kind = source.split("_")[0].split(".")[0]   # "banded" or "knn"
         for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and "banded" in ln:
+            if kind == "knn" and "fwd" in ln and "Li" in ln and "Li9E" not in ln:
+                continue   # one forward per slot count: the shape's (epn = 9) is printed
+            if "Compiling entry function" in ln and kind in ln:
                 emit(build=name, ptxas=ln.split("'")[1],
                      used=" ".join(x.strip() for x in lines[i + 1:i + 4]
                                    if "Used" in x or "spill" in x or "stack" in x))
@@ -449,6 +536,150 @@ def run_mutants(dev):
         raise SystemExit("a mutant passed banded_tol")
 
 
+# ---------------------------------------------------------------------------
+# --knn: the dense kNN kernels #12 / #13
+# ---------------------------------------------------------------------------
+
+def knn_inputs(dev, dtype, C=384, N=16384):
+    """Phase 3's messages: y gathered by the dense tables of two tissue
+    graphs ([2, N, 9, C]; node 100 of each bag without edges), masked slots
+    holding 300.0; the cotangent, t = 1.3 and the dt partials."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from advmil_tpu_torch.ops import segment as tseg
+    B, epn = 2, 9
+    tabs, _ = chip_smoke._graph_kernel_inputs(B, N, epn, np.random.default_rng(3))
+    g = torch.Generator(device=dev).manual_seed(0)
+    y = torch.relu(torch.randn(B, N, C, device=dev, generator=g)) + 1e-7
+    esrc = torch.from_numpy(tabs["edge_src"]).to(dev).long()
+    em = torch.from_numpy(tabs["edge_mask"]).to(dev).float().contiguous()
+    msg = y[torch.arange(B, device=dev)[:, None, None], esrc]
+    msg = torch.where(em[..., None] > 0, msg, torch.full_like(msg, 300.0)).to(dtype).contiguous()
+    gout = torch.randn(B, N, C, device=dev, generator=g).to(dtype)
+    t = torch.tensor([1.3], device=dev)
+    part = torch.empty(tseg.DT_PARTIALS, dtype=torch.float32, device=dev)
+    return msg, em, t, gout, part
+
+
+def knn_fwd_of(entry, msg, em, t, fill_nan=False):
+    import torch
+    from advmil_tpu_torch.ops import _build
+    lib = entry[0]
+    B, N, epn, C = msg.shape
+    out = torch.empty((B, N, C), dtype=msg.dtype, device=msg.device)
+    if fill_nan:   # a row the kernel leaves unwritten then shows
+        out.fill_(float("nan"))
+    rc = lib.advmil_knn_agg_fwd(msg.data_ptr(), em.data_ptr(), t.data_ptr(), out.data_ptr(),
+                                B * N, epn, C, _build.DTYPE_CODES[msg.dtype],
+                                _build.stream_of(msg))
+    if rc != 0:
+        raise RuntimeError(f"advmil_knn_agg_fwd: CUDA error {rc}")
+    return out
+
+
+def knn_bwd_of(entry, msg, em, t, g, part):
+    import torch
+    from advmil_tpu_torch.ops import _build
+    lib = entry[0]
+    B, N, epn, C = msg.shape
+    dm = torch.empty_like(msg)
+    dt = torch.zeros(1, dtype=torch.float32, device=msg.device)
+    rc = lib.advmil_knn_agg_bwd(msg.data_ptr(), em.data_ptr(), t.data_ptr(), g.data_ptr(),
+                                dm.data_ptr(), part.data_ptr(), dt.data_ptr(), B * N, epn, C,
+                                _build.DTYPE_CODES[msg.dtype], _build.stream_of(msg))
+    if rc != 0:
+        raise RuntimeError(f"advmil_knn_agg_bwd: CUDA error {rc}")
+    return dm, dt
+
+
+def knn_check(name, entry, args):
+    """#12 against the plain version: shares of the plain bound and of
+    `knn_tol` (bf16) or of 1e-5 (f32); a node without edges exactly 0."""
+    import torch
+
+    import chip_smoke
+    from advmil_tpu_torch.ops import segment as tseg
+    msg, em, t = args[:3]
+    out = knn_fwd_of(entry, msg, em, t, fill_nan=True)
+    want = tseg.knn_edge_softmax_aggregate(msg, em, t)
+    torch.cuda.synchronize()
+    share = chip_smoke.share_of
+    if msg.dtype == torch.float32:
+        plain, tight = share(out, want, 1e-5, 0.0), None
+    else:
+        plain, tight = share(out, want, 2e-2, 2e-2), share(out, want, **tseg.knn_tol(want))
+    empty = bool((out[:, 100] == 0).all())
+    rec = dict(check=f"{name} C={msg.shape[-1]} {str(msg.dtype)[6:]}", share_of_plain=plain,
+               share_of_tight=tight, empty_node_zero=empty,
+               ok=empty and plain <= 1 and (tight is None or tight <= 1))
+    emit(**rec)
+    return rec
+
+
+def run_knn(args, card, dev):
+    import torch
+    from advmil_tpu_torch.ops import _build
+    pkg = _build.CSRC
+    trees = {} if args.only_other else {"kernel": pkg}
+    others = [d for d in (args.other_csrc or "").split(",") if d]
+    base_other = others[0] if others else pkg
+    for i, d in enumerate(others):
+        trees["other_csrc" if i == 0 else f"other_csrc_{i + 1}"] = d
+    wrong = set()
+    for name in filter(None, (args.variants or "").split(",")):
+        changes, bad = KNN_VARIANTS[name]
+        trees[name] = patched_tree(name, pkg, changes, "knn_agg.cu")
+        wrong |= {name} if bad else set()
+    for name in filter(None, (args.other_variants or "").split(",")):
+        changes, bad = KNN_PARENT_VARIANTS[name]
+        trees[f"other_{name}"] = patched_tree(f"other_{name}", base_other, changes, "knn_agg.cu")
+        wrong |= {f"other_{name}"} if bad else set()
+    libs = build_all(trees, "knn_agg.cu")
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        a = knn_inputs(dev, dtype)
+        msg, em, t, gout, part = a
+        for name, entry in libs.items():
+            if name not in wrong:
+                ok = knn_check(name, entry, a)["ok"] and ok
+        arms = {}
+        for n, e in libs.items():
+            arms[f"{n}_fwd"] = lambda e=e: knn_fwd_of(e, msg, em, t)
+            arms[f"{n}_bwd"] = lambda e=e: knn_bwd_of(e, msg, em, t, gout, part)
+        med = turns(arms, args.reps)
+        out_b = msg.numel() // msg.shape[2] * msg.element_size()
+        fwd_bytes = msg.numel() * msg.element_size() + em.numel() * 4 + out_b
+        bwd_bytes = 2 * msg.numel() * msg.element_size() + em.numel() * 4 + out_b
+        for n in libs:
+            emit(time=f"{n} knn B=2 N=16384 epn=9 C=384 {str(dtype)[6:]}", card=card,
+                 fwd_ms=med[f"{n}_fwd"], bwd_ms=med[f"{n}_bwd"],
+                 fwd_bound_ms=fwd_bytes / 3.35e9, bwd_bound_ms=bwd_bytes / 3.35e9)
+        del a, msg, gout, arms
+    if not ok:
+        raise SystemExit("a check failed")
+
+
+def run_knn_mutants(dev):
+    import torch
+    from advmil_tpu_torch.ops import _build
+    trees = {f"mutant{i}": patched_tree(f"mutant{i}", _build.CSRC, ch, "knn_agg.cu")
+             for i, ch in enumerate(KNN_MUTANTS.values())}
+    libs = build_all(trees, "knn_agg.cu")
+    shapes = [knn_inputs(dev, torch.bfloat16), knn_inputs(dev, torch.bfloat16, C=38, N=4096)]
+    caught_all = True
+    for (desc, _), name in zip(KNN_MUTANTS.items(), libs):
+        recs = [knn_check(f"mutant '{desc}'", libs[name], a) for a in shapes]
+        # NaN compares false: a share that is not <= 1 is outside the bound
+        caught = any(not r["share_of_tight"] <= 1 for r in recs)
+        emit(mutant=desc, caught_by_tight_bound=caught,
+             passes_plain_bound=all(r["share_of_plain"] <= 1 for r in recs))
+        caught_all = caught_all and caught
+    if not caught_all:
+        raise SystemExit("a mutant passed knn_tol")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other-csrc", help="other csrc trees (comma-separated), built and timed "
@@ -456,7 +687,10 @@ def main():
     ap.add_argument("--variants", help="comma-separated names of VARIANTS")
     ap.add_argument("--other-variants", help="comma-separated names of PARENT_VARIANTS, applied "
                                              "to --other-csrc (or the package's sources)")
-    ap.add_argument("--mutants", action="store_true", help="build the four faulty kernels")
+    ap.add_argument("--mutants", action="store_true", help="build the faulty kernels")
+    ap.add_argument("--knn", action="store_true", help="the dense kNN kernels #12 / #13")
+    ap.add_argument("--only-other", action="store_true",
+                    help="--knn: time the other builds alone, not the package's")
     ap.add_argument("--f32", action="store_true", help="also check and time f32")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -468,12 +702,15 @@ def main():
     dev = torch.device("cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
     try:
-        if args.mutants:
+        if args.knn:
+            run_knn_mutants(dev) if args.mutants else run_knn(args, card, dev)
+        elif args.mutants:
             run_mutants(dev)
         else:
             run(args, card, dev)
     finally:
-        with open(osp.join(OUT_DIR, "profile_graph_agg.jsonl"), "w") as f:
+        name = "profile_graph_agg_knn.jsonl" if args.knn else "profile_graph_agg.jsonl"
+        with open(osp.join(OUT_DIR, name), "w") as f:
             for rec in OUT:
                 f.write(json.dumps(rec) + "\n")
         shutil.rmtree(BUILD_ROOT, ignore_errors=True)

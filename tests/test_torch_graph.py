@@ -115,6 +115,41 @@ def test_dense_aggregation_ignores_huge_masked_messages():
     assert torch.isfinite(t.grad).all() and bool((out[1] == 0).all())
 
 
+@pytest.mark.parametrize("mutant", ["slot 3 dropped", "slot 5's mask ignored"])
+def test_knn_tol_holds_a_right_forward_and_catches_mutants(mutant):
+    """`segment.knn_tol`, the bound the card holds the bf16 forward kernel
+    (#12) to: the aggregation in f64, rounded once to bf16, stays inside it
+    against the plain version on the same bf16 messages; the mutants of the
+    card's `--mutants` fall outside, while the plain bound (2e-2 + 2e-2
+    relative) lets them pass. Messages near 1 (relu(x) + eps of normalised
+    features), 5% of the slots masked, four nodes without edges."""
+    rng = np.random.default_rng(5)
+    N, epn, C = 2048, 9, 64
+    msg = torch.from_numpy(1.0 + 0.03 * rng.normal(size=(N, epn, C))).bfloat16()
+    em = torch.from_numpy((rng.random((N, epn)) >= 0.05).astype(np.float32))
+    em[:4] = 0.0
+    t = torch.tensor([1.3])
+    want = tseg.knn_edge_softmax_aggregate(msg, em, t)
+    tol = tseg.knn_tol(want)
+    right = tseg.knn_edge_softmax_aggregate(msg.double(), em, t.double()).bfloat16()
+    assert _share(right, want, **tol) <= 0.5
+    bad = em.clone()
+    if mutant == "slot 3 dropped":
+        bad[:, 3] = 0.0
+    else:
+        bad[4:, 5] = 1.0
+    got = tseg.knn_edge_softmax_aggregate(msg, bad, t)
+    assert bool((got[:4] == 0).all())
+    assert _share(got, want, 2e-2, 2e-2) <= 1.0
+    assert _share(got, want, **tol) > 1.5
+
+
+def _share(got, want, atol, rtol):
+    """The largest |got - want| as a share of atol + rtol |want| (1: at the bound)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 # ---------------------------------------------------------------------------
 # (b) the banded aggregation (#14 / #15 plain + exact rows) against Pallas
 # ---------------------------------------------------------------------------

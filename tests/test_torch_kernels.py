@@ -816,3 +816,66 @@ def test_fused_patch_embedding_layer_on_cuda(cuda_device):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
     for (k, p), q in zip(fused.named_parameters(), plain.parameters()):
         torch.testing.assert_close(p.grad, q.grad, atol=2e-4, rtol=1e-3, msg=k)
+
+
+def _share(got, want, atol, rtol):
+    """The largest |got - want| as a share of atol + rtol |want| (1: at the bound)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D", [(32768, 384), (32768, 128), (16, 384), (48, 32), (16 * 7, 1024)])
+def test_ln_pool_bwd_kernel_tight_and_deterministic(cuda_device, M, D):
+    """#2 in bf16 against `ln_pool.bwd_tol` (one rounding of dh from f32),
+    with the cotangent zeroed for regions with a ReLU input within 2e-5 of 0;
+    g passed as bf16 and as f32 (the same values) gives bit-identical results,
+    and two calls give bit-identical dscale / dbias (a fixed-order sum over
+    the block partials). M = 16 is a single region."""
+    h, scale, bias = _ln_inputs(M, D, seed=D + 3, device=cuda_device)
+    h = h.bfloat16()
+    g = torch.randn(M // 16, D, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(9))
+    g = _away_from_relu_edge(_pre_relu(h.float(), scale, bias), g, 16).bfloat16()
+    got = tlnp.ln_relu_region_mean_bwd(g, h, scale, bias)
+    again = tlnp.ln_relu_region_mean_bwd(g, h, scale, bias)
+    from_f32 = tlnp.ln_relu_region_mean_bwd(g.float(), h, scale, bias)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (h, scale, bias)]
+    want = torch.autograd.grad(tlnp.ln_relu_region_mean_plain(*leaves), leaves, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, from_f32))
+    assert _share(got[0], want[0], **tlnp.bwd_tol(want[0])) <= 1.0
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2, rtol=2e-2)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [5, 300])
+@pytest.mark.parametrize("C", [7, 40, 384])
+@pytest.mark.parametrize("epn", [1, 9, 16])
+def test_knn_fwd_kernel_every_slot_count_and_channel_tail(cuda_device, epn, C, N, dtype):
+    """#12 (one instantiation per slot count) against the plain version: f32
+    within 1e-5, bf16 within `segment.knn_tol` and the plain 2e-2 bound, at a
+    channel count with a tail (7), without 16-byte rows in f32 (40 is, 7 is
+    not) and the path's (384); N = 5 is less than one tile of rows. Nodes
+    without edges give exactly 0, and junk in masked slots never leaks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(epn * 1000 + C + N)
+    msg = (1.0 + 0.5 * torch.randn(2, N, epn, C, device=cuda_device, generator=gen))
+    em = (torch.rand(2, N, epn, device=cuda_device, generator=gen) < 0.8).float()
+    em[:, 1] = 0.0
+    msg = torch.where(em[..., None] > 0, msg, torch.full_like(msg, 300.0)).to(dtype)
+    t = torch.tensor([1.3], device=cuda_device)
+    before = tseg.LAUNCHES
+    out = tseg.fused_agg_fwd(msg, em, t)
+    want = tseg.knn_edge_softmax_aggregate(msg, em, t)
+    torch.cuda.synchronize()
+    assert tseg.LAUNCHES == before + 1 and out.dtype == dtype and out.shape == (2, N, C)
+    assert bool((out[:, 1] == 0).all()) and bool(torch.isfinite(out).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert _share(out, want, **tseg.knn_tol(want)) <= 1.0
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)

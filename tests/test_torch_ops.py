@@ -56,6 +56,56 @@ def test_ln_relu_region_mean_cpu_takes_plain_version():
                                  torch.empty(128, device="meta"))
 
 
+def _share(got, want, atol, rtol):
+    """The largest |got - want| as a share of atol + rtol |want| (1: at the bound)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _ln_pool_dh(g, h, scale, bias, m2_every=0):
+    """dh of the LN-pool backward by its formula, in the dtype of the inputs;
+    with `m2_every`, the xhat * mean(gx * xhat) term is dropped at every
+    m2_every-th column (the card's structural mutant)."""
+    mu = h.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((h - mu) ** 2).mean(-1, keepdim=True) + tlnp.LN_EPS)
+    xh = (h - mu) * inv
+    gr = (g / tlnp.S2).repeat_interleave(tlnp.S2, dim=0)
+    gx = torch.where(xh * scale + bias > 0, gr, torch.zeros_like(gr)) * scale
+    m1 = gx.mean(-1, keepdim=True)
+    m2 = (gx * xh).mean(-1, keepdim=True)
+    keep = torch.ones(h.shape[1], dtype=h.dtype)
+    if m2_every:
+        keep[::m2_every] = 0
+    return inv * (gx - m1 - xh * m2 * keep)
+
+
+@pytest.mark.parametrize("D", [128, 384])
+def test_bwd_tol_holds_a_right_dh_and_catches_a_dropped_m2_term(D):
+    """`ln_pool.bwd_tol`, the bound the card holds the bf16 backward kernel's
+    dh to: dh by its formula in f64, rounded once to bf16, stays inside it
+    against the plain version's autograd dh on the same bf16 h and g; the
+    mutant of the card's `--mutants` (the m2 term dropped at one column in 16)
+    falls outside, while the plain bound (2e-2 + 2e-2 relative) lets it pass.
+    The cotangent has a training-like scale (0.25) and is zeroed for regions
+    with a ReLU input within 2e-5 of 0, where a rounding may flip the mask."""
+    h, scale, bias = (torch.from_numpy(a) for a in _ln_inputs(512, D, seed=D + 5))
+    h = h.bfloat16()
+    g = 0.25 * torch.from_numpy(np.random.default_rng(D).normal(size=(512 // 16, D)))
+    xh = (h.float() - h.float().mean(-1, keepdim=True)) * torch.rsqrt(
+        h.float().var(-1, unbiased=False, keepdim=True) + tlnp.LN_EPS)
+    near = ((xh * scale + bias).abs() < 2e-5).any(dim=1).reshape(-1, 16).any(dim=1)
+    g = (g * (~near)[:, None]).bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (h, scale, bias)]
+    want = torch.autograd.grad(tlnp.ln_relu_region_mean_plain(*leaves), leaves, g)[0]
+    assert want.dtype == torch.bfloat16
+    tol = tlnp.bwd_tol(want)
+    right = _ln_pool_dh(g.double(), h.double(), scale.double(), bias.double()).bfloat16()
+    assert _share(right, want, **tol) <= 0.5
+    mutant = _ln_pool_dh(g.float(), h.float(), scale, bias, m2_every=16).bfloat16()
+    assert _share(mutant, want, 2e-2, 2e-2) <= 1.0
+    assert _share(mutant, want, **tol) > 1.5
+
+
 def _attn_inputs(B, L, H, Dh, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=(B, L, H, Dh)).astype(np.float32) for _ in range(3))
