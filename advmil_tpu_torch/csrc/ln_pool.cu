@@ -1,6 +1,6 @@
-// Fused LayerNorm -> ReLU -> 16-row region mean, forward (and, as its
-// POOL = false instantiation, the plain LayerNorm -> ReLU of
-// advmil_tpu/ops/ln_pool.py:_lnrelu_fwd_kernel / _lnrelu_bwd_kernel).
+// Fused LayerNorm -> ReLU -> 16-row region mean, forward (#1; #3, the plain
+// LayerNorm -> ReLU of advmil_tpu/ops/ln_pool.py:_lnrelu_fwd_kernel, is its
+// POOL = false instantiation) and backward (#2 / #4, below).
 //
 // Replaces the Pallas TPU kernel advmil_tpu/ops/ln_pool.py:_fwd_kernel
 // (wrapper ln_relu_region_mean). For h [M, D] (M % 16 == 0):
@@ -8,18 +8,52 @@
 // with mu / var over the row in f32 (flax's LayerNorm statistics and eps).
 //
 // What bounds it on the card: device-memory bandwidth. It reads M*D input
-// values once and writes M*D/16; the arithmetic is ~10 flops per value, far
-// below the H100's ~20 flop/byte ridge for f32 CUDA-core work.
+// values once and writes M*D/16 (bf16 M = 32,768 D = 384: 26.7 MB, 0.0080 ms
+// at 3.35 TB/s); ~10 flops per value. The earlier kernel (one warp walking a
+// region's 16 rows, two at a time, lane l reading columns l, l + 32, ... by
+// 2-byte loads) read at 28% of that rate after a 128 MB write had taken h out
+// of L2 (15% at D = 128), and at 35% even without its statistics: too few
+// bytes in flight, with 2,048 warps for 132 SMs (16 an SM); with h in L2 its
+// statistics cost 38%.
 //
-// Design: one warp per region (16 consecutive rows). Each lane keeps D/32
-// columns of the current row in registers, loaded lane-contiguous (lane l
-// reads columns l, l+32, ...) so each warp load is coalesced. The row's mean
-// and variance are two warp-shuffle reductions: no shared memory and no block
-// barrier. The 16 normalised rows are summed in f32 registers and the pooled
-// row is written once in the input dtype, so the normalised [M, D] activation
-// never reaches device memory (what the TPU kernel also saves). A block holds
-// 8 independent warps; at M = 32768 that is 2048 warps, enough loads in flight
-// to cover memory latency.
+// Design. Still one warp per region (at M = 32,768 one wave of 16 warps an
+// SM), but each warp keeps more bytes in flight and spends fewer
+// instructions on them:
+// - a lane holds V = 4 adjacent columns of each chunk of LPR * 4 (8-byte
+//   bf16 / 16-byte f32 loads) where D % 128 == 0, else V = 1 (any D % 32 == 0);
+//   where D is whole chunks (128, 384: the model's widths) no chunk mask is
+//   computed;
+// - the lanes a row takes follow D: LPR = 8 at D = 128 (four rows a warp at
+//   once, reduced by one 3-step shuffle sequence), else 32;
+// - a pass takes R rows a lane (R = 2 in bf16, 1 in f32), their reductions
+//   interleaved; passes are unrolled and the next ones loaded into registers
+//   while one is reduced (K passes, in up to 24 registers a lane: two passes
+//   = 4 rows at bf16 D = 384, the whole region at D = 128);
+// - scale and bias sit in shared memory, read once a pass for its R rows;
+// - the 16-row sum stays in f32 registers in a fixed order (passes in
+//   order, the row groups of a warp by a fixed shuffle tree, no atomics), and
+//   the pooled row is rounded once to h's dtype; the normalised [M, D]
+//   activation never reaches device memory.
+// The statistics are the earlier kernel's: the mean, then the mean of the
+// squared deviations (held in registers, so the second pass reads nothing),
+// eps 1e-6, all in f32.
+//   On an H100 SXM (700 W; scripts/profile_ln_pool.py --fwd, M = 32,768, in
+// turns with the earlier kernel) a bf16 call takes 0.0117 ms at D = 384 with
+// h in L2 (0.0163 before), 0.0159 with h out of L2 and L2 clean (50% of the
+// byte bound; 0.0229 before), 0.0083 at D = 128 (0.0118); f32 0.0249 /
+// 0.0090 (0.0265 / 0.0118). Without its statistics and its store the bf16
+// call would take 0.0095 / 0.0146 (D = 128: 0.0070 / 0.0089), an empty kernel
+// of the same grid 0.0052 in the same events, and one PyTorch call that only
+// reads h (torch.amax) 0.0189 / 0.0219: what is left is the kernel's own read
+// of h and the fixed cost of a short call. R = 2 rows a lane in bf16: with
+// R = 1 #3 at D = 384 takes 12% longer (#1 level); R = 4 and 8-warp blocks
+// are level. Tried and slower: 4 passes ahead (48 registers: 0.0125), a warp a
+// row at D = 128 (0.0088), every warp's rows first asked into L2 by one bulk
+// prefetch (0.0124); and, not kept, four warps a region summed through shared
+// memory, 16-byte loads of bf16, a cp.async ring in shared memory in place of
+// the registers. ptxas: 128 registers (the bound of 4 blocks an SM) and no
+// spill where D % 128 == 0 and D <= 768 (but 8 bytes in f32 #3 at D = 384);
+// the 2-byte path beyond D = 128 and D > 768 spill (not on the model's path).
 #include <cstdint>
 
 #include "common.cuh"
@@ -28,81 +62,226 @@
 namespace advmil {
 
 constexpr int kRegion = 16;       // patches per 4x4 region
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;  // the backward's blocks
+constexpr int kFwdWarps = 4;       // the forward's blocks: one region a warp
+constexpr int kFwdAheadRegs = 24;  // registers of h a warp loads ahead in
 
-// POOL = false is the plain LN -> ReLU (ln_relu below): the same warp walks
-// the same 16 rows and writes each normalised row instead of their mean; M
-// need not be a multiple of 16 there, so rows at or beyond M are skipped.
-template <typename T, int NC, bool POOL>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+// V values of T as one access (V = 4: 8 bytes of bf16, 16 of f32).
+template <typename T, int V> struct RawOf { using type = T; };
+template <> struct RawOf<float, 4> { using type = float4; };
+template <> struct RawOf<__nv_bfloat16, 4> { using type = uint2; };
+
+template <int V, typename T>
+__device__ __forceinline__ typename RawOf<T, V>::type load_raw(const T* p) {
+  return *reinterpret_cast<const typename RawOf<T, V>::type*>(p);
+}
+template <int V, typename T>
+__device__ __forceinline__ void unpack(const typename RawOf<T, V>::type& u, float* v) {
+  if constexpr (V == 1) {
+    v[0] = to_f32(u);
+  } else if constexpr (sizeof(T) == 4) {
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  } else {
+    v[0] = __uint_as_float(u.x << 16), v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16), v[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+// V values of T at p as f32, and back (V = 4: one 8- or 16-byte access).
+template <int V, typename T>
+__device__ __forceinline__ void load_v(const T* p, float* v) {
+  unpack<V, T>(load_raw<V>(p), v);
+}
+template <int V, typename T>
+__device__ __forceinline__ void store_v(T* p, const float* v) {
+  if constexpr (V == 1) {
+    p[0] = from_f32<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                              *reinterpret_cast<const uint32_t*>(&hi));
+  }
+}
+
+// v[r] summed over each aligned group of LPR lanes (R sums interleaved).
+template <int LPR, int R>
+__device__ __forceinline__ void group_sum(float (&v)[R]) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] += __shfl_xor_sync(0xffffffffu, v[r], o);
+}
+
+// Geometry of the forward: V adjacent columns a lane in NCH chunks of LPR * V
+// columns (E values of a row a lane; FULL: D is exactly NCH * LPR * V, so no
+// chunk is masked), R rows a lane in a pass; a warp holds RPW = 32 / LPR rows
+// at once, ROWS a pass, and walks a region's 16 rows in P passes, loaded K
+// passes ahead into registers (slots of R * NCH accesses, up to
+// kFwdAheadRegs registers).
+template <typename T, int V, int LPR, int NCH, int R>
+struct FwdGeom {
+  static constexpr int E = V * NCH;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int ROWS = RPW * R;
+  static constexpr int P = kRegion / ROWS;
+  static constexpr int kSlotRegs = R * NCH * ((V * static_cast<int>(sizeof(T)) + 3) / 4);
+  static constexpr int kAhead = kFwdAheadRegs / kSlotRegs;
+  static constexpr int K = kAhead < 1 ? 1 : (kAhead > P ? P : kAhead);
+  static_assert(P >= 1 && kRegion % ROWS == 0, "a region is whole passes");
+};
+
+// POOL = false is ln_relu: the same warp walks the same 16 rows and writes
+// each normalised row instead of their mean; M need not be a multiple of 16
+// there, so rows at or beyond M are read as 0 and not written.
+template <typename T, int V, int LPR, int NCH, int R, bool FULL, bool POOL>
+__global__ void __launch_bounds__(32 * kFwdWarps, 4)
 ln_relu_region_mean_kernel(const T* __restrict__ h, const float* __restrict__ scale,
                            const float* __restrict__ bias, T* __restrict__ out,
                            int regions, int M, int D, float eps) {
+  using G = FwdGeom<T, V, LPR, NCH, R>;
+  using Raw = typename RawOf<T, V>::type;
+  constexpr int E = G::E, P = G::P, K = G::K, ROWS = G::ROWS;
+  extern __shared__ __align__(16) float fwd_smem[];
+  float* s_sc = fwd_smem;  // scale, then bias
+  float* s_bi = s_sc + D;
   const int lane = threadIdx.x & 31;
-  const int region = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (region >= regions) return;
-  const int nc = D >> 5;  // columns per lane, <= NC
-  float sc[NC], bi[NC], acc[NC];
+  const int sub = lane / LPR, gl = lane % LPR;  // row group of the warp, lane in the row
+  const int region = blockIdx.x * kFwdWarps + (threadIdx.x >> 5);
+  const bool live = region < regions;  // warp-uniform
+  const int nch = FULL ? NCH : D / (LPR * V);
+  const int first = region * kRegion;
+  auto col = [&](int j) { return j * LPR * V + gl * V; };  // first column of chunk j
+  auto row_of = [&](int p, int r) { return first + p * ROWS + r * G::RPW + sub; };
+  Raw ring[K][R][NCH];
+  auto fetch = [&](int p) {
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    sc[j] = j < nc ? scale[lane + 32 * j] : 0.f;
-    bi[j] = j < nc ? bias[lane + 32 * j] : 0.f;
-    acc[j] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const int row = row_of(p, r);
+      const T* src = h + static_cast<size_t>(row) * D;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j)
+        ring[p % K][r][j] = ((FULL || j < nch) && (POOL || row < M)) ? load_raw<V>(src + col(j))
+                                                                     : Raw{};
+    }
+  };
+  if (live) {
+#pragma unroll
+    for (int p = 0; p < K; ++p) fetch(p);
   }
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    s_sc[c] = scale[c];
+    s_bi[c] = bias[c];
+  }
+  __syncthreads();
   const float inv_d = 1.f / static_cast<float>(D);
-  const T* row = h + static_cast<size_t>(region) * kRegion * D;
-#pragma unroll 2
-  for (int i = 0; i < kRegion; ++i, row += D) {
-    if (!POOL && region * kRegion + i >= M) break;  // warp-uniform
-    float x[NC];
-    float s = 0.f;
+  float acc[POOL ? E : 1];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      x[j] = j < nc ? to_f32(row[lane + 32 * j]) : 0.f;
-      s += x[j];
+  for (int e = 0; e < (POOL ? E : 1); ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (!live) break;
+    float x[R][E];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) unpack<V, T>(ring[p % K][r][j], &x[r][j * V]);
+    if (p + K < P) fetch(p + K);  // into the slot just read
+    float s[R], q[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) s[r] += x[r][e];
     }
-    const float mu = warp_sum(s) * inv_d;
-    float q = 0.f;
+    group_sum<LPR>(s);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float d = j < nc ? x[j] - mu : 0.f;
-      q += d * d;
+    for (int r = 0; r < R; ++r) {
+      const float mu = s[r] * inv_d;
+      q[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        x[r][e] = (FULL || e / V < nch) ? x[r][e] - mu : 0.f;  // the deviation, kept
+        q[r] += x[r][e] * x[r][e];
+      }
     }
-    const float inv = rsqrtf(warp_sum(q) * inv_d + eps);
+    group_sum<LPR>(q);
+    float inv[R];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float y = fmaxf((x[j] - mu) * inv * sc[j] + bi[j], 0.f);
-      if (POOL) {
-        acc[j] += y;
-      } else if (j < nc) {
-        out[(static_cast<size_t>(region) * kRegion + i) * D + lane + 32 * j] = from_f32<T>(y);
+    for (int r = 0; r < R; ++r) inv[r] = rsqrtf(q[r] * inv_d + eps);
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      if (!FULL && j >= nch) continue;
+      float sc[V], bi[V];
+      load_v<V>(s_sc + col(j), sc);
+      load_v<V>(s_bi + col(j), bi);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float y[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) y[k] = fmaxf(x[r][j * V + k] * inv[r] * sc[k] + bi[k], 0.f);
+        if constexpr (POOL) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[j * V + k] += y[k];
+        } else if (row_of(p, r) < M) {
+          store_v<V>(out + static_cast<size_t>(row_of(p, r)) * D + col(j), y);
+        }
       }
     }
   }
-  if (!POOL) return;
-  T* o = out + static_cast<size_t>(region) * D;
+  if constexpr (POOL) {
+    // the warp's RPW row groups hold the same columns: summed by a fixed tree
 #pragma unroll
-  for (int j = 0; j < NC; ++j)
-    if (j < nc) o[lane + 32 * j] = from_f32<T>(acc[j] * (1.f / kRegion));
+    for (int e = 0; e < E; ++e)
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    if (!live || sub != 0) return;
+    T* o = out + static_cast<size_t>(region) * D;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      if (!FULL && j >= nch) continue;
+      float y[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) y[k] = acc[j * V + k] * (1.f / kRegion);
+      store_v<V>(o + col(j), y);
+    }
+  }
+}
+
+template <typename T, int V, int LPR, int NCH, int R, bool FULL, bool POOL>
+cudaError_t launch_fwd_kernel(const void* h, const void* scale, const void* bias, void* out,
+                              int M, int D, float eps, cudaStream_t stream) {
+  const int regions = (M + kRegion - 1) / kRegion;
+  ln_relu_region_mean_kernel<T, V, LPR, NCH, R, FULL, POOL>
+      <<<(regions + kFwdWarps - 1) / kFwdWarps, 32 * kFwdWarps, 2 * sizeof(float) * D, stream>>>(
+          static_cast<const T*>(h), static_cast<const float*>(scale),
+          static_cast<const float*>(bias), static_cast<T*>(out), regions, M, D, eps);
+  return cudaGetLastError();
 }
 
 template <typename T, bool POOL>
 cudaError_t launch(const void* h, const void* scale, const void* bias, void* out,
                    int M, int D, float eps, cudaStream_t stream) {
-  const int regions = (M + kRegion - 1) / kRegion;
-  const dim3 grid((regions + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(32 * kWarpsPerBlock);
-  const int nc = D / 32;
-  auto args = [&](auto kernel) {
-    kernel<<<grid, block, 0, stream>>>(static_cast<const T*>(h),
-                                       static_cast<const float*>(scale),
-                                       static_cast<const float*>(bias),
-                                       static_cast<T*>(out), regions, M, D, eps);
+  constexpr int RB = sizeof(T) == 2 ? 2 : 1;  // rows a lane a pass: as many bytes in f32
+  auto run = [&](auto kernel_launch) {
+    return kernel_launch(h, scale, bias, out, M, D, eps, stream);
   };
-  if (nc <= 4) args(ln_relu_region_mean_kernel<T, 4, POOL>);
-  else if (nc <= 12) args(ln_relu_region_mean_kernel<T, 12, POOL>);
-  else args(ln_relu_region_mean_kernel<T, 32, POOL>);
-  return cudaGetLastError();
+  // 8- / 16-byte accesses where D % 128 == 0 (the wrapper hands in 16-byte
+  // aligned tensors for every D)
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (!aligned(h) || !aligned(out) || !aligned(scale) || !aligned(bias))
+    return cudaErrorMisalignedAddress;
+  if (D % 128 == 0) {
+    if (D == 128) return run(launch_fwd_kernel<T, 4, 8, 4, RB, true, POOL>);
+    if (D == 384) return run(launch_fwd_kernel<T, 4, 32, 3, RB, true, POOL>);
+    if (D <= 768) return run(launch_fwd_kernel<T, 4, 32, 6, 1, false, POOL>);
+    return run(launch_fwd_kernel<T, 4, 32, 8, 1, false, POOL>);
+  }
+  if (D <= 128) return run(launch_fwd_kernel<T, 1, 32, 4, RB, false, POOL>);
+  if (D <= 384) return run(launch_fwd_kernel<T, 1, 32, 12, RB, false, POOL>);
+  return run(launch_fwd_kernel<T, 1, 32, 32, 1, false, POOL>);
 }
 
 // ---------------------------------------------------------------------------
@@ -161,34 +340,6 @@ inline int ln_pool_bwd_blocks(int M) {
   constexpr int kRows = kBwdMinRowsPerWarp * kWarpsPerBlock;
   const int want = (M + kRows - 1) / kRows;
   return want < 1 ? 1 : (want > kMaxBwdBlocks ? kMaxBwdBlocks : want);
-}
-
-// V values of T at p as f32, and back (V = 4: one 8- or 16-byte access).
-template <int V, typename T>
-__device__ __forceinline__ void load_v(const T* p, float* v) {
-  if constexpr (V == 1) {
-    v[0] = to_f32(p[0]);
-  } else if constexpr (sizeof(T) == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    v[0] = __uint_as_float(u.x << 16), v[1] = __uint_as_float(u.x & 0xffff0000u);
-    v[2] = __uint_as_float(u.y << 16), v[3] = __uint_as_float(u.y & 0xffff0000u);
-  }
-}
-template <int V, typename T>
-__device__ __forceinline__ void store_v(T* p, const float* v) {
-  if constexpr (V == 1) {
-    p[0] = from_f32<T>(v[0]);
-  } else if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                                              *reinterpret_cast<const uint32_t*>(&hi));
-  }
 }
 
 // Geometry of the backward for V adjacent columns a lane in NCH chunks: E

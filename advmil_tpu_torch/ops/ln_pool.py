@@ -45,6 +45,21 @@ def ln_relu_region_mean_plain(h: torch.Tensor, scale: torch.Tensor,
     return y.reshape(M // S2, S2, D).mean(dim=1).to(h.dtype)
 
 
+def fwd_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 forward kernel's pooled rows against the plain
+    version's on the same bf16 h (`ln_relu_region_mean_plain`, rounded to
+    bf16 once). Both compute the statistics, the normalised rows and their
+    16-row sum in f32 and round once; only the order of the f32 sums differs.
+    So a value may land one bf16 ulp away, on the other side of a rounding
+    edge (2^-7 relative), and a pooled value near 0 keeps the f32 noise of
+    the statistics behind it (2^-12 of the largest |out| absolute: about a
+    thousand times that noise at unit-scale rows). A row of a region, columns
+    left out of the mean, or the variance taken without its mean moves a value
+    by a share of the values themselves; eps dropped breaks rows of equal
+    values. The same bound holds `ln_relu` (#3) on its rows."""
+    return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 4096)
+
+
 def bwd_tol(want: torch.Tensor) -> dict:
     """atol / rtol of the bf16 backward kernel's dh against the plain
     version's on the same bf16 h and g (`ln_relu_region_mean_plain` and its
@@ -76,8 +91,9 @@ def _check(name: str, h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous and 16-byte aligned: the backward kernel stages its rows
-    by 16-byte copies (a view at an odd offset is copied once)."""
+    """t contiguous and 16-byte aligned: the forward kernels read 8- or
+    16-byte pieces of a row where D % 128 == 0, and the backward kernels stage
+    their rows by 16-byte copies (a view at an odd offset is copied once)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -88,9 +104,8 @@ def ln_relu_region_mean_fwd(h: torch.Tensor, scale: torch.Tensor,
     global LAUNCHES
     _check("ln_relu_region_mean", h, scale, bias)
     M, D = h.shape
-    h = h.contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+    h = _aligned(h)
+    scale, bias = _aligned(scale.to(torch.float32)), _aligned(bias.to(torch.float32))
     _build.require_cuda("ln_relu_region_mean", h, scale, bias)
     out = torch.empty((M // S2, D), dtype=h.dtype, device=h.device)
     if M == 0:
@@ -192,9 +207,8 @@ def ln_relu_fwd(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
     global LAUNCHES_LNRELU
     _check("ln_relu", h, scale, bias, pool=False)
     M, D = h.shape
-    h = h.contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+    h = _aligned(h)
+    scale, bias = _aligned(scale.to(torch.float32)), _aligned(bias.to(torch.float32))
     _build.require_cuda("ln_relu", h, scale, bias)
     out = torch.empty_like(h)
     if M == 0:

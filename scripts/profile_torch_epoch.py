@@ -21,6 +21,9 @@ graphs and split (23 training bags in 4 batches), on the routes named
 residual rows through #12 / #13; `dense`: `graph_banded: off`, #12 / #13 on
 every row), in turns a, b, b, a (one route: twice) per round; the families
 split out the aggregation kernels and torch's gathers and scatters.
+
+Each arm also lists the LN-pool kernels by name (their template arguments
+tell the row widths apart), with launches and device ms in the epoch.
 """
 import argparse
 import json
@@ -79,7 +82,7 @@ def profile_arm(paths, fused: bool, epochs: int, tag: str, graph=None) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         handler._train_each_epoch(loader)
         torch.cuda.synchronize()
-    fams, launches = {}, 0
+    fams, launches, ln_pool = {}, 0, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -90,6 +93,8 @@ def profile_arm(paths, fused: bool, epochs: int, tag: str, graph=None) -> dict:
         fams[fam] = fams.get(fam, 0.0) + dev_us / 1e3
         if fam != "memcpy":
             launches += ev.count
+        if fam == "ln_pool":   # the template arguments tell the row widths apart
+            ln_pool[ev.key] = [ev.count, dev_us / 1e3]
     kernels_ms = sum(v for k, v in fams.items() if k != "memcpy")
     arm = ("fused" if fused else "unfused") if graph is None else f"graph {graph[1]}"
     return {"arm": arm, "tag": tag, "bags": bags,
@@ -97,7 +102,8 @@ def profile_arm(paths, fused: bool, epochs: int, tag: str, graph=None) -> dict:
             "profiled_epoch_s": handler.train_timings[-1][1],
             "device_kernels_ms": kernels_ms, "device_share_of_warm_epoch": kernels_ms / wall / 1e3,
             "kernel_launches": launches, "steps": 4,
-            "device_ms_by_family": dict(sorted(fams.items(), key=lambda kv: -kv[1]))}
+            "device_ms_by_family": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+            "ln_pool_launches_ms": ln_pool}
 
 
 def main():

@@ -851,6 +851,41 @@ def test_ln_pool_bwd_kernel_tight_and_deterministic(cuda_device, M, D):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
 
 
+_FWD_SHAPES = [(32768, 384), (32768, 128), (48, 32), (16 * 9, 256), (16 * 7, 1024),
+               (16 * 5, 416)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool,M,D", [(True, *s) for s in _FWD_SHAPES] +
+                         [(False, *s) for s in _FWD_SHAPES + [(1001, 128), (37, 416)]])
+def test_ln_pool_fwd_kernel_tight_and_deterministic(cuda_device, pool, M, D, dtype):
+    """#1 (pool) and #3 against the plain version: bf16 within
+    `ln_pool.fwd_tol` (one rounding from f32) and the plain 2e-2 bound, f32
+    within 1e-5; two calls bit for bit (the 16-row sum in a fixed order), one
+    launch each. D = 416 and 32 take the 2-byte path (D % 128 != 0), D = 128
+    four rows a warp at once, D = 256 the 8-byte path with masked chunks;
+    M = 1001 and 37 leave #3 a partial region."""
+    h, scale, bias = _ln_inputs(M, D, seed=D + 7, device=cuda_device)
+    h = h.to(dtype)
+    fwd, plain = ((tlnp.ln_relu_region_mean_fwd, tlnp.ln_relu_region_mean_plain) if pool else
+                  (tlnp.ln_relu_fwd, tlnp.ln_relu_plain))
+    count = "LAUNCHES" if pool else "LAUNCHES_LNRELU"
+    before = getattr(tlnp, count)
+    got = fwd(h, scale, bias)
+    again = fwd(h, scale, bias)
+    want = plain(h, scale, bias)
+    torch.cuda.synchronize()
+    assert getattr(tlnp, count) == before + 2
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0.0)
+    else:
+        assert _share(got, want, **tlnp.fwd_tol(want)) <= 1.0
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [5, 300])

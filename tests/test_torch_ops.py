@@ -106,6 +106,66 @@ def test_bwd_tol_holds_a_right_dh_and_catches_a_dropped_m2_term(D):
     assert _share(mutant, want, **tol) > 1.5
 
 
+def _ln_pool_fwd(h, scale, bias, mutant=None):
+    """The LN-pool forward by its formula in the dtype of h (f64 for the right
+    one), rounded once to bf16; `mutant` names one of the card's `--fwd
+    --mutants` faults."""
+    M, D = h.shape
+    keep = torch.ones(D, dtype=h.dtype)
+    if mutant == "first 32 columns out of the mean":
+        keep[:32] = 0
+    mu = (h * keep).sum(-1, keepdim=True) / D
+    if mutant == "variance without its mean":
+        var = (h * h).mean(-1, keepdim=True)
+    else:
+        var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    eps = 0.0 if mutant == "eps dropped" else tlnp.LN_EPS
+    y = torch.relu((h - mu) / torch.sqrt(var + eps) * scale + bias).reshape(M // 16, 16, D)
+    if mutant == "last row of each region left out":
+        y = y[:, :15]
+    return (y.sum(1) / 16).bfloat16()
+
+
+def _fwd_tol_inputs(D):
+    """bf16 rows N(0, 1) plus a per-row offset 0.1 N(0, 1) (pre-LN rows have
+    no zero mean), region 1 constant (variance 0, as rows of zero features
+    through a dense layer's bias are): the card's `--fwd --mutants` inputs."""
+    h, scale, bias = _ln_inputs(512, D, seed=D + 11)
+    h = h + 0.1 * np.random.default_rng(D).normal(size=(512, 1)).astype(np.float32)
+    h[16:32] = 0.25
+    return torch.from_numpy(h).bfloat16(), torch.from_numpy(scale), torch.from_numpy(bias)
+
+
+@pytest.mark.parametrize("D", [128, 384])
+def test_fwd_tol_holds_a_right_ln_pool(D):
+    """`ln_pool.fwd_tol`, the bound the card holds the bf16 forward kernels
+    to: the LN-pool in f64, rounded once to bf16, stays inside it against the
+    plain version (f32 statistics) on the same bf16 h."""
+    h, scale, bias = _fwd_tol_inputs(D)
+    want = tlnp.ln_relu_region_mean_plain(h, scale, bias)
+    assert want.dtype == torch.bfloat16
+    right = _ln_pool_fwd(h.double(), scale.double(), bias.double())
+    assert _share(right, want, **tlnp.fwd_tol(want)) <= 1.0
+
+
+@pytest.mark.parametrize("D", [128, 384])
+@pytest.mark.parametrize("mutant,plain_catches", [
+    ("last row of each region left out", True),
+    ("first 32 columns out of the mean", True),
+    ("eps dropped", True),                 # NaN on the constant rows
+    ("variance without its mean", False)])
+def test_fwd_tol_catches_the_mutants(D, mutant, plain_catches):
+    """Each fault of the card's `--fwd --mutants`, computed in f32 from the
+    same bf16 h, falls outside `fwd_tol`; the plain bound (2e-2 + 2e-2
+    relative) lets the variance taken without its mean pass."""
+    h, scale, bias = _fwd_tol_inputs(D)
+    want = tlnp.ln_relu_region_mean_plain(h, scale, bias)
+    got = _ln_pool_fwd(h.float(), scale, bias, mutant)
+    # NaN compares false: a share that is not <= 1 is outside the bound
+    assert not _share(got, want, **tlnp.fwd_tol(want)) <= 1.5
+    assert (not _share(got, want, 2e-2, 2e-2) <= 1.0) == plain_catches
+
+
 def _attn_inputs(B, L, H, Dh, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=(B, L, H, Dh)).astype(np.float32) for _ in range(3))
