@@ -5,7 +5,8 @@ here with the standard library: scalars, `[a, b]` flow lists, `- item` block
 lists, comments and null, resolved the way PyYAML's default loader resolves
 them (so `1e-5` without a dot stays a string, `yes`/`on` are booleans).
 
-The port runs the adversarial handler's training (`exec`, `test: False`) and
+The port runs the adversarial handler (`--handler adv`) and the baseline
+handler (`--handler base`), each in training (`exec`, `test: False`) and
 test mode (`test: True`). Keys that select a mode the port does not have yet
 are rejected by `check_configs` with an error naming the ROADMAP item that
 brings it.
@@ -186,29 +187,40 @@ def grid_hyperparams(kwargs: dict) -> list:
 # Validation
 # ---------------------------------------------------------------------------
 
-def _not_ported(cfg: dict) -> list:
+BASE_TASKS = ("surv_cox", "surv_nll", "surv_reg")
+
+
+def _not_ported(cfg: dict, handler: str) -> list:
     """(key, value, ROADMAP item) for every requested mode the port lacks."""
     checks = [
-        ("bcb_mode", lambda v: v in ("cluster", "abmil"), "A12"),
+        ("bcb_mode", lambda v: v == "cluster", "A12"),
         ("graph_grid_resident", bool, "A13"),
         ("semi_training", bool, "A11"),
-        ("time_format", lambda v: v == "quantile", "A8"),
         ("log_plot", bool, "A9"),
         ("accum_steps", lambda v: int(v or 1) > 1, "A6"),
         ("train_sampling", lambda v: v is not None, "A8"),
-        ("opt_netG", lambda v: str(v).lower() != "adam", "A12"),
         ("dp_devices", lambda v: int(v or 1) > 1, "A14"),
         ("inst_devices", lambda v: int(v or 1) > 1, "A14"),
         ("dist_num_processes", lambda v: int(v or 1) > 1, "A14"),
     ]
+    if handler == "adv":
+        checks += [("opt_netG", lambda v: str(v).lower() != "adam", "A12"),
+                   ("task", lambda v: v == "disc_gansurv", "A8")]
+    else:
+        checks += [("opt_net", lambda v: str(v).lower() != "adam", "A12")]
     return [(k, cfg[k], item) for k, bad, item in checks
             if k in cfg and bad(cfg[k])]
 
 
-def check_configs(cfg: dict):
+def check_configs(cfg: dict, handler: str = "adv"):
     """Cross-field validation (the checks of `advmil_tpu.config.check_configs`
-    that apply to the ported slices), then the port's own limits."""
-    missing = _not_ported(cfg)
+    that apply to the ported slices), then the port's own limits. The
+    refusals, the device, precision, patch and graph checks apply to both
+    handlers; the generator / discriminator checks to `adv` only (the JAX
+    baseline handler asserts its task and nothing else)."""
+    if handler not in ("adv", "base"):
+        raise ValueError(f"unknown handler {handler!r} (adv | base)")
+    missing = _not_ported(cfg, handler)
     if missing:
         raise NotImplementedError("; ".join(
             f"{k}: {v} is not ported yet (ROADMAP {item})"
@@ -217,11 +229,6 @@ def check_configs(cfg: dict):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {cfg.get('device')!r}")
     if cfg.get("precision") not in ("f32", "bf16", "bfloat16"):
         raise ValueError(f"precision must be f32 or bf16, got {cfg.get('precision')!r}")
-    if cfg.get("disc_netx_backbone") not in (None, "avgpool", "gapool"):
-        raise ValueError("disc_netx_backbone must be avgpool or gapool, got "
-                         f"{cfg['disc_netx_backbone']!r}")
-    if cfg.get("disc_netx_ksize") not in (None, 1, 3):
-        raise ValueError(f"disc_netx_ksize must be 1 or 3, got {cfg['disc_netx_ksize']!r}")
     if cfg.get("use_coords_pe") and not cfg.get("path_coordx5"):
         raise ValueError("use_coords_pe needs path_coordx5 (per-slide region coordinates)")
     if cfg.get("bcb_mode") == "graph":
@@ -233,6 +240,20 @@ def check_configs(cfg: dict):
             "graph_edges_per_node must be 1-16 (the aggregation kernels' slot limit)"
     assert cfg.get("monitor_metrics", "loss") in ("loss", "ci", "ci_max"), \
         "monitor_metrics must be loss / ci (reference-inverted) / ci_max"
+    if handler == "base":
+        if cfg["task"] not in BASE_TASKS:
+            raise ValueError(f"task {cfg['task']} is not a baseline task "
+                             f"({' / '.join(BASE_TASKS)}); use --handler adv")
+        return
+    if cfg.get("disc_netx_backbone") not in (None, "avgpool", "gapool"):
+        raise ValueError("disc_netx_backbone must be avgpool or gapool, got "
+                         f"{cfg['disc_netx_backbone']!r}")
+    if cfg.get("disc_netx_ksize") not in (None, 1, 3):
+        raise ValueError(f"disc_netx_ksize must be 1 or 3, got {cfg['disc_netx_ksize']!r}")
+    if cfg["task"] != "cont_gansurv":
+        raise ValueError(f"task {cfg['task']} is not an adversarial task "
+                         "(cont_gansurv / disc_gansurv); surv_cox / surv_nll / "
+                         "surv_reg run under --handler base")
     assert cfg["loss_netD"] in ["bce", "hinge", "wasserstein"], \
         f"loss_netD must be bce/hinge/wasserstein, got {cfg['loss_netD']}"
     assert cfg["loss_recon_norm"] in ["l1", "l2"], "loss_recon_norm must be l1/l2"
@@ -251,16 +272,11 @@ def check_configs(cfg: dict):
         assert cfg["times_test_sample"] > 1
     else:
         assert cfg["times_test_sample"] == 1
-    if cfg["task"] == "cont_gansurv":
-        assert cfg["time_format"] in ["origin", "ratio"]
-        assert str(cfg["gen_dims"])[-2:] == "-1"
-        assert (cfg["gen_out_scale"] == "sigmoid" and cfg["time_format"] == "ratio") or \
-               (cfg["gen_out_scale"] != "sigmoid" and cfg["time_format"] == "origin"), \
-            "cont_gansurv needs sigmoid<->ratio or exp/none<->origin pairing"
-        assert (cfg["time_format"] == "ratio" and cfg["loss_recon_gamma"] == 0) or \
-               (cfg["time_format"] == "origin" and cfg["loss_recon_gamma"] >= 1), \
-            "loss_recon_gamma must be 0 for ratio time, >=1 for origin time"
-    else:
-        raise NotImplementedError(
-            f"task {cfg['task']} is not ported yet (ROADMAP A8: disc_gansurv "
-            "needs quantile labels)")
+    assert cfg["time_format"] in ["origin", "ratio"]
+    assert str(cfg["gen_dims"])[-2:] == "-1"
+    assert (cfg["gen_out_scale"] == "sigmoid" and cfg["time_format"] == "ratio") or \
+           (cfg["gen_out_scale"] != "sigmoid" and cfg["time_format"] == "origin"), \
+        "cont_gansurv needs sigmoid<->ratio or exp/none<->origin pairing"
+    assert (cfg["time_format"] == "ratio" and cfg["loss_recon_gamma"] == 0) or \
+           (cfg["time_format"] == "origin" and cfg["loss_recon_gamma"] >= 1), \
+        "loss_recon_gamma must be 0 for ratio time, >=1 for origin time"

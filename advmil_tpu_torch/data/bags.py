@@ -1,5 +1,5 @@
-"""Patient-level WSI bag dataset and bucketed padded batching, patch and
-graph mode (counterpart of `advmil_tpu/data/bags.py`).
+"""Patient-level WSI bag dataset and bucketed padded batching, patch, abmil
+and graph mode (counterpart of `advmil_tpu/data/bags.py`).
 
 Bags are grouped into length buckets (multiples of 16, so padding forms whole
 4x4 regions), padded to the bucket length and stacked into [B, N, C] batches
@@ -56,15 +56,17 @@ def default_buckets(max_n: int, min_bucket: int = 256,
 
 class BagDataset:
     """Patient-level bags with labels: per patient the concatenated patch
-    features of all their slides and the label (t, e), plus in graph mode
-    their kNN graph (`edge_index` [2, E], dst-sorted)."""
+    features of all their slides and the label (t, e), or (bin, censorship)
+    under `time_format: quantile`, plus in graph mode their kNN graph
+    (`edge_index` [2, E], dst-sorted) and in patch mode, with `coord_path`,
+    their region coordinates."""
 
     def __init__(self, patient_ids: list, patch_path: str, label_path: str,
                  mode: str = "patch", read_format: str = "pt",
-                 time_format: str = "ratio", ratio_mask=None, graph_path=None,
-                 coord_path=None, edge_agg: str = "spatial",
+                 time_format: str = "ratio", time_bins: int = 4, ratio_mask=None,
+                 graph_path=None, coord_path=None, edge_agg: str = "spatial",
                  rng: np.random.Generator | None = None, cache: bool = True):
-        if mode not in ("patch", "graph"):
+        if mode not in ("patch", "abmil", "graph"):
             raise NotImplementedError(f"bag mode {mode!r} is not ported yet "
                                       "(ROADMAP A12)")
         assert edge_agg in ("spatial", "latent")
@@ -74,13 +76,14 @@ class BagDataset:
         self.edge_agg = edge_agg
         if ratio_mask is not None and ratio_mask > 1e-5:
             assert ratio_mask <= 1
-            assert mode == "patch", "Only patch-style modes support instance masking."
+            assert mode in ("patch", "abmil"), \
+                "Only patch-style modes support instance masking."
             self.ratio_mask = float(ratio_mask)
         else:
             self.ratio_mask = None
         self.pids, self.pid2sid, self.pid2label = retrieve_from_table(
             patient_ids, label_path, ret=["pid", "pid2sid", "pid2label"],
-            time_format=time_format)
+            time_format=time_format, time_bins=time_bins)
         self.read_path = patch_path
         self.read_format = read_format
         self.rng = rng if rng is not None else np.random.default_rng()
@@ -117,7 +120,7 @@ class BagDataset:
                 "label": np.asarray(self.pid2label[pid], np.float32)}
         if self.mode == "graph":
             item["edge_index"] = self._load_edges(pid)
-        elif self.coord_path:
+        elif self.mode == "patch" and self.coord_path:
             item["coords"] = np.concatenate(
                 [read_patch_coord(self._coord_file(sid)) for sid in self.pid2sid[pid]], axis=0)
         return item
@@ -178,7 +181,8 @@ def prepare_dataset(patient_ids: list, cfg: dict, **kws) -> BagDataset:
     return BagDataset(
         patient_ids, cfg["path_patch"], cfg["path_label"], cfg["bcb_mode"],
         read_format=cfg["feat_format"], time_format=cfg["time_format"],
-        ratio_mask=ratio_mask, graph_path=cfg.get("path_graph"),
+        time_bins=cfg.get("time_bins", 4), ratio_mask=ratio_mask,
+        graph_path=cfg.get("path_graph"),
         coord_path=cfg.get("path_coordx5") if cfg.get("use_coords_pe", False) else None,
         edge_agg=cfg.get("graph_edge_agg", "spatial"), rng=kws.get("rng"),
         cache=cfg.get("cache_bags", True))

@@ -1,5 +1,5 @@
-"""Metric evaluators for continuous and discrete outputs (counterparts of
-`advmil_tpu/eval/evaluator.py`): collected predictions are host numpy
+"""Metric evaluators for continuous, discrete and Cox outputs (counterparts
+of `advmil_tpu/eval/evaluator.py`): collected predictions are host numpy
 arrays; the loss-valued metrics call the port's torch losses on CPU f32."""
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ class ContSurvEvaluator(_BaseEvaluator):
     valid_metrics = ["c_index", "loss_recon", "loss_recon_org",
                      "loss_fake_netD", "loss_fake_netG", "avg_fake",
                      "event_t_rae", "nonevent_t_rae", "event_t_nre",
-                     "nonevent_t_nre"]
+                     "nonevent_t_nre", "mae"]
 
     def __init__(self, end_time=1.0, recon_loss=None, disc_loss=None):
         self.end_time = float(end_time)
@@ -59,6 +59,11 @@ class ContSurvEvaluator(_BaseEvaluator):
             return 0.0
         return float(self.recon_loss(_t(self.y_hat), _t(self.t), _t(self.e),
                                      cur_alpha=0.0))
+
+    def _mae(self):
+        """The default reconstruction loss (l1, gamma 1, alpha 0)."""
+        return float(losses.recon_loss(_t(self.y_hat), _t(self.t), _t(self.e),
+                                       cur_alpha=0.0))
 
     def _loss_fake_netD(self):
         if self.disc_loss is None or self.f_fake is None:
@@ -137,9 +142,37 @@ class DiscSurvEvaluator(_BaseEvaluator):
         return float(np.mean(self.f_fake))
 
 
+class CoxSurvEvaluator(_BaseEvaluator):
+    """Cox proportional-hazard metrics: the C-index of the one-column
+    prediction (the reference's convention, risk = -prediction) and the
+    partial likelihood over the whole split."""
+
+    valid_metrics = ["c_index", "loss_ple"]
+
+    def __init__(self, ple_loss=None):
+        self.ple_loss = ple_loss
+
+    def _pre_compute(self, data):
+        self.y = data["y"]
+        self.t = data["y"][:, 0]
+        self.e = data["y"][:, 1]
+        key = "avg_y_hat" if "avg_y_hat" in data else "y_hat"
+        self.y_hat = np.squeeze(data[key])
+
+    def _c_index(self):
+        return concordance_index(self.y, self.y_hat[:, None])
+
+    def _loss_ple(self):
+        if self.ple_loss is None:
+            return 0.0
+        return float(self.ple_loss(_t(self.y_hat), _t(self.t), _t(self.e)))
+
+
 def prepare_evaluator(output_type: str, **kws):
     if output_type == "continuous":
         return ContSurvEvaluator(**kws)
     if output_type == "discrete":
         return DiscSurvEvaluator(**kws)
+    if output_type == "prohazard":
+        return CoxSurvEvaluator(**kws)
     raise ValueError(f"unknown evaluator type {output_type}")

@@ -1,9 +1,10 @@
 """Entry point of the port, with the CLI contract of the repo's `main.py`:
 
-    python -m advmil_tpu_torch.main --config <yaml> --handler adv [--multi_run]
+    python -m advmil_tpu_torch.main --config <yaml> --handler {adv,base} [--multi_run]
 
+`adv` is the adversarial handler, `base` the baseline (SurvNet) handler.
 Dispatch: semi_training -> exec_semi_sl(), test -> exec_test(), else exec().
-The port runs test mode (`test: True`) on the configured `device`.
+Both run on the configured `device`.
 --multi_run expands every list-valued key into a grid, each run with a
 derived save_path suffix.
 """
@@ -33,7 +34,7 @@ def get_args(argv=None):
     parser.add_argument("--config", "-f", required=True, type=str,
                         help="path to the config file")
     parser.add_argument("--handler", "-d", required=True, type=str,
-                        help="model handler (adv)")
+                        help="model handler (adv or base)")
     parser.add_argument("--multi_run", action="store_true",
                         help="flag: multi run (grid over list-valued keys)")
     return vars(parser.parse_args(argv))
@@ -47,10 +48,9 @@ def main(argv=None) -> list:
     if args["handler"] == "adv":
         from .train.handler import AdvHandler as handler_cls
     elif args["handler"] == "base":
-        raise NotImplementedError("the baseline handler is not ported yet "
-                                  "(ROADMAP A12)")
+        from .train.baseline import BaselineHandler as handler_cls
     else:
-        raise SystemExit(f"unknown handler {args['handler']} (use adv)")
+        raise SystemExit(f"unknown handler {args['handler']} (use adv|base)")
     if not args["multi_run"]:
         return [run_one(handler_cls, config)]
     results = []

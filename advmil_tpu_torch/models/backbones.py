@@ -1,13 +1,16 @@
-"""MIL encoder backbones: ESAT (`DualTransHS`, bcb_mode `patch`) and
-PatchGCN (`bcb_mode: graph`); the cluster and ABMIL modes come with a later
-slice (ROADMAP A12).
+"""MIL encoder backbones: ABMIL (`bcb_mode: abmil`), ESAT (`DualTransHS`,
+bcb_mode `patch`) and PatchGCN (`bcb_mode: graph`); the cluster mode
+(DeepAttnMISL) comes with a later slice (ROADMAP A12).
 
 Call convention as in `advmil_tpu/models/backbones.py`: backbone(x, mask,
 extra) with x [B, N, C] padded patch features and mask [B, N] (1 = real
-patch); returns the bag embedding [B, dim_out]. In patch mode `extra` is None
-or the region coordinates [B, L, 2] (`use_coords_pe`). In graph mode it is the
-batch's dict of graph tables (data/bags.py): the band tables of the banded
-route or `edge_src` / `edge_mask` of the dense route.
+patch); returns the bag embedding [B, dim_out]. ABMIL ignores `extra`. In
+patch mode `extra` is None or the region coordinates [B, L, 2]
+(`use_coords_pe`). In graph mode it is the batch's dict of graph tables
+(data/bags.py): the band tables of the banded route or `edge_src` /
+`edge_mask` of the dense route. `dense_init` selects the init of every
+Dense except the patch embedding's (torch init) and the packed attention
+in-projection (xavier), as in the JAX factory.
 """
 from __future__ import annotations
 
@@ -24,6 +27,29 @@ from .layers import (XAVIER, Dense, Dropout, GAPool, GatedAttention, LayerNorm, 
                      TransformerEncoderLayer, make_embedding_layer)
 
 
+class ABMIL(nn.Module):
+    """Gated-attention MIL: `attn_fc` (Dense + ReLU + Dropout) per instance,
+    gated attention scores (`gate`), a masked softmax over the instances,
+    the attention-weighted sum, then `rho` (Dense + ReLU + Dropout)."""
+
+    def __init__(self, dims: Sequence[int], dropout: float = 0.25,
+                 dense_init: str = XAVIER, dtype=torch.float32):
+        super().__init__()
+        dim_in, dim_hid, dim_out = dims
+        self.attn_fc = Dense(dim_in, dim_hid, dense_init, dtype)
+        self.gate = GatedAttention(dim_hid, dim_hid, dropout=dropout,
+                                   dense_init=dense_init, dtype=dtype)
+        self.rho = Dense(dim_hid, dim_out, dense_init, dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, mask, extra=None, rng: Rngs | None = None):
+        h = self.drop(torch.relu(self.attn_fc(x)), rng)
+        scores = self.gate(h, rng)
+        attn = masked_softmax(scores[..., 0], mask, dim=-1)       # [B, N]
+        pooled = torch.einsum("bn,bnd->bd", attn, h.to(attn.dtype))
+        return self.drop(torch.relu(self.rho(pooled)), rng)
+
+
 class DualTransHS(nn.Module):
     """Transformer-based ESAT: 4x4-region patch embedding -> optional 2-D
     sin-cos positional embedding of the region coordinates (`extra`
@@ -33,7 +59,8 @@ class DualTransHS(nn.Module):
                  emb_ksize: int = 1, emb_backbone: str = "avgpool",
                  tra_backbone: str = "Transformer", dropout: float = 0.25,
                  use_pallas: bool = True, use_fused_embed: bool = False,
-                 use_lnpool: bool = True, flash_min_len: int = 512, dtype=torch.float32):
+                 use_lnpool: bool = True, flash_min_len: int = 512,
+                 dense_init: str = XAVIER, dtype=torch.float32):
         super().__init__()
         dim_in, dim_hid, dim_out = dims
         assert dim_hid == dim_out
@@ -46,8 +73,8 @@ class DualTransHS(nn.Module):
         for i in range(self.num_layers):
             self.add_module(f"encoder_{i}", TransformerEncoderLayer(
                 dim_hid, nhead, dim_hid, dropout=dropout, use_pallas=use_pallas,
-                flash_min_len=flash_min_len, dtype=dtype))
-        self.pool = GAPool(dim_out, dim_out, dropout=dropout, dense_init=XAVIER,
+                flash_min_len=flash_min_len, dense_init=dense_init, dtype=dtype))
+        self.pool = GAPool(dim_out, dim_out, dropout=dropout, dense_init=dense_init,
                            dtype=dtype)
 
     def forward(self, x, mask, extra=None, rng: Rngs | None = None):
@@ -76,13 +103,13 @@ class GENConv(nn.Module):
     versions on every device."""
 
     def __init__(self, dim: int, eps: float = 1e-7, use_pallas: bool = True,
-                 dtype=torch.float32):
+                 dense_init: str = XAVIER, dtype=torch.float32):
         super().__init__()
         self.eps, self.use_pallas = eps, use_pallas
         self.t = nn.Parameter(torch.ones(1))
-        self.mlp0 = Dense(dim, 2 * dim, XAVIER, dtype)
+        self.mlp0 = Dense(dim, 2 * dim, dense_init, dtype)
         self.mlp_norm = LayerNorm(2 * dim, dtype)
-        self.mlp1 = Dense(2 * dim, dim, XAVIER, dtype)
+        self.mlp1 = Dense(2 * dim, dim, dense_init, dtype)
 
     def forward(self, x, graph: dict):
         xr = torch.relu(x)
@@ -110,9 +137,9 @@ class DeepGCNBlock(nn.Module):
     dropout 0.1."""
 
     def __init__(self, dim: int, dropout: float = 0.1, use_pallas: bool = True,
-                 dtype=torch.float32):
+                 dense_init: str = XAVIER, dtype=torch.float32):
         super().__init__()
-        self.conv = GENConv(dim, use_pallas=use_pallas, dtype=dtype)
+        self.conv = GENConv(dim, use_pallas=use_pallas, dense_init=dense_init, dtype=dtype)
         self.norm = LayerNorm(dim, dtype)
         self.drop = Dropout(dropout)
 
@@ -131,18 +158,19 @@ class PatchGCN(nn.Module):
     loop over bags."""
 
     def __init__(self, dims: Sequence[int], num_layers: int = 1, dropout: float = 0.25,
-                 use_pallas: bool = True, dtype=torch.float32):
+                 use_pallas: bool = True, dense_init: str = XAVIER, dtype=torch.float32):
         super().__init__()
         dim_in, dim_hid, dim_out = dims
         self.num_layers = num_layers
-        self.fc = Dense(dim_in, dim_hid, XAVIER, dtype)
-        self.layer0_conv = GENConv(dim_hid, use_pallas=use_pallas, dtype=dtype)
+        self.fc = Dense(dim_in, dim_hid, dense_init, dtype)
+        self.layer0_conv = GENConv(dim_hid, use_pallas=use_pallas, dense_init=dense_init,
+                                   dtype=dtype)
         for i in range(1, num_layers):
             self.add_module(f"layer{i}", DeepGCNBlock(dim_hid, use_pallas=use_pallas,
-                                                      dtype=dtype))
-        self.path_phi = Dense(dim_hid * (1 + num_layers), dim_out, XAVIER, dtype)
-        self.gate = GatedAttention(dim_out, dim_out, dropout=dropout, dense_init=XAVIER,
-                                   dtype=dtype)
+                                                      dense_init=dense_init, dtype=dtype))
+        self.path_phi = Dense(dim_hid * (1 + num_layers), dim_out, dense_init, dtype)
+        self.gate = GatedAttention(dim_out, dim_out, dropout=dropout,
+                                   dense_init=dense_init, dtype=dtype)
         self.drop = Dropout(dropout)
 
     def forward(self, x, mask, extra: dict, rng: Rngs | None = None):
@@ -158,8 +186,8 @@ class PatchGCN(nn.Module):
         return torch.einsum("bn,bnd->bd", attn, h_path.to(attn.dtype))
 
 
-def load_backbone(mode: str, dims: Sequence[int], use_pallas: bool = True,
-                  use_fused_embed: bool = False,
+def load_backbone(mode: str, dims: Sequence[int], dense_init: str = XAVIER,
+                  use_pallas: bool = True, use_fused_embed: bool = False,
                   use_lnpool: bool = True, tra_backbone: str = "Transformer",
                   flash_min_len: int = 512, num_graph_layers: int = 1,
                   dtype=torch.float32) -> nn.Module:
@@ -170,8 +198,13 @@ def load_backbone(mode: str, dims: Sequence[int], use_pallas: bool = True,
         return DualTransHS(dims, nhead=8, num_layers=1, tra_backbone=tra_backbone,
                            dropout=0.25, use_pallas=use_pallas,
                            use_fused_embed=use_fused_embed, use_lnpool=use_lnpool,
-                           flash_min_len=flash_min_len, dtype=dtype)
+                           flash_min_len=flash_min_len, dense_init=dense_init,
+                           dtype=dtype)
     if mode == "graph":
         return PatchGCN(dims, num_layers=num_graph_layers, dropout=0.25,
-                        use_pallas=use_pallas, dtype=dtype)
-    raise NotImplementedError(f"backbone mode {mode!r} is not ported yet (ROADMAP A12)")
+                        use_pallas=use_pallas, dense_init=dense_init, dtype=dtype)
+    if mode == "abmil":
+        return ABMIL(dims, dropout=0.25, dense_init=dense_init, dtype=dtype)
+    if mode == "cluster":
+        raise NotImplementedError("backbone mode 'cluster' is not ported yet (ROADMAP A12)")
+    raise ValueError(f"unknown backbone mode {mode!r} (patch / graph / abmil / cluster)")

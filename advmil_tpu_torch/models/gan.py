@@ -1,5 +1,6 @@
-"""Adversarial networks: Generator, PrjDiscriminator and the concat
-Discriminator (counterparts of `advmil_tpu/models/gan.py`).
+"""Survival networks: the adversarial Generator, PrjDiscriminator and the
+concat Discriminator, and the baseline SurvNet (counterparts of
+`advmil_tpu/models/gan.py`).
 
 The generator's Dense layers are xavier-initialised (its patch embedding
 keeps torch init); the discriminator keeps torch defaults throughout.
@@ -18,8 +19,8 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_mean, region_mask_from_patch_mask
-from .layers import (TORCH, BottleneckMLP, Dense, GAPool, MLPBlock, NoiseMLPHead, Rngs,
-                     apply_out_scale, make_embedding_layer)
+from .layers import (TORCH, XAVIER, BottleneckMLP, Dense, GAPool, MLPBlock,
+                     NoiseMLPHead, Rngs, apply_out_scale, make_embedding_layer)
 
 
 class Generator(nn.Module):
@@ -171,3 +172,28 @@ class Discriminator(nn.Module):
             hid_x, _, _, emb = self.net_pair_one(x, mask, rng, emb)
             outs.append(self.fc(torch.cat([hid_x, hid_t], dim=-1)))
         return tuple(outs) if isinstance(t, tuple) else outs[0]
+
+
+class SurvNet(nn.Module):
+    """Baseline survival net: backbone -> H [B, d] -> noise-free MLP head
+    (`out_layer`) -> sigmoid, or the head's output as is (`out_scale`
+    none). As in the JAX package the output stays in the compute dtype (no
+    f32 cast, unlike the Generator's), so under bf16 the supervised loss
+    runs in bf16 too. There is no `embed` / `head` split: evaluation runs
+    the whole forward."""
+
+    def __init__(self, backbone: nn.Module, dim_in: int, dim_out: int, hops: int = 1,
+                 norm: bool = False, dropout: float = 0.25, out_scale: str = "none",
+                 dense_init: str = XAVIER, dtype=torch.float32):
+        super().__init__()
+        if out_scale not in ("sigmoid", "none"):
+            raise ValueError(f"SurvNet out_scale must be sigmoid / none, got {out_scale!r}")
+        self.backbone = backbone
+        self.out_layer = NoiseMLPHead(dim_in, dim_out, (0,) * (1 + hops), hops=hops,
+                                      norm=norm, dropout=dropout, dense_init=dense_init,
+                                      dtype=dtype)
+        self.out_scale = out_scale
+
+    def forward(self, x, mask, extra=None, rng: Rngs | None = None):
+        h = self.out_layer(self.backbone(x, mask, extra, rng), zero_noise=True, rng=rng)
+        return torch.sigmoid(h) if self.out_scale == "sigmoid" else h

@@ -34,6 +34,7 @@ from ..ops.masked import masked_mean, masked_softmax
 
 XAVIER = "xavier"   # xavier-uniform weight, zero bias (generator nets)
 TORCH = "torch"     # torch Linear default U(+-1/sqrt(fan_in)) (discriminator nets)
+PT041 = "pt041"     # pytorch-0.4.1-style U(+-0.5/sqrt(fan_in)) (Cox baselines)
 
 
 @dataclass
@@ -93,7 +94,7 @@ class Dense(nn.Module):
     def __init__(self, in_features: int, out_features: int, init: str = XAVIER,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if init not in (XAVIER, TORCH):
+        if init not in (XAVIER, TORCH, PT041):
             raise ValueError(f"unknown dense init {init}")
         self.in_features, self.out_features = in_features, out_features
         self.init, self.dtype = init, dtype
@@ -106,7 +107,7 @@ class Dense(nn.Module):
             nn.init.xavier_uniform_(self.weight, generator=generator)
             self.bias.zero_()
         else:
-            bound = 1.0 / math.sqrt(self.in_features)
+            bound = (1.0 if self.init == TORCH else 0.5) / math.sqrt(self.in_features)
             nn.init.uniform_(self.weight, -bound, bound, generator=generator)
             nn.init.uniform_(self.bias, -bound, bound, generator=generator)
 
@@ -372,20 +373,22 @@ def _masked_mha(q, k, v, mask, use_pallas: bool, flash_min_len: int,
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN transformer encoder layer (torch TransformerEncoderLayer with
-    relu, batch_first, norm_first=False) with a key-padding mask; xavier
-    init (generator)."""
+    relu, batch_first, norm_first=False) with a key-padding mask. The packed
+    in-projection is always xavier (torch MultiheadAttention's); the other
+    Dense layers take `dense_init`."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.25, use_pallas: bool = True,
-                 flash_min_len: int = 512, dtype=torch.float32):
+                 flash_min_len: int = 512, dense_init: str = XAVIER,
+                 dtype=torch.float32):
         super().__init__()
         self.nhead = nhead
         self.use_pallas, self.flash_min_len = use_pallas, flash_min_len
         self.in_proj = Dense(d_model, 3 * d_model, XAVIER, dtype)
-        self.out_proj = Dense(d_model, d_model, XAVIER, dtype)
+        self.out_proj = Dense(d_model, d_model, dense_init, dtype)
         self.norm1 = LayerNorm(d_model, dtype)
-        self.linear1 = Dense(d_model, dim_feedforward, XAVIER, dtype)
-        self.linear2 = Dense(dim_feedforward, d_model, XAVIER, dtype)
+        self.linear1 = Dense(d_model, dim_feedforward, dense_init, dtype)
+        self.linear2 = Dense(dim_feedforward, d_model, dense_init, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
         self.attn_drop = Dropout(dropout)   # on the attention probabilities
         self.drop = Dropout(dropout)        # residual and feed-forward
@@ -419,11 +422,13 @@ def get_hop_dims(d: int, hops: int) -> list:
 class NoiseMLPHead(nn.Module):
     """MLP head with optional per-layer noise concatenation: layer i's input
     doubles when noise[i] == 1. Hidden dims halve dim_in for `hops` steps;
-    the last layer is a bare Dense. Xavier init (generator)."""
+    the last layer is a bare Dense. Xavier init (generator) unless
+    `dense_init` says otherwise."""
 
     def __init__(self, dim_in: int, dim_out: int, noise: Sequence[int],
                  hops: int = 1, norm: bool = False, dropout: float = 0.25,
-                 noise_dist: str = "uniform", dtype=torch.float32):
+                 noise_dist: str = "uniform", dense_init: str = XAVIER,
+                 dtype=torch.float32):
         super().__init__()
         assert len(noise) == hops + 1
         if noise_dist not in ("uniform", "gaussian"):
@@ -436,10 +441,10 @@ class NoiseMLPHead(nn.Module):
         for i in range(self.num_layers):
             fan_in = in_dims[i] * (2 if self.noise[i] == 1 else 1)
             if i == self.num_layers - 1:
-                layer = Dense(fan_in, out_dims[i], XAVIER, dtype)
+                layer = Dense(fan_in, out_dims[i], dense_init, dtype)
             else:
                 layer = MLPBlock(fan_in, out_dims[i], layer_norm=norm,
-                                 dropout=dropout, dense_init=XAVIER, dtype=dtype)
+                                 dropout=dropout, dense_init=dense_init, dtype=dtype)
             self.add_module(f"mlp_{i}", layer)
 
     def forward(self, h, *, zero_noise: bool,

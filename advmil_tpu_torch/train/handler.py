@@ -16,10 +16,8 @@ from __future__ import annotations
 
 import functools
 import os.path as osp
-import time
 from types import SimpleNamespace
 
-import numpy as np
 import torch
 
 from .. import losses
@@ -29,13 +27,12 @@ from ..eval.evaluator import prepare_evaluator
 from ..models.backbones import load_backbone
 from ..models.gan import Discriminator, Generator, PrjDiscriminator
 from ..models.layers import Rngs, compute_dtype_of, init_parameters
-from ..utils.func import (EarlyStopping, add_prefix_to_filename, print_metrics,
-                          rename_keys, seed_everything, sparse_key, sparse_str)
-from ..utils.io import read_datasplit_npz, read_maxt_from_table, save_prediction
+from ..utils.func import seed_everything, sparse_key, sparse_str
+from ..utils.io import read_datasplit_npz, read_maxt_from_table
 from . import checkpoint as ckpt_lib
 from .common import HandlerCommon, resolve_device
-from .optim import ReduceLROnPlateau, adam_with_l2, set_lr
-from .steps import make_adv_train_step, make_eval_step
+from .optim import adam_with_l2
+from .steps import make_adv_train_step, make_eval_step, make_supervised_loss
 
 
 def build_models(cfg: dict):
@@ -93,10 +90,7 @@ class AdvHandler(HandlerCommon):
         self.gen_model.to(self.device).eval()
         self.disc_model.to(self.device).eval()
 
-        self.sup_loss_fn = functools.partial(
-            losses.recon_loss, alpha=cfg.get("loss_recon_alpha", 0.0) or 0.0,
-            gamma=cfg.get("loss_recon_gamma", 1.0),
-            norm=cfg.get("loss_recon_norm", "l1"))
+        self.sup_loss_fn = make_supervised_loss(self.task, cfg)
         end_time = (read_maxt_from_table(cfg["path_label"])
                     if cfg["time_format"] == "origin" else 1.0)
         disc_loss = functools.partial(losses.real_fake_loss,
@@ -109,6 +103,7 @@ class AdvHandler(HandlerCommon):
                              "event_t_rae", "nonevent_t_rae", "event_t_nre",
                              "nonevent_t_nre"]
         self.ret_metrics = ["c_index", "loss_recon_org"]
+        self.batch_log_prefix = "train_batch/"
         self.opt_G = self.opt_D = self.train_step = None
         if not cfg["test"]:
             self._setup_training()
@@ -122,9 +117,10 @@ class AdvHandler(HandlerCommon):
         cfg = self.cfg
         # reference model/model_handler.py:100-109: Adam with coupled L2 on
         # G's matrices, plain Adam on D; the plateau LR scales G's only
-        self.base_lr_G = cfg["opt_netG_lr"]
-        self.opt_G = adam_with_l2(self.gen_model.parameters(), self.base_lr_G,
+        self.base_lr = cfg["opt_netG_lr"]
+        self.opt_G = adam_with_l2(self.gen_model.parameters(), self.base_lr,
                                   weight_decay=cfg["opt_netG_weight_decay"])
+        self.plateau_opt = self.opt_G
         self.opt_D = adam_with_l2(self.disc_model.parameters(), cfg["opt_netD_lr"])
         # dropout masks and noise on the device; the flash kernels' Philox
         # seeds from a CPU generator, so drawing one never waits for the card
@@ -171,7 +167,8 @@ class AdvHandler(HandlerCommon):
         self._run_training(cfg["epochs"], loaders["train"], "train",
                            val_loaders=val_loaders, val_name="validation",
                            run_name="train")
-        return self._eval_all(loaders, ckpt_type="best", run_name="train")
+        return self._eval_all(loaders, ckpt_type="best", run_name="train",
+                              n_samples=cfg["times_test_sample"])
 
     def exec_semi_sl(self):
         raise NotImplementedError("semi-supervised training is not ported yet "
@@ -189,125 +186,16 @@ class AdvHandler(HandlerCommon):
         self.patient_id["exec-test"] = test_set.pids
         self.loaders = {"exec-test": (test_set, self._make_bucket_batcher(test_set))}
         return self._eval_all(self.loaders, ckpt_type="best", run_name="train",
-                              test_mode=True, test_mode_name="test_mode",
-                              test_zero_noise=cfg["test_zero_noise"])
+                              test_mode=True, n_samples=cfg["test_sampling_times"],
+                              zero_noise=cfg["test_zero_noise"])
 
-    # ------------------------------------------------------------------
-    # training loop
-    # ------------------------------------------------------------------
-
-    def _run_training(self, epochs, train_loader, name_loader, val_loaders=None,
-                      val_name=None, run_name="train"):
-        cfg = self.cfg
-        if cfg.get("es_patience") is not None:
-            self.early_stop = EarlyStopping(
-                warmup=cfg["es_warmup"], patience=cfg["es_patience"],
-                start_epoch=cfg["es_start_epoch"], verbose=cfg["es_verbose"])
-        else:
-            self.early_stop = None
-        self.steplr = ReduceLROnPlateau(factor=0.5, patience=10, verbose=True)
-        last_epoch = -1
-        for epoch in range(epochs):
-            last_epoch = epoch + 1
-            cltor = self._train_each_epoch(train_loader)
-            self._eval_and_print(cltor, name=name_loader, at_epoch=epoch + 1)
-
-            val_metrics = None
-            for k_i, (k, (ds, batcher)) in enumerate((val_loaders or {}).items()):
-                cltor = self._run_eval(ds, batcher, n_samples=1,
-                                       rng_tag=(epoch + 1) * 1024 + k_i)
-                met_ci, met_loss = self._eval_and_print(cltor, name=k,
-                                                        at_epoch=epoch + 1)
-                if k == val_name:
-                    # 'ci' keeps the reference's inverted semantics (monitored
-                    # as a loss: saves the minimum C-index); 'ci_max' negates
-                    mm = cfg.get("monitor_metrics", "loss")
-                    val_metrics = (met_ci if mm == "ci" else -met_ci
-                                   if mm == "ci_max" else met_loss)
-
-            if val_metrics is not None and self.early_stop is not None:
-                set_lr(self.opt_G, self.base_lr_G * self.steplr.step(val_metrics))
-                self.early_stop(epoch, val_metrics)
-                if self.early_stop.if_save_checkpoint():
-                    self.save_model(epoch + 1, "best", run_name)
-                    print(f"[{run_name}] best model saved at epoch {epoch + 1}")
-                if self.early_stop.if_stop():
-                    break
-        self.save_model(last_epoch, "last", run_name)
-        print(f"[{run_name}] last model saved at epoch {last_epoch}")
-
-    def _train_each_epoch(self, loader):
-        """One shuffled pass of adversarial steps; the device is synced once,
-        at the end, for the logged metrics and the collected predictions."""
-        ds, batcher = loader
-        t0 = time.perf_counter()
-        pending, keeps, ys, idxs = [], [], [], []
-        for batch in batcher.prefetch(shuffle=True, rng=self.np_rng):
-            metrics, collect = self.train_step(self._ship(batch, train=True),
-                                               self.train_rngs)
-            keep = batch.sample_mask.astype(bool)
-            pending.append((metrics, collect))
-            keeps.append(keep)
-            ys.append(batch.label[keep])
-            idxs.append(batch.idx[keep])
-        names = list(pending[0][0])
-        logged = {k: torch.stack([m[k] for m, _ in pending]).float().cpu().tolist()
-                  for k in names}
-        cltor = {"y": ys, "idx": idxs, "y_hat": [], "f_fake": []}
-        for (_, collect), keep in zip(pending, keeps):
-            for k in ("y_hat", "f_fake"):
-                cltor[k].append(collect[k].float().cpu().numpy()[keep])
-        self.train_timings.append((int(sum(k.sum() for k in keeps)),
-                                   time.perf_counter() - t0))
-        for i in range(len(pending)):
-            self.logger.log({f"train_batch/{k}": logged[k][i] for k in names})
-        return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
-
-    # ------------------------------------------------------------------
-    # evaluation
-    # ------------------------------------------------------------------
-
-    def _get_eval_step(self, n_samples: int, zero_noise: bool):
+    def _eval_step(self, n_samples: int, zero_noise: bool):
         key = (n_samples, zero_noise)
         if key not in self._eval_steps:
             self._eval_steps[key] = make_eval_step(
                 self.gen_model, self.disc_model, n_samples=n_samples,
                 zero_noise=zero_noise)
         return self._eval_steps[key]
-
-    def _run_eval(self, ds, batcher, n_samples=1, zero_noise=False, rng_tag=0):
-        """One pass over `batcher`; returns the host-side collections."""
-        step = self._get_eval_step(n_samples, zero_noise)
-        self.gen_model.eval()
-        self.disc_model.eval()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(((self.cfg["seed"] + 777) * 1_000_003 + rng_tag) % (1 << 62))
-        t0 = time.perf_counter()
-        keys = ["y_hat", "f_fake"] + (["avg_y_hat", "dist_y_hat"]
-                                      if n_samples > 1 else [])
-        pending, keeps, ys, idxs = [], [], [], []
-        for batch in batcher.prefetch():
-            out = step(self._ship(batch), gen)
-            keep = batch.sample_mask.astype(bool)
-            ys.append(batch.label[keep])
-            idxs.append(batch.idx[keep])
-            pending.append({k: out[k] for k in keys})
-            keeps.append(keep)
-        cltor = {"y": ys, "idx": idxs, **{k: [] for k in keys}}
-        for out, keep in zip(pending, keeps):
-            for k in keys:
-                cltor[k].append(out[k].cpu().numpy()[keep])
-        self.eval_timings.append((int(sum(k.sum() for k in keeps)),
-                                  time.perf_counter() - t0))
-        return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
-
-    def _eval_and_print(self, cltor, name="", at_epoch=None):
-        results = self.evaluator.compute(cltor, self.metrics_list)
-        results = rename_keys(results, name, sep="/")
-        print(f"[{name}] At epoch {at_epoch}:",
-              " ".join(f"{k}={v:.6f}," for k, v in results.items()))
-        self.logger.log(results)
-        return [results[name + "/" + k] for k in self.ret_metrics]
 
     def load_params(self, ckpt_type: str, run_name: str, load: bool):
         """Load the G and D checkpoints' parameters into the models (on the
@@ -328,37 +216,3 @@ class AdvHandler(HandlerCommon):
         ckpt_lib.save_checkpoint(self._ckpt_path("D", ckpt_type, run_name),
                                  epoch, self.disc_model.state_dict(),
                                  self.opt_D.state_dict())
-
-    def _eval_all(self, evals_loader, ckpt_type="best", run_name="train",
-                  if_print=True, test_mode=False, test_mode_name="test_mode",
-                  test_zero_noise=False):
-        cfg = self.cfg
-        if test_mode:
-            print("[warning] you are in test mode now.")
-            ckpt_run, group = "train", test_mode_name
-            sampling_times = cfg["test_sampling_times"]
-        else:
-            ckpt_run, group = run_name, run_name
-            sampling_times = cfg["times_test_sample"]
-        self.load_params(ckpt_type, ckpt_run, load=test_mode)
-        wandb_group = f"{'bestckpt' if ckpt_type == 'best' else 'lastckpt'}/{group}"
-        print_path = add_prefix_to_filename(self.metrics_paths[ckpt_type], group)
-        csv_name = f"{group}_{ckpt_type}"
-
-        metrics = {}
-        for k_i, (k, (ds, batcher)) in enumerate(evals_loader.items()):
-            # the JAX package's tag domain for checkpoint evaluations
-            tag = (1 << 30) + (1 if ckpt_type == "best" else 2) * 16 + k_i
-            cltor = self._run_eval(ds, batcher, n_samples=sampling_times,
-                                   zero_noise=test_zero_noise, rng_tag=tag)
-            ci, loss = self._eval_and_print(cltor, name=f"{wandb_group}/{k}")
-            metrics[k] = [("cindex", ci), ("loss", loss)]
-            if cfg["save_prediction"]:
-                path = osp.join(self.save_dir, f"{csv_name}_pred_{k}.csv")
-                pids = [ds.pids[int(i)] for i in cltor["idx"]]
-                save_prediction(pids, cltor["y"],
-                                cltor.get("avg_y_hat", cltor["y_hat"]),
-                                cltor.get("dist_y_hat"), path)
-        if if_print:
-            print_metrics(metrics, print_to_path=print_path)
-        return metrics

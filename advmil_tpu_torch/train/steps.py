@@ -1,6 +1,10 @@
-"""The adversarial training step and the evaluation step (counterparts of
-`advmil_tpu/train/steps.py::make_adv_train_step` and `make_eval_step`)."""
+"""The adversarial and baseline training steps, the supervised-loss factory
+and the evaluation step (counterparts of `advmil_tpu/train/steps.py::
+make_adv_train_step`, `make_base_train_step`, `make_supervised_loss` and
+`make_eval_step`)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,26 +19,60 @@ def _median_lower(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.median(x, dim=dim).values
 
 
+def make_supervised_loss(task: str, cfg: dict):
+    """The task's supervised loss bound to its config keys; `surv_mse` is
+    the ESAT baseline's MSE."""
+    if task in ("cont_gansurv", "surv_reg"):
+        return functools.partial(losses.recon_loss,
+                                 alpha=cfg.get("loss_recon_alpha", 0.0) or 0.0,
+                                 gamma=cfg.get("loss_recon_gamma", 1.0),
+                                 norm=cfg.get("loss_recon_norm", "l1"))
+    if task in ("disc_gansurv", "surv_nll"):
+        return functools.partial(losses.surv_mle_loss,
+                                 alpha=cfg.get("loss_mle_alpha", 0.0) or 0.0)
+    if task == "surv_cox":
+        return losses.surv_ple_loss
+    if task == "surv_mse":
+        return functools.partial(losses.mse_loss,
+                                 include_censored=cfg.get("loss_use_censored", False))
+    raise ValueError(f"unknown task {task}")
+
+
 def make_eval_step(gen_model, disc_model=None, *, n_samples: int = 1,
                    zero_noise: bool = False):
-    """One forward for y_hat [B, out] (and f_fake [B] when a discriminator is
-    given). With n_samples > 1 the backbone embedding is computed once and
-    the K noise samples run as one [K*B] batch through the head, reduced by
-    the lower median. `generator` supplies the noise (on the batch's device).
+    """One forward in eval mode for y_hat [B, out] (and f_fake [B] when a
+    discriminator is given), reduced over n_samples > 1 samples by the lower
+    median.
+
+    A generator (a model with `embed` / `head`) computes the backbone
+    embedding once and runs the K noise samples as one [K*B] batch through
+    the head; `generator` supplies the noise (on the batch's device). A
+    model without them (the baseline SurvNet) draws no noise, so its K
+    samples are K copies of its one forward.
     """
+    has_embed_head = hasattr(gen_model, "embed") and hasattr(gen_model, "head")
 
     @torch.inference_mode()
     def step(batch: dict, generator: torch.Generator | None = None) -> dict:
         feats, mask = batch["feats"], batch["mask"]
-        H = gen_model.embed(feats, mask, batch.get("extra"))
-        y_hat = gen_model.head(H, zero_noise=zero_noise, generator=generator)
+        for m in (gen_model, disc_model):
+            if m is not None:
+                m.eval()
+        if has_embed_head:
+            H = gen_model.embed(feats, mask, batch.get("extra"))
+            y_hat = gen_model.head(H, zero_noise=zero_noise, generator=generator)
+        else:
+            y_hat = gen_model(feats, mask, batch.get("extra"))
         out = {"y_hat": y_hat}
         if disc_model is not None:
             out["f_fake"] = disc_model(feats, y_hat, mask).float().reshape(-1)
         if n_samples > 1:
-            B = H.shape[0]
-            Hk = H.repeat(n_samples, *([1] * (H.dim() - 1)))       # [K*B, d]
-            dist = gen_model.head(Hk, zero_noise=zero_noise, generator=generator)
+            B = y_hat.shape[0]
+            if has_embed_head:
+                Hk = H.repeat(n_samples, *([1] * (H.dim() - 1)))   # [K*B, d]
+                dist = gen_model.head(Hk, zero_noise=zero_noise, generator=generator)
+            else:
+                dist = y_hat.repeat(n_samples, 1)
             dist = dist.reshape(n_samples, B, -1)                  # [K, B, out]
             out["dist_y_hat"] = dist.transpose(0, 1)
             out["avg_y_hat"] = _median_lower(dist, dim=0)
@@ -118,5 +156,30 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
         finally:
             _set_requires_grad(disc_model, True)
         return metrics, collect
+
+    return step
+
+
+def make_base_train_step(model, opt, *, task: str, l1_coef: float, sup_loss_fn):
+    """The baseline step of one batch: one supervised update of `model` (in
+    train mode, dropout from `rngs`). The loss takes the whole prediction
+    [B, T] for surv_nll and its first column otherwise, weighted by
+    sample_mask; the total adds l1_coef * sum |w|. Returns (metrics,
+    collect) as device tensors; collect holds the train-mode predictions,
+    which the reference logs as the training-set predictions."""
+    is_disc_task = task == "surv_nll"
+
+    def step(batch: dict, rngs: Rngs):
+        t, e = batch["label"][:, 0], batch["label"][:, 1]
+        model.train()
+        pred = model(batch["feats"], batch["mask"], batch.get("extra"), rng=rngs)
+        loss = sup_loss_fn(pred if is_disc_task else pred[:, 0], t, e,
+                           weight=batch["sample_mask"])
+        total = loss + losses.loss_reg_l1(model.parameters(), l1_coef)
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        opt.step()
+        return ({"loss_supervision": loss.detach(), "loss_total": total.detach()},
+                {"y_hat": pred.detach()})
 
     return step

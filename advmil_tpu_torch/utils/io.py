@@ -22,20 +22,51 @@ def _read_table(table_path: str) -> tuple[list, dict]:
     return rows, columns
 
 
+def compute_discrete_label(rows: list, column_t: str = "t", column_e: str = "e",
+                           bins: int = 4, pid_column: str = "patient_id"):
+    """Discrete-time labels of every table row: (y_t [n] int bin index,
+    y_c [n] censorship 1 - e), `pd.qcut` / `pd.cut` as the JAX package
+    applies them, in numpy:
+
+    - the bin edges are the linear-interpolated quantiles of t over the
+      event patients, one row per patient (its first row in the table); the
+      quantile levels are linspace(0, 1, bins + 1), each one that is not
+      exact in binary moved up by one ulp (pandas' qcut); repeated edges
+      raise, as qcut's do;
+    - the first and last edges are widened to 1e-5 past the table-wide min
+      and max of t;
+    - every row's t falls in [edge_k, edge_k+1) (right=False).
+    """
+    t = np.array([float(r[column_t]) for r in rows], np.float64)
+    e = np.array([float(r[column_e]) for r in rows], np.float64)
+    first: dict = {}
+    for i, r in enumerate(rows):
+        first.setdefault(r[pid_column], i)
+    pat = np.array(list(first.values()), np.int64)
+    evt_t = t[pat][e[pat] == 1]
+    qs = np.linspace(0, 1, bins + 1)
+    qs = np.where(bins * qs != np.arange(bins + 1), np.nextafter(qs, 1), qs)
+    edges = np.quantile(evt_t, qs, method="linear")
+    if len(np.unique(edges)) < len(edges) and len(edges) != 2:
+        raise ValueError(f"Bin edges must be unique: {edges!r}")
+    edges[0] = t.min() - 1e-5
+    edges[-1] = t.max() + 1e-5
+    return np.searchsorted(edges, t, side="right") - 1, 1.0 - e
+
+
 def retrieve_from_table(patient_ids, table_path,
                         ret=("pid", "pid2sid", "pid2label"),
-                        pid_column: str = "patient_id", time_format: str = "origin"):
+                        pid_column: str = "patient_id", time_format: str = "origin",
+                        time_bins: int = 4):
     """Returns the requested mappings among pid / sid / pid2sid / sid2pid /
     pid2label / sid2label, after applying the time-format transform.
 
-    'ratio' divides t by the table-wide max; 'origin' keeps raw t. Slide ids
-    are returned as strings (they only ever name feature files).
+    'ratio' divides t by the table-wide max; 'origin' keeps raw t;
+    'quantile' gives (bin index, censorship) from `compute_discrete_label`
+    with `time_bins` bins. Slide ids are returned as strings (they only ever
+    name feature files).
     """
-    if time_format == "quantile":
-        raise NotImplementedError(
-            "time_format: quantile (discrete-time labels) is not ported yet; "
-            "see ROADMAP A8")
-    assert time_format in ["origin", "ratio"]
+    assert time_format in ["origin", "ratio", "quantile"]
     for r in ret:
         assert r in ["pid", "sid", "pid2sid", "sid2pid", "pid2label", "sid2label"]
 
@@ -50,12 +81,16 @@ def retrieve_from_table(patient_ids, table_path,
     for i, r in enumerate(rows):
         if r[pid_column] in pid_set:
             pid2loc.setdefault(r[pid_column], []).append(i)
+    if time_format == "quantile":
+        y_t, y_c = compute_discrete_label(rows, bins=time_bins, pid_column=pid_column)
 
-    def label(r):
-        t = float(r["t"])
+    def label(i):
+        if time_format == "quantile":
+            return (float(y_t[i]), float(y_c[i]))
+        t = float(rows[i]["t"])
         if time_format == "ratio":
             t = 1.0 * t / max_time
-        return (t, float(r["e"]))
+        return (t, float(rows[i]["e"]))
 
     pid, sid = [], []
     pid2sid, pid2label, sid2pid, sid2label = {}, {}, {}, {}
@@ -69,10 +104,10 @@ def retrieve_from_table(patient_ids, table_path,
             _sid = r["pathology_id"]
             pid2sid.setdefault(p, []).append(_sid)
             if p not in pid2label:
-                pid2label[p] = label(r)
+                pid2label[p] = label(_i)
             sid.append(_sid)
             sid2pid[_sid] = p
-            sid2label[_sid] = label(r)
+            sid2label[_sid] = label(_i)
 
     scope = {"pid": pid, "sid": sid, "pid2sid": pid2sid, "pid2label": pid2label,
              "sid2pid": sid2pid, "sid2label": sid2label}

@@ -50,6 +50,16 @@ Phases, each printed on its own line:
  14. one epoch with `use_coords_pe: True` and one with `disc_netx_ksize: 3`
      on a small split, and the ksize-3 step's f32 gradients card against CPU
      (cuDNN's TF32 is off: phase 1).
+ 15. the baseline handler (`--handler base`) with config/cfg_nlst_base.yaml
+     as shipped (ABMIL 1024-384-384, surv_reg, f32), 2 epochs on phase 4's
+     data: C-indices, prediction CSVs and best / last checkpoints.
+ 16. baseline test mode from phase 15's best checkpoint.
+ 17. one baseline step's loss and gradients in f32, card against CPU.
+ 18. the baseline ESAT run (`bcb_mode: patch`, surv_reg: the MSE rule, bf16),
+     1 epoch on phase 4's data: LN-pool and the flash kernels launch.
+ 19. one baseline epoch each of surv_cox (pt041 init, origin times) and
+     surv_nll (quantile labels, `pdh_dims: 384-4`) on ABMIL, small split.
+ 20. baseline PatchGCN (surv_reg) on phase 8's graphs, banded route, 1 epoch.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -1298,13 +1308,13 @@ def _step_grads(handler, batch, dev, **over):
             for n, p in m.named_parameters() if p.grad is not None}
 
 
-def _compare_grads(tag, what, a, b, shape, bound_=1e-4):
-    if set(a) != set(b) or len(b) < 40:
+def _compare_grads(tag, what, a, b, shape, bound_=1e-4, min_tensors=40, nets="G and D"):
+    if set(a) != set(b) or len(b) < min_tensors:
         raise AssertionError(f"{tag}: gradients missing on one side")
     diffs = {k: max_abs(a[k], b[k]) for k in b}
     worst = max(diffs, key=diffs.get)
     scale = max(float(g.abs().max()) for g in b.values())
-    log(f"[{tag}] f32 step on batch {shape}, {what}: gradients of {len(diffs)} G and D "
+    log(f"[{tag}] f32 step on batch {shape}, {what}: gradients of {len(diffs)} {nets} "
         f"tensors, max |diff| {diffs[worst]:.3e} at {worst} (bound {bound_}; largest |grad| "
         f"{scale:.3e})")
     if not diffs[worst] <= bound_:
@@ -1425,20 +1435,23 @@ def _graph_cfg(paths, gpaths, run, **over):
                       test_mask_ratio=0.0, **over)
 
 
-def _check_run(handler, metrics, splits, csv_fmt):
-    """Every split's C-index in [0, 1] and its CSV predictions finite in
-    [0, 1]; parameters on the card."""
+def _check_run(handler, metrics, splits, csv_fmt, unit=True):
+    """Every split's C-index in [0, 1] and its CSV predictions finite (and
+    in [0, 1] with `unit`: a sigmoid output or a survival curve); parameters
+    on the card."""
     import numpy as np
     for split in splits:
         preds = _read_csv_preds(osp.join(handler.save_dir, csv_fmt.format(split)))
-        if not (len(preds) and np.all(np.isfinite(preds)) and preds.min() >= 0
-                and preds.max() <= 1):
-            raise AssertionError(f"{split} predictions not finite in [0, 1]")
+        if not (len(preds) and np.all(np.isfinite(preds))):
+            raise AssertionError(f"{split} predictions not finite")
+        if unit and not (preds.min() >= 0 and preds.max() <= 1):
+            raise AssertionError(f"{split} predictions not in [0, 1]")
         ci = dict(metrics[split])["cindex"]
         if not 0.0 <= ci <= 1.0:
             raise AssertionError(f"{split} C-index {ci!r} not in [0, 1]")
-    if not all(p.is_cuda for m in (handler.gen_model, handler.disc_model)
-               for p in m.parameters()):
+    models = ((handler.model,) if hasattr(handler, "model")
+              else (handler.gen_model, handler.disc_model))
+    if not all(p.is_cuda for m in models for p in m.parameters()):
         raise AssertionError("parameters are not on cuda")
 
 
@@ -1518,6 +1531,176 @@ def _two_bag_batch(handler):
     graph tables (a small batch for the CPU side of phase 11)."""
     _, batcher = handler.loaders["train"]
     return _first_bags(next(iter(batcher.epoch_batches())), 2)
+
+
+# ---------------------------------------------------------------------------
+# phases 15-20: the baseline handler (`--handler base`)
+# ---------------------------------------------------------------------------
+
+def _base_cfg(paths, run, **over):
+    """config/cfg_nlst_base.yaml as shipped, on the smoke data, on the card."""
+    from advmil_tpu_torch.config import read_yaml
+    cfg = read_yaml(osp.join(ROOT, "config", "cfg_nlst_base.yaml"))
+    run_dir = osp.join(WORK_DIR, run)
+    cfg.update(path_patch=paths["path_patch"], path_label=paths["path_label"],
+               path_coordx5=paths["path_coordx5"], data_split_path=paths["data_split_path"],
+               data_split_seed=0, save_path=run_dir, test_load_path=run_dir,
+               test_save_path=osp.join(WORK_DIR, run + "_test_{}-{}"), device="cuda")
+    cfg.update(over)
+    return cfg
+
+
+def _base_run(cfg, name, need=(), splits=("train", "validation", "test")):
+    """One baseline run through `advmil_tpu_torch.main --handler base`, with
+    the launch counters reset just before and read just after; checks the
+    metrics, CSVs, checkpoints and that every kernel in `need` launched."""
+    import numpy as np
+    from advmil_tpu_torch import main as port_main
+    yaml_path = osp.join(WORK_DIR, f"{name}.yaml")
+    _write_yaml(yaml_path, cfg)
+    reset_counters()
+    [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "base"])
+    launches = read_counters()
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the baseline path {name}")
+    test_mode = splits == ("exec-test",)
+    _check_run(handler, metrics, splits,
+               "test_mode_best_pred_{}.csv" if test_mode else "train_best_pred_{}.csv",
+               unit=handler.task != "surv_cox")
+    for split in splits:
+        if not np.isfinite(dict(metrics[split])["loss"]):
+            raise AssertionError(f"{name}: non-finite {split} loss")
+    if not test_mode:
+        for f in ("train_model-best.ckpt", "train_model-last.ckpt", "train_metrics-best.txt"):
+            if not osp.exists(osp.join(handler.save_dir, f)):
+                raise AssertionError(f"{name} wrote no {f}")
+    return handler, metrics, launches
+
+
+def _base_log(tag, handler, metrics, launches, card, splits=("train", "validation", "test")):
+    cis = " ".join(f"{s} {dict(metrics[s])['cindex']:.4f}" for s in splits)
+    timings = handler.train_timings or handler.eval_timings[-1:]
+    rates = " ".join(f"{'epoch ' + str(i + 1) if handler.train_timings else 'eval'} "
+                     f"{b / s:.2f} ({b} bags, {s:.3f} s);" for i, (b, s) in enumerate(timings))
+    used = {k: v for k, v in launches.items() if v}
+    log(f"[{tag}] task {handler.task}, bcb_mode {handler.bcb}, precision "
+        f"{handler.cfg['precision']}: C-index {cis}; predictions finite | launches {used}")
+    log(f"[{tag}] {'training' if handler.train_timings else 'eval'} bags/s: {rates} | {card}")
+
+
+def phase_base_train(paths, card):
+    """Phase 15: cfg_nlst_base.yaml as shipped (ABMIL, surv_reg, f32), 2 epochs."""
+    from advmil_tpu_torch.models.backbones import ABMIL
+    cfg = _base_cfg(paths, "base_run", test=False, epochs=2, es_warmup=0)
+    handler, metrics, launches = _base_run(cfg, "base_run")
+    if not isinstance(handler.model.backbone, ABMIL) or handler.cfg["time_format"] != "ratio":
+        raise AssertionError("cfg_nlst_base did not build ABMIL on ratio times")
+    if len(handler.train_timings) != 2:
+        raise AssertionError(f"{len(handler.train_timings)} epochs instead of 2")
+    _base_log("15 base train", handler, metrics, launches, card)
+    return handler, launches
+
+
+def phase_base_test(paths, card):
+    """Phase 16: baseline test mode from phase 15's best checkpoint."""
+    cfg = _base_cfg(paths, "base_run", test=True)
+    handler, metrics, launches = _base_run(cfg, "base_test", splits=("exec-test",))
+    _base_log("16 base test", handler, metrics, launches, card, splits=("exec-test",))
+    return launches
+
+
+def _base_step_grads(handler, batch, dev):
+    """Loss and gradients of one baseline step in f32, dropout off, with
+    `handler`'s weights, on device `dev`."""
+    import torch
+    from advmil_tpu_torch import losses
+    from advmil_tpu_torch.models.layers import XAVIER, set_dropout_rates
+    from advmil_tpu_torch.train.baseline import build_survnet
+
+    cfg = dict(handler.cfg, precision="f32")
+    model = build_survnet(cfg, handler.model.out_scale, XAVIER)
+    model.load_state_dict(handler.model.state_dict())
+    set_dropout_rates(model.to(dev), 0.0).train()
+    feats, mask, label, smask = (torch.from_numpy(a).to(dev) for a in (
+        batch.feats, batch.mask, batch.label, batch.sample_mask))
+    extra = {k: torch.from_numpy(v).to(dev) for k, v in batch.extra.items()} or None
+    pred = model(feats, mask, extra)
+    loss = handler.sup_loss_fn(pred if handler.task == "surv_nll" else pred[:, 0],
+                               label[:, 0], label[:, 1], weight=smask)
+    total = loss + losses.loss_reg_l1(model.parameters(), cfg["loss_regl1_coef"])
+    total.backward()
+    return float(total.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def phase_base_gpu_vs_cpu_train(handler):
+    """Phase 17: one baseline step (the long training batch) in f32, card
+    against CPU: the loss and every gradient within 1e-4."""
+    _, batcher = handler.loaders["train"]
+    batch = list(batcher.epoch_batches())[-1]
+    (lc, gc), (lh, gh) = (_base_step_grads(handler, batch, dev) for dev in ("cuda", "cpu"))
+    log(f"[17 base gpu-vs-cpu train] loss card {lc:.7f} CPU {lh:.7f} (|diff| "
+        f"{abs(lc - lh):.3e}, bound 1e-4)")
+    if not abs(lc - lh) <= 1e-4:
+        raise AssertionError(f"baseline loss differs by {abs(lc - lh)}")
+    _compare_grads("17 base gpu-vs-cpu train", "card against CPU", gc, gh,
+                   tuple(batch.feats.shape), min_tensors=14, nets="SurvNet")
+
+
+def phase_base_esat(paths, card):
+    """Phase 18: the baseline ESAT run (surv_reg + patch: the MSE rule), bf16,
+    1 epoch; #1 / #2 and the flash kernels launch."""
+    cfg = _base_cfg(paths, "base_esat_run", test=False, epochs=1, es_warmup=0,
+                    bcb_mode="patch", precision="bf16")
+    handler, metrics, launches = _base_run(
+        cfg, "base_esat_run", need=("ln_relu_region_mean", "ln_relu_region_mean_bwd",
+                                    "masked_flash_attention", "masked_flash_attention_dropout",
+                                    "flash_bwd_dq", "flash_bwd_dkv"))
+    if handler.sup_loss_fn.func.__name__ != "mse_loss":
+        raise AssertionError("surv_reg + patch did not train on the MSE")
+    _base_log("18 base ESAT train", handler, metrics, launches, card)
+    return launches
+
+
+def phase_base_cox_nll(paths, small_split, card):
+    """Phase 19: one epoch each of surv_cox and surv_nll on ABMIL."""
+    import numpy as np
+    from advmil_tpu_torch.models.layers import PT041, Dense
+    out = {}
+    for task, over in (("surv_cox", {}), ("surv_nll", {"pdh_dims": "384-4"})):
+        cfg = _base_cfg(paths, f"base_{task}", test=False, epochs=1, es_warmup=0,
+                        task=task, data_split_path=small_split, **over)
+        handler, metrics, launches = _base_run(cfg, f"base_{task}")
+        _, batcher = handler.loaders["train"]
+        labels = np.concatenate([b.label for b in batcher.epoch_batches()])
+        if task == "surv_cox":
+            inits = {m.init for m in handler.model.modules() if isinstance(m, Dense)}
+            if inits != {PT041} or handler.cfg["time_format"] != "origin" or \
+                    labels[:, 0].max() <= 1.0:
+                raise AssertionError("surv_cox: not pt041 init on origin times")
+        else:
+            bins = np.unique(labels[:, 0])
+            if handler.cfg["time_format"] != "quantile" or not set(bins) <= {0, 1, 2, 3}:
+                raise AssertionError(f"surv_nll: labels {bins} are not 4 quantile bins")
+        _base_log(f"19 base {task}", handler, metrics, launches, card)
+        out[task] = launches
+    return out
+
+
+def phase_base_graph(paths, gpaths, card):
+    """Phase 20: baseline PatchGCN (surv_reg) on phase 8's tissue graphs,
+    banded route, 1 epoch; #12-#15 launch."""
+    cfg = _base_cfg(paths, "base_graph_run", test=False, epochs=1, es_warmup=0,
+                    bcb_mode="graph", num_graph_layers=3, path_graph=gpaths["path_graph"],
+                    data_split_path=gpaths["data_split_path"], graph_banded="auto")
+    handler, metrics, launches = _base_run(
+        cfg, "base_graph_run", need=("banded_aggregate", "banded_aggregate_bwd",
+                                     "fused_knn_softmax_aggregate",
+                                     "fused_knn_softmax_aggregate_bwd"))
+    if not handler.loaders["train"][1].band_on:
+        raise AssertionError("the baseline graph run did not take the banded route")
+    _base_log("20 base graph train", handler, metrics, launches, card)
+    return launches
 
 
 SOURCES = {
@@ -1618,6 +1801,12 @@ def main():
     k3_batch = next(iter(k3_handler.loaders["train"][1].epoch_batches()))
     timed("14 netx_ksize3 gpu-vs-cpu train", phase_gpu_vs_cpu_train, k3_handler,
           _first_bags(k3_batch, 2), "14 netx_ksize3 gpu-vs-cpu train")
+    base_handler, base_launches = timed("15 base train", phase_base_train, paths, card)
+    base_test_launches = timed("16 base test", phase_base_test, paths, card)
+    timed("17 base gpu-vs-cpu train", phase_base_gpu_vs_cpu_train, base_handler)
+    base_esat_launches = timed("18 base ESAT train", phase_base_esat, paths, card)
+    base_cn_launches = timed("19 base cox / nll", phase_base_cox_nll, paths, small_split, card)
+    base_graph_launches = timed("20 base graph train", phase_base_graph, paths, gpaths, card)
     shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
@@ -1636,10 +1825,21 @@ def main():
                        "fused_train": fused_launches[name],
                        "fused_test_mode": fused_test_launches[name],
                        "coords_pe_train": pe_launches[name],
-                       "netx_ksize3_train": k3_launches[name]}
+                       "netx_ksize3_train": k3_launches[name],
+                       "base_train": base_launches[name],
+                       "base_test_mode": base_test_launches[name],
+                       "base_esat_train": base_esat_launches[name],
+                       "base_cox_train": base_cn_launches["surv_cox"][name],
+                       "base_nll_train": base_cn_launches["surv_nll"][name],
+                       "base_graph_train": base_graph_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched")
+        for path, need in (("base_esat_train", ("ln_relu_region_mean",
+                                                "ln_relu_region_mean_bwd")),
+                           ("base_graph_train", ("fused_knn_softmax_aggregate",))):
+            if name in need and entry["launches_by_path"][path] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: r[k] for k in ("dtype", "bf16") if k in r})

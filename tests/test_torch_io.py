@@ -55,8 +55,8 @@ _UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True}}
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("bcb_mode", "graph", "A13"), ("bcb_mode", "abmil", "A12"),
-    ("semi_training", True, "A11"), ("time_format", "quantile", "A8"),
+    ("bcb_mode", "graph", "A13"), ("bcb_mode", "cluster", "A12"),
+    ("semi_training", True, "A11"), ("task", "disc_gansurv", "A8"),
     ("dp_devices", 2, "A14")])
 def test_check_configs_rejects_unported_modes(key, value, item):
     tconfig.check_configs(_nlst_test_cfg())

@@ -139,7 +139,7 @@ def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
     with pytest.raises(NotImplementedError, match="A11"):
         h.exec_semi_sl()
     with pytest.raises(NotImplementedError, match="A12"):
-        AdvHandler(with_defaults(dict(cfg, bcb_mode="abmil")))
+        AdvHandler(with_defaults(dict(cfg, bcb_mode="cluster")))
 
 
 def test_port_imports_no_jax():
