@@ -5,10 +5,11 @@ here with the standard library: scalars, `[a, b]` flow lists, `- item` block
 lists, comments and null, resolved the way PyYAML's default loader resolves
 them (so `1e-5` without a dot stays a string, `yes`/`on` are booleans).
 
-The port runs the adversarial handler (`--handler adv`) and the baseline
-handler (`--handler base`), each in training (`exec`, `test: False`) and
-test mode (`test: True`). Keys that select a mode the port does not have yet
-are rejected by `check_configs` with an error naming the ROADMAP item that
+The port runs the adversarial handler (`--handler adv`: cont_gansurv and
+disc_gansurv, supervised and semi-supervised) and the baseline handler
+(`--handler base`), each in training (`exec`, `test: False`) and test mode
+(`test: True`). Keys that select a mode the port does not have yet are
+rejected by `check_configs` with an error naming the ROADMAP item that
 brings it.
 """
 from __future__ import annotations
@@ -44,8 +45,10 @@ PORT_DEFAULTS = {
     "save_prediction": True,
     "gen_updates": 1,
     "loss_regl1_coef": 0.0,
+    "train_sampling": None,        # count or fraction of the training patients
     "test": False,
     "semi_training": False,
+    "semi_training_mode": "none",  # UD+LD | LD | UD | none
     "wandb_prj": None,
 }
 
@@ -195,17 +198,14 @@ def _not_ported(cfg: dict, handler: str) -> list:
     checks = [
         ("bcb_mode", lambda v: v == "cluster", "A12"),
         ("graph_grid_resident", bool, "A13"),
-        ("semi_training", bool, "A11"),
         ("log_plot", bool, "A9"),
         ("accum_steps", lambda v: int(v or 1) > 1, "A6"),
-        ("train_sampling", lambda v: v is not None, "A8"),
         ("dp_devices", lambda v: int(v or 1) > 1, "A14"),
         ("inst_devices", lambda v: int(v or 1) > 1, "A14"),
         ("dist_num_processes", lambda v: int(v or 1) > 1, "A14"),
     ]
     if handler == "adv":
-        checks += [("opt_netG", lambda v: str(v).lower() != "adam", "A12"),
-                   ("task", lambda v: v == "disc_gansurv", "A8")]
+        checks += [("opt_netG", lambda v: str(v).lower() != "adam", "A12")]
     else:
         checks += [("opt_net", lambda v: str(v).lower() != "adam", "A12")]
     return [(k, cfg[k], item) for k, bad, item in checks
@@ -217,7 +217,12 @@ def check_configs(cfg: dict, handler: str = "adv"):
     that apply to the ported slices), then the port's own limits. The
     refusals, the device, precision, patch and graph checks apply to both
     handlers; the generator / discriminator checks to `adv` only (the JAX
-    baseline handler asserts its task and nothing else)."""
+    baseline handler asserts its task and nothing else).
+
+    Like the JAX package's, it writes `ssl_es_warmup` into `cfg`: the
+    semi-supervised run's early stopping waits `ssl_kfold` epochs under
+    UD+LD (one pass over every fold loader) and none otherwise, whatever
+    the YAML says."""
     if handler not in ("adv", "base"):
         raise ValueError(f"unknown handler {handler!r} (adv | base)")
     missing = _not_ported(cfg, handler)
@@ -244,13 +249,16 @@ def check_configs(cfg: dict, handler: str = "adv"):
         if cfg["task"] not in BASE_TASKS:
             raise ValueError(f"task {cfg['task']} is not a baseline task "
                              f"({' / '.join(BASE_TASKS)}); use --handler adv")
+        if cfg.get("semi_training"):
+            raise ValueError("semi_training runs under --handler adv (the baseline "
+                             "handler has no semi-supervised mode)")
         return
     if cfg.get("disc_netx_backbone") not in (None, "avgpool", "gapool"):
         raise ValueError("disc_netx_backbone must be avgpool or gapool, got "
                          f"{cfg['disc_netx_backbone']!r}")
     if cfg.get("disc_netx_ksize") not in (None, 1, 3):
         raise ValueError(f"disc_netx_ksize must be 1 or 3, got {cfg['disc_netx_ksize']!r}")
-    if cfg["task"] != "cont_gansurv":
+    if cfg["task"] not in ("cont_gansurv", "disc_gansurv"):
         raise ValueError(f"task {cfg['task']} is not an adversarial task "
                          "(cont_gansurv / disc_gansurv); surv_cox / surv_nll / "
                          "surv_reg run under --handler base")
@@ -267,16 +275,26 @@ def check_configs(cfg: dict, handler: str = "adv"):
         "disc_nety_in_dim must equal the last entry of gen_dims"
     assert cfg["disc_netx_out_dim"] == int(cfg["disc_nety_hid_dims"].split("-")[-1]), \
         "disc_netx_out_dim must equal the last entry of disc_nety_hid_dims"
+    assert cfg.get("ssl_resume_ckpt", "best") in ["last", "best"]
     noise_existing = sum(sparse_str(cfg["gen_noi_noise"])) > 0
     if noise_existing:
         assert cfg["times_test_sample"] > 1
     else:
         assert cfg["times_test_sample"] == 1
-    assert cfg["time_format"] in ["origin", "ratio"]
-    assert str(cfg["gen_dims"])[-2:] == "-1"
-    assert (cfg["gen_out_scale"] == "sigmoid" and cfg["time_format"] == "ratio") or \
-           (cfg["gen_out_scale"] != "sigmoid" and cfg["time_format"] == "origin"), \
-        "cont_gansurv needs sigmoid<->ratio or exp/none<->origin pairing"
-    assert (cfg["time_format"] == "ratio" and cfg["loss_recon_gamma"] == 0) or \
-           (cfg["time_format"] == "origin" and cfg["loss_recon_gamma"] >= 1), \
-        "loss_recon_gamma must be 0 for ratio time, >=1 for origin time"
+    mode = cfg.get("semi_training_mode", "none") or "none"
+    cfg["ssl_es_warmup"] = cfg["ssl_kfold"] if "UD" in mode and "LD" in mode else 0
+    if cfg["task"] == "cont_gansurv":
+        assert cfg["time_format"] in ["origin", "ratio"]
+        assert str(cfg["gen_dims"])[-2:] == "-1"
+        assert (cfg["gen_out_scale"] == "sigmoid" and cfg["time_format"] == "ratio") or \
+               (cfg["gen_out_scale"] != "sigmoid" and cfg["time_format"] == "origin"), \
+            "cont_gansurv needs sigmoid<->ratio or exp/none<->origin pairing"
+        assert (cfg["time_format"] == "ratio" and cfg["loss_recon_gamma"] == 0) or \
+               (cfg["time_format"] == "origin" and cfg["loss_recon_gamma"] >= 1), \
+            "loss_recon_gamma must be 0 for ratio time, >=1 for origin time"
+    else:   # disc_gansurv: G emits time_bins hazards over quantile bins
+        assert cfg["time_format"] == "quantile", "disc_gansurv needs time_format: quantile"
+        assert cfg["gen_out_scale"] == "sigmoid", "disc_gansurv needs gen_out_scale: sigmoid"
+        assert cfg["disc_nety_in_dim"] == cfg["time_bins"], \
+            "disc_gansurv needs disc_nety_in_dim == time_bins"
+        assert cfg.get("log_plot", False) is False, "disc_gansurv draws no log_plot"

@@ -29,7 +29,7 @@ import torch
 
 from ..ops.banded import build_u_inv, build_u_tables
 from ..ops.segment import band_coverage, build_band_tables
-from ..utils.func import random_mask_square_instance
+from ..utils.func import random_mask_square_instance, sampling_data
 from ..utils.io import read_patch_coord, read_patch_feature, retrieve_from_table
 
 BAND_KEYS = ("band_offs", "band_mask", "band_urows", "band_usrc", "band_uemask",
@@ -63,14 +63,20 @@ class BagDataset:
 
     def __init__(self, patient_ids: list, patch_path: str, label_path: str,
                  mode: str = "patch", read_format: str = "pt",
-                 time_format: str = "ratio", time_bins: int = 4, ratio_mask=None,
-                 graph_path=None, coord_path=None, edge_agg: str = "spatial",
+                 time_format: str = "ratio", time_bins: int = 4, ratio_sampling=None,
+                 ratio_mask=None, graph_path=None, coord_path=None, edge_agg: str = "spatial",
                  rng: np.random.Generator | None = None, cache: bool = True):
         if mode not in ("patch", "abmil", "graph"):
             raise NotImplementedError(f"bag mode {mode!r} is not ported yet "
                                       "(ROADMAP A12)")
         assert edge_agg in ("spatial", "latent")
         self.mode = mode
+        if ratio_sampling is not None:
+            # `train_sampling`: a random subset of the patients, drawn from the
+            # handler's generator before anything else draws from it here
+            print(f"[dataset] Sampling with ratio_sampling = {ratio_sampling}")
+            patient_ids, left = sampling_data(list(patient_ids), ratio_sampling, rng=rng)
+            print(f"[dataset] Sampled {len(patient_ids)} patients, left {len(left)}")
         self.graph_path = graph_path
         self.coord_path = coord_path
         self.edge_agg = edge_agg
@@ -176,12 +182,14 @@ class BagDataset:
 
 
 def prepare_dataset(patient_ids: list, cfg: dict, **kws) -> BagDataset:
-    """Build a BagDataset from the flat config (occlusion only in test mode)."""
+    """Build a BagDataset from the flat config (occlusion only in test mode,
+    `ratio_sampling` only where the caller passes it)."""
     ratio_mask = kws.get("mask_ratio") if cfg.get("test") else None
     return BagDataset(
         patient_ids, cfg["path_patch"], cfg["path_label"], cfg["bcb_mode"],
         read_format=cfg["feat_format"], time_format=cfg["time_format"],
-        time_bins=cfg.get("time_bins", 4), ratio_mask=ratio_mask,
+        time_bins=cfg.get("time_bins", 4), ratio_sampling=kws.get("ratio_sampling"),
+        ratio_mask=ratio_mask,
         graph_path=cfg.get("path_graph"),
         coord_path=cfg.get("path_coordx5") if cfg.get("use_coords_pe", False) else None,
         edge_agg=cfg.get("graph_edge_agg", "spatial"), rng=kws.get("rng"),

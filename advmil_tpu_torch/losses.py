@@ -79,6 +79,18 @@ def surv_mle_loss(hazards, t, e, alpha: float = 0.0, eps: float = 1e-7,
     return _wmean(per_sample, weight)
 
 
+def get_label_mask(t, e, bins: int):
+    """Per-bin targets of the discrete adversarial task over z = 0..bins-1:
+    label = (z > t) where c = 1 - e is set, else (z == t); mask = (z <= t).
+    t [B] (or [B, 1]) bin indices, e [B]; returns (label, mask), [B, bins]
+    f32 each."""
+    t = t.reshape(-1, 1)
+    c = 1.0 - e.reshape(-1, 1).float()
+    z = torch.arange(bins, dtype=t.dtype, device=t.device)[None, :]
+    label = torch.where(c.bool(), z > t, z == t).float()
+    return label, (z <= t).float()
+
+
 def surv_ple_loss(y_hat, t, e, weight=None):
     """Cox partial likelihood, the risk set of sample i being every j with
     t_j >= t_i (a broadcast [B, B] mask; tied times share a risk set).

@@ -29,6 +29,8 @@ S2 = 16          # patches per region (4x4)
 LN_EPS = 1e-6    # flax LayerNorm default
 LAUNCHES = 0      # forward kernel launches since the last reset (chip_smoke reads it)
 LAUNCHES_BWD = 0  # backward kernel launches since the last reset
+LAUNCHES_BY_D: dict = {}      # the same two counts by row width D
+LAUNCHES_BWD_BY_D: dict = {}
 LAUNCHES_LNRELU = 0      # ln_relu forward launches
 LAUNCHES_LNRELU_BWD = 0  # ln_relu backward launches
 
@@ -117,6 +119,7 @@ def ln_relu_region_mean_fwd(h: torch.Tensor, scale: torch.Tensor,
             M, D, _build.DTYPE_CODES[h.dtype], LN_EPS, _build.stream_of(h))
     _build.check(rc, "ln_relu_region_mean")
     LAUNCHES += 1
+    LAUNCHES_BY_D[D] = LAUNCHES_BY_D.get(D, 0) + 1
     return out
 
 
@@ -154,6 +157,7 @@ def ln_relu_region_mean_bwd(g: torch.Tensor, h: torch.Tensor, scale: torch.Tenso
             _build.stream_of(h))
     _build.check(rc, "ln_relu_region_mean_bwd")
     LAUNCHES_BWD += 1
+    LAUNCHES_BWD_BY_D[D] = LAUNCHES_BWD_BY_D.get(D, 0) + 1
     return dh, dscale, dbias
 
 

@@ -141,7 +141,8 @@ class BaselineHandler(HandlerCommon):
         print(f"[exec] execute task {self.task} using backbone-mode {self.bcb}.")
         path_split = cfg["data_split_path"].format(cfg["data_split_seed"])
         pids_train, pids_val, pids_test = read_datasplit_npz(path_split)
-        train_set = prepare_dataset(pids_train, cfg, rng=self.np_rng)
+        train_set = prepare_dataset(pids_train, cfg, ratio_sampling=cfg["train_sampling"],
+                                    rng=self.np_rng)
         val_set = prepare_dataset(pids_val, cfg, rng=self.np_rng)
         self.patient_id["train"] = train_set.pids
         self.patient_id["validation"] = val_set.pids

@@ -87,13 +87,14 @@ class HandlerCommon:
         b.prefetch_workers = max(1, nw)
         return b
 
-    def _ship(self, batch, train: bool = False) -> dict:
+    def _ship(self, batch, train: bool = False, visible=None) -> dict:
         """Host batch -> device tensors; feats in bf16 under precision bf16.
-        A training batch also carries label, sample_mask and visible (all 1:
-        every label is visible outside semi-supervised training). `extra` is
-        what the backbone takes as its third argument: the dict of graph
-        tables (int32 / f32 tensors) in graph mode, the region coordinates
-        [B, L, 2] in patch mode with `use_coords_pe`."""
+        A training batch also carries label, sample_mask and visible: the
+        given [B] host array, or all 1 (every label is visible outside
+        semi-supervised training). `extra` is what the backbone takes as its
+        third argument: the dict of graph tables (int32 / f32 tensors) in
+        graph mode, the region coordinates [B, L, 2] in patch mode with
+        `use_coords_pe`."""
         feats = torch.from_numpy(batch.feats).to(self.device)
         if self.cfg["precision"] in ("bf16", "bfloat16"):
             feats = feats.to(torch.bfloat16)
@@ -106,29 +107,54 @@ class HandlerCommon:
                             for k, v in batch.extra.items()}
         if train:
             smask = torch.from_numpy(batch.sample_mask).to(self.device)
+            vis = (torch.ones_like(smask) if visible is None
+                   else torch.from_numpy(visible).to(self.device))
             out.update(label=torch.from_numpy(batch.label).to(self.device),
-                       sample_mask=smask, visible=torch.ones_like(smask))
+                       sample_mask=smask, visible=vis)
         return out
+
+    @staticmethod
+    def _visible(ds, batch, visible_set) -> np.ndarray:
+        """[B] f32: 1 where the patient of `batch.idx[j]` in `ds` is in
+        `visible_set` (tail fillers included, as in the JAX package; the
+        step multiplies by sample_mask)."""
+        return np.asarray([1.0 if ds.pids[int(i)] in visible_set else 0.0
+                           for i in batch.idx], np.float32)
 
     # ------------------------------------------------------------------
     # training loop
     # ------------------------------------------------------------------
 
     def _run_training(self, epochs, train_loader, name_loader, val_loaders=None,
-                      val_name=None, run_name="train"):
+                      val_name=None, run_name="train", mode="wlabel", early_stop=True):
+        """Train for up to `epochs` epochs with plateau LR and (with
+        `early_stop` and a patience configured) early stopping on
+        `val_name`, saving `best` checkpoints as it improves and `last` at
+        the end. `train_loader` / `name_loader` are one
+        (dataset, batcher) and its name, or lists of them (k-fold: epoch e
+        trains loader e % k). `mode` "wolabel" (semi-supervised) shows the
+        supervised loss only the labels of `patient_id["label_visible"]`
+        and reads the `ssl_`-prefixed early-stopping keys."""
         cfg = self.cfg
-        if cfg.get("es_patience") is not None:
+        prefix = "" if mode == "wlabel" else "ssl_"
+        if early_stop and cfg.get(prefix + "es_patience") is not None:
             self.early_stop = EarlyStopping(
-                warmup=cfg["es_warmup"], patience=cfg["es_patience"],
-                start_epoch=cfg["es_start_epoch"], verbose=cfg["es_verbose"])
+                warmup=cfg[prefix + "es_warmup"], patience=cfg[prefix + "es_patience"],
+                start_epoch=cfg[prefix + "es_start_epoch"],
+                verbose=cfg[prefix + "es_verbose"])
         else:
             self.early_stop = None
         self.steplr = ReduceLROnPlateau(factor=0.5, patience=10, verbose=True)
+        visible_set = None if mode == "wlabel" else self.patient_id["label_visible"]
+        is_kfold = isinstance(name_loader, (list, tuple))
         last_epoch = -1
         for epoch in range(epochs):
             last_epoch = epoch + 1
-            cltor = self._train_each_epoch(train_loader)
-            self._eval_and_print(cltor, name=name_loader, at_epoch=epoch + 1)
+            loader, name = ((train_loader[epoch % len(name_loader)],
+                             name_loader[epoch % len(name_loader)])
+                            if is_kfold else (train_loader, name_loader))
+            cltor = self._train_each_epoch(loader, visible_set)
+            self._eval_and_print(cltor, name=name, at_epoch=epoch + 1)
 
             val_metrics = None
             for k_i, (k, (ds, batcher)) in enumerate((val_loaders or {}).items()):
@@ -154,15 +180,22 @@ class HandlerCommon:
         self.save_model(last_epoch, "last", run_name)
         print(f"[{run_name}] last model saved at epoch {last_epoch}")
 
-    def _train_each_epoch(self, loader):
+    def _train_each_epoch(self, loader, visible_set=None):
         """One shuffled pass of training steps; the device is synced once,
         at the end, for the logged metrics and the collected predictions
-        (every tensor of the steps' `collect`)."""
+        (every tensor of the steps' `collect`). With `visible_set`, a
+        sample's label reaches the supervised loss only if its patient is in
+        the set; `train_visible` records each epoch's count of such samples."""
         ds, batcher = loader
         t0 = time.perf_counter()
         pending, keeps, ys, idxs = [], [], [], []
+        n_visible = 0
         for batch in batcher.prefetch(shuffle=True, rng=self.np_rng):
-            metrics, collect = self.train_step(self._ship(batch, train=True),
+            visible = None
+            if visible_set is not None:
+                visible = self._visible(ds, batch, visible_set)
+                n_visible += int((visible * batch.sample_mask).sum())
+            metrics, collect = self.train_step(self._ship(batch, train=True, visible=visible),
                                                self.train_rngs)
             keep = batch.sample_mask.astype(bool)
             pending.append((metrics, collect))
@@ -178,6 +211,8 @@ class HandlerCommon:
                 cltor[k].append(v.float().cpu().numpy()[keep])
         self.train_timings.append((int(sum(k.sum() for k in keeps)),
                                    time.perf_counter() - t0))
+        if visible_set is not None:
+            self.train_visible.append(n_visible)
         for i in range(len(pending)):
             self.logger.log({f"{self.batch_log_prefix}{k}": logged[k][i] for k in names})
         return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}

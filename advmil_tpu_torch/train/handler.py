@@ -5,19 +5,25 @@ AdvHandler`): builds G and D on the configured device and runs
   validation split, best / last checkpoints with optimizer state, then the
   evaluation of the best checkpoint on every split (`times_test_sample`
   noise samples, lower median);
+- `exec_semi_sl`: semi-supervised training (`semi_training: True`): a
+  labelled share of the training patients, an optional supervised
+  pretraining run, then `semitrain_{LD_UD,LD,UD}` in which only the labelled
+  patients' labels reach the supervised loss;
 - `exec_test`: test mode, which loads the `best` checkpoints of a training
   run, evaluates the occluded test split with zero noise;
 
-writing metrics, prediction CSVs and checkpoints under the same names and
-paths as the JAX package. Semi-supervised training (`exec_semi_sl`) is
-ROADMAP A11.
+for cont_gansurv (one continuous time) and disc_gansurv (hazards over
+`time_bins` quantile bins), writing metrics, prediction CSVs and
+checkpoints under the same names and paths as the JAX package.
 """
 from __future__ import annotations
 
 import functools
+import json
 import os.path as osp
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from .. import losses
@@ -27,7 +33,8 @@ from ..eval.evaluator import prepare_evaluator
 from ..models.backbones import load_backbone
 from ..models.gan import Discriminator, Generator, PrjDiscriminator
 from ..models.layers import Rngs, compute_dtype_of, init_parameters
-from ..utils.func import seed_everything, sparse_key, sparse_str
+from ..utils.func import (get_kfold_pids, sampling_data, seed_everything, sparse_key,
+                          sparse_str)
 from ..utils.io import read_datasplit_npz, read_maxt_from_table
 from . import checkpoint as ckpt_lib
 from .common import HandlerCommon, resolve_device
@@ -80,6 +87,7 @@ class AdvHandler(HandlerCommon):
         self.device = resolve_device(cfg["device"])
         self.task = cfg["task"]
         self.bcb = cfg["bcb_mode"]
+        self.nbins = cfg.get("time_bins", 4)
         self._setup_paths()
 
         self.gen_model, self.disc_model = build_models(cfg)
@@ -91,18 +99,25 @@ class AdvHandler(HandlerCommon):
         self.disc_model.to(self.device).eval()
 
         self.sup_loss_fn = make_supervised_loss(self.task, cfg)
-        end_time = (read_maxt_from_table(cfg["path_label"])
-                    if cfg["time_format"] == "origin" else 1.0)
         disc_loss = functools.partial(losses.real_fake_loss,
                                       which=cfg["loss_netD"])
-        self.evaluator = prepare_evaluator(
-            "continuous", end_time=end_time, recon_loss=self.sup_loss_fn,
-            disc_loss=disc_loss)
-        self.metrics_list = ["c_index", "loss_recon", "loss_recon_org",
-                             "loss_fake_netD", "loss_fake_netG", "avg_fake",
-                             "event_t_rae", "nonevent_t_rae", "event_t_nre",
-                             "nonevent_t_nre"]
-        self.ret_metrics = ["c_index", "loss_recon_org"]
+        if self.task == "cont_gansurv":
+            end_time = (read_maxt_from_table(cfg["path_label"])
+                        if cfg["time_format"] == "origin" else 1.0)
+            self.evaluator = prepare_evaluator(
+                "continuous", end_time=end_time, recon_loss=self.sup_loss_fn,
+                disc_loss=disc_loss)
+            self.metrics_list = ["c_index", "loss_recon", "loss_recon_org",
+                                 "loss_fake_netD", "loss_fake_netG", "avg_fake",
+                                 "event_t_rae", "nonevent_t_rae", "event_t_nre",
+                                 "nonevent_t_nre"]
+            self.ret_metrics = ["c_index", "loss_recon_org"]
+        else:
+            self.evaluator = prepare_evaluator(
+                "discrete", mle_loss=self.sup_loss_fn, disc_loss=disc_loss)
+            self.metrics_list = ["c_index", "loss_mle", "loss_mle_org",
+                                 "loss_fake_netD", "loss_fake_netG", "avg_fake"]
+            self.ret_metrics = ["c_index", "loss_mle_org"]
         self.batch_log_prefix = "train_batch/"
         self.opt_G = self.opt_D = self.train_step = None
         if not cfg["test"]:
@@ -110,6 +125,7 @@ class AdvHandler(HandlerCommon):
         self._eval_steps = {}
         self.eval_timings = []    # (bags, seconds) per _run_eval pass
         self.train_timings = []   # (bags, seconds) per training epoch
+        self.train_visible = []   # labelled samples per semi-supervised epoch
         self._setup_logging()
 
     def _setup_training(self):
@@ -131,7 +147,8 @@ class AdvHandler(HandlerCommon):
             self.gen_model, self.disc_model, self.opt_G, self.opt_D,
             loss_netD=cfg["loss_netD"], coef_gan=cfg["loss_gan_coef"],
             l1_coef=cfg["loss_regl1_coef"] or 0.0,
-            gen_updates=int(cfg["gen_updates"]), sup_loss_fn=self.sup_loss_fn)
+            gen_updates=int(cfg["gen_updates"]), sup_loss_fn=self.sup_loss_fn,
+            task=self.task, nbins=self.nbins)
 
     def _ckpt_path(self, net: str, ckpt_type: str, run_name: str,
                    load: bool = False) -> str:
@@ -151,7 +168,8 @@ class AdvHandler(HandlerCommon):
             pids_train + pids_val + (pids_test or []))
         print(f"[exec] read patient IDs from {path_split}")
 
-        train_set = prepare_dataset(pids_train, cfg, rng=self.np_rng)
+        train_set = prepare_dataset(pids_train, cfg, ratio_sampling=cfg["train_sampling"],
+                                    rng=self.np_rng)
         val_set = prepare_dataset(pids_val, cfg, rng=self.np_rng)
         self.patient_id["train"] = train_set.pids
         self.patient_id["validation"] = val_set.pids
@@ -171,8 +189,78 @@ class AdvHandler(HandlerCommon):
                               n_samples=cfg["times_test_sample"])
 
     def exec_semi_sl(self):
-        raise NotImplementedError("semi-supervised training is not ported yet "
-                                  "(ROADMAP A11)")
+        """Semi-supervised training (reference model_handler.py:680-778):
+        the training patients split into labelled / unlabelled; only the
+        labelled patients' labels reach the supervised loss ("wolabel"), the
+        adversarial loss sees every bag. UD+LD trains on k folds of the
+        unlabelled patients, each joined by every labelled one (epoch e
+        trains fold e % k); LD on the labelled, UD on the unlabelled."""
+        cfg = self.cfg
+        assert cfg["semi_training"]
+        path_split = cfg["data_split_path"].format(cfg["data_split_seed"])
+        pids_train, pids_val, pids_test = read_datasplit_npz(path_split)
+        # the split comes from a fresh legacy RandomState(seed), the stream
+        # the reference draws it from; shuffles and train_sampling draw from
+        # the handler's default_rng(seed). Swapping the two labels other
+        # patients than the JAX package does.
+        labeled, unlabeled = sampling_data(pids_train, cfg["ssl_num_labeled"],
+                                           rng=np.random.RandomState(cfg["seed"]))
+        print("PARITY_SSL_LABELED_JSON=" + json.dumps(sorted(labeled)))
+        self.patient_id["label_visible"] = set(labeled)
+        self.patient_id["label_invisible"] = set(unlabeled)
+
+        labeled_set = prepare_dataset(labeled, cfg, rng=self.np_rng)
+        unlabeled_set = prepare_dataset(unlabeled, cfg, rng=self.np_rng)
+        self.patient_id["labeled_train"] = labeled_set.pids
+        self.patient_id["unlabeled_train"] = unlabeled_set.pids
+        val_set = prepare_dataset(pids_val, cfg, rng=self.np_rng)
+        test_set = prepare_dataset(pids_test, cfg, rng=self.np_rng)
+        self.patient_id["validation"] = val_set.pids
+        self.patient_id["test"] = test_set.pids
+        val_loaders = {"validation": (val_set, self._make_bucket_batcher(val_set)),
+                       "test": (test_set, self._make_bucket_batcher(test_set))}
+        evals = {"labeled_train": (labeled_set, self._make_bucket_batcher(labeled_set)),
+                 "unlabeled_train": (unlabeled_set, self._make_bucket_batcher(unlabeled_set)),
+                 **val_loaders}
+
+        if cfg.get("ssl_first_phase", False):
+            print("[exec_semi_sl] first phase: supervised pretraining")
+            self._run_training(cfg["epochs"], evals["labeled_train"], "labeled_train",
+                               val_loaders=val_loaders, val_name="validation",
+                               early_stop=False, run_name="pretrain")
+            self._eval_all(evals, ckpt_type="last", run_name="pretrain",
+                           n_samples=cfg["times_test_sample"])
+        else:
+            print("[exec_semi_sl] NOTE: skipped the first supervised phase.")
+
+        mode = cfg["semi_training_mode"]
+        if "UD" in mode and "LD" in mode:
+            run_name = "semitrain_LD_UD"
+            folds = get_kfold_pids(unlabeled, cfg["ssl_kfold"], keep_pids=labeled,
+                                   random_state=cfg["seed"])
+            fold_loaders, fold_names = [], []
+            for i, kth in enumerate(folds):
+                name = f"fold{i}_mixed_train"
+                ds = prepare_dataset(kth, cfg, rng=self.np_rng)
+                self.patient_id[name] = ds.pids
+                fold_loaders.append((ds, self._make_bucket_batcher(ds)))
+                fold_names.append(name)
+            train_loader, train_name = fold_loaders, fold_names
+            self.loaders = dict(zip(fold_names, fold_loaders))
+        elif "LD" in mode or "UD" in mode:
+            run_name, train_name = (("semitrain_LD", "labeled_train") if "LD" in mode
+                                    else ("semitrain_UD", "unlabeled_train"))
+            train_loader = evals[train_name]
+            self.loaders = {train_name: train_loader}
+        else:
+            print("[exec_semi_sl] no UD/LD specified; nothing to train")
+            return {}
+        self.loaders.update(val_loaders)
+        self._run_training(cfg["ssl_epochs"], train_loader, train_name, mode="wolabel",
+                           val_loaders=val_loaders, val_name="validation",
+                           run_name=run_name)
+        return self._eval_all(evals, ckpt_type="best", run_name=run_name,
+                              n_samples=cfg["times_test_sample"])
 
     def exec_test(self):
         cfg = self.cfg

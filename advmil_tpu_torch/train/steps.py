@@ -88,31 +88,45 @@ def _set_requires_grad(model, flag: bool) -> None:
 
 def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
                         coef_gan: float, l1_coef: float, gen_updates: int,
-                        sup_loss_fn):
-    """The adversarial step of one batch (continuous task): a D update, then
-    `gen_updates` G updates.
+                        sup_loss_fn, task: str = "cont_gansurv", nbins: int = 4):
+    """The adversarial step of one batch: a D update, then `gen_updates` G
+    updates.
 
     batch: feats [B, N, C], mask [B, N], label [B, 2] (t, e), sample_mask [B],
-    visible [B], and in graph mode `extra`, the graph tables G reads (D sees
-    the node features and mask only, as in the JAX package). Modes follow the
+    visible [B] (0 hides a label from the supervised loss in semi-supervised
+    training), and in graph mode `extra`, the graph tables G reads (D sees the
+    node features and mask only, as in the JAX package). Modes follow the
     reference's train() / eval() flips:
     - D phase: G in eval mode with noise on (no dropout), its prediction
       detached; D in train mode scores the pair (t_real, t_fake) in one call
-      (shared patch embedding, independent dropout masks); real pairs are
-      weighted by event * visible, fake pairs by sample_mask.
+      (shared patch embedding, independent dropout masks); fake pairs are
+      weighted by sample_mask.
     - G phase: G in train mode; D in eval mode with its parameters frozen;
-      loss = recon(weighted by visible) + coef_gan * adversarial (weighted by
-      sample_mask) + l1_coef * sum |w_G|.
+      loss = supervised (weighted by visible) + coef_gan * adversarial
+      (weighted by sample_mask) + l1_coef * sum |w_G|.
+    cont_gansurv: the real pair is t [B, 1], weighted by event * visible; the
+    supervised loss takes pred[:, 0]. disc_gansurv (label t is a bin index):
+    the real pair is the per-bin label times its mask from `get_label_mask`,
+    weighted by sample_mask alone; both fake pairs are masked the same way;
+    the supervised loss takes the whole [B, nbins] hazards.
     Returns (metrics, collect) as device tensors: the caller syncs once per
     epoch. collect holds the D phase's predictions and fake scores, which the
     reference logs as the training-set predictions.
     """
+    is_disc_task = task == "disc_gansurv"
 
     def step(batch: dict, rngs: Rngs):
         feats, mask, extra = batch["feats"], batch["mask"], batch.get("extra")
         t, e = batch["label"][:, 0], batch["label"][:, 1]
         smask = batch["sample_mask"]
         visible = batch["visible"] * smask
+        y_mask = None
+        if is_disc_task:
+            # the reference passes the label's second column into the
+            # censorship argument of get_label_mask (reference
+            # model_handler.py:382), so 1 - e goes into this `e`; "fixing" it
+            # swaps which patients get the one-hot label
+            y_disc, y_mask = losses.get_label_mask(t, 1.0 - e, nbins)
 
         # ---- D phase: generator in eval mode (dropout off, noise on) ----
         gen_model.eval()
@@ -120,8 +134,13 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
         with torch.no_grad():
             pred_eval = gen_model(feats, mask, extra, zero_noise=False,
                                   generator=rngs.device)
-        real_w = (e == 1).to(torch.float32) * visible
-        f_real, f_fake = disc_model(feats, (t[:, None], pred_eval), mask, rngs)
+        if is_disc_task:
+            t_real, fake_in = y_disc * y_mask, pred_eval * y_mask
+            real_w = smask      # visibility does not gate the disc task's real pairs
+        else:
+            t_real, fake_in = t[:, None], pred_eval
+            real_w = (e == 1).to(torch.float32) * visible
+        f_real, f_fake = disc_model(feats, (t_real, fake_in), mask, rngs)
         f_real, f_fake = f_real.float(), f_fake.float()
         loss_D = losses.real_fake_loss(f_real, f_fake, which=loss_netD,
                                        real_weight=real_w, fake_weight=smask)
@@ -141,9 +160,11 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
             for _ in range(gen_updates):
                 pred = gen_model(feats, mask, extra, zero_noise=False,
                                  generator=rngs.device, rng=rngs)
-                f_fake_g = disc_model(feats, pred, mask).float()
+                f_fake_g = disc_model(feats, pred * y_mask if is_disc_task else pred,
+                                      mask).float()
                 gen_loss = losses.fake_generator_loss(f_fake_g, weight=smask)
-                t_reg = sup_loss_fn(pred[:, 0], t, e, weight=visible)
+                t_reg = sup_loss_fn(pred if is_disc_task else pred[:, 0], t, e,
+                                    weight=visible)
                 total = t_reg if coef_gan == 0.0 else t_reg + coef_gan * gen_loss
                 total = total + losses.loss_reg_l1(gen_model.parameters(), l1_coef)
                 opt_G.zero_grad(set_to_none=True)

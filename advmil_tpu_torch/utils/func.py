@@ -45,6 +45,37 @@ def add_prefix_to_filename(path: str, prefix: str = "") -> str:
     return osp.join(dir_name, prefix + "_" + file_name)
 
 
+def sampling_data(data: list, num, rng=None):
+    """Split `data` at random into (sampled, left); `num` is a count or a
+    fraction in (0, 1) of len(data), rounded down. `rng` is a numpy
+    Generator or a legacy RandomState (one `permutation` call either way);
+    None draws from numpy's global legacy stream."""
+    total = len(data)
+    if isinstance(num, float):
+        assert 0.0 < num < 1.0
+        num = int(total * num)
+    assert num < total
+    idxs = (rng if rng is not None else np.random).permutation(total)
+    return [data[i] for i in idxs[:num]], [data[i] for i in idxs[num:]]
+
+
+def get_kfold_pids(pids: list, num_fold: int = 5, keep_pids=None, random_state: int = 42):
+    """`num_fold` folds of `pids`, each prefixed with `keep_pids`: the indices
+    shuffled by RandomState(random_state), cut into sklearn KFold's sizes (the
+    first n % k folds one larger), each fold in ascending index order."""
+    cur = [] if keep_pids is None else list(keep_pids)
+    if num_fold <= 1:
+        return [cur + list(pids)]
+    n = len(pids)
+    indices = np.arange(n)
+    np.random.RandomState(random_state).shuffle(indices)
+    sizes = np.full(num_fold, n // num_fold, dtype=int)
+    sizes[: n % num_fold] += 1
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    return [cur + [pids[i] for i in np.sort(indices[a:b])]
+            for a, b in zip(bounds[:-1], bounds[1:])]
+
+
 def random_mask_square_instance(bag: np.ndarray, mask_ratio: float, scale: int = 4,
                                 mask_way: str = "mask_zero",
                                 rng: np.random.Generator | None = None) -> np.ndarray:

@@ -60,6 +60,16 @@ Phases, each printed on its own line:
  19. one baseline epoch each of surv_cox (pt041 init, origin times) and
      surv_nll (quantile labels, `pdh_dims: 384-4`) on ABMIL, small split.
  20. baseline PatchGCN (surv_reg) on phase 8's graphs, banded route, 1 epoch.
+ 21. disc_gansurv training at cfg_nlst width (4 quantile bins, G's head
+     384 -> 4, bf16, 2 epochs) on phase 4's data: the discrete CSVs, the
+     checkpoints, and #1 at D = 384 and 128, #2 and the flash kernels launch.
+ 22. one disc_gansurv step through the port's step function in f32, card
+     against CPU: losses within 1e-5 relative, gradients within 1e-4.
+ 23. semi-supervised UD+LD training at cfg_nlst width (bf16; depth cut to
+     2 folds, 3 epochs): the labelled split against RandomState(seed) in
+     numpy, the folds, the visible labels per epoch, the checkpoints.
+ 24. one UD+LD step with mixed label visibility and with every label hidden,
+     card against CPU, as phase 22.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -1074,6 +1084,8 @@ def reset_counters():
     mods = _counter_modules()
     for _, mod, attr in COUNTERS:
         setattr(mods[mod], attr, 0)
+    mods["ln_pool"].LAUNCHES_BY_D.clear()
+    mods["ln_pool"].LAUNCHES_BWD_BY_D.clear()
 
 
 def read_counters() -> dict:
@@ -1703,6 +1715,258 @@ def phase_base_graph(paths, gpaths, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 21-24: the adversarial handler's other training modes
+# ---------------------------------------------------------------------------
+
+# the discrete task at cfg_nlst width: 4 quantile bins, G's head 384 -> 4 hazards
+DISC = {"task": "disc_gansurv", "time_format": "quantile", "time_bins": 4,
+        "gen_dims": "384-4", "disc_nety_in_dim": 4}
+FLASH_KERNELS = ("masked_flash_attention", "masked_flash_attention_dropout", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+
+
+def read_widths() -> dict:
+    """The LN-pool launches (#1 forward, #2 backward) by row width since the
+    last reset."""
+    from advmil_tpu_torch.ops import ln_pool
+    return {"fwd": dict(ln_pool.LAUNCHES_BY_D), "bwd": dict(ln_pool.LAUNCHES_BWD_BY_D)}
+
+
+def _adv_run(cfg, name, need):
+    """One `--handler adv` run through `advmil_tpu_torch.main`, the launch
+    counters reset just before and read just after; fails unless every kernel
+    in `need` launched, and #1 / #2 at both G's width (384) and D's X tower's
+    (128). Returns (handler, metrics, launches, widths, printed lines)."""
+    import contextlib
+    import io
+    from advmil_tpu_torch import main as port_main
+    yaml_path = osp.join(WORK_DIR, f"{name}.yaml")
+    _write_yaml(yaml_path, cfg)
+    buf = io.StringIO()
+    reset_counters()
+    try:
+        with contextlib.redirect_stdout(buf):
+            [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "adv"])
+    finally:
+        sys.stdout.write(buf.getvalue())
+    launches, widths = read_counters(), read_widths()
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the path {name}")
+    for way in ("fwd", "bwd"):
+        if not all(widths[way].get(d, 0) > 0 for d in (384, 128)):
+            raise AssertionError(f"{name}: LN-pool {way} launches by width {widths[way]}, "
+                                 "not both 384 (G) and 128 (D's X tower)")
+    return handler, metrics, launches, widths, buf.getvalue().splitlines()
+
+
+def _check_disc_csv(path, n_bins=4):
+    """A discrete prediction CSV: the columns of the discrete branch, risk and
+    survival finite, the survival curve in [0, 1] and falling."""
+    import numpy as np
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+        rows = np.asarray([[float(v) for v in ln.strip().split(",")[1:]] for ln in f if ln.strip()])
+    want = ["patient_id", "t", "e", "risk"] + [f"surf_{i + 1}" for i in range(n_bins)]
+    if header != want:
+        raise AssertionError(f"{path}: columns {header}, not {want}")
+    surv = rows[:, 3:]
+    if not (len(rows) and np.all(np.isfinite(rows[:, 2:])) and surv.min() >= 0
+            and surv.max() <= 1 and np.all(np.diff(surv, axis=1) <= 0)):
+        raise AssertionError(f"{path}: risk / survival not finite, in [0, 1] and falling")
+    return len(rows)
+
+
+def _log_adv_run(tag, handler, metrics, launches, widths, splits, card):
+    cis = " ".join(f"{s} {dict(metrics[s])['cindex']:.4f}" for s in splits)
+    rates = " ".join(f"epoch {i + 1} {b / s:.2f} ({b} bags, {s:.3f} s);"
+                     for i, (b, s) in enumerate(handler.train_timings))
+    used = {k: v for k, v in launches.items() if v}
+    log(f"[{tag}] task {handler.task}, precision {handler.cfg['precision']}: C-index {cis} | "
+        f"launches {used} | LN-pool launches by width {widths}")
+    log(f"[{tag}] training bags/s: {rates} | {card}")
+
+
+def phase_disc_train(paths, card):
+    """Phase 21: disc_gansurv `exec` at cfg_nlst width (bf16, 2 epochs) on
+    phase 4's data, whose 1,024-region training bucket engages the flash
+    kernels."""
+    import numpy as np
+    cfg = _smoke_cfg(paths, "disc_run", test=False, epochs=2, es_warmup=0, **DISC)
+    handler, metrics, launches, widths, _ = _adv_run(
+        cfg, "disc_run", ("ln_relu_region_mean", "ln_relu_region_mean_bwd") + FLASH_KERNELS)
+    splits = ("train", "validation", "test")
+    for split in splits:
+        n = _check_disc_csv(osp.join(handler.save_dir, f"train_best_pred_{split}.csv"))
+        ci = dict(metrics[split])["cindex"]
+        if not (n and np.isfinite(ci) and 0.0 <= ci <= 1.0):
+            raise AssertionError(f"disc_gansurv {split}: C-index {ci!r}")
+    for f in ("train_modelG-best.ckpt", "train_modelD-best.ckpt", "train_modelG-last.ckpt",
+              "train_modelD-last.ckpt", "train_metrics-best.txt"):
+        if not osp.exists(osp.join(handler.save_dir, f)):
+            raise AssertionError(f"disc_gansurv wrote no {f}")
+    if handler.evaluator.__class__.__name__ != "DiscSurvEvaluator" or \
+            len(handler.train_timings) != 2:
+        raise AssertionError("disc_gansurv: not the discrete evaluator, or not 2 epochs")
+    _log_adv_run("21 disc train", handler, metrics, launches, widths, splits, card)
+    return handler, launches
+
+
+class _ZeroNoise:
+    """A generator whose forward always takes zero noise (the adversarial step
+    draws noise; the card and the CPU draw different noise)."""
+
+    def __init__(self, gen):
+        self.gen = gen
+
+    def __call__(self, *args, **kwargs):
+        kwargs["zero_noise"] = True
+        return self.gen(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.gen, name)
+
+
+def _adv_step(handler, batch, dev, visible):
+    """Losses and gradients of one adversarial step through the port's own
+    step function (`make_adv_train_step`) in f32, dropout off, zero noise,
+    with `handler`'s weights, on device `dev`. The optimizers' rates are 0,
+    so the G phase scores against the same D on both devices."""
+    import torch
+    from advmil_tpu_torch.models.layers import Rngs, set_dropout_rates
+    from advmil_tpu_torch.train.handler import build_models
+    from advmil_tpu_torch.train.steps import make_adv_train_step
+
+    cfg = dict(handler.cfg, precision="f32")
+    G, D = build_models(cfg)
+    G.load_state_dict(handler.gen_model.state_dict())
+    D.load_state_dict(handler.disc_model.state_dict())
+    set_dropout_rates(G.to(dev), 0.0)
+    set_dropout_rates(D.to(dev), 0.0)
+    step = make_adv_train_step(
+        _ZeroNoise(G), D, torch.optim.SGD(G.parameters(), lr=0.0),
+        torch.optim.SGD(D.parameters(), lr=0.0), loss_netD=cfg["loss_netD"],
+        coef_gan=cfg["loss_gan_coef"], l1_coef=cfg["loss_regl1_coef"], gen_updates=1,
+        sup_loss_fn=handler.sup_loss_fn, task=handler.task, nbins=handler.nbins)
+    shipped = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("feats", batch.feats), ("mask", batch.mask), ("label", batch.label),
+        ("sample_mask", batch.sample_mask), ("visible", visible))}
+    rngs = Rngs(device=torch.Generator(device=dev).manual_seed(0),
+                host=torch.Generator().manual_seed(1))
+    metrics, _ = step(shipped, rngs)
+    out = {k: float(v) for k, v in metrics.items()}
+    grads = {f"{tag}.{n}": p.grad.detach().cpu() for tag, m in (("G", G), ("D", D))
+             for n, p in m.named_parameters() if p.grad is not None}
+    return out, grads
+
+
+def _compare_steps(tag, handler, batch, visible, what):
+    """The step on the card against the CPU: every loss within 1e-5 relative
+    (exactly equal where it is 0), every gradient within 1e-4."""
+    (lc, gc), (lh, gh) = (_adv_step(handler, batch, dev, visible) for dev in ("cuda", "cpu"))
+    worst = 0.0
+    for k in ("Loss_D", "Loss_G_total", "Loss_G_time"):
+        if not (math.isfinite(lc[k]) and abs(lc[k] - lh[k]) <= 1e-5 * abs(lh[k])):
+            raise AssertionError(f"{tag}: {k} card {lc[k]!r} CPU {lh[k]!r}")
+        worst = max(worst, abs(lc[k] - lh[k]) / max(abs(lh[k]), 1e-30))
+    log(f"[{tag}] {what}: visible {visible.tolist()}; losses card / CPU "
+        + ", ".join(f"{k} {lc[k]:.7f} / {lh[k]:.7f}" for k in ("Loss_D", "Loss_G_total",
+                                                              "Loss_G_time"))
+        + f" (largest relative |diff| {worst:.3e}, bound 1e-5)")
+    _compare_grads(tag, what, gc, gh, tuple(batch.feats.shape))
+    return lc
+
+
+def phase_disc_gpu_vs_cpu_train(handler):
+    """Phase 22: one disc_gansurv step (the long training batch), card
+    against CPU."""
+    import numpy as np
+    _, batcher = handler.loaders["train"]
+    batch = list(batcher.epoch_batches())[-1]     # the 1,024-region bucket
+    _compare_steps("22 disc gpu-vs-cpu train", handler, batch,
+                   np.ones_like(batch.sample_mask), "card against CPU")
+
+
+def phase_ssl_train(paths, card):
+    """Phase 23: semi-supervised UD+LD training at cfg_nlst width (bf16) on
+    phase 4's data; the labelled split, the folds and the visible counts are
+    recomputed here with numpy."""
+    import json as _json
+    import numpy as np
+    from advmil_tpu_torch.utils.io import read_datasplit_npz
+    # depth cut: 2 folds; the early-stopping warmup is forced to ssl_kfold,
+    # so the first best checkpoint is saved in epoch 3 (fold 0 again)
+    cut = {"ssl_kfold": 2, "ssl_epochs": 3}
+    log(f"[23 ssl train] cfg_nlst's SSL block with depth cut {cut} (shipped ssl_kfold 5, "
+        "ssl_epochs 300)")
+    cfg = _smoke_cfg(paths, "ssl_run", test=False, semi_training=True,
+                     semi_training_mode="UD+LD", ssl_num_labeled=0.6, **cut)
+    handler, metrics, launches, widths, lines = _adv_run(
+        cfg, "ssl_run", ("ln_relu_region_mean", "ln_relu_region_mean_bwd"))
+
+    pids_train = read_datasplit_npz(paths["data_split_path"].format(0))[0]
+    perm = np.random.RandomState(cfg["seed"]).permutation(len(pids_train))
+    labeled = [pids_train[i] for i in perm[:int(len(pids_train) * 0.6)]]
+    printed = [_json.loads(ln.split("=", 1)[1]) for ln in lines
+               if ln.startswith("PARITY_SSL_LABELED_JSON=")]
+    if printed != [sorted(labeled)]:
+        raise AssertionError(f"labelled split {printed} is not RandomState(seed)'s "
+                             f"{sorted(labeled)}")
+    folds = [handler.patient_id[f"fold{i}_mixed_train"] for i in range(2)]
+    n_lab = len(labeled)
+    rest = [f[n_lab:] for f in folds]
+    if any(f[:n_lab] != labeled for f in folds) or set(rest[0]) & set(rest[1]) \
+            or sorted(rest[0] + rest[1]) != sorted(set(pids_train) - set(labeled)):
+        raise AssertionError("the two folds do not each hold every labelled patient and "
+                             "half of the unlabelled ones")
+    if handler.train_visible != [n_lab] * 3:
+        raise AssertionError(f"visible labels per epoch {handler.train_visible}, not "
+                             f"{[n_lab] * 3}")
+    splits = ("labeled_train", "unlabeled_train", "validation", "test")
+    _check_run(handler, metrics, splits, "semitrain_LD_UD_best_pred_{}.csv")
+    for net in "GD":
+        for ck in ("best", "last"):
+            if not osp.exists(osp.join(handler.save_dir, f"semitrain_LD_UD_model{net}-{ck}.ckpt")):
+                raise AssertionError(f"SSL wrote no semitrain_LD_UD_model{net}-{ck}.ckpt")
+    losses = []
+    with open(osp.join(handler.save_dir, f"{osp.basename(handler.save_dir)}_scalars.jsonl")) as f:
+        for line in f:
+            losses += [v for k, v in _json.loads(line).items() if k.startswith("train_batch/Loss")]
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite SSL training losses ({len(losses)} logged)")
+    log(f"[23 ssl train] labelled split = RandomState({cfg['seed']}).permutation of the "
+        f"{len(pids_train)} training pids ({n_lab} labelled); folds of "
+        f"{[len(f) for f in folds]} patients, unlabelled parts disjoint; visible labels per "
+        f"epoch {handler.train_visible}; {len(losses)} finite losses")
+    _log_adv_run("23 ssl train", handler, metrics, launches, widths, splits, card)
+    return handler, launches
+
+
+def phase_ssl_gpu_vs_cpu_train(handler):
+    """Phase 24: one UD+LD step on a fold batch with mixed visibility, and on
+    the same batch with every label hidden (the supervised weights sum to 0:
+    the loss is exactly 0 on both devices), card against CPU."""
+    import numpy as np
+    visible_set = handler.patient_id["label_visible"]
+    for name in ("fold0_mixed_train", "fold1_mixed_train"):
+        ds, batcher = handler.loaders[name]
+        for batch in batcher.epoch_batches():
+            vis = handler._visible(ds, batch, visible_set) * batch.sample_mask
+            if 0 < vis.sum() < batch.sample_mask.sum():
+                break
+        else:
+            continue
+        break
+    else:
+        raise AssertionError("no fold batch mixes labelled and unlabelled patients")
+    _compare_steps("24 ssl gpu-vs-cpu train", handler, batch, vis, "mixed visibility")
+    lc = _compare_steps("24 ssl gpu-vs-cpu train", handler, batch, np.zeros_like(vis),
+                        "every label hidden")
+    if lc["Loss_G_time"] != 0.0:
+        raise AssertionError(f"hidden labels: supervised loss {lc['Loss_G_time']!r}, not 0")
+
+
 SOURCES = {
     "ln_relu_region_mean": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:67"),
     "ln_relu_region_mean_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu",
@@ -1807,6 +2071,10 @@ def main():
     base_esat_launches = timed("18 base ESAT train", phase_base_esat, paths, card)
     base_cn_launches = timed("19 base cox / nll", phase_base_cox_nll, paths, small_split, card)
     base_graph_launches = timed("20 base graph train", phase_base_graph, paths, gpaths, card)
+    disc_handler, disc_launches = timed("21 disc train", phase_disc_train, paths, card)
+    timed("22 disc gpu-vs-cpu train", phase_disc_gpu_vs_cpu_train, disc_handler)
+    ssl_handler, ssl_launches = timed("23 ssl train", phase_ssl_train, paths, card)
+    timed("24 ssl gpu-vs-cpu train", phase_ssl_gpu_vs_cpu_train, ssl_handler)
     shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
@@ -1831,13 +2099,18 @@ def main():
                        "base_esat_train": base_esat_launches[name],
                        "base_cox_train": base_cn_launches["surv_cox"][name],
                        "base_nll_train": base_cn_launches["surv_nll"][name],
-                       "base_graph_train": base_graph_launches[name]}
+                       "base_graph_train": base_graph_launches[name],
+                       "disc_train": disc_launches[name],
+                       "ssl_train": ssl_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched")
         for path, need in (("base_esat_train", ("ln_relu_region_mean",
                                                 "ln_relu_region_mean_bwd")),
-                           ("base_graph_train", ("fused_knn_softmax_aggregate",))):
+                           ("base_graph_train", ("fused_knn_softmax_aggregate",)),
+                           ("disc_train", ("ln_relu_region_mean", "ln_relu_region_mean_bwd")
+                            + FLASH_KERNELS),
+                           ("ssl_train", ("ln_relu_region_mean", "ln_relu_region_mean_bwd"))):
             if name in need and entry["launches_by_path"][path] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -3,8 +3,8 @@
 Both packages train on the same synthetic dataset and split files
 (`scripts/run_parity.py::build_dataset`: 160 patients, 128-d `.pt`
 features, a planted survival signal) with the same arm configs
-(`run_parity.adv_cfg` / `reg_cfg`, built from this repo's
-`config/cfg_nlst.yaml`), on the CPU in f32:
+(`run_parity.adv_cfg` / `disc_cfg` / `ssl_cfg` / `reg_cfg`, built from this
+repo's `config/cfg_nlst.yaml`), on the CPU in f32:
 
 - JAX side: `python main.py` with `ADVMIL_FORCE_CPU=1`, `rng_impl: threefry`
   and `run_parity.ours_extra`'s batching;
@@ -15,7 +15,10 @@ Dropout masks, noise and initial weights come from each framework's own
 generators, so single runs differ; the claim is statistical over folds x
 seeds. The pre-registered criterion is PARITY.md's: |paired median delta
 val C-index (port - JAX)| <= 0.005, reported with the two-sided sign test
-and a bootstrap 95% CI of the paired median.
+and a bootstrap 95% CI of the paired median. In the semi-supervised arm
+(`adv_ssl`) both sides must label the same patients: each run's
+`PARITY_SSL_LABELED_JSON=` line is kept, and a pair whose lists differ fails
+the sweep.
 
 Every finished run is cached as `<workdir>/<arm>/fold<f>s<seed>/<side>/
 result.json` and reused, so an interrupted sweep resumes where it stopped;
@@ -23,7 +26,7 @@ result.json` and reused, so an interrupted sweep resumes where it stopped;
 listed as unfinished in the report.
 
 Usage:
-  python scripts/run_torch_parity.py --workdir DIR [--arms adv_esat base_reg_abmil]
+  python scripts/run_torch_parity.py --workdir DIR [--arms adv_esat adv_esat_disc ...]
       [--folds 5] [--seeds 42 ... 51] [--procs 4] [--sides jax port]
 Writes TORCH_PARITY.md and TORCH_PARITY.json at the repo root.
 """
@@ -50,6 +53,8 @@ import run_parity  # noqa: E402
 run_parity.REF_CFG = osp.join(REPO, "config", "cfg_nlst.yaml")
 
 ARMS = {"adv_esat": ("adv", run_parity.adv_cfg),
+        "adv_esat_disc": ("adv", run_parity.disc_cfg),
+        "adv_ssl": ("adv", run_parity.ssl_cfg),
         "base_reg_abmil": ("base", run_parity.reg_cfg)}
 CRITERION = 0.005
 
@@ -97,6 +102,9 @@ def run_side(arm: str, side: str, cfg: dict, run_dir: str, threads: int) -> dict
     res = {"val": run_parity.cindex_of(metrics, "validation"),
            "test": run_parity.cindex_of(metrics, "test"),
            "seconds": seconds}
+    labeled = re.search(r"PARITY_SSL_LABELED_JSON=(\[.*\])", r.stdout)
+    if labeled:
+        res["labeled"] = json.loads(labeled.group(1))
     with open(out, "w") as f:
         json.dump(res, f)
     return res
@@ -130,6 +138,9 @@ def summarize(rows: list) -> dict:
         "sign_test_p": p, "n_pos": npos, "n_neg": nneg,
         "median_ci95": [float(np.percentile(meds, 2.5)),
                         float(np.percentile(meds, 97.5))],
+        **({"ssl_split_match_n": len([r for r in rows if "ssl_split_match" in r]),
+            "ssl_split_match_all": all(r["ssl_split_match"] for r in rows)}
+           if any("ssl_split_match" in r for r in rows) else {}),
     }
 
 
@@ -170,6 +181,11 @@ def write_report(results: dict, args) -> None:
             f"[{lo:+.4f}, {hi:+.4f}] | {r['jax_val_mean']:.4f} / "
             f"{r['port_val_mean']:.4f} | {r['jax_test_mean']:.4f} / "
             f"{r['port_test_mean']:.4f} |")
+    for arm, r in results.items():
+        if "ssl_split_match_n" in r:
+            lines += ["", f"{arm}: the labelled patients are the same on both sides in "
+                      f"{sum(row['ssl_split_match'] for row in r['rows'])} of "
+                      f"{r['ssl_split_match_n']} pairs (`PARITY_SSL_LABELED_JSON`)."]
     for arm, r in results.items():
         lines += ["", f"## {arm}", ""]
         if r.get("unfinished"):
@@ -245,13 +261,22 @@ def main():
                     else:
                         unfinished.append((fold, seed, side))
                 if len(got) == 2:
-                    rows.append({"fold": fold, "seed": seed,
-                                 **{f"{s}_{k}": got[s][k] for s in got
-                                    for k in ("val", "test", "seconds")}})
+                    row = {"fold": fold, "seed": seed,
+                           **{f"{s}_{k}": got[s][k] for s in got
+                              for k in ("val", "test", "seconds")}}
+                    if "labeled" in got["jax"] or "labeled" in got["port"]:
+                        row["ssl_split_match"] = (got["jax"].get("labeled")
+                                                  == got["port"].get("labeled"))
+                    rows.append(row)
         results[arm] = {**(summarize(rows) if rows else {}), "rows": rows,
                         "unfinished": unfinished}
     write_report(results, args)
     print("[torch-parity] wrote TORCH_PARITY.md / TORCH_PARITY.json")
+    bad = [(arm, row["fold"], row["seed"]) for arm, r in results.items()
+           for row in r["rows"] if row.get("ssl_split_match") is False]
+    if bad:
+        raise SystemExit(f"[torch-parity] the two sides labelled different patients in "
+                         f"(arm, fold, seed) {bad}")
 
 
 if __name__ == "__main__":

@@ -523,15 +523,19 @@ def test_base_handler_refusals_name_the_roadmap(synth, tmp_path, key, value, ite
 
 
 def test_task_refusals_name_the_handler(synth, tmp_path):
-    """The adversarial handler no longer calls a baseline task disc_gansurv
-    (A8); each handler names the other for the other's tasks."""
+    """The adversarial handler runs disc_gansurv and names the baseline
+    handler for a baseline task; the baseline handler names the adversarial
+    one for both adversarial tasks and for semi-supervised training."""
     from tests.test_torch_train import _cfg as adv_cfg
     with pytest.raises(ValueError, match="--handler base"):
         thandler.AdvHandler(with_defaults(adv_cfg(synth, tmp_path, "a", device="cpu",
                                                   task="surv_reg")))
-    with pytest.raises(NotImplementedError, match="A8"):
-        thandler.AdvHandler(with_defaults(adv_cfg(synth, tmp_path, "a", device="cpu",
-                                                  task="disc_gansurv")))
-    with pytest.raises(ValueError, match="--handler adv"):
-        tbaseline.BaselineHandler(with_defaults(_cfg(synth, tmp_path, "b", device="cpu",
-                                                     task="cont_gansurv")))
+    h = thandler.AdvHandler(with_defaults(adv_cfg(
+        synth, tmp_path, "a", device="cpu", task="disc_gansurv", time_format="quantile",
+        gen_dims="128-4", disc_nety_in_dim=4, disc_netx_in_dim=32, bcb_dims="32-128-128")))
+    assert h.evaluator.__class__.__name__ == "DiscSurvEvaluator"
+    for over in ({"task": "cont_gansurv"}, {"task": "disc_gansurv"},
+                 {"semi_training": True}):
+        with pytest.raises(ValueError, match="--handler adv"):
+            tbaseline.BaselineHandler(with_defaults(_cfg(synth, tmp_path, "b", device="cpu",
+                                                         **over)))

@@ -123,9 +123,11 @@ def test_exec_test_matches_jax(synth, tmp_path):
 
 
 def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
-    """exec is ported (tests/test_torch_train.py). As in the JAX package, a
-    run whose warm-up outlasts its epochs saves no best checkpoint, and the
-    final evaluation says so; the modes still missing name their item."""
+    """exec is ported (tests/test_torch_train.py), and so is exec_semi_sl
+    (tests/test_torch_ssl.py), which as in the JAX package asserts that the
+    config asks for it. As in the JAX package, a run whose warm-up outlasts
+    its epochs saves no best checkpoint, and the final evaluation says so;
+    the modes still missing name their item."""
     from advmil_tpu_torch.config import with_defaults
     from advmil_tpu_torch.train.handler import AdvHandler
     cfg = _cfg(synth, tmp_path, device="cpu", es_warmup=5)    # epochs: 1
@@ -136,8 +138,10 @@ def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
     with pytest.raises(FileNotFoundError, match="es_warmup"):
         h.exec()
     assert osp.exists(osp.join(cfg["save_path"], "train_modelG-last.ckpt"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        h.exec_semi_sl()
+    with pytest.raises(AssertionError):
+        h.exec_semi_sl()                       # semi_training: False
+    with pytest.raises(NotImplementedError, match="A6"):
+        AdvHandler(with_defaults(dict(cfg, accum_steps=2)))
     with pytest.raises(NotImplementedError, match="A12"):
         AdvHandler(with_defaults(dict(cfg, bcb_mode="cluster")))
 

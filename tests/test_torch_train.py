@@ -308,10 +308,15 @@ def no_jax_dropout(monkeypatch):
     monkeypatch.setattr(jlayers, "mask_dropout", lambda rng, rate, x: x)
 
 
-def test_three_adversarial_steps_match_jax(synth, tmp_path, no_jax_dropout):
+def _three_steps_match_jax(synth, tmp_path, visible_of=None, **over):
+    """Three adversarial steps of the JAX handler and the port from the same
+    weights on the same batches (`visible_of(i, batch)`: the [B] visibility
+    of step i, default all 1): losses within rtol 1e-5, then every parameter
+    of G and D within 1e-5."""
     from advmil_tpu.train.handler import AdvHandler as JaxHandler
-    jh = JaxHandler(j_with_defaults(_cfg(synth, tmp_path, "jax", rng_impl="threefry")))
-    th = thandler.AdvHandler(with_defaults(_cfg(synth, tmp_path, "port", device="cpu")))
+    jh = JaxHandler(j_with_defaults(_cfg(synth, tmp_path, "jax", rng_impl="threefry", **over)))
+    th = thandler.AdvHandler(with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **over)))
+    # strict loads: the bridge carries every tensor, the task's head widths included
     th.gen_model.load_state_dict(bridge.flax_to_torch(_np_tree(jh.state.params_G)))
     th.disc_model.load_state_dict(bridge.flax_to_torch(_np_tree(jh.state.params_D)))
     tl.set_dropout_rates(th.gen_model, 0.0)
@@ -320,14 +325,16 @@ def test_three_adversarial_steps_match_jax(synth, tmp_path, no_jax_dropout):
     pids = [f"P{i:04d}" for i in range(36)]
     ds = prepare_dataset(pids, th.cfg)
     batches = list(BucketBatcher(ds, token_budget=4096).epoch_batches())[:3]
-    for batch in batches:
+    for i, batch in enumerate(batches):
+        visible = (np.ones_like(batch.sample_mask) if visible_of is None
+                   else visible_of(i, batch))
         jdev = {"feats": jnp.asarray(batch.feats), "mask": jnp.asarray(batch.mask),
                 "label": jnp.asarray(batch.label),
                 "sample_mask": jnp.asarray(batch.sample_mask),
-                "visible": jnp.ones_like(jnp.asarray(batch.sample_mask))}
+                "visible": jnp.asarray(visible)}
         jh.state, jmet, _ = jh.train_step(jh.state, jdev)
-        tmet, _ = th.train_step(th._ship(batch, train=True), th.train_rngs)
-        for k in ("Loss_D", "Loss_G_total", "Loss_G_fake", "Loss_G_time"):
+        tmet, _ = th.train_step(th._ship(batch, train=True, visible=visible), th.train_rngs)
+        for k in ("Loss_D", "Loss_G_total", "Loss_G_fake", "Loss_G_time", "D_real"):
             np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=1e-5,
                                        err_msg=k)
     for model, jparams in ((th.gen_model, jh.state.params_G),
@@ -338,6 +345,31 @@ def test_three_adversarial_steps_match_jax(synth, tmp_path, no_jax_dropout):
         for k in want:
             np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), atol=1e-5,
                                        err_msg=k)
+    return th
+
+
+def test_three_adversarial_steps_match_jax(synth, tmp_path, no_jax_dropout):
+    _three_steps_match_jax(synth, tmp_path)
+
+
+def test_three_disc_gansurv_steps_match_jax(synth, tmp_path, no_jax_dropout):
+    """disc_gansurv: quantile bins, G's 4 hazards, D's Y tower on 4 inputs."""
+    th = _three_steps_match_jax(synth, tmp_path, task="disc_gansurv",
+                                time_format="quantile", gen_dims="128-4",
+                                disc_nety_in_dim=4)
+    assert th.gen_model.state_dict()["head_mlp.mlp_1.weight"].shape == (4, 64)
+    assert th.disc_model.state_dict()["net_pair_two.mlp_0.Dense_0.weight"].shape == (16, 4)
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "none_visible"])
+def test_three_steps_with_hidden_labels_match_jax(synth, tmp_path, no_jax_dropout, pattern):
+    """cont_gansurv with per-sample label visibility (semi-supervised
+    training): a mixed 0 / 1 vector, and all 0 in the last step, where the
+    supervised loss's weights sum to 0 and the loss is exactly 0."""
+    def visible_of(i, batch):
+        v = (np.arange(len(batch.idx)) % 3 != 0).astype(np.float32)
+        return np.zeros_like(v) if pattern == "none_visible" and i == 2 else v
+    _three_steps_match_jax(synth, tmp_path, visible_of)
 
 
 def _read_pred(path):
@@ -397,6 +429,8 @@ def test_training_path_imports_no_jax():
     code = ("import sys\n"
             "import advmil_tpu_torch.main, advmil_tpu_torch.train.handler\n"
             "import advmil_tpu_torch.train.steps, advmil_tpu_torch.train.optim\n"
+            "import advmil_tpu_torch.train.baseline, advmil_tpu_torch.losses\n"
+            "import advmil_tpu_torch.utils.func, advmil_tpu_torch.data.bags\n"
             "import advmil_tpu_torch.ops.philox\n"
             "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in\n"
             "      ('jax', 'jaxlib', 'flax', 'optax', 'advmil_tpu')))\n")
@@ -408,7 +442,7 @@ def test_training_path_imports_no_jax():
 
 
 @pytest.mark.parametrize("key,value,item", [("accum_steps", 2, "A6"),
-                                            ("train_sampling", 0.5, "A8"),
+                                            ("dist_num_processes", 2, "A14"),
                                             ("opt_netG", "sgd", "A12")])
 def test_unported_training_options_name_the_roadmap(synth, tmp_path, key, value, item):
     cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **{key: value}))
