@@ -13,6 +13,8 @@ with these rules:
   same packing as torch's `in_proj_weight`), so it needs no reordering;
 - the generator's head subtree is `head` in flax and `head_mlp` in torch
   (`head` is the Generator's method there);
+- DeepAttnMISL's `phis`, `attn_fc` and `gate/attention_{a,b,c}` are
+  Dense layers under the same names on both sides;
 - GENConv's temperature `t [1]` keeps its name. PatchGCN's per-graph
   layers run under `nn.vmap` with shared parameters in flax, so their trees
   (`layer0_conv/{t, mlp0, mlp_norm, mlp1}`, `layer{i}/conv/...`,

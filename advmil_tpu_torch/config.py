@@ -8,9 +8,10 @@ them (so `1e-5` without a dot stays a string, `yes`/`on` are booleans).
 The port runs the adversarial handler (`--handler adv`: cont_gansurv and
 disc_gansurv, supervised and semi-supervised) and the baseline handler
 (`--handler base`), each in training (`exec`, `test: False`) and test mode
-(`test: True`). Keys that select a mode the port does not have yet are
-rejected by `check_configs` with an error naming the ROADMAP item that
-brings it.
+(`test: True`), on the four backbones, with every optimizer of the JAX
+factory (AdaHessian under `--handler base`) and gradient accumulation. Keys
+that select a mode the port does not have yet are rejected by
+`check_configs` with an error naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ PORT_DEFAULTS = {
     "num_workers": 0,              # > 1: thread-pool batch assembly
     "save_prediction": True,
     "gen_updates": 1,
+    "accum_steps": 1,              # > 1: optax.MultiSteps' accumulation
+    "accum_drop_remainder": False,  # drop a partial accumulator at epoch end
     "loss_regl1_coef": 0.0,
     "train_sampling": None,        # count or fraction of the training patients
     "test": False,
@@ -196,18 +199,19 @@ BASE_TASKS = ("surv_cox", "surv_nll", "surv_reg")
 def _not_ported(cfg: dict, handler: str) -> list:
     """(key, value, ROADMAP item) for every requested mode the port lacks."""
     checks = [
-        ("bcb_mode", lambda v: v == "cluster", "A12"),
         ("graph_grid_resident", bool, "A13"),
         ("log_plot", bool, "A9"),
-        ("accum_steps", lambda v: int(v or 1) > 1, "A6"),
         ("dp_devices", lambda v: int(v or 1) > 1, "A14"),
         ("inst_devices", lambda v: int(v or 1) > 1, "A14"),
         ("dist_num_processes", lambda v: int(v or 1) > 1, "A14"),
     ]
-    if handler == "adv":
-        checks += [("opt_netG", lambda v: str(v).lower() != "adam", "A12")]
-    else:
-        checks += [("opt_net", lambda v: str(v).lower() != "adam", "A12")]
+    if (handler == "base" and cfg.get("device") == "cuda"
+            and cfg.get("bcb_mode") in ("patch", "graph")):
+        # AdaHessian's double backward goes through the backbone's kernels,
+        # whose backwards refuse create_graph (`ops/_build.py::first_order`)
+        checks += [("opt_net", lambda v: str(v).lower() == "adahessian",
+                    f"A19: AdaHessian through the {cfg['bcb_mode']} backbone's kernels "
+                    "on the card; device: cpu runs it")]
     return [(k, cfg[k], item) for k, bad, item in checks
             if k in cfg and bad(cfg[k])]
 

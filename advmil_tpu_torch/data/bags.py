@@ -1,5 +1,5 @@
-"""Patient-level WSI bag dataset and bucketed padded batching, patch, abmil
-and graph mode (counterpart of `advmil_tpu/data/bags.py`).
+"""Patient-level WSI bag dataset and bucketed padded batching, patch, abmil,
+cluster and graph mode (counterpart of `advmil_tpu/data/bags.py`).
 
 Bags are grouped into length buckets (multiples of 16, so padding forms whole
 4x4 regions), padded to the bucket length and stacked into [B, N, C] batches
@@ -9,6 +9,10 @@ the same contents, as the JAX package's batcher under the same seed,
 including the test-mode occlusion masks drawn per `__getitem__` from the one
 `np.random.Generator` the handler passes in, and the shuffled training
 order drawn from that generator in the same order as the JAX package.
+
+Cluster mode (DeepAttnMISL) adds each patient's patch cluster ids, read
+from `<path_cluster>/<pid>.npy` (one id per patch, in the order of the
+concatenated features), shipped as `cluster_id` [B, N] int32, -1 on padding.
 
 Graph mode (PatchGCN) adds each bag's kNN graph, read from per-slide
 `<sid>.npz` files ([2, E] (dst, src) rows). The batcher pre-scans every
@@ -57,18 +61,18 @@ def default_buckets(max_n: int, min_bucket: int = 256,
 class BagDataset:
     """Patient-level bags with labels: per patient the concatenated patch
     features of all their slides and the label (t, e), or (bin, censorship)
-    under `time_format: quantile`, plus in graph mode their kNN graph
-    (`edge_index` [2, E], dst-sorted) and in patch mode, with `coord_path`,
-    their region coordinates."""
+    under `time_format: quantile`, plus in cluster mode their patches'
+    cluster ids, in graph mode their kNN graph (`edge_index` [2, E],
+    dst-sorted) and in patch mode, with `coord_path`, their region
+    coordinates."""
 
     def __init__(self, patient_ids: list, patch_path: str, label_path: str,
                  mode: str = "patch", read_format: str = "pt",
                  time_format: str = "ratio", time_bins: int = 4, ratio_sampling=None,
                  ratio_mask=None, graph_path=None, coord_path=None, edge_agg: str = "spatial",
-                 rng: np.random.Generator | None = None, cache: bool = True):
-        if mode not in ("patch", "abmil", "graph"):
-            raise NotImplementedError(f"bag mode {mode!r} is not ported yet "
-                                      "(ROADMAP A12)")
+                 rng: np.random.Generator | None = None, cache: bool = True,
+                 cluster_path=None):
+        assert mode in ("patch", "cluster", "graph", "abmil")
         assert edge_agg in ("spatial", "latent")
         self.mode = mode
         if ratio_sampling is not None:
@@ -79,6 +83,7 @@ class BagDataset:
             print(f"[dataset] Sampled {len(patient_ids)} patients, left {len(left)}")
         self.graph_path = graph_path
         self.coord_path = coord_path
+        self.cluster_path = cluster_path
         self.edge_agg = edge_agg
         if ratio_mask is not None and ratio_mask > 1e-5:
             assert ratio_mask <= 1
@@ -124,7 +129,11 @@ class BagDataset:
                                 for sid in self.pid2sid[pid]], axis=0)
         item = {"index": index, "pid": pid, "feats": feats.astype(np.float32),
                 "label": np.asarray(self.pid2label[pid], np.float32)}
-        if self.mode == "graph":
+        if self.mode == "cluster":
+            cids = np.load(osp.join(self.cluster_path, f"{pid}.npy"))
+            assert cids.shape[0] == feats.shape[0]
+            item["cluster_id"] = cids.astype(np.int32)
+        elif self.mode == "graph":
             item["edge_index"] = self._load_edges(pid)
         elif self.mode == "patch" and self.coord_path:
             item["coords"] = np.concatenate(
@@ -190,7 +199,7 @@ def prepare_dataset(patient_ids: list, cfg: dict, **kws) -> BagDataset:
         read_format=cfg["feat_format"], time_format=cfg["time_format"],
         time_bins=cfg.get("time_bins", 4), ratio_sampling=kws.get("ratio_sampling"),
         ratio_mask=ratio_mask,
-        graph_path=cfg.get("path_graph"),
+        graph_path=cfg.get("path_graph"), cluster_path=cfg.get("path_cluster"),
         coord_path=cfg.get("path_coordx5") if cfg.get("use_coords_pe", False) else None,
         edge_agg=cfg.get("graph_edge_agg", "spatial"), rng=kws.get("rng"),
         cache=cfg.get("cache_bags", True))
@@ -204,7 +213,7 @@ class Batch:
     mask: np.ndarray         # [B, N] 1 = real patch
     label: np.ndarray        # [B, 2] (t, e)
     sample_mask: np.ndarray  # [B] 1 = real bag (0 = duplicated tail filler)
-    extra: dict = field(default_factory=dict)   # graph tables or region coords, [B, ...]
+    extra: dict = field(default_factory=dict)   # graph tables, region coords or cluster ids
 
 
 class BucketBatcher:
@@ -427,7 +436,12 @@ class BucketBatcher:
         sample_mask = np.zeros((bb,), np.float32)
         sample_mask[:n_real] = 1.0
         extra = {}
-        if self.ds.mode == "graph":
+        if self.ds.mode == "cluster":
+            cid = np.full((bb, bucket_n), -1, np.int32)
+            for j, it in enumerate(items):
+                cid[j, :it["feats"].shape[0]] = it["cluster_id"]
+            extra["cluster_id"] = cid
+        elif self.ds.mode == "graph":
             per = [self._graph_tables(it, bucket_n) for it in items]
             for k in (BAND_KEYS if self.band_on else DENSE_KEYS):
                 extra[k] = np.stack([t[k] for t in per])

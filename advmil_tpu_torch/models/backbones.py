@@ -1,16 +1,18 @@
-"""MIL encoder backbones: ABMIL (`bcb_mode: abmil`), ESAT (`DualTransHS`,
-bcb_mode `patch`) and PatchGCN (`bcb_mode: graph`); the cluster mode
-(DeepAttnMISL) comes with a later slice (ROADMAP A12).
+"""MIL encoder backbones: ABMIL (`bcb_mode: abmil`), DeepAttnMISL
+(`bcb_mode: cluster`), ESAT (`DualTransHS`, bcb_mode `patch`) and PatchGCN
+(`bcb_mode: graph`).
 
 Call convention as in `advmil_tpu/models/backbones.py`: backbone(x, mask,
 extra) with x [B, N, C] padded patch features and mask [B, N] (1 = real
 patch); returns the bag embedding [B, dim_out]. ABMIL ignores `extra`. In
-patch mode `extra` is None or the region coordinates [B, L, 2]
+cluster mode `extra` is the patches' cluster ids [B, N] (int, -1 on
+padding). In patch mode `extra` is None or the region coordinates [B, L, 2]
 (`use_coords_pe`). In graph mode it is the batch's dict of graph tables
 (data/bags.py): the band tables of the banded route or `edge_src` /
 `edge_mask` of the dense route. `dense_init` selects the init of every
-Dense except the patch embedding's (torch init) and the packed attention
-in-projection (xavier), as in the JAX factory.
+Dense except the patch embedding's (torch init), the packed attention
+in-projection (xavier) and DeepAttnMISL's `phis` (see there), as in the
+JAX factory.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from ..ops.banded import banded_aggregate
 from ..ops.masked import masked_softmax, region_mask_from_patch_mask
 from ..ops.segment import fused_knn_softmax_aggregate, knn_edge_softmax_aggregate
 from ..ops.pe import compute_pe
-from .layers import (XAVIER, Dense, Dropout, GAPool, GatedAttention, LayerNorm, Rngs,
-                     TransformerEncoderLayer, make_embedding_layer)
+from .layers import (TORCH, XAVIER, Dense, Dropout, GAPool, GatedAttention, LayerNorm,
+                     Rngs, TransformerEncoderLayer, make_embedding_layer)
 
 
 class ABMIL(nn.Module):
@@ -48,6 +50,45 @@ class ABMIL(nn.Module):
         attn = masked_softmax(scores[..., 0], mask, dim=-1)       # [B, N]
         pooled = torch.einsum("bn,bnd->bd", attn, h.to(attn.dtype))
         return self.drop(torch.relu(self.rho(pooled)), rng)
+
+
+class DeepAttnMISL(nn.Module):
+    """Cluster MIL: `phis` (Dense + ReLU) per patch, the masked mean of each
+    of the `num_clusters` clusters (an empty cluster gives 0 and still takes
+    part in the softmax), `attn_fc` (Dense + ReLU + Dropout) per cluster,
+    gated attention scores (`gate`), a softmax over the clusters and the
+    attention-weighted sum.
+
+    Init rule of the JAX package: the reference's `phis` is a Conv2d, which
+    its xavier re-init (Linear only) leaves at torch's default, so under
+    XAVIER `phis` draws torch's default init; under PT041 (which re-inits
+    Conv2d too) it follows PT041."""
+
+    def __init__(self, dims: Sequence[int], num_clusters: int = 8, dropout: float = 0.25,
+                 dense_init: str = XAVIER, dtype=torch.float32):
+        super().__init__()
+        dim_in, dim_hid, dim_out = dims
+        assert dim_hid == dim_out
+        self.num_clusters = num_clusters
+        self.phis = Dense(dim_in, dim_hid, TORCH if dense_init == XAVIER else dense_init,
+                          dtype)
+        self.attn_fc = Dense(dim_hid, dim_hid, dense_init, dtype)
+        self.gate = GatedAttention(dim_hid, dim_hid, dropout=dropout,
+                                   dense_init=dense_init, dtype=dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, mask, extra, rng: Rngs | None = None):
+        phi = torch.relu(self.phis(x))                                  # [B, N, hid]
+        cid = torch.where(mask.bool(), extra.long(), torch.full_like(extra.long(), -1))
+        # one-hot of -1 is all zeros: padding joins no cluster
+        onehot = (cid[..., None] == torch.arange(self.num_clusters, device=x.device)
+                  ).to(phi.dtype)                                       # [B, N, K]
+        totals = torch.einsum("bnk,bnd->bkd", onehot, phi)
+        counts = onehot.sum(dim=1)                                      # [B, K]
+        h_cluster = totals / torch.clamp(counts, min=1.0)[..., None]
+        h = self.drop(torch.relu(self.attn_fc(h_cluster)), rng)
+        attn = torch.softmax(self.gate(h, rng)[..., 0], dim=-1)        # [B, K]
+        return torch.einsum("bk,bkd->bd", attn, h)
 
 
 class DualTransHS(nn.Module):
@@ -206,5 +247,6 @@ def load_backbone(mode: str, dims: Sequence[int], dense_init: str = XAVIER,
     if mode == "abmil":
         return ABMIL(dims, dropout=0.25, dense_init=dense_init, dtype=dtype)
     if mode == "cluster":
-        raise NotImplementedError("backbone mode 'cluster' is not ported yet (ROADMAP A12)")
+        return DeepAttnMISL(dims, num_clusters=8, dropout=0.25, dense_init=dense_init,
+                            dtype=dtype)
     raise ValueError(f"unknown backbone mode {mode!r} (patch / graph / abmil / cluster)")

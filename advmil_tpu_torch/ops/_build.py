@@ -15,6 +15,7 @@ Nothing here runs at import time; a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -147,6 +148,22 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = load().advmil_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def first_order(backward):
+    """Decorate a kernel Function's backward. The kernels have no backward
+    of their own backward, so a backward asked to build a graph (autograd
+    with create_graph=True, as the Hutchinson estimate of AdaHessian's
+    double backward needs) raises. torch's `once_differentiable` is not
+    enough: `torch.autograd.grad(..., inputs=params)` prunes its error
+    node and drops the kernel's share of the second derivative silently."""
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(f"{backward.__qualname__}: the CUDA kernels have no double "
+                               "backward (create_graph=True); ROADMAP A19")
+        return backward(ctx, *grads)
+    return wrapper
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -252,6 +252,7 @@ class MaskedFlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @_build.first_order
     def backward(ctx, dout):
         q, k, v, mask, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse, dout,

@@ -217,6 +217,7 @@ class BandedCore(torch.autograd.Function):
         return out
 
     @staticmethod
+    @_build.first_order
     def backward(ctx, g):
         y, offs, band_mask, t, *stats = ctx.saved_tensors
         dy, dt = banded_core_bwd(y, offs, band_mask, t, stats, g)

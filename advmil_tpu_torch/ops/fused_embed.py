@@ -279,6 +279,7 @@ class FusedRegionEmbedding(torch.autograd.Function):
         return fused_region_embedding_fwd(x, w, b, scale, bias)
 
     @staticmethod
+    @_build.first_order
     def backward(ctx, g):
         x, w, b, scale, bias = ctx.saved_tensors
         dh, dw, db, dscale, dbias = fused_region_embedding_bwd_dparams(g, x, w, b, scale, bias)

@@ -171,6 +171,7 @@ class LnReluRegionMean(torch.autograd.Function):
         return ln_relu_region_mean_fwd(h, scale, bias)
 
     @staticmethod
+    @_build.first_order
     def backward(ctx, g):
         h, scale, bias = ctx.saved_tensors
         dh, dscale, dbias = ln_relu_region_mean_bwd(g, h, scale, bias)
@@ -271,6 +272,7 @@ class LnRelu(torch.autograd.Function):
         return ln_relu_fwd(h, scale, bias)
 
     @staticmethod
+    @_build.first_order
     def backward(ctx, g):
         h, scale, bias = ctx.saved_tensors
         dh, dscale, dbias = ln_relu_bwd(g, h, scale, bias)

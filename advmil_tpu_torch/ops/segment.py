@@ -1,5 +1,6 @@
 """Softmax aggregation over a node's incoming kNN edges (GENConv, PatchGCN),
-on the dense route, and the host-side band tables of the banded route.
+on the dense route, the host-side band tables of the banded route, and the
+plain masked `segment_mean`.
 
 Counterpart of `advmil_tpu/ops/segment.py`. A kNN graph has a bounded
 in-degree, so the batcher lays each bag's edges out as a dense table:
@@ -30,6 +31,22 @@ LAUNCHES_BWD = 0   # backward kernel launches since the last reset
 MAX_EPN = 16       # incoming slots per node the kernels take (csrc/graph_agg.cuh)
 DT_PARTIALS = 1024  # per-block dt partials a backward kernel writes at most
 MAX_FWD_ELEMS = 2 ** 31 - 1  # the forward's 32-bit index math: rows * epn * C below this
+
+
+def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor, mask: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Masked per-segment mean of values [N, C] -> [num_segments, C]; rows
+    with mask 0 join no segment; an empty segment gives zeros. A plain
+    function (no JAX model calls it; DeepAttnMISL pools its clusters with a
+    one-hot product)."""
+    seg = torch.where(mask.bool(), seg_ids.long(),
+                      torch.full_like(seg_ids.long(), num_segments))
+    w = mask.to(values.dtype)
+    total = torch.zeros((num_segments + 1, values.shape[-1]), dtype=values.dtype,
+                        device=values.device).index_add_(0, seg, values * w[:, None])
+    count = torch.zeros(num_segments + 1, dtype=values.dtype,
+                        device=values.device).index_add_(0, seg, w)
+    return (total / torch.clamp(count, min=1.0)[:, None])[:num_segments]
 
 
 def knn_edge_softmax_aggregate(messages: torch.Tensor, edge_mask: torch.Tensor,
@@ -147,6 +164,7 @@ class FusedKnnSoftmaxAggregate(torch.autograd.Function):
         return fused_agg_fwd(messages, edge_mask, t)
 
     @staticmethod
+    @_build.first_order
     def backward(ctx, g):
         messages, edge_mask, t = ctx.saved_tensors
         dmsg, dt = fused_agg_bwd(messages, edge_mask, t, g)

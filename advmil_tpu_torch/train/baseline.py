@@ -34,7 +34,7 @@ from ..utils.func import seed_everything, sparse_str
 from ..utils.io import read_datasplit_npz
 from . import checkpoint as ckpt_lib
 from .common import HandlerCommon, resolve_device
-from .optim import adam_with_l2
+from .optim import AdaHessian, MultiSteps, create_optimizer
 from .steps import make_base_train_step, make_eval_step, make_supervised_loss
 
 # task -> (out_scale, time_format), the JAX handler's inference
@@ -84,9 +84,21 @@ class BaselineHandler(HandlerCommon):
             "surv_mse" if (self.task, self.bcb) == ("surv_reg", "patch") else self.task,
             cfg)
         self.base_lr = cfg["opt_net_lr"]
-        self.opt = adam_with_l2(self.model.parameters(), self.base_lr,
-                                weight_decay=cfg["opt_net_weight_decay"])
-        self.plateau_opt = self.opt
+        accum = int(cfg.get("accum_steps", 1) or 1)
+        if str(cfg["opt_net"]).lower() == "adahessian":
+            assert accum == 1, "accum_steps is not supported with adahessian"
+            self.opt = AdaHessian(self.model.parameters(), self.base_lr,
+                                  weight_decay=cfg["opt_net_weight_decay"] or 0.0)
+            # its LR is fixed, as in JAX: the plateau rule only warns
+            self.plateau_opt = None
+        else:
+            self.opt = create_optimizer(cfg["opt_net"], self.model.parameters(),
+                                        self.base_lr,
+                                        weight_decay=cfg["opt_net_weight_decay"])
+            if accum > 1:
+                self.opt = MultiSteps(self.opt, accum)
+            self.plateau_opt = self.opt
+        self.accum_reset = [self.opt] if accum > 1 and cfg.get("accum_drop_remainder") else []
         self.batch_log_prefix = "train_batch/net/"
         # dropout masks on the device; flash Philox seeds from a CPU generator
         self.train_rngs = Rngs(

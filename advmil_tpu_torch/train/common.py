@@ -16,7 +16,7 @@ from ..utils.func import (EarlyStopping, add_prefix_to_filename, print_config,
                           print_metrics, rename_keys)
 from ..utils.io import save_prediction
 from ..utils.logging import RunLogger
-from .optim import ReduceLROnPlateau, set_lr
+from .optim import ReduceLROnPlateau, reset_multisteps_accum, set_lr
 
 
 def graph_banded(cfg: dict) -> str:
@@ -42,7 +42,9 @@ class HandlerCommon:
     """Mixin: the handler sets ``self.cfg`` and ``self.device`` first. For
     training and evaluation it provides `train_step(batch, rngs) ->
     (metrics, collect)` with `train_rngs`, `plateau_opt` and `base_lr` (the
-    optimizer whose LR the plateau rule scales), `batch_log_prefix`,
+    optimizer whose LR the plateau rule scales; None: a fixed LR),
+    `accum_reset` (the accumulating optimizers whose partial accumulator
+    is dropped at epoch end), `batch_log_prefix`,
     `_eval_step(n_samples, zero_noise)`, `load_params`, `save_model`, and
     `evaluator` / `metrics_list` / `ret_metrics`."""
 
@@ -94,7 +96,7 @@ class HandlerCommon:
         semi-supervised training). `extra` is what the backbone takes as its
         third argument: the dict of graph tables (int32 / f32 tensors) in
         graph mode, the region coordinates [B, L, 2] in patch mode with
-        `use_coords_pe`."""
+        `use_coords_pe`, the cluster ids [B, N] (int32) in cluster mode."""
         feats = torch.from_numpy(batch.feats).to(self.device)
         if self.cfg["precision"] in ("bf16", "bfloat16"):
             feats = feats.to(torch.bfloat16)
@@ -102,6 +104,8 @@ class HandlerCommon:
                "mask": torch.from_numpy(batch.mask).to(self.device)}
         if "coords" in batch.extra:
             out["extra"] = torch.from_numpy(batch.extra["coords"]).to(self.device)
+        elif "cluster_id" in batch.extra:     # int32 [B, N], -1 on padding
+            out["extra"] = torch.from_numpy(batch.extra["cluster_id"]).to(self.device)
         elif batch.extra:
             out["extra"] = {k: torch.from_numpy(v).to(self.device)
                             for k, v in batch.extra.items()}
@@ -170,7 +174,13 @@ class HandlerCommon:
                                    if mm == "ci_max" else met_loss)
 
             if val_metrics is not None and self.early_stop is not None:
-                set_lr(self.plateau_opt, self.base_lr * self.steplr.step(val_metrics))
+                scale = self.steplr.step(val_metrics)
+                if self.plateau_opt is not None:
+                    set_lr(self.plateau_opt, self.base_lr * scale)
+                elif not getattr(self, "_warned_fixed_lr", False):
+                    self._warned_fixed_lr = True
+                    print("[lr] WARNING: the optimizer's learning rate is fixed "
+                          "(adahessian, as in JAX); ReduceLROnPlateau has no effect")
                 self.early_stop(epoch, val_metrics)
                 if self.early_stop.if_save_checkpoint():
                     self.save_model(epoch + 1, "best", run_name)
@@ -213,6 +223,8 @@ class HandlerCommon:
                                    time.perf_counter() - t0))
         if visible_set is not None:
             self.train_visible.append(n_visible)
+        for opt in self.accum_reset:
+            reset_multisteps_accum(opt)
         for i in range(len(pending)):
             self.logger.log({f"{self.batch_log_prefix}{k}": logged[k][i] for k in names})
         return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}

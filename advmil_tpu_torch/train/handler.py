@@ -38,7 +38,7 @@ from ..utils.func import (get_kfold_pids, sampling_data, seed_everything, sparse
 from ..utils.io import read_datasplit_npz, read_maxt_from_table
 from . import checkpoint as ckpt_lib
 from .common import HandlerCommon, resolve_device
-from .optim import adam_with_l2
+from .optim import MultiSteps, create_optimizer
 from .steps import make_adv_train_step, make_eval_step, make_supervised_loss
 
 
@@ -131,13 +131,22 @@ class AdvHandler(HandlerCommon):
     def _setup_training(self):
         """Optimizers, train-mode generators and the adversarial step."""
         cfg = self.cfg
-        # reference model/model_handler.py:100-109: Adam with coupled L2 on
-        # G's matrices, plain Adam on D; the plateau LR scales G's only
+        # reference model/model_handler.py:100-109: G's optimizer by name
+        # (coupled L2 on its matrices), plain Adam on D; the plateau LR scales
+        # G's only. With accum_steps > 1 both accumulate (optax.MultiSteps):
+        # D steps once a batch, G once per gen_update, each call a mini-step.
         self.base_lr = cfg["opt_netG_lr"]
-        self.opt_G = adam_with_l2(self.gen_model.parameters(), self.base_lr,
-                                  weight_decay=cfg["opt_netG_weight_decay"])
+        self.opt_G = create_optimizer(cfg["opt_netG"], self.gen_model.parameters(),
+                                      self.base_lr,
+                                      weight_decay=cfg["opt_netG_weight_decay"])
+        self.opt_D = create_optimizer("adam", self.disc_model.parameters(),
+                                      cfg["opt_netD_lr"])
+        accum = int(cfg.get("accum_steps", 1) or 1)
+        if accum > 1:
+            self.opt_G, self.opt_D = MultiSteps(self.opt_G, accum), MultiSteps(self.opt_D, accum)
+        self.accum_reset = ([self.opt_G, self.opt_D]
+                            if accum > 1 and cfg.get("accum_drop_remainder") else [])
         self.plateau_opt = self.opt_G
-        self.opt_D = adam_with_l2(self.disc_model.parameters(), cfg["opt_netD_lr"])
         # dropout masks and noise on the device; the flash kernels' Philox
         # seeds from a CPU generator, so drawing one never waits for the card
         self.train_rngs = Rngs(

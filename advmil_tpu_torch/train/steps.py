@@ -10,6 +10,7 @@ import torch
 
 from .. import losses
 from ..models.layers import Rngs
+from .optim import AdaHessian, hutchinson_diag, rademacher_like
 
 
 def _median_lower(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -181,14 +182,21 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
     return step
 
 
-def make_base_train_step(model, opt, *, task: str, l1_coef: float, sup_loss_fn):
+def make_base_train_step(model, opt, *, task: str, l1_coef: float, sup_loss_fn,
+                         z_fn=rademacher_like):
     """The baseline step of one batch: one supervised update of `model` (in
     train mode, dropout from `rngs`). The loss takes the whole prediction
     [B, T] for surv_nll and its first column otherwise, weighted by
     sample_mask; the total adds l1_coef * sum |w|. Returns (metrics,
     collect) as device tensors; collect holds the train-mode predictions,
-    which the reference logs as the training-set predictions."""
+    which the reference logs as the training-set predictions.
+
+    An `AdaHessian` `opt` gets the Hutchinson estimate of the Hessian
+    diagonal in `opt.step`, z * (H z), from a double backward through the
+    same forward (same dropout masks); `z_fn(params, generator)` draws the
+    Rademacher z (default: `rngs.device`)."""
     is_disc_task = task == "surv_nll"
+    second_order = isinstance(opt, AdaHessian)
 
     def step(batch: dict, rngs: Rngs):
         t, e = batch["label"][:, 0], batch["label"][:, 1]
@@ -198,8 +206,15 @@ def make_base_train_step(model, opt, *, task: str, l1_coef: float, sup_loss_fn):
                            weight=batch["sample_mask"])
         total = loss + losses.loss_reg_l1(model.parameters(), l1_coef)
         opt.zero_grad(set_to_none=True)
-        total.backward()
-        opt.step()
+        if second_order:
+            params = [p for p in model.parameters() if p.requires_grad]
+            grads, hdiag = hutchinson_diag(total, params, z_fn(params, rngs.device))
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step(hdiag)
+        else:
+            total.backward()
+            opt.step()
         return ({"loss_supervision": loss.detach(), "loss_total": total.detach()},
                 {"y_hat": pred.detach()})
 

@@ -70,6 +70,19 @@ Phases, each printed on its own line:
      numpy, the folds, the visible labels per epoch, the checkpoints.
  24. one UD+LD step with mixed label visibility and with every label hidden,
      card against CPU, as phase 22.
+ 25. phase 4's run with `accum_steps: 4`, `accum_drop_remainder: True`: the
+     launches beside phase 4's, floor(batches / 4) inner steps an epoch for
+     G and D, the accumulator in the checkpoints.
+ 26. four f32 micro-batches of the accumulated adversarial step, card
+     against CPU: mean gradients within 1e-4, parameters after the inner step
+     within 1e-5, bit-unchanged after mini-steps 1-3.
+ 27. `bcb_mode: cluster` (G on DeepAttnMISL, 8 clusters), bf16, 2 epochs,
+     then its test mode: #1 at D = 128 and #2 launch, flash does not.
+ 28. `--handler base`, cluster, surv_nll, f32, 1 epoch: with `opt_net:
+     adahessian`, and with one bag a micro-batch and a step every 16 bags.
+ 29. every optimizer of the factory (and lookahead_adam, AdaHessian with the
+     same z), three f32 ABMIL steps, card against CPU within 1e-5.
+ 30. one adversarial ESAT epoch with `opt_netG: lookahead_radam`.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -1733,11 +1746,12 @@ def read_widths() -> dict:
     return {"fwd": dict(ln_pool.LAUNCHES_BY_D), "bwd": dict(ln_pool.LAUNCHES_BWD_BY_D)}
 
 
-def _adv_run(cfg, name, need):
+def _adv_run(cfg, name, need, dims=(384, 128)):
     """One `--handler adv` run through `advmil_tpu_torch.main`, the launch
     counters reset just before and read just after; fails unless every kernel
-    in `need` launched, and #1 / #2 at both G's width (384) and D's X tower's
-    (128). Returns (handler, metrics, launches, widths, printed lines)."""
+    in `need` launched, and #1 (and #2, where it is needed) at each width of
+    `dims`: G's (384) and D's X tower's (128). Returns (handler, metrics,
+    launches, widths, printed lines)."""
     import contextlib
     import io
     from advmil_tpu_torch import main as port_main
@@ -1754,10 +1768,10 @@ def _adv_run(cfg, name, need):
     for k in need:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the path {name}")
-    for way in ("fwd", "bwd"):
-        if not all(widths[way].get(d, 0) > 0 for d in (384, 128)):
+    for way, kernel in (("fwd", "ln_relu_region_mean"), ("bwd", "ln_relu_region_mean_bwd")):
+        if kernel in need and not all(widths[way].get(d, 0) > 0 for d in dims):
             raise AssertionError(f"{name}: LN-pool {way} launches by width {widths[way]}, "
-                                 "not both 384 (G) and 128 (D's X tower)")
+                                 f"not at each of {dims}")
     return handler, metrics, launches, widths, buf.getvalue().splitlines()
 
 
@@ -1967,6 +1981,430 @@ def phase_ssl_gpu_vs_cpu_train(handler):
         raise AssertionError(f"hidden labels: supervised loss {lc['Loss_G_time']!r}, not 0")
 
 
+# ---------------------------------------------------------------------------
+# phases 25-30: gradient accumulation, the cluster backbone, the optimizers
+# ---------------------------------------------------------------------------
+
+LN_KERNELS = ("ln_relu_region_mean", "ln_relu_region_mean_bwd")
+
+
+def _scalars_finite(handler, prefix="train_batch/"):
+    """The finite training losses a run logged (raises on none or a non-finite one)."""
+    import json as _json
+    import numpy as np
+    losses = []
+    with open(osp.join(handler.save_dir, f"{osp.basename(handler.save_dir)}_scalars.jsonl")) as f:
+        for line in f:
+            losses += [v for k, v in _json.loads(line).items()
+                       if k.startswith(prefix) and "oss" in k]
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{handler.save_dir}: non-finite training losses "
+                             f"({len(losses)} logged)")
+    return len(losses)
+
+
+def phase_accum_train(paths, card, train_launches, train_widths):
+    """Phase 25: phase 4's run with `accum_steps: 4` and
+    `accum_drop_remainder: True` (bf16, 2 epochs, same data and seed): the
+    kernels launch as in phase 4; G and D take floor(batches / 4) inner steps
+    an epoch; the checkpoints carry the accumulator."""
+    import torch
+    from advmil_tpu_torch.train.optim import MultiSteps
+    k = 4
+    cfg = _smoke_cfg(paths, "accum_run", test=False, epochs=2, es_warmup=0, accum_steps=k,
+                     accum_drop_remainder=True)
+    handler, metrics, launches, widths, _ = _adv_run(cfg, "accum_run",
+                                                     LN_KERNELS + FLASH_KERNELS)
+    _check_run(handler, metrics, ("train", "validation", "test"), "train_best_pred_{}.csv")
+    n_losses = _scalars_finite(handler)
+    n_batches = len(list(handler.loaders["train"][1].epoch_batches()))
+    per_epoch = n_batches // k
+    for net, opt in (("G", handler.opt_G), ("D", handler.opt_D)):
+        if not (isinstance(opt, MultiSteps) and opt.k == k and opt.mini_step == 0
+                and opt.gradient_step == 2 * per_epoch):
+            raise AssertionError(f"{net}: {getattr(opt, 'gradient_step', None)} inner steps in "
+                                 f"2 epochs of {n_batches} batches, not 2 x {per_epoch}")
+        state = torch.load(osp.join(handler.save_dir, f"train_model{net}-last.ckpt"),
+                           weights_only=True)["opt_state"]
+        if not {"inner", "mini_step", "gradient_step", "acc"} <= set(state):
+            raise AssertionError(f"{net}'s checkpoint lacks the accumulator state")
+    keys = LN_KERNELS + FLASH_KERNELS
+    same = all(launches[n] == train_launches[n] for n in keys) and widths == train_widths
+    log(f"[25 accum train] accum_steps {k}, drop remainder: {n_batches} batches an epoch, "
+        f"inner steps an epoch G {per_epoch} D {per_epoch} (totals {handler.opt_G.gradient_step}"
+        f" / {handler.opt_D.gradient_step}); {n_losses} finite losses | launches "
+        f"{ {n: launches[n] for n in keys} } beside phase 4's "
+        f"{ {n: train_launches[n] for n in keys} }; by width {widths} beside {train_widths}: "
+        f"{'equal' if same else 'NOT equal'}")
+    _log_adv_run("25 accum train", handler, metrics, launches, widths,
+                 ("train", "validation", "test"), card)
+    return handler, launches
+
+
+def _bag_slice(b, start, n):
+    from advmil_tpu_torch.data.bags import Batch
+    sl = slice(start, start + n)
+    return Batch(idx=b.idx[sl], feats=b.feats[sl], mask=b.mask[sl], label=b.label[sl],
+                 sample_mask=b.sample_mask[sl], extra={k: v[sl] for k, v in b.extra.items()})
+
+
+def _accum_run(handler, micro, dev):
+    """The accumulated adversarial step (MultiSteps of len(micro) around the
+    handler's optimizers) over `micro` in f32 on `dev`, dropout off, zero
+    noise, from `handler`'s weights: (the mean gradients the inner step
+    took, the parameters after it, whether mini-steps 1 .. k-1 left every
+    parameter bit-unchanged, the inner step counts)."""
+    import torch
+    from advmil_tpu_torch.models.layers import Rngs, set_dropout_rates
+    from advmil_tpu_torch.train.handler import build_models
+    from advmil_tpu_torch.train.optim import MultiSteps, create_optimizer
+    from advmil_tpu_torch.train.steps import make_adv_train_step
+    cfg = dict(handler.cfg, precision="f32")
+    G, D = build_models(cfg)
+    G.load_state_dict(handler.gen_model.state_dict())
+    D.load_state_dict(handler.disc_model.state_dict())
+    set_dropout_rates(G.to(dev), 0.0)
+    set_dropout_rates(D.to(dev), 0.0)
+    k = len(micro)
+    opt_G = MultiSteps(create_optimizer(cfg["opt_netG"], G.parameters(), cfg["opt_netG_lr"],
+                                        weight_decay=cfg["opt_netG_weight_decay"]), k)
+    opt_D = MultiSteps(create_optimizer("adam", D.parameters(), cfg["opt_netD_lr"]), k)
+    step = make_adv_train_step(
+        _ZeroNoise(G), D, opt_G, opt_D, loss_netD=cfg["loss_netD"],
+        coef_gan=cfg["loss_gan_coef"], l1_coef=cfg["loss_regl1_coef"], gen_updates=1,
+        sup_loss_fn=handler.sup_loss_fn, task=handler.task, nbins=handler.nbins)
+    rngs = Rngs(device=torch.Generator(device=dev).manual_seed(0),
+                host=torch.Generator().manual_seed(1))
+    named = [(f"{t}.{n}", p) for t, m in (("G", G), ("D", D)) for n, p in m.named_parameters()]
+    start = {n: p.detach().clone() for n, p in named}
+    unchanged = True
+    for i, batch in enumerate(micro):
+        shipped = {key: torch.from_numpy(v).to(dev) for key, v in (
+            ("feats", batch.feats), ("mask", batch.mask), ("label", batch.label),
+            ("sample_mask", batch.sample_mask), ("visible", batch.sample_mask))}
+        step(shipped, rngs)
+        if i < k - 1:
+            unchanged &= all(torch.equal(p, start[n]) for n, p in named)
+    means = {n: p.grad.detach().cpu() for n, p in named if p.grad is not None}
+    after = {n: p.detach().cpu() for n, p in named}
+    return means, after, unchanged, (opt_G.gradient_step, opt_D.gradient_step)
+
+
+def _check_stepped_grads(tag, g_card, g_cpu):
+    """The gradients the optimizer stepped on (per step, name -> tensor),
+    card against CPU, within phase 7's 1e-4 at every step; returns the
+    largest difference."""
+    worst = 0.0
+    for i, (gc, gh) in enumerate(zip(g_card, g_cpu)):
+        if set(gc) != set(gh):
+            raise AssertionError(f"{tag}: step {i + 1}'s gradients missing on one side")
+        d = max(max_abs(gc[n], gh[n]) for n in gh)
+        if not d <= 1e-4:
+            raise AssertionError(f"{tag}: step {i + 1}'s gradients differ by {d} card vs CPU "
+                                 f"(bound 1e-4)")
+        worst = max(worst, d)
+    return worst
+
+
+def _check_params(tag, got, want, start, g_card, g_cpu, lr_of, steps):
+    """Parameters after `steps` optimizer steps, card (`got`) against CPU
+    (`want`), both from `start`: every element within 1e-5, except where no
+    two f32 orders can agree on an Adam-like step: at t = 1 such a step is
+    lr * g / (|g| + eps), lr times the sign of g, so an element whose CPU
+    gradient lies within 10x the devices' gradient difference of 0 at some
+    step (`g_card` / `g_cpu`: per step, name -> the gradient the optimizer
+    stepped on, its coupled L2 included) may differ by up to 2 * lr a step.
+    That set is bounded twice: the stepped gradients themselves agree
+    within 1e-4 at every step (`_check_stepped_grads`), and it may hold at
+    most 0.1% of the elements. Returns (the worst difference among the
+    other elements, its tensor, the count of such elements, the count of
+    all, the largest move, the largest stepped-gradient difference)."""
+    import torch
+    g_diff = _check_stepped_grads(tag, g_card, g_cpu)
+    worst, worst_n, n_open, n_all, moved = 0.0, None, 0, 0, 0.0
+    for n in want:
+        d = (got[n] - want[n]).abs()
+        undetermined = torch.zeros_like(d, dtype=torch.bool)
+        for gc, gh in zip(g_card, g_cpu):
+            undetermined |= gh[n].abs() < 10 * (gc[n] - gh[n]).abs()
+        allowed = torch.where(undetermined, 1e-5 + 2 * lr_of(n) * steps,
+                              torch.full_like(d, 1e-5))
+        if not bool((d <= allowed).all()):
+            raise AssertionError(f"{tag}: parameter {n} differs by {float(d.max())} card vs "
+                                 f"CPU")
+        n_open += int(undetermined.sum())
+        n_all += d.numel()
+        rest = d[~undetermined]
+        if rest.numel() and float(rest.max()) >= worst:
+            worst, worst_n = float(rest.max()), n
+        moved = max(moved, float((want[n] - start[n]).abs().max()))
+    if n_open > 1e-3 * n_all:
+        raise AssertionError(f"{tag}: {n_open} of {n_all} elements undetermined, over the "
+                             f"cap of 0.1%")
+    return worst, worst_n, n_open, n_all, moved, g_diff
+
+
+def _rank_of_difference(diff, feats):
+    """How a weight gradient's card-vs-CPU difference (`diff`, [out, in]) is
+    made: the share of its squared norm in its largest singular value and in
+    its four largest, and, where `in` is the feature width, the largest
+    |cos| between its top right singular vector and any input row of
+    `feats` (a difference made by a few rows whose ReLU fell on opposite
+    sides on the two devices is a sum of outer(delta, x_row): low rank,
+    aligned with those rows; rounding spread over the whole product is
+    not)."""
+    import torch
+    _, sv, vh = torch.linalg.svd(diff.double(), full_matrices=False)
+    energy = sv * sv
+    share1 = float(energy[0] / energy.sum())
+    share4 = float(energy[:4].sum() / energy.sum())
+    cos = None
+    if diff.shape[1] == feats.shape[1]:
+        x = feats.double()
+        cos = float(((x @ vh[0]).abs() / x.norm(dim=1).clamp_min(1e-30)).max())
+    return share1, share4, cos
+
+
+def phase_accum_gpu_vs_cpu(handler):
+    """Phase 26: four f32 micro-batches (two bags each) of the accumulated
+    adversarial step, card against CPU from the same weights: the mean
+    gradients within 1e-4 (phase 7's bound), the parameters after the inner
+    step within 1e-5 (where Adam's first step is determined, `_check_params`),
+    the parameters after mini-steps 1-3 bit-unchanged on both devices; and
+    how the gradient difference of the worst tensor is made
+    (`_rank_of_difference`)."""
+    import numpy as np
+    import torch
+    _, batcher = handler.loaders["train"]
+    batch = max(batcher.epoch_batches(), key=lambda b: int(b.sample_mask.sum()))
+    if batch.sample_mask.sum() < 8:
+        raise AssertionError("no training batch holds 8 real bags")
+    micro = [_bag_slice(batch, 2 * i, 2) for i in range(4)]
+    (mc, pc, uc, sc), (mh, ph, uh, sh) = (_accum_run(handler, micro, dev)
+                                          for dev in ("cuda", "cpu"))
+    if not (uc and uh):
+        raise AssertionError(f"26: mini-steps 1-3 moved parameters (card {not uc}, "
+                             f"CPU {not uh})")
+    if sc != (1, 1) or sh != (1, 1):
+        raise AssertionError(f"26: inner steps card {sc} CPU {sh}, not one each")
+    _compare_grads("26 accum gpu-vs-cpu train", "mean of 4 micro-batches, card against CPU",
+                   mc, mh, (4,) + tuple(micro[0].feats.shape))
+    worst_g = max(mh, key=lambda n: max_abs(mc[n], mh[n]))
+    if mh[worst_g].ndim == 2:
+        feats = torch.from_numpy(np.concatenate(
+            [m.feats[m.mask > 0] for m in micro])).float()
+        share1, share4, cos = _rank_of_difference(mc[worst_g] - mh[worst_g], feats)
+        log(f"[26 accum gpu-vs-cpu train] the difference of {worst_g}'s gradient: its top "
+            f"singular value holds {share1:.4f} of its squared norm, the top four {share4:.4f}"
+            + ("" if cos is None else f"; the top right singular vector's largest |cos| "
+               f"with one of the {feats.shape[0]} real input rows {cos:.4f}"))
+    cfg = handler.cfg
+    start = _handler_params(handler)
+    # what the inner Adam steps on: the mean plus G's coupled L2 on its matrices
+    wd = {n: cfg["opt_netG_weight_decay"] if n.startswith("G.") and p.ndim > 1 else 0.0
+          for n, p in start.items()}
+    g_card, g_cpu = ({n: g[n] + wd[n] * start[n] for n in mh} for g in (mc, mh))
+    worst, worst_n, n_open, n_all, moved, _ = _check_params(
+        "26 accum gpu-vs-cpu train", pc, ph, start, [g_card], [g_cpu],
+        lambda n: cfg["opt_netG_lr"] if n.startswith("G.") else cfg["opt_netD_lr"], 1)
+    log(f"[26 accum gpu-vs-cpu train] parameters after mini-steps 1-3 bit-unchanged on card "
+        f"and CPU; after the inner step max |diff| {worst:.3e} at {worst_n} (bound 1e-5) "
+        f"where Adam's first step is determined; {n_open} of {n_all} elements whose gradient "
+        f"lies within 10x its card-vs-CPU difference of 0 within 2 lr (cap 0.1%); largest "
+        f"move {moved:.3e}")
+    if not moved > 0:
+        raise AssertionError("26: the inner step moved no parameter")
+
+
+def _handler_params(handler):
+    return {f"{t}.{n}": p.detach().float().cpu() for t, m in
+            (("G", handler.gen_model), ("D", handler.disc_model))
+            for n, p in m.named_parameters()}
+
+
+def phase_cluster(paths, card):
+    """Phase 27: `--handler adv` with `bcb_mode: cluster` (G on DeepAttnMISL
+    1024-384-384 over the writer's 8 clusters; D's X tower the patch
+    embedding), bf16, 2 epochs, then test mode from its best checkpoint
+    (no occlusion: the JAX package masks patch-style bags only). #1 at
+    D=128 and #2 launch, the flash kernels and #1 at D=384 do not."""
+    from advmil_tpu_torch.models.backbones import DeepAttnMISL
+    over = dict(bcb_mode="cluster", path_cluster=paths["path_cluster"], test_mask_ratio=0.0)
+    out = {}
+    for mode in ("train", "test"):
+        cfg = _smoke_cfg(paths, "cluster_run", test=mode == "test", epochs=2, es_warmup=0,
+                         **over)
+        handler, metrics, launches, widths, _ = _adv_run(cfg, f"cluster_{mode}", LN_KERNELS[:1]
+                                                         + (LN_KERNELS[1:] if mode == "train"
+                                                            else ()), dims=(128,))
+        if not isinstance(handler.gen_model.backbone, DeepAttnMISL):
+            raise AssertionError("bcb_mode cluster did not build DeepAttnMISL")
+        if any(launches[n] for n in FLASH_KERNELS) or any(
+                384 in widths[w] for w in widths):
+            raise AssertionError(f"cluster {mode}: flash or #1 at D=384 launched: {launches}")
+        splits = ("train", "validation", "test") if mode == "train" else ("exec-test",)
+        _check_run(handler, metrics, splits, "train_best_pred_{}.csv" if mode == "train"
+                   else "test_mode_best_pred_{}.csv")
+        if mode == "train":
+            _scalars_finite(handler)
+            for f in ("train_modelG-best.ckpt", "train_modelD-last.ckpt"):
+                if not osp.exists(osp.join(handler.save_dir, f)):
+                    raise AssertionError(f"cluster training wrote no {f}")
+            _log_adv_run("27 cluster train", handler, metrics, launches, widths, splits, card)
+        else:
+            (b, sec), = handler.eval_timings[-1:]
+            log(f"[27 cluster test] exec-test C-index {dict(metrics['exec-test'])['cindex']:.4f}"
+                f" (best checkpoint of the cluster run); {b / sec:.2f} bags/s ({b} bags, "
+                f"{sec:.3f} s) | launches {({n: v for n, v in launches.items() if v})} | "
+                f"by width {widths}")
+        out[mode] = launches
+    return out
+
+
+def phase_base_cluster(paths, card):
+    """Phase 28: `--handler base`, `bcb_mode: cluster`, surv_nll (as
+    run_parity.cluster_cfg, at 1024-384-384), f32, 1 epoch, once with
+    `opt_net: adahessian` and once in the reference's regime (one bag a
+    micro-batch, an inner step every 16 bags, the remainder dropped)."""
+    from advmil_tpu_torch.models.backbones import DeepAttnMISL
+    from advmil_tpu_torch.train.optim import AdaHessian, MultiSteps
+    out = {}
+    for name, over in (("adahessian", {"opt_net": "adahessian"}),
+                       ("refregime", {"accum_steps": 16, "batch_max_size": 1,
+                                      "accum_drop_remainder": True})):
+        cfg = _base_cfg(paths, f"base_cluster_{name}", test=False, epochs=1, es_warmup=0,
+                        bcb_mode="cluster", path_cluster=paths["path_cluster"], task="surv_nll",
+                        pdh_dims="384-4", precision="f32", **over)
+        handler, metrics, launches = _base_run(cfg, f"base_cluster_{name}")
+        _scalars_finite(handler)
+        if not isinstance(handler.model.backbone, DeepAttnMISL):
+            raise AssertionError("bcb_mode cluster did not build DeepAttnMISL")
+        n_train = len(handler.patient_id["train"])
+        if name == "adahessian" and not isinstance(handler.opt, AdaHessian):
+            raise AssertionError("opt_net adahessian did not build AdaHessian")
+        if name == "refregime" and not (isinstance(handler.opt, MultiSteps)
+                                        and handler.opt.gradient_step == n_train // 16):
+            raise AssertionError(f"refregime: {getattr(handler.opt, 'gradient_step', None)} "
+                                 f"inner steps for {n_train} bags")
+        _base_log(f"28 base cluster {name}", handler, metrics, launches, card)
+        if name == "refregime":
+            log(f"[28 base cluster refregime] {n_train} one-bag micro-batches, "
+                f"{handler.opt.gradient_step} inner steps (every 16 bags, remainder dropped)")
+        out[name] = launches
+    return out
+
+
+def phase_optimizer_sweep(base_handler):
+    """Phase 29: every name of the optimizer factory (and lookahead_adam),
+    weight decay 5e-4, three f32 baseline ABMIL steps (phase 15's weights,
+    dropout off, two bags) on the card against the CPU: parameters within
+    1e-5 where the steps are determined (`_check_params`: Adam-like steps on
+    a gradient within its card-vs-CPU difference of 0 may differ by 2 lr a
+    step). AdaHessian: one step with the same z on both devices; its update
+    is -lr * g / (|h| + eps), so besides 1e-5 + 2e-5 relative a parameter may
+    differ by what the Hessian diagonal's own card-vs-CPU difference (read
+    here) allows: |update| * max|h diff| / |h|."""
+    import torch
+    from advmil_tpu_torch.models.layers import XAVIER, Rngs, set_dropout_rates
+    from advmil_tpu_torch.train import optim, steps as steps_mod
+    from advmil_tpu_torch.train.baseline import build_survnet
+    _, batcher = base_handler.loaders["train"]
+    batch = _first_bags(next(iter(batcher.epoch_batches())), 2)
+    cfg = dict(base_handler.cfg, precision="f32")
+    lr, wd, n_steps = cfg["opt_net_lr"], 5e-4, 3
+    ref = build_survnet(cfg, base_handler.model.out_scale, XAVIER)
+    zs = optim.rademacher_like(list(ref.parameters()), torch.Generator().manual_seed(29))
+    seen = {}
+
+    def run(name, dev):
+        """(parameters after the steps, per step the gradients stepped on)."""
+        model = build_survnet(cfg, base_handler.model.out_scale, XAVIER)
+        model.load_state_dict(base_handler.model.state_dict())
+        set_dropout_rates(model.to(dev), 0.0)
+        params = list(model.parameters())
+        second = name == "adahessian"
+        opt = (optim.AdaHessian(params, lr, weight_decay=wd) if second
+               else optim.create_optimizer(name, params, lr, weight_decay=wd))
+        coupled = name.split("_")[-1] in optim._COUPLED | {"adam"}
+        stepped, inner_step = [], opt.step
+
+        def recorded(*args, **kwargs):
+            stepped.append({n: (p.grad + (wd * p if coupled and p.ndim > 1 else 0.0))
+                            .detach().cpu() for n, p in model.named_parameters()})
+            return inner_step(*args, **kwargs)
+
+        opt.step = recorded
+        step = steps_mod.make_base_train_step(
+            model, opt, task=base_handler.task, l1_coef=cfg["loss_regl1_coef"],
+            sup_loss_fn=base_handler.sup_loss_fn,
+            z_fn=lambda ps, gen: [z.to(p.device) for z, p in zip(zs, ps)])
+        shipped = {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("feats", batch.feats), ("mask", batch.mask), ("label", batch.label),
+            ("sample_mask", batch.sample_mask))}
+        rngs = Rngs(device=torch.Generator(device=dev).manual_seed(0),
+                    host=torch.Generator().manual_seed(1))
+        for _ in range(1 if second else n_steps):
+            step(shipped, rngs)
+        return {n: p.detach().cpu() for n, p in model.named_parameters()}, stepped
+
+    start = {n: p.detach().float().cpu() for n, p in base_handler.model.named_parameters()}
+    real = steps_mod.hutchinson_diag
+
+    def spy(loss, params, zz):
+        grads, hd = real(loss, params, zz)
+        seen[params[0].device.type] = [h.detach().cpu() for h in hd]
+        return grads, hd
+
+    rows = []
+    for name in optim.OPTIMIZER_NAMES + ("lookahead_adam", "adahessian"):
+        steps_mod.hutchinson_diag = spy
+        try:
+            (got, g_card), (want, g_cpu) = run(name, "cuda"), run(name, "cpu")
+        finally:
+            steps_mod.hutchinson_diag = real
+        if name != "adahessian":
+            worst, _, n_open, n_all, moved, g_diff = _check_params(
+                f"29 {name}", got, want, start, g_card, g_cpu, lambda n: lr, n_steps)
+            rows.append(f"{name} {worst:.2e} [{n_open} of {n_all} undetermined; gradients "
+                        f"{g_diff:.2e}] (moved {moved:.2e})")
+        else:
+            g_diff = _check_stepped_grads("29 adahessian", g_card, g_cpu)
+            h_diff = max(max_abs(a, b) for a, b in zip(seen["cuda"], seen["cpu"]))
+            h_cpu = dict(zip(start, seen["cpu"]))
+            worst, moved = 0.0, 0.0
+            for n in want:
+                d, upd = (got[n] - want[n]).abs(), (want[n] - start[n]).abs()
+                allowed = 1e-5 + upd * (2e-5 + h_diff / (h_cpu[n].abs() + 1e-8))
+                if not bool((d <= allowed).all()):
+                    raise AssertionError(f"29 adahessian: {n} differs by {float(d.max())}")
+                worst, moved = max(worst, float(d.max())), max(moved, float(upd.max()))
+            rows.append(f"adahessian {worst:.2e} (moved {moved:.2e}; gradients {g_diff:.2e}; "
+                        f"Hessian diagonal card-vs-CPU |diff| {h_diff:.2e})")
+        if not moved > 0:
+            raise AssertionError(f"29 {name}: no parameter moved")
+    log(f"[29 optimizer sweep] f32 ABMIL on {tuple(batch.feats.shape)}, wd {wd}, lr {lr}, "
+        f"{n_steps} steps (adahessian 1), card against CPU, max |param diff| where the steps "
+        f"are determined (bound 1e-5), undetermined elements (cap 0.1%), max |diff| of the "
+        f"gradients stepped on (bound 1e-4 each step): " + "; ".join(rows))
+
+
+def phase_other_optimizer(paths, small_split, card):
+    """Phase 30: one adversarial ESAT epoch with `opt_netG: lookahead_radam`
+    (bf16, small split): finite losses; #1 at both widths and #2 launch."""
+    from advmil_tpu_torch.train.optim import Lookahead
+    cfg = _smoke_cfg(paths, "lookahead_radam_run", test=False, epochs=1, es_warmup=0,
+                     data_split_path=small_split, opt_netG="lookahead_radam")
+    handler, metrics, launches, widths, _ = _adv_run(cfg, "lookahead_radam_run", LN_KERNELS)
+    if not (isinstance(handler.opt_G, Lookahead) and handler.opt_G.inner.name == "radam"):
+        raise AssertionError("opt_netG lookahead_radam did not build Lookahead(RAdam)")
+    _check_run(handler, metrics, ("train", "validation", "test"), "train_best_pred_{}.csv")
+    n = _scalars_finite(handler)
+    log(f"[30 lookahead_radam] {n} finite losses, Lookahead count {handler.opt_G.count}")
+    _log_adv_run("30 lookahead_radam", handler, metrics, launches, widths,
+                 ("train", "validation", "test"), card)
+    return launches
+
+
 SOURCES = {
     "ln_relu_region_mean": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:67"),
     "ln_relu_region_mean_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu",
@@ -2022,6 +2460,7 @@ def main():
     kernel_phase_launches = read_counters()
     paths = timed("4 data", make_data)
     train_handler, train_launches = timed("4 train", phase_train, paths)
+    train_widths = read_widths()
     handler, test_launches = timed("5 slice", phase_slice, paths)
     timed("6 gpu-vs-cpu", phase_gpu_vs_cpu, handler)
     timed("7 gpu-vs-cpu train", phase_gpu_vs_cpu_train, train_handler)
@@ -2075,6 +2514,13 @@ def main():
     timed("22 disc gpu-vs-cpu train", phase_disc_gpu_vs_cpu_train, disc_handler)
     ssl_handler, ssl_launches = timed("23 ssl train", phase_ssl_train, paths, card)
     timed("24 ssl gpu-vs-cpu train", phase_ssl_gpu_vs_cpu_train, ssl_handler)
+    accum_handler, accum_launches = timed("25 accum train", phase_accum_train, paths, card,
+                                          train_launches, train_widths)
+    timed("26 accum gpu-vs-cpu train", phase_accum_gpu_vs_cpu, accum_handler)
+    cluster_launches = timed("27 cluster", phase_cluster, paths, card)
+    base_cluster_launches = timed("28 base cluster", phase_base_cluster, paths, card)
+    timed("29 optimizer sweep", phase_optimizer_sweep, base_handler)
+    la_launches = timed("30 lookahead_radam", phase_other_optimizer, paths, small_split, card)
     shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
@@ -2101,7 +2547,13 @@ def main():
                        "base_nll_train": base_cn_launches["surv_nll"][name],
                        "base_graph_train": base_graph_launches[name],
                        "disc_train": disc_launches[name],
-                       "ssl_train": ssl_launches[name]}
+                       "ssl_train": ssl_launches[name],
+                       "accum_train": accum_launches[name],
+                       "cluster_train": cluster_launches["train"][name],
+                       "cluster_test_mode": cluster_launches["test"][name],
+                       "base_cluster_adahessian_train": base_cluster_launches["adahessian"][name],
+                       "base_cluster_refregime_train": base_cluster_launches["refregime"][name],
+                       "lookahead_radam_train": la_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched")
@@ -2110,7 +2562,11 @@ def main():
                            ("base_graph_train", ("fused_knn_softmax_aggregate",)),
                            ("disc_train", ("ln_relu_region_mean", "ln_relu_region_mean_bwd")
                             + FLASH_KERNELS),
-                           ("ssl_train", ("ln_relu_region_mean", "ln_relu_region_mean_bwd"))):
+                           ("ssl_train", ("ln_relu_region_mean", "ln_relu_region_mean_bwd")),
+                           ("accum_train", LN_KERNELS + FLASH_KERNELS),
+                           ("cluster_train", LN_KERNELS),
+                           ("cluster_test_mode", LN_KERNELS[:1]),
+                           ("lookahead_radam_train", LN_KERNELS)):
             if name in need and entry["launches_by_path"][path] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -25,9 +25,19 @@ result.json` and reused, so an interrupted sweep resumes where it stopped;
 `--sides jax` (or `port`) runs one side only. Pairs with a side missing are
 listed as unfinished in the report.
 
+The pairs already recorded in TORCH_PARITY.json are pooled with the new
+ones and never run again (a recorded row is not re-drawn), and arms not
+named in `--arms` keep their recorded results.
+
+`--jax-from-port-init N` (adversarial arms) also runs, for the N pairs of
+each named arm where the port's val C-index falls furthest below JAX's, the
+JAX side from the port's initial weights (`scripts/_jax_from_port_init.py`):
+the one pairing that separates the port's init from the rest of its
+training. The result is kept under the arm's `jax_from_port_init` key.
+
 Usage:
   python scripts/run_torch_parity.py --workdir DIR [--arms adv_esat adv_esat_disc ...]
-      [--folds 5] [--seeds 42 ... 51] [--procs 4] [--sides jax port]
+      [--folds 5] [--seeds 42-51 | 42 43 ...] [--procs 4] [--sides jax port]
 Writes TORCH_PARITY.md and TORCH_PARITY.json at the repo root.
 """
 import argparse
@@ -52,17 +62,31 @@ import run_parity  # noqa: E402
 
 run_parity.REF_CFG = osp.join(REPO, "config", "cfg_nlst.yaml")
 
-ARMS = {"adv_esat": ("adv", run_parity.adv_cfg),
-        "adv_esat_disc": ("adv", run_parity.disc_cfg),
-        "adv_ssl": ("adv", run_parity.ssl_cfg),
-        "base_reg_abmil": ("base", run_parity.reg_cfg)}
+# arm -> (handler, run_parity config function, run_parity batching decorator)
+ARMS = {"adv_esat": ("adv", run_parity.adv_cfg, run_parity.ours_extra),
+        "adv_esat_disc": ("adv", run_parity.disc_cfg, run_parity.ours_extra),
+        "adv_ssl": ("adv", run_parity.ssl_cfg, run_parity.ours_extra),
+        "base_reg_abmil": ("base", run_parity.reg_cfg, run_parity.ours_extra),
+        "base_nll_cluster": ("base", run_parity.cluster_cfg, run_parity.ours_extra),
+        "base_nll_abmil_refregime": ("base", run_parity.base_cfg,
+                                     run_parity.ours_refregime)}
 CRITERION = 0.005
+RECORD = osp.join(REPO, "TORCH_PARITY.json")
+
+
+def parse_seeds(items: list) -> list:
+    """`42 43` or `42-51` (inclusive) or a mix."""
+    seeds = []
+    for it in items:
+        lo, _, hi = str(it).partition("-")
+        seeds += list(range(int(lo), int(hi) + 1)) if hi else [int(lo)]
+    return seeds
 
 
 def side_cfg(arm: str, side: str, paths: dict, fold: int, seed: int,
              run_dir: str, epochs: int) -> dict:
-    _, builder = ARMS[arm]
-    cfg = run_parity.ours_extra(builder(paths, fold, run_dir, epochs))
+    _, make_cfg, decorate = ARMS[arm]
+    cfg = decorate(make_cfg(paths, fold, run_dir, epochs))
     cfg["seed"] = seed
     # the parity regime of PARITY.md: f32 on the CPU (cfg_nlst ships bf16)
     cfg["precision"] = "f32"
@@ -85,10 +109,13 @@ def run_side(arm: str, side: str, cfg: dict, run_dir: str, threads: int) -> dict
     if side == "jax":
         cmd = [sys.executable, osp.join(REPO, "main.py")]
         env = dict(os.environ, ADVMIL_FORCE_CPU="1")
+    elif side == "jax_port_init":
+        cmd = [sys.executable, osp.join(REPO, "scripts", "_jax_from_port_init.py")]
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads))
     else:
         cmd = [sys.executable, "-m", "advmil_tpu_torch.main"]
         env = dict(os.environ, OMP_NUM_THREADS=str(threads))
-    cmd += ["--config", cfg_path, "--handler", handler]
+    cmd += ["--config", cfg_path] + ([] if side == "jax_port_init" else ["--handler", handler])
     t0 = time.time()
     r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, env=env)
     seconds = time.time() - t0
@@ -187,6 +214,31 @@ def write_report(results: dict, args) -> None:
                       f"{sum(row['ssl_split_match'] for row in r['rows'])} of "
                       f"{r['ssl_split_match_n']} pairs (`PARITY_SSL_LABELED_JSON`)."]
     for arm, r in results.items():
+        picked = r.get("jax_from_port_init")
+        if not picked:
+            continue
+        d_own = np.mean([p["jax_val"] - p["port_val"] for p in picked])
+        d_init = np.mean([p["jax_from_port_init_val"] - p["port_val"] for p in picked])
+        lines += ["", f"{arm}: the JAX side run from the port's initial weights "
+                  f"(`scripts/_jax_from_port_init.py`) on "
+                  + (f"all {len(picked)} pairs" if len(picked) == r.get("n_runs") else
+                     f"the {len(picked)} pairs where the port fell furthest below JAX")
+                  + f". Mean val C-index gap to the port: JAX from "
+                  f"its own init {d_own:+.4f}, JAX from the port's init {d_init:+.4f}.", "",
+                  *([f"Port against JAX from the port's init over these {r['jax_from_port_init_summary']['n']} "
+                     f"pairs: paired median delta val "
+                     f"{r['jax_from_port_init_summary']['paired_val_delta_median']:+.4f}, sign test "
+                     f"p = {r['jax_from_port_init_summary']['sign_test_p']:.2f} "
+                     f"({r['jax_from_port_init_summary']['n_pos']}/"
+                     f"{r['jax_from_port_init_summary']['n_neg']}), bootstrap 95% CI "
+                     f"[{r['jax_from_port_init_summary']['median_ci95'][0]:+.4f}, "
+                     f"{r['jax_from_port_init_summary']['median_ci95'][1]:+.4f}].", ""]
+                    if "jax_from_port_init_summary" in r else []),
+                  "| fold | seed | JAX val | port val | JAX from port init val |",
+                  "|---|---|---|---|---|"]
+        lines += [f"| {p['fold']} | {p['seed']} | {p['jax_val']:.4f} | {p['port_val']:.4f} | "
+                  f"{p['jax_from_port_init_val']:.4f} |" for p in picked]
+    for arm, r in results.items():
         lines += ["", f"## {arm}", ""]
         if r.get("unfinished"):
             lines += ["Unfinished (fold, seed, missing side): "
@@ -209,7 +261,8 @@ def main():
     ap.add_argument("--workdir", default=osp.join(tempfile.gettempdir(), "torch_parity"))
     ap.add_argument("--arms", nargs="+", default=list(ARMS), choices=list(ARMS))
     ap.add_argument("--folds", type=int, default=5)
-    ap.add_argument("--seeds", type=int, nargs="+", default=list(range(42, 52)))
+    ap.add_argument("--seeds", nargs="+", default=["42-51"],
+                    help="seeds, or inclusive ranges such as 52-71")
     ap.add_argument("--epochs", type=int, default=30)
     ap.add_argument("--procs", type=int, default=4, help="runs at a time")
     ap.add_argument("--threads", type=int, default=2,
@@ -218,7 +271,17 @@ def main():
                     choices=["jax", "port"])
     ap.add_argument("--report-only", action="store_true",
                     help="summarize the cached runs; launch nothing")
+    ap.add_argument("--jax-from-port-init", type=int, default=0, metavar="N",
+                    help="run JAX from the port's initial weights for the N pairs "
+                         "with the largest negative gap of each named arm")
     args = ap.parse_args()
+    args.seeds = parse_seeds(args.seeds)
+    record = {}
+    if osp.exists(RECORD):
+        with open(RECORD) as f:
+            record = json.load(f)
+    recorded = {arm: {(row["fold"], row["seed"]): row for row in r.get("rows", [])}
+                for arm, r in record.items()}
 
     os.makedirs(args.workdir, exist_ok=True)
     paths = run_parity.build_dataset(args.workdir, args.folds)
@@ -226,6 +289,8 @@ def main():
     for arm in args.arms:
         for fold in range(args.folds):
             for seed in args.seeds:
+                if (fold, seed) in recorded.get(arm, {}):
+                    continue
                 for side in args.sides:
                     run_dir = osp.join(args.workdir, arm, f"fold{fold}s{seed}", side)
                     cfg = side_cfg(arm, side, paths, fold, seed, run_dir, args.epochs)
@@ -246,11 +311,50 @@ def main():
         with ThreadPoolExecutor(args.procs) as pool:
             list(pool.map(one, jobs))
 
-    results = {}
-    for arm in args.arms:
-        rows, unfinished = [], []
+    def largest_gaps(rows):
+        return sorted(rows, key=lambda r: r["port_val"] - r["jax_val"])[:args.jax_from_port_init]
+
+    def init_dir(arm, row):
+        return osp.join(args.workdir, arm, f"fold{row['fold']}s{row['seed']}", "jax_port_init")
+
+    def pooled_rows(arm):
+        """The recorded rows and the cached new pairs of `arm`."""
+        rows = list(recorded.get(arm, {}).values())
         for fold in range(args.folds):
             for seed in args.seeds:
+                got = [osp.join(args.workdir, arm, f"fold{fold}s{seed}", s, "result.json")
+                       for s in ("jax", "port")]
+                if (fold, seed) not in recorded.get(arm, {}) and all(map(osp.exists, got)):
+                    res = [json.load(open(p)) for p in got]
+                    rows.append({"fold": fold, "seed": seed, "jax_val": res[0]["val"],
+                                 "port_val": res[1]["val"]})
+        return rows
+
+    init_jobs = []
+    if args.jax_from_port_init:
+        for arm in args.arms:
+            if ARMS[arm][0] != "adv" or arm == "adv_ssl":
+                raise SystemExit(f"--jax-from-port-init runs exec of the adversarial "
+                                 f"handler; {arm} is not such an arm")
+            for row in largest_gaps(pooled_rows(arm)):
+                cfg = side_cfg(arm, "jax", paths, row["fold"], row["seed"],
+                               init_dir(arm, row), args.epochs)
+                init_jobs.append((arm, "jax_port_init", cfg, init_dir(arm, row)))
+        if not args.report_only:
+            with ThreadPoolExecutor(args.procs) as pool:
+                list(pool.map(one, init_jobs))
+
+    results = {}
+    for arm in list(record) + [a for a in args.arms if a not in record]:
+        if arm not in args.arms:
+            results[arm] = record[arm]
+            continue
+        rows = list(recorded.get(arm, {}).values())
+        unfinished = []
+        for fold in range(args.folds):
+            for seed in args.seeds:
+                if (fold, seed) in recorded.get(arm, {}):
+                    continue
                 got = {}
                 for side in ("jax", "port"):
                     p = osp.join(args.workdir, arm, f"fold{fold}s{seed}", side,
@@ -268,8 +372,37 @@ def main():
                         row["ssl_split_match"] = (got["jax"].get("labeled")
                                                   == got["port"].get("labeled"))
                     rows.append(row)
+        rows.sort(key=lambda row: (row["fold"], row["seed"]))
         results[arm] = {**(summarize(rows) if rows else {}), "rows": rows,
                         "unfinished": unfinished}
+        if args.jax_from_port_init:
+            picked = []
+            for row in largest_gaps(rows):
+                p = osp.join(init_dir(arm, row), "result.json")
+                if osp.exists(p):
+                    with open(p) as f:
+                        res = json.load(f)
+                    picked.append({"fold": row["fold"], "seed": row["seed"],
+                                   "jax_val": row["jax_val"], "port_val": row["port_val"],
+                                   "jax_from_port_init_val": res["val"],
+                                   "jax_from_port_init_test": res["test"]})
+            results[arm]["jax_from_port_init"] = picked
+            if len(picked) >= 10:
+                d = np.array([q["port_val"] - q["jax_from_port_init_val"] for q in picked])
+                p_sign, npos, nneg = sign_test_p(d)
+                meds = np.median(np.random.default_rng(0).choice(d, size=(10000, len(d))),
+                                 axis=1)
+                results[arm]["jax_from_port_init_summary"] = {
+                    "n": len(d), "paired_val_delta_median": float(np.median(d)),
+                    "paired_val_delta_mean": float(d.mean()),
+                    "within_criterion": bool(abs(np.median(d)) <= CRITERION),
+                    "sign_test_p": p_sign, "n_pos": npos, "n_neg": nneg,
+                    "median_ci95": [float(np.percentile(meds, 2.5)),
+                                    float(np.percentile(meds, 97.5))]}
+        else:
+            for key in ("jax_from_port_init", "jax_from_port_init_summary"):
+                if key in record.get(arm, {}):
+                    results[arm][key] = record[arm][key]
     write_report(results, args)
     print("[torch-parity] wrote TORCH_PARITY.md / TORCH_PARITY.json")
     bad = [(arm, row["fold"], row["seed"]) for arm, r in results.items()

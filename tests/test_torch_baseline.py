@@ -125,11 +125,10 @@ def test_abmil_survnet_bf16_tracks_flax_bf16():
 
 
 def test_load_backbone_modes():
-    """abmil by name; cluster still names its ROADMAP item; the JAX
-    factory's fall-through is not copied: an unknown mode is an error."""
+    """abmil and cluster by name; the JAX factory's fall-through is not
+    copied: an unknown mode is an error."""
     assert isinstance(tbb.load_backbone("abmil", [8, 4, 4]), tbb.ABMIL)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tbb.load_backbone("cluster", [8, 4, 4])
+    assert isinstance(tbb.load_backbone("cluster", [8, 4, 4]), tbb.DeepAttnMISL)
     with pytest.raises(ValueError, match="unknown backbone"):
         tbb.load_backbone("abmll", [8, 4, 4])
 
@@ -513,10 +512,13 @@ def test_cli_base_handler_runs_without_jax(synth, tmp_path):
     assert all(np.isfinite(float(r["risk"])) for r in rows)
 
 
-@pytest.mark.parametrize("key,value,item", [("bcb_mode", "cluster", "A12"),
-                                            ("opt_net", "sgd", "A12"),
-                                            ("accum_steps", 2, "A6")])
+@pytest.mark.parametrize("key,value,item", [("log_plot", True, "A9"),
+                                            ("graph_grid_resident", True, "A13"),
+                                            ("dp_devices", 2, "A14")])
 def test_base_handler_refusals_name_the_roadmap(synth, tmp_path, key, value, item):
+    """(cluster, the other optimizers and accumulation, refused here until
+    their items were done, are held against JAX in test_torch_cluster.py and
+    test_torch_optim.py.)"""
     cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **{key: value}))
     with pytest.raises(NotImplementedError, match=item):
         tbaseline.BaselineHandler(cfg)

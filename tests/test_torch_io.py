@@ -55,8 +55,8 @@ _UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True}}
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("bcb_mode", "graph", "A13"), ("bcb_mode", "cluster", "A12"),
-    ("accum_steps", 2, "A6"), ("inst_devices", 2, "A14"),
+    ("bcb_mode", "graph", "A13"), ("log_plot", True, "A9"),
+    ("dist_num_processes", 2, "A14"), ("inst_devices", 2, "A14"),
     ("dp_devices", 2, "A14")])
 def test_check_configs_rejects_unported_modes(key, value, item):
     tconfig.check_configs(_nlst_test_cfg())

@@ -914,3 +914,134 @@ def test_knn_fwd_kernel_every_slot_count_and_channel_tail(cuda_device, epn, C, N
     else:
         assert _share(out, want, **tseg.knn_tol(want)) <= 1.0
         torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# gradient accumulation, the optimizers and the cluster step, card against CPU
+# (chip_smoke.py phases 26 and 29 at test size; no kernel runs on these paths)
+# ---------------------------------------------------------------------------
+
+from advmil_tpu_torch import losses as tlosses   # noqa: E402
+from advmil_tpu_torch.models import gan as tgan   # noqa: E402
+from advmil_tpu_torch.train import optim as topt   # noqa: E402
+from advmil_tpu_torch.train.steps import make_base_train_step   # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam", "adafactor", "lookahead_radam", "sgdp"])
+def test_multisteps_on_card_matches_cpu(cuda_device, name):
+    """MultiSteps(k = 3) over 7 mini-steps of the same gradients (a fixed
+    function of the parameters): parameters within 1e-6 + 1e-5 relative of
+    the CPU's at every mini-step, bit-unchanged between inner steps."""
+    rng = np.random.default_rng(3)
+    shapes = [(130, 136), (6, 5), (5,)]
+    p0 = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    a = [rng.uniform(0.5, 1.5, size=s).astype(np.float32) for s in shapes]
+    c = [[rng.normal(size=s).astype(np.float32) for s in shapes] for _ in range(7)]
+    trails = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = [torch.tensor(v, device=dev, requires_grad=True) for v in p0]
+        opt = topt.MultiSteps(topt.create_optimizer(name, params, 1e-2, weight_decay=5e-4), 3)
+        trail = []
+        for t in range(7):
+            for p, ai, ci in zip(params, a, c[t]):
+                p.grad = torch.from_numpy(ai).to(dev) * p.detach() + torch.from_numpy(ci).to(dev)
+            opt.step()
+            trail.append([p.detach().cpu().clone() for p in params])
+        assert opt.gradient_step == 2 and opt.mini_step == 1
+        trails[dev.type] = trail
+    for t, (got, want) in enumerate(zip(trails["cuda"], trails["cpu"])):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-5)
+        if (t + 1) % 3:
+            prev = trails["cuda"][t - 1] if t else [torch.from_numpy(v) for v in p0]
+            assert all(torch.equal(g, q) for g, q in zip(got, prev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_name", ["adam", "adahessian"])
+def test_cluster_base_step_on_card_matches_cpu(cuda_device, opt_name):
+    """One surv_nll step of a SurvNet on DeepAttnMISL (a masked tail, an
+    empty cluster), dropout off, from the same weights (AdaHessian with the
+    same z): loss within 1e-6 relative, parameters within 1e-5 (AdaHessian:
+    plus |update| * the Hessian diagonal's card-vs-CPU difference / |h|)."""
+    rng = np.random.default_rng(5)
+    B, N, C = 3, 64, 48
+    x = rng.normal(size=(B, N, C)).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    mask[1, 40:] = 0
+    cid = rng.integers(0, 8, size=(B, N)).astype(np.int32)
+    cid[2][cid[2] == 3] = 4
+    label = np.stack([rng.integers(0, 4, size=B), rng.integers(0, 2, size=B)], 1)
+    ref = tl.init_parameters(tgan.SurvNet(tbb.load_backbone("cluster", [C, 32, 32]), 32, 4,
+                                          out_scale="sigmoid"), 0)
+    zs = topt.rademacher_like(list(ref.parameters()), torch.Generator().manual_seed(1))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = tgan.SurvNet(tbb.load_backbone("cluster", [C, 32, 32]), 32, 4,
+                             out_scale="sigmoid")
+        model.load_state_dict(ref.state_dict())
+        tl.set_dropout_rates(model.to(dev), 0.0)
+        params = list(model.parameters())
+        opt = (topt.AdaHessian(params, 8e-5, weight_decay=5e-4) if opt_name == "adahessian"
+               else topt.create_optimizer(opt_name, params, 8e-5, weight_decay=5e-4))
+        seen = {}
+
+        def z_fn(ps, gen, seen=seen):
+            seen["z"] = [z.to(p.device) for z, p in zip(zs, ps)]
+            return seen["z"]
+
+        step = make_base_train_step(model, opt, task="surv_nll", l1_coef=1e-5,
+                                    sup_loss_fn=tlosses.surv_mle_loss,
+                                    z_fn=z_fn)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("feats", x), ("mask", mask), ("extra", cid),
+            ("label", label.astype(np.float32)), ("sample_mask", np.ones(B, np.float32)))}
+        rngs = tl.Rngs(device=torch.Generator(device=dev).manual_seed(0),
+                       host=torch.Generator().manual_seed(1))
+        metrics, _ = step(batch, rngs)
+        h = None
+        if opt_name == "adahessian":
+            h = [st["nu"].detach().cpu().sqrt() / (1 - 0.999) ** 0.5
+                 for st in (opt.state[p] for p in params)]
+        out[dev.type] = (float(metrics["loss_total"]),
+                         {n: p.detach().cpu() for n, p in model.named_parameters()}, h)
+    (lc, pc, hc), (lh, ph, hh) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-6 * abs(lh)
+    start = ref.state_dict()
+    h_diff = max(float((a - b).abs().max()) for a, b in zip(hc, hh)) if hc else 0.0
+    for i, n in enumerate(ph):
+        upd = (ph[n] - start[n]).abs()
+        allowed = 1e-5 + (upd * h_diff / (hh[i] + 1e-8) if hh else 0.0)
+        assert bool(((pc[n] - ph[n]).abs() <= allowed).all()), n
+
+
+@pytest.mark.cuda
+def test_second_order_step_through_patch_kernels_raises(cuda_device):
+    """A second-order (AdaHessian) base step on the patch backbone (width
+    128, so the LN-pool kernel #1 is on the path) builds its double
+    backward through kernel #2's backward, which refuses create_graph: the
+    step raises instead of stepping on a Hessian diagonal that misses the
+    kernel's share."""
+    rng = np.random.default_rng(13)
+    B, N, C = 2, 64, 64
+    mask = np.ones((B, N), np.float32)
+    mask[1, 48:] = 0
+    model = tl.init_parameters(tgan.SurvNet(tbb.load_backbone("patch", [C, 128, 128]), 128, 4,
+                                            out_scale="sigmoid"), 0).to(cuda_device)
+    tl.set_dropout_rates(model, 0.0)
+    opt = topt.AdaHessian(list(model.parameters()), 8e-5, weight_decay=5e-4)
+    step = make_base_train_step(model, opt, task="surv_nll", l1_coef=1e-5,
+                                sup_loss_fn=tlosses.surv_mle_loss)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in (
+        ("feats", rng.normal(size=(B, N, C)).astype(np.float32)), ("mask", mask),
+        ("label", np.array([[1, 1], [2, 0]], np.float32)),
+        ("sample_mask", np.ones(B, np.float32)))}
+    rngs = tl.Rngs(device=torch.Generator(device=cuda_device).manual_seed(0),
+                   host=torch.Generator().manual_seed(1))
+    before = tlnp.LAUNCHES
+    start = [p.detach().clone() for p in model.parameters()]
+    with pytest.raises(RuntimeError, match="no double backward"):
+        step(batch, rngs)
+    assert tlnp.LAUNCHES == before + 1
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), start))

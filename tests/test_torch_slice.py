@@ -140,10 +140,10 @@ def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
     assert osp.exists(osp.join(cfg["save_path"], "train_modelG-last.ckpt"))
     with pytest.raises(AssertionError):
         h.exec_semi_sl()                       # semi_training: False
-    with pytest.raises(NotImplementedError, match="A6"):
-        AdvHandler(with_defaults(dict(cfg, accum_steps=2)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        AdvHandler(with_defaults(dict(cfg, bcb_mode="cluster")))
+    with pytest.raises(NotImplementedError, match="A9"):
+        AdvHandler(with_defaults(dict(cfg, log_plot=True)))
+    with pytest.raises(NotImplementedError, match="A14"):
+        AdvHandler(with_defaults(dict(cfg, dp_devices=2)))
 
 
 def test_port_imports_no_jax():

@@ -441,9 +441,9 @@ def test_training_path_imports_no_jax():
     assert "BAD []" in r.stdout, r.stdout
 
 
-@pytest.mark.parametrize("key,value,item", [("accum_steps", 2, "A6"),
+@pytest.mark.parametrize("key,value,item", [("log_plot", True, "A9"),
                                             ("dist_num_processes", 2, "A14"),
-                                            ("opt_netG", "sgd", "A12")])
+                                            ("graph_grid_resident", True, "A13")])
 def test_unported_training_options_name_the_roadmap(synth, tmp_path, key, value, item):
     cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **{key: value}))
     with pytest.raises(NotImplementedError, match=item):
