@@ -9,9 +9,11 @@ The port runs the adversarial handler (`--handler adv`: cont_gansurv and
 disc_gansurv, supervised and semi-supervised) and the baseline handler
 (`--handler base`), each in training (`exec`, `test: False`) and test mode
 (`test: True`), on the four backbones, with every optimizer of the JAX
-factory (AdaHessian under `--handler base`) and gradient accumulation. Keys
-that select a mode the port does not have yet are rejected by
-`check_configs` with an error naming the ROADMAP item that brings it.
+factory (AdaHessian under `--handler base`) and gradient accumulation, in
+one process or over several (`dp_devices`, `dist_*`; `inst_devices` for
+`bcb_mode` patch and abmil). Keys that select a mode the port does not have
+yet are rejected by `check_configs` with an error naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
@@ -201,10 +203,12 @@ def _not_ported(cfg: dict, handler: str) -> list:
     checks = [
         ("graph_grid_resident", bool, "A13"),
         ("log_plot", bool, "A9"),
-        ("dp_devices", lambda v: int(v or 1) > 1, "A14"),
-        ("inst_devices", lambda v: int(v or 1) > 1, "A14"),
-        ("dist_num_processes", lambda v: int(v or 1) > 1, "A14"),
     ]
+    if cfg.get("bcb_mode") in ("graph", "cluster"):
+        # graph mode gathers by global node index and DeepAttnMISL's cluster
+        # means sum across N: neither splits over the patch axis yet
+        checks += [("inst_devices", lambda v: int(v or 1) > 1,
+                    f"A14 rest: inst_devices with bcb_mode {cfg['bcb_mode']}")]
     if (handler == "base" and cfg.get("device") == "cuda"
             and cfg.get("bcb_mode") in ("patch", "graph")):
         # AdaHessian's double backward goes through the backbone's kernels,
@@ -234,6 +238,9 @@ def check_configs(cfg: dict, handler: str = "adv"):
         raise NotImplementedError("; ".join(
             f"{k}: {v} is not ported yet (ROADMAP {item})"
             for k, v, item in missing))
+    for key in ("dp_devices", "inst_devices"):
+        if cfg.get(key) is not None and int(cfg[key]) < 1:
+            raise ValueError(f"{key} must be a positive rank count, got {cfg[key]!r}")
     if cfg.get("device") not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {cfg.get('device')!r}")
     if cfg.get("precision") not in ("f32", "bf16", "bfloat16"):

@@ -42,11 +42,12 @@ DENSE_KEYS = ("edge_src", "edge_mask")
 
 
 def default_buckets(max_n: int, min_bucket: int = 256,
-                    growth: float = 2.0) -> list:
-    """Geometric bucket sizes (multiples of 16) covering max_n; the top
-    bucket is clamped to max_n rounded up, and ``min_bucket`` stays a
-    floor."""
-    m = 16
+                    growth: float = 2.0, n_multiple: int = 16) -> list:
+    """Geometric bucket sizes (multiples of ``n_multiple``: 16, the 4x4
+    region, times the inst rank count, so every padded N splits into whole
+    regions per rank) covering max_n; the top bucket is clamped to max_n
+    rounded up, and ``min_bucket`` stays a floor."""
+    m = max(16, int(n_multiple))
     floor = -(-int(min_bucket) // m) * m
     top = max(-(-int(max_n) // m) * m, floor)
     sizes = []
@@ -219,21 +220,25 @@ class Batch:
 class BucketBatcher:
     """Groups bags into length buckets and emits fixed-shape padded batches.
     Per bucket of size Nb the batch size is clip(token_budget // Nb, 1,
-    max_batch)."""
+    max_batch), rounded down to a multiple of `batch_multiple` (at least
+    one multiple: the dp rank count); bucket sizes are multiples of
+    `n_multiple` (16 times the inst rank count)."""
 
     def __init__(self, dataset: BagDataset, token_budget: int = 32768,
                  max_batch: int = 64, min_bucket: int = 256,
                  bucket_growth: float = 2.0, edges_per_node: int = 9,
-                 banded: str = "auto"):
+                 banded: str = "auto", batch_multiple: int = 1,
+                 n_multiple: int = 16):
         self.ds = dataset
         self.token_budget = token_budget
         self.max_batch = max_batch
+        self.batch_multiple = int(batch_multiple)
         self.edges_per_node = edges_per_node
         self.prefetch_depth = 2    # set from cfg num_workers by the handler
         self.prefetch_workers = 1
         sizes = dataset.bag_sizes()
         self.buckets = default_buckets(int(sizes.max()), min_bucket,
-                                       growth=bucket_growth)
+                                       growth=bucket_growth, n_multiple=n_multiple)
         item_bucket = np.searchsorted(self.buckets, sizes)
         by_bucket: dict = {}
         for i, b in enumerate(item_bucket):
@@ -315,7 +320,9 @@ class BucketBatcher:
         return tabs
 
     def batch_size_for(self, bucket_n: int) -> int:
-        return int(np.clip(self.token_budget // bucket_n, 1, self.max_batch))
+        bb = int(np.clip(self.token_budget // bucket_n, 1, self.max_batch))
+        m = self.batch_multiple
+        return max(m, (bb // m) * m) if m > 1 else bb
 
     def _epoch_chunks(self, shuffle: bool = False,
                       rng: np.random.Generator | None = None) -> list:

@@ -25,14 +25,16 @@ from ..ops.banded import banded_aggregate
 from ..ops.masked import masked_softmax, region_mask_from_patch_mask
 from ..ops.segment import fused_knn_softmax_aggregate, knn_edge_softmax_aggregate
 from ..ops.pe import compute_pe
+from ..parallel import comm, mesh
 from .layers import (TORCH, XAVIER, Dense, Dropout, GAPool, GatedAttention, LayerNorm,
-                     Rngs, TransformerEncoderLayer, make_embedding_layer)
+                     Rngs, TransformerEncoderLayer, attention_pool, make_embedding_layer)
 
 
 class ABMIL(nn.Module):
     """Gated-attention MIL: `attn_fc` (Dense + ReLU + Dropout) per instance,
     gated attention scores (`gate`), a masked softmax over the instances,
-    the attention-weighted sum, then `rho` (Dense + ReLU + Dropout)."""
+    the attention-weighted sum (over the inst group under an inst grid),
+    then `rho` (Dense + ReLU + Dropout)."""
 
     def __init__(self, dims: Sequence[int], dropout: float = 0.25,
                  dense_init: str = XAVIER, dtype=torch.float32):
@@ -45,10 +47,8 @@ class ABMIL(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x, mask, extra=None, rng: Rngs | None = None):
-        h = self.drop(torch.relu(self.attn_fc(x)), rng)
-        scores = self.gate(h, rng)
-        attn = masked_softmax(scores[..., 0], mask, dim=-1)       # [B, N]
-        pooled = torch.einsum("bn,bnd->bd", attn, h.to(attn.dtype))
+        h = self.drop(torch.relu(self.attn_fc(x)), rng, inst_dim=1)
+        pooled = attention_pool(self.gate(h, rng)[..., 0], mask, h)
         return self.drop(torch.relu(self.rho(pooled)), rng)
 
 
@@ -94,7 +94,10 @@ class DeepAttnMISL(nn.Module):
 class DualTransHS(nn.Module):
     """Transformer-based ESAT: 4x4-region patch embedding -> optional 2-D
     sin-cos positional embedding of the region coordinates (`extra`
-    [B, L, 2]) -> transformer encoder layer(s) -> global attention pooling."""
+    [B, L, 2]) -> transformer encoder layer(s) -> global attention pooling.
+    Under an inst grid the embedding and the positional embedding stay
+    local (whole regions per rank); the attention and the pooling run over
+    the inst group."""
 
     def __init__(self, dims: Sequence[int], nhead: int = 8, num_layers: int = 1,
                  emb_ksize: int = 1, emb_backbone: str = "avgpool",
@@ -122,7 +125,10 @@ class DualTransHS(nn.Module):
         h = self.patch_embedding(x, mask)                 # [B, L, hid]
         rmask = region_mask_from_patch_mask(mask)         # [B, L]
         if extra is not None:                             # region coords [B, L, 2]
-            pe = compute_pe(extra, ndim=self.dim_hid, dtype=h.dtype)
+            origin = None
+            if mesh.inst_grid() is not None:              # the whole bag's minimum corner
+                origin = -comm.inst_max(-extra.amin(dim=-2, keepdim=True))
+            pe = compute_pe(extra, ndim=self.dim_hid, dtype=h.dtype, origin=origin)
             h = h + pe * rmask[..., None].to(h.dtype)
         for i in range(self.num_layers):
             h = getattr(self, f"encoder_{i}")(h, rmask, rng)

@@ -18,9 +18,10 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.masked import masked_mean, region_mask_from_patch_mask
+from ..ops.masked import region_mask_from_patch_mask
 from .layers import (TORCH, XAVIER, BottleneckMLP, Dense, GAPool, MLPBlock,
-                     NoiseMLPHead, Rngs, apply_out_scale, make_embedding_layer)
+                     NoiseMLPHead, Rngs, apply_out_scale, instance_mean,
+                     make_embedding_layer)
 
 
 class Generator(nn.Module):
@@ -78,7 +79,7 @@ class EmbedXLayer(nn.Module):
         if emb is None:
             emb = self.embedding(x, mask)                   # [B, L, C']
         rmask = region_mask_from_patch_mask(mask)
-        fc_ins = self.fc1(emb, rng)
+        fc_ins = self.fc1(emb, rng, inst_dim=1)
         fc_bag = self.fc2(self.pool(fc_ins, rmask, rng), rng)
         return fc_bag, fc_ins, rmask, emb
 
@@ -105,7 +106,8 @@ class EmbedYLayer(nn.Module):
 
 class PrjDiscriminator(nn.Module):
     """Projection discriminator. inner_product 'bag': <hid_x, hid_t>;
-    'instance' (RLIP): per-region <emb_ins, hid_t>, masked mean over regions.
+    'instance' (RLIP): per-region <emb_ins, hid_t>, masked mean over regions
+    (over the inst group under an inst grid).
     Optional projection residual through hid_x ('x') or hid_t ('y')."""
 
     def __init__(self, netx_in_dim: int, netx_out_dim: int, nety_in_dim: int,
@@ -139,7 +141,7 @@ class PrjDiscriminator(nn.Module):
                 out = (hid_t * hid_x).sum(dim=-1, keepdim=True)          # [B, 1]
             else:
                 out_ins = (emb_ins * hid_t[:, None, :]).sum(dim=-1)     # [B, L]
-                out = masked_mean(out_ins[..., None], rmask[..., None], dim=-2)
+                out = instance_mean(out_ins[..., None], rmask[..., None])
             if self.prj_path == "x":
                 out = out + self.prj_layer(hid_x)
             elif self.prj_path == "y":

@@ -12,6 +12,14 @@ and noise from its device generator, the flash kernels' per-call Philox seeds
 from its CPU generator. Dropout is plain Bernoulli (the JAX package's
 default path; its u8 byte masks are ROADMAP A15 and not ported).
 
+Under a dp x inst grid (`parallel/mesh.py`) every rank holds its rows of
+the batch and, with inst > 1, its whole regions of each bag. The reductions
+over a bag's instances (the attention's keys, `GAPool`'s and ABMIL's
+attention pooling, the discriminator's region mean) then run over the inst
+group (`parallel/comm.py`); dropout masks and noise are drawn at the global
+shape and cut to the rank's block (`mesh.rand_global`), the single-process
+draws for the same elements.
+
 Mixed precision mirrors flax's explicit casts rather than `torch.autocast`:
 a Dense casts its input, weight and bias to the compute dtype; a LayerNorm
 computes its statistics in f32 and returns the compute dtype; predictions
@@ -27,10 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import masked_flash_attention
+from ..ops.attention import (masked_flash_attention, masked_flash_attention_inst,
+                             rank_seed)
 from ..ops.fused_embed import fused_region_embedding
 from ..ops.ln_pool import LN_EPS, S2, ln_relu_region_mean
 from ..ops.masked import masked_mean, masked_softmax
+from ..parallel import comm, mesh
 
 XAVIER = "xavier"   # xavier-uniform weight, zero bias (generator nets)
 TORCH = "torch"     # torch Linear default U(+-1/sqrt(fan_in)) (discriminator nets)
@@ -54,20 +64,21 @@ class Dropout(nn.Module):
     """flax `Dropout` through `mask_dropout`'s default path: in train mode each
     element is kept with probability 1 - rate (Bernoulli, from `rng.device`)
     and scaled by 1 / (1 - rate) in x's dtype; the identity in eval mode or at
-    rate 0."""
+    rate 0. Dim 0 of x is the batch; `inst_dim` names the dim that holds
+    the rank's share of the instance axis, if any (for `mesh.rand_global`)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x, rng: Rngs | None):
+    def forward(self, x, rng: Rngs | None, inst_dim: int | None = None):
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         if rng is None:
             raise ValueError("train-mode dropout needs explicit generators (rng=Rngs)")
-        keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= self.rate
+        keep = mesh.rand_global(x.shape, rng.device, x.device, inst_dim=inst_dim) >= self.rate
         # made on the device: a host tensor copied over would wait for the stream
         scale = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)
         return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
@@ -198,27 +209,56 @@ class BottleneckMLP(nn.Module):
         self.Dense_1 = Dense(dim // 2, dim, TORCH, dtype)
         self.drop = Dropout(dropout)
 
-    def forward(self, x, rng: Rngs | None = None):
-        return self.Dense_1(self.drop(torch.relu(self.Dense_0(x)), rng))
+    def forward(self, x, rng: Rngs | None = None, inst_dim: int | None = None):
+        return self.Dense_1(self.drop(torch.relu(self.Dense_0(x)), rng, inst_dim))
+
+
+def attention_pool(scores, mask, x):
+    """sum over n of masked_softmax(scores)[b, n] * x[b, n] -> [B, d]
+    (scores and mask [B, N], x [B, N, d]). Under an inst grid N is the
+    rank's share of the bag: the softmax's max, its denominator and the sum
+    run over the inst group (the max outside autograd: a softmax does not
+    depend on its shift)."""
+    keep = mask.bool()
+    s = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+    s_max = comm.inst_max(s.amax(dim=-1, keepdim=True))
+    ex = torch.exp(s - s_max) * keep.to(scores.dtype)
+    denom = comm.inst_sum(ex.sum(dim=-1, keepdim=True))
+    attn = ex / torch.clamp(denom, min=1e-30)
+    return comm.inst_sum(torch.einsum("bn,bnd->bd", attn, x.to(attn.dtype)))
+
+
+def instance_mean(x, mask):
+    """`masked_mean(x, mask, dim=-2)` over a bag's instances (x [B, N, c],
+    mask broadcast to it), over the inst group under an inst grid."""
+    m = mask.to(x.dtype)
+    total = comm.inst_sum((x * m).sum(dim=-2))
+    count = comm.inst_sum(m.sum(dim=-2))
+    return total / torch.clamp(count, min=1.0)
 
 
 class GAPool(nn.Module):
     """Global attention pooling [B, N, d] -> [B, d]:
     emb = Dropout(tanh(fc1(x))); scr = Dropout(sigmoid(score(x)));
-    attn = masked_softmax(fc2(emb * scr)); out = attn @ x."""
+    attn = masked_softmax(fc2(emb * scr)); out = attn @ x. `over_bag`: N is
+    a bag's instance axis (pooled over the inst group under an inst grid);
+    False for the pool inside each 16-patch region, which stays local."""
 
     def __init__(self, in_dim: int, hid_dim: int, dropout: float = 0.25,
-                 dense_init: str = XAVIER, dtype=torch.float32):
+                 dense_init: str = XAVIER, dtype=torch.float32, over_bag: bool = True):
         super().__init__()
         self.fc1 = Dense(in_dim, hid_dim, dense_init, dtype)
         self.score = Dense(in_dim, hid_dim, dense_init, dtype)
         self.fc2 = Dense(hid_dim, 1, dense_init, dtype)
         self.drop = Dropout(dropout)
+        self.over_bag = over_bag
 
     def forward(self, x, mask, rng: Rngs | None = None):
-        emb = self.drop(torch.tanh(self.fc1(x)), rng)
-        scr = self.drop(torch.sigmoid(self.score(x)), rng)
+        emb = self.drop(torch.tanh(self.fc1(x)), rng, inst_dim=1)
+        scr = self.drop(torch.sigmoid(self.score(x)), rng, inst_dim=1)
         rep = self.fc2(emb * scr)
+        if self.over_bag:
+            return attention_pool(rep[..., 0], mask, x)
         attn = masked_softmax(rep[..., 0], mask, dim=-1)       # [B, N]
         return torch.einsum("bn,bnd->bd", attn, x.to(attn.dtype))
 
@@ -227,7 +267,8 @@ class GatedAttention(nn.Module):
     """Gated attention scores [..., N, dim_l] -> [..., N, n_classes]:
     attention_c(Dropout(tanh(attention_a(x))) * Dropout(sigmoid(attention_b(x))));
     the caller takes the masked softmax over N. As in the JAX package, the
-    dropout rate is 0.25 whenever `dropout` is non-zero."""
+    dropout rate is 0.25 whenever `dropout` is non-zero. Dim 1 is the
+    instance axis."""
 
     def __init__(self, dim_l: int, dim_d: int, dropout: float = 0.25,
                  n_classes: int = 1, dense_init: str = XAVIER, dtype=torch.float32):
@@ -238,8 +279,8 @@ class GatedAttention(nn.Module):
         self.drop = Dropout(0.25 if dropout else 0.0)
 
     def forward(self, x, rng: Rngs | None = None):
-        a = self.drop(torch.tanh(self.attention_a(x)), rng)
-        b = self.drop(torch.sigmoid(self.attention_b(x)), rng)
+        a = self.drop(torch.tanh(self.attention_a(x)), rng, inst_dim=1)
+        b = self.drop(torch.sigmoid(self.attention_b(x)), rng, inst_dim=1)
         return self.attention_c(a * b)
 
 
@@ -316,7 +357,7 @@ class GAPoolPatchEmbedding(_PatchProjection):
 
     def __init__(self, in_dim: int, out_dim: int, ksize: int = 1, dtype=torch.float32):
         super().__init__(in_dim, out_dim, ksize, dtype)
-        self.pool = GAPool(out_dim, out_dim, 0.0, TORCH, dtype)
+        self.pool = GAPool(out_dim, out_dim, 0.0, TORCH, dtype, over_bag=False)
 
     def forward(self, x, mask):
         B, N, _ = x.shape
@@ -349,17 +390,33 @@ def _masked_mha(q, k, v, mask, use_pallas: bool, flash_min_len: int,
     from `rng.host`. Below the gate, the plain branch, with Bernoulli dropout
     on the probabilities in train mode: fully masked queries softmax to
     uniform garbage here, which the caller's final `x * mask` removes.
+
+    Under an inst grid L is the rank's share of the regions: the gate reads
+    the bag's whole region count (L * inst), the flash op is the
+    sequence-parallel one (local query rows against the gathered keys) and
+    the plain branch gathers K / V / mask. Each rank's flash seed is
+    `rank_seed` of the drawn one.
     """
     B, L, H, Dh = q.shape
     training = attn_drop.training
     min_len = int(flash_min_len) if training else max(int(flash_min_len), 2048)
-    if use_pallas and L >= min_len:
+    g = mesh.grid()
+    ig = mesh.inst_grid()
+    if use_pallas and L * (ig.inst if ig else 1) >= min_len:
         p = attn_drop.rate if training else 0.0
         if p > 0.0 and rng is None:
             raise ValueError("train-mode attention dropout needs explicit "
                              "generators (rng=Rngs)")
         seed = rng.flash_seed() if p > 0.0 else None
-        return masked_flash_attention(q, k, v, mask, dropout_p=p, seed=seed)
+        dp_rank = g.dp_rank if g is not None else 0
+        if ig is not None:
+            return masked_flash_attention_inst(q, k, v, mask, ig.inst_group, dropout_p=p,
+                                               seed=seed, dp_rank=dp_rank)
+        return masked_flash_attention(q, k, v, mask, dropout_p=p,
+                                      seed=rank_seed(seed, dp_rank=dp_rank))
+    if ig is not None:
+        k, v = comm.inst_gather(k), comm.inst_gather(v)
+        mask = comm.all_gather(mask, 1, ig.inst_group)
     # 1/sqrt(Dh) rounded to q's dtype as flax does, made on the device (a
     # host tensor copied over would wait for the stream)
     scale = float(1.0 / torch.tensor(math.sqrt(Dh), dtype=torch.float32).to(q.dtype))
@@ -367,7 +424,7 @@ def _masked_mha(q, k, v, mask, use_pallas: bool, flash_min_len: int,
         (), scale, dtype=q.dtype, device=q.device)
     logits = logits.masked_fill(~mask[:, None, None, :].bool(),
                                 torch.finfo(logits.dtype).min)
-    probs = attn_drop(torch.softmax(logits, dim=-1), rng)
+    probs = attn_drop(torch.softmax(logits, dim=-1), rng, inst_dim=2)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -400,10 +457,10 @@ class TransformerEncoderLayer(nn.Module):
         q, k, v = (t.reshape(B, L, H, D // H) for t in (q, k, v))
         attn = _masked_mha(q, k, v, mask, self.use_pallas, self.flash_min_len,
                            self.attn_drop, rng)
-        x = x + self.drop(self.out_proj(attn.reshape(B, L, D)), rng)
+        x = x + self.drop(self.out_proj(attn.reshape(B, L, D)), rng, inst_dim=1)
         x = self.norm1(x)
-        ff = self.drop(torch.relu(self.linear1(x)), rng)
-        x = x + self.drop(self.linear2(ff), rng)
+        ff = self.drop(torch.relu(self.linear1(x)), rng, inst_dim=1)
+        x = x + self.drop(self.linear2(ff), rng, inst_dim=1)
         x = self.norm2(x)
         return x * mask[..., None].to(x.dtype)
 
@@ -450,17 +507,17 @@ class NoiseMLPHead(nn.Module):
     def forward(self, h, *, zero_noise: bool,
                 generator: torch.Generator | None = None,
                 rng: Rngs | None = None):
-        """`generator` draws the noise; `rng` the train-mode dropout."""
+        """`generator` draws the noise; `rng` the train-mode dropout. h is
+        [B, d], or [K, B, d] for K noise samples; the noise of a dp rank is
+        its rows of the global draw (`mesh.rand_global` over dim -2)."""
         for i in range(self.num_layers):
             if self.noise[i] == 1:
                 if zero_noise:
                     noise = torch.zeros_like(h)
-                elif self.noise_dist == "uniform":
-                    noise = torch.rand(h.shape, generator=generator,
-                                       device=h.device).to(h.dtype)
                 else:
-                    noise = torch.randn(h.shape, generator=generator,
-                                        device=h.device).to(h.dtype)
+                    noise = mesh.rand_global(
+                        h.shape, generator, h.device, batch_dim=-2,
+                        normal=self.noise_dist == "gaussian").to(h.dtype)
                 h = torch.cat([h, noise], dim=-1)
             layer = getattr(self, f"mlp_{i}")
             h = layer(h) if i == self.num_layers - 1 else layer(h, rng)

@@ -270,3 +270,84 @@ def masked_flash_attention(q, k, v, mask, *, dropout_p: float = 0.0,
     if q.device.type == "cpu":
         return masked_attention_reference(q, k, v, mask, dropout_p, seed)
     return MaskedFlashAttention.apply(q, k, v, mask, float(dropout_p), seed)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel flash attention over an inst process group
+# ---------------------------------------------------------------------------
+
+INST_SEED_STRIDE = 7919   # inst rank r adds r * 7919, as in the JAX wrapper
+DP_SEED_STRIDE = 104729   # dp rank r adds r * 104729
+
+
+def rank_seed(seed: int | None, inst_rank: int = 0, dp_rank: int = 0) -> int | None:
+    """The flash dropout seed of the rank at (dp_rank, inst_rank) of a dp x
+    inst grid: its keep mask on the local query rows is the plain keep mask
+    of this seed (rows 0 .. Lq-1 of the rank's own call), decorrelated
+    across ranks, so bags of different dp ranks and the query rows of
+    different inst ranks do not share keep masks."""
+    if seed is None:
+        return None
+    return (int(seed) + inst_rank * INST_SEED_STRIDE + dp_rank * DP_SEED_STRIDE) % (1 << 64)
+
+
+def _inst_operands(k, v, mask, group):
+    from ..parallel import comm
+    return (comm.all_gather(k, 1, group), comm.all_gather(v, 1, group),
+            comm.all_gather(mask, 1, group))
+
+
+class MaskedFlashAttentionInst(torch.autograd.Function):
+    """The flash kernels on this rank's query rows against the keys of the
+    whole inst group: the forward all-gathers K / V / mask over `group` and
+    launches #5 with the rank's seed; the backward launches #6 / #7 on the
+    local rows against the full keys and reduce-scatters the partial dK / dV
+    (f32) over the group, the transpose of the all-gather."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, dropout_p, seed, group):
+        kf, vf, mf = _inst_operands(k, v, mask, group)
+        out, lse = flash_attention_fwd(q, kf, vf, mf, dropout_p, seed)
+        ctx.save_for_backward(q, kf, vf, mf, out, lse)
+        ctx.dropout_p, ctx.seed, ctx.group = dropout_p, seed, group
+        return out
+
+    @staticmethod
+    @_build.first_order
+    def backward(ctx, dout):
+        from ..parallel import comm
+        q, kf, vf, mf, out, lse = ctx.saved_tensors
+        ops = flash_bwd_inputs(q, kf, vf, mf, out, lse, dout)
+        dq = flash_bwd_dq(ops, ctx.dropout_p, ctx.seed) * (1.0 / math.sqrt(q.shape[-1]))
+        dk, dv = flash_bwd_dkv(ops, ctx.dropout_p, ctx.seed)
+        dk = comm.reduce_scatter(dk, 1, ctx.group).contiguous()
+        dv = comm.reduce_scatter(dv, 1, ctx.group).contiguous()
+        return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), None, None, None, None
+
+
+def masked_attention_inst_reference(q, k, v, mask, group, dropout_p: float = 0.0,
+                                    seed: int | None = None):
+    """Plain version of `masked_flash_attention_inst` (`seed` is the rank's
+    own, see `rank_seed`): the differentiable all-gather of K / V (backward:
+    reduce-scatter) and the plain attention of the local rows."""
+    from ..parallel import comm
+    kf, vf = comm.gather(k, 1, group), comm.gather(v, 1, group)
+    mf = comm.all_gather(mask, 1, group)
+    return masked_attention_reference(q, kf, vf, mf, dropout_p, seed)
+
+
+def masked_flash_attention_inst(q, k, v, mask, group, *, dropout_p: float = 0.0,
+                                seed: int | None = None, dp_rank: int = 0):
+    """Sequence-parallel masked attention (counterpart of the JAX package's
+    `masked_flash_attention_inst`): q / k / v [B, L/m, H, Dh] and mask
+    [B, L/m] are this rank's share of the instance axis, split over the m
+    ranks of `group` in rank order; the output is this rank's query rows
+    against all L keys. With dropout the rank's keep mask comes from
+    `rank_seed(seed, group_rank, dp_rank)`. On the CPU the plain version, on
+    the card the kernels, or raises."""
+    import torch.distributed as tdist
+    _dropout_args(dropout_p, seed)
+    seed = rank_seed(seed, tdist.get_rank(group), dp_rank)
+    if q.device.type == "cpu":
+        return masked_attention_inst_reference(q, k, v, mask, group, dropout_p, seed)
+    return MaskedFlashAttentionInst.apply(q, k, v, mask, float(dropout_p), seed, group)

@@ -30,10 +30,12 @@ def to_relative_coord(coord: torch.Tensor) -> torch.Tensor:
 
 
 def compute_pe(coord: torch.Tensor, ndim: int = 384, step: int = 1,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = torch.float32, origin=None) -> torch.Tensor:
     """Region coords [B, L, 2] -> positional embedding [B, L, ndim]: relative
-    coordinates floor-divided by `step`, then `posemb_sincos_2d`."""
-    ncoord = to_relative_coord(coord)
+    coordinates floor-divided by `step`, then `posemb_sincos_2d`. `origin`
+    [B, 1, 2] replaces the minimum corner of `coord` (a bag split over
+    several ranks passes the whole bag's)."""
+    ncoord = to_relative_coord(coord) if origin is None else coord - origin
     y = torch.div(ncoord[..., 1], step, rounding_mode="floor")
     x = torch.div(ncoord[..., 0], step, rounding_mode="floor")
     return posemb_sincos_2d(y, x, ndim, dtype=dtype)

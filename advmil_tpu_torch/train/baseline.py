@@ -16,7 +16,8 @@ saves `{run}_model-{best,last}.ckpt` (parameters and optimizer state), then
 evaluates the best checkpoint on every split and writes
 `{group}_{ckpt}_pred_{split}.csv`; `exec_test` evaluates the occluded test
 split from a training run's best checkpoint. Both write metrics, CSVs and
-checkpoints under the JAX package's names and paths.
+checkpoints under the JAX package's names and paths, in one process or as
+one rank of a parallel world (`train/common.py`, `parallel/`).
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ class BaselineHandler(HandlerCommon):
         seed_everything(cfg["seed"])
         self.cfg = cfg
         self.device = resolve_device(cfg["device"])
+        self._setup_parallel()
         self.task = cfg["task"]
         self.bcb = cfg["bcb_mode"]
         self._setup_paths()
@@ -202,5 +204,6 @@ class BaselineHandler(HandlerCommon):
         self.model.load_state_dict(ckpt_lib.restore_checkpoint(path)[1])
 
     def save_model(self, epoch, ckpt_type="best", run_name="train"):
-        ckpt_lib.save_checkpoint(self._ckpt_path(ckpt_type, run_name), epoch,
-                                 self.model.state_dict(), self.opt.state_dict())
+        self._save(lambda: ckpt_lib.save_checkpoint(
+            self._ckpt_path(ckpt_type, run_name), epoch, self.model.state_dict(),
+            self.opt.state_dict()))

@@ -1,7 +1,17 @@
 """Handler plumbing (counterpart of `advmil_tpu/train/common.py`): the
-save/load path layout, the run logger, the bucketed batcher, shipping a host
-batch to the configured device, and the training loop and evaluation both
-handlers share."""
+save/load path layout, the process grid, the run logger, the bucketed
+batcher, shipping a host batch to the configured device, and the training
+loop and evaluation both handlers share.
+
+In a multi-process run (`parallel/`) every rank builds the same global
+batch on the host (same seed, same bucket order) and ships only its rows
+and, under inst > 1, its share of the patch axis; the labels and sample
+masks stay global, since the losses run on gathered outputs. Evaluation
+gathers each batch's outputs to every rank in global order, so the metrics,
+early stopping and the plateau rule decide the same thing everywhere. Rank 0
+alone writes checkpoints, prediction CSVs, `print_config.txt` and the
+scalars log; a barrier follows each checkpoint, so every rank can read it
+back."""
 from __future__ import annotations
 
 import os
@@ -12,6 +22,8 @@ import numpy as np
 import torch
 
 from ..data.bags import BucketBatcher
+from ..parallel import comm, mesh
+from ..parallel.dist import barrier, is_multi_process, is_primary, multi_host_settings
 from ..utils.func import (EarlyStopping, add_prefix_to_filename, print_config,
                           print_metrics, rename_keys)
 from ..utils.io import save_prediction
@@ -67,6 +79,33 @@ class HandlerCommon:
             "best": osp.join(self.save_dir, "metrics-best.txt"),
             "last": osp.join(self.save_dir, "metrics-last.txt")}
 
+    def _setup_parallel(self):
+        """Register the process grid (`parallel/mesh.py`): dp_devices x
+        inst_devices ranks, or, in a multi-host run (`dist_*` settings),
+        pure data parallelism over every rank (inst_devices ignored, as in
+        the JAX package). A single-process run registers none; asking it for
+        several ranks raises (main.py or torchrun starts them)."""
+        cfg = self.cfg
+        dp = int(cfg.get("dp_devices", 1) or 1)
+        inst = int(cfg.get("inst_devices", 1) or 1)
+        self.grid = None
+        if is_multi_process():
+            import torch.distributed as tdist
+            world = tdist.get_world_size()
+            if multi_host_settings(cfg):
+                if inst > 1:
+                    print("[parallel] WARNING: inst_devices is ignored in multi-host runs "
+                          "(pure data parallelism over every rank)")
+                dp, inst = world, 1
+            self.grid = mesh.make_grid(dp, inst, self.device)
+            print(f"[parallel] rank {self.grid.rank} of {world}: dp {dp} x inst {inst} "
+                  f"({self.grid.backend}, {self.device})")
+        elif dp * inst > 1:
+            raise RuntimeError(f"dp_devices x inst_devices = {dp * inst} ranks: start them "
+                               "with `python -m advmil_tpu_torch.main` (which spawns them) "
+                               "or torchrun")
+        mesh.set_grid(self.grid)
+
     def _setup_logging(self):
         cfg = self.cfg
         self.patient_id = {}
@@ -74,16 +113,30 @@ class HandlerCommon:
         run_name = self.save_dir.rstrip("/").split("/")[-1]
         prj = (cfg.get("test_wandb_prj") or cfg.get("wandb_prj")) \
             if cfg.get("test") else cfg.get("wandb_prj")
-        self.logger = RunLogger(prj, run_name, self.save_dir, config=cfg)
-        print_config(cfg, print_to_path=self.config_path)
+        self.logger = RunLogger(prj, run_name, self.save_dir, config=cfg,
+                                enabled=is_primary())
+        if is_primary():
+            print_config(cfg, print_to_path=self.config_path)
+
+    def _save(self, write) -> None:
+        """Run `write()` on rank 0 only, then wait for every rank, so a file
+        just written can be read back everywhere."""
+        if is_primary():
+            write()
+        barrier()
 
     def _make_bucket_batcher(self, ds) -> BucketBatcher:
+        g = self.grid
         b = BucketBatcher(ds, token_budget=self.cfg["batch_token_budget"],
                           max_batch=self.cfg["batch_max_size"],
                           min_bucket=self.cfg["bucket_min"],
                           bucket_growth=float(self.cfg["bucket_growth"]),
                           edges_per_node=int(self.cfg["graph_edges_per_node"]),
-                          banded=graph_banded(self.cfg))
+                          banded=graph_banded(self.cfg),
+                          # every rank gets the same number of bags, and whole
+                          # 16-patch regions of each
+                          batch_multiple=g.dp if g else 1,
+                          n_multiple=16 * (g.inst if g else 1))
         nw = int(self.cfg["num_workers"] or 0)
         b.prefetch_depth = max(2, nw)
         b.prefetch_workers = max(1, nw)
@@ -96,19 +149,32 @@ class HandlerCommon:
         semi-supervised training). `extra` is what the backbone takes as its
         third argument: the dict of graph tables (int32 / f32 tensors) in
         graph mode, the region coordinates [B, L, 2] in patch mode with
-        `use_coords_pe`, the cluster ids [B, N] (int32) in cluster mode."""
-        feats = torch.from_numpy(batch.feats).to(self.device)
+        `use_coords_pe`, the cluster ids [B, N] (int32) in cluster mode.
+        Under a grid the model's inputs are this rank's rows (and share of
+        the patch axis), sliced on the host before any cast or copy; label,
+        sample_mask and visible stay global."""
+        arrays = {"feats": batch.feats, "mask": batch.mask}
+        if "coords" in batch.extra:
+            arrays["coords"] = batch.extra["coords"]
+        elif "cluster_id" in batch.extra:     # int32 [B, N], -1 on padding
+            arrays["cluster_id"] = batch.extra["cluster_id"]
+        elif batch.extra:
+            arrays["graph"] = batch.extra
+        if self.grid is not None:
+            arrays = mesh.shard_batch_2d(arrays, self.grid)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        feats = dev(arrays["feats"])
         if self.cfg["precision"] in ("bf16", "bfloat16"):
             feats = feats.to(torch.bfloat16)
-        out = {"feats": feats,
-               "mask": torch.from_numpy(batch.mask).to(self.device)}
-        if "coords" in batch.extra:
-            out["extra"] = torch.from_numpy(batch.extra["coords"]).to(self.device)
-        elif "cluster_id" in batch.extra:     # int32 [B, N], -1 on padding
-            out["extra"] = torch.from_numpy(batch.extra["cluster_id"]).to(self.device)
-        elif batch.extra:
-            out["extra"] = {k: torch.from_numpy(v).to(self.device)
-                            for k, v in batch.extra.items()}
+        out = {"feats": feats, "mask": dev(arrays["mask"])}
+        if "coords" in arrays:
+            out["extra"] = dev(arrays["coords"])
+        elif "cluster_id" in arrays:
+            out["extra"] = dev(arrays["cluster_id"])
+        elif "graph" in arrays:
+            out["extra"] = {k: dev(v) for k, v in arrays["graph"].items()}
         if train:
             smask = torch.from_numpy(batch.sample_mask).to(self.device)
             vis = (torch.ones_like(smask) if visible is None
@@ -242,7 +308,9 @@ class HandlerCommon:
         t0 = time.perf_counter()
         pending, keeps, ys, idxs = [], [], [], []
         for batch in batcher.prefetch():
-            pending.append(step(self._ship(batch), gen))
+            out = step(self._ship(batch), gen)
+            # every rank gets the whole batch's outputs, in global order
+            pending.append({k: comm.gather_rows_nograd(v) for k, v in out.items()})
             keep = batch.sample_mask.astype(bool)
             ys.append(batch.label[keep])
             idxs.append(batch.idx[keep])
@@ -287,11 +355,12 @@ class HandlerCommon:
                                    zero_noise=zero_noise, rng_tag=tag)
             ci, loss = self._eval_and_print(cltor, name=f"{wandb_group}/{k}")
             metrics[k] = [("cindex", ci), ("loss", loss)]
-            if cfg["save_prediction"]:
+            if cfg["save_prediction"] and is_primary():
                 path = osp.join(self.save_dir, f"{group}_{ckpt_type}_pred_{k}.csv")
                 pids = [ds.pids[int(i)] for i in cltor["idx"]]
                 save_prediction(pids, cltor["y"],
                                 cltor.get("avg_y_hat", cltor["y_hat"]),
                                 cltor.get("dist_y_hat"), path)
-        print_metrics(metrics, print_to_path=print_path)
+        if is_primary():
+            print_metrics(metrics, print_to_path=print_path)
         return metrics

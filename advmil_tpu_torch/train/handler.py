@@ -14,7 +14,9 @@ AdvHandler`): builds G and D on the configured device and runs
 
 for cont_gansurv (one continuous time) and disc_gansurv (hazards over
 `time_bins` quantile bins), writing metrics, prediction CSVs and
-checkpoints under the same names and paths as the JAX package.
+checkpoints under the same names and paths as the JAX package. Each mode
+runs in one process or as one rank of a dp_devices x inst_devices (or
+multi-host) world (`train/common.py`, `parallel/`).
 """
 from __future__ import annotations
 
@@ -85,6 +87,7 @@ class AdvHandler(HandlerCommon):
         seed_everything(cfg["seed"])
         self.cfg = cfg
         self.device = resolve_device(cfg["device"])
+        self._setup_parallel()
         self.task = cfg["task"]
         self.bcb = cfg["bcb_mode"]
         self.nbins = cfg.get("time_bins", 4)
@@ -307,9 +310,11 @@ class AdvHandler(HandlerCommon):
         self.disc_model.load_state_dict(ckpt_lib.restore_checkpoint(dpath)[1])
 
     def save_model(self, epoch, ckpt_type="best", run_name="train"):
-        ckpt_lib.save_checkpoint(self._ckpt_path("G", ckpt_type, run_name),
-                                 epoch, self.gen_model.state_dict(),
-                                 self.opt_G.state_dict())
-        ckpt_lib.save_checkpoint(self._ckpt_path("D", ckpt_type, run_name),
-                                 epoch, self.disc_model.state_dict(),
-                                 self.opt_D.state_dict())
+        def write():
+            ckpt_lib.save_checkpoint(self._ckpt_path("G", ckpt_type, run_name),
+                                     epoch, self.gen_model.state_dict(),
+                                     self.opt_G.state_dict())
+            ckpt_lib.save_checkpoint(self._ckpt_path("D", ckpt_type, run_name),
+                                     epoch, self.disc_model.state_dict(),
+                                     self.opt_D.state_dict())
+        self._save(write)

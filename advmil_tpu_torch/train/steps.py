@@ -1,7 +1,19 @@
 """The adversarial and baseline training steps, the supervised-loss factory
 and the evaluation step (counterparts of `advmil_tpu/train/steps.py::
 make_adv_train_step`, `make_base_train_step`, `make_supervised_loss` and
-`make_eval_step`)."""
+`make_eval_step`).
+
+Under a process grid (`parallel/`) the models see this rank's rows of the
+batch, while label, sample_mask and visible are global. Each step gathers
+the per-bag outputs to the global batch (`comm.gather_rows`, backward:
+reduce-scatter) and computes every loss on it, so masked means count the
+global weights, the Cox risk sets span ranks and each rank's loss is the
+single-process loss. Each rank back-propagates loss / world
+(`comm.for_backward`); the gradients are summed over the world in one flat
+buffer before every optimizer step (`comm.reduce_grads`; with
+`MultiSteps`, before each micro-step), which gives the single-process
+gradient of the global loss. In a single-process run every one of these
+helpers is the identity."""
 from __future__ import annotations
 
 import functools
@@ -10,6 +22,8 @@ import torch
 
 from .. import losses
 from ..models.layers import Rngs
+from ..parallel import comm
+from ..parallel.mesh import local_rows
 from .optim import AdaHessian, hutchinson_diag, rademacher_like
 
 
@@ -46,10 +60,11 @@ def make_eval_step(gen_model, disc_model=None, *, n_samples: int = 1,
     median.
 
     A generator (a model with `embed` / `head`) computes the backbone
-    embedding once and runs the K noise samples as one [K*B] batch through
+    embedding once and runs the K noise samples as one [K, B] batch through
     the head; `generator` supplies the noise (on the batch's device). A
     model without them (the baseline SurvNet) draws no noise, so its K
-    samples are K copies of its one forward.
+    samples are K copies of its one forward. Outputs are per bag of the
+    batch the step was given (a rank's rows under a grid).
     """
     has_embed_head = hasattr(gen_model, "embed") and hasattr(gen_model, "head")
 
@@ -70,7 +85,8 @@ def make_eval_step(gen_model, disc_model=None, *, n_samples: int = 1,
         if n_samples > 1:
             B = y_hat.shape[0]
             if has_embed_head:
-                Hk = H.repeat(n_samples, *([1] * (H.dim() - 1)))   # [K*B, d]
+                Hk = H.repeat(n_samples, *([1] * (H.dim() - 1))).reshape(
+                    n_samples, *H.shape)                           # [K, B, d]
                 dist = gen_model.head(Hk, zero_noise=zero_noise, generator=generator)
             else:
                 dist = y_hat.repeat(n_samples, 1)
@@ -112,7 +128,7 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
     the supervised loss takes the whole [B, nbins] hazards.
     Returns (metrics, collect) as device tensors: the caller syncs once per
     epoch. collect holds the D phase's predictions and fake scores, which the
-    reference logs as the training-set predictions.
+    reference logs as the training-set predictions (the global batch's).
     """
     is_disc_task = task == "disc_gansurv"
 
@@ -128,6 +144,7 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
             # model_handler.py:382), so 1 - e goes into this `e`; "fixing" it
             # swaps which patients get the one-hot label
             y_disc, y_mask = losses.get_label_mask(t, 1.0 - e, nbins)
+            y_mask_rows = local_rows(y_mask)
 
         # ---- D phase: generator in eval mode (dropout off, noise on) ----
         gen_model.eval()
@@ -136,22 +153,24 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
             pred_eval = gen_model(feats, mask, extra, zero_noise=False,
                                   generator=rngs.device)
         if is_disc_task:
-            t_real, fake_in = y_disc * y_mask, pred_eval * y_mask
+            t_real, fake_in = local_rows(y_disc * y_mask), pred_eval * y_mask_rows
             real_w = smask      # visibility does not gate the disc task's real pairs
         else:
-            t_real, fake_in = t[:, None], pred_eval
+            t_real, fake_in = local_rows(t[:, None]), pred_eval
             real_w = (e == 1).to(torch.float32) * visible
         f_real, f_fake = disc_model(feats, (t_real, fake_in), mask, rngs)
-        f_real, f_fake = f_real.float(), f_fake.float()
+        f_real, f_fake = comm.gather_rows(f_real.float()), comm.gather_rows(f_fake.float())
         loss_D = losses.real_fake_loss(f_real, f_fake, which=loss_netD,
                                        real_weight=real_w, fake_weight=smask)
         opt_D.zero_grad(set_to_none=True)
-        loss_D.backward()
+        comm.for_backward(loss_D).backward()
+        comm.reduce_grads(disc_model.parameters())
         opt_D.step()
         metrics = {"Loss_D": loss_D.detach(),
                    "D_real": losses._wmean(f_real.detach().reshape(-1), real_w),
                    "D_fake": losses._wmean(f_fake.detach().reshape(-1), smask)}
-        collect = {"y_hat": pred_eval, "f_fake": f_fake.detach().reshape(-1)}
+        collect = {"y_hat": comm.gather_rows_nograd(pred_eval),
+                   "f_fake": f_fake.detach().reshape(-1)}
 
         # ---- G phase (x gen_updates): D in eval mode and frozen ----
         gen_model.train()
@@ -161,15 +180,17 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
             for _ in range(gen_updates):
                 pred = gen_model(feats, mask, extra, zero_noise=False,
                                  generator=rngs.device, rng=rngs)
-                f_fake_g = disc_model(feats, pred * y_mask if is_disc_task else pred,
+                f_fake_g = disc_model(feats, pred * y_mask_rows if is_disc_task else pred,
                                       mask).float()
+                f_fake_g, pred = comm.gather_rows(f_fake_g), comm.gather_rows(pred)
                 gen_loss = losses.fake_generator_loss(f_fake_g, weight=smask)
                 t_reg = sup_loss_fn(pred if is_disc_task else pred[:, 0], t, e,
                                     weight=visible)
                 total = t_reg if coef_gan == 0.0 else t_reg + coef_gan * gen_loss
                 total = total + losses.loss_reg_l1(gen_model.parameters(), l1_coef)
                 opt_G.zero_grad(set_to_none=True)
-                total.backward()
+                comm.for_backward(total).backward()
+                comm.reduce_grads(gen_model.parameters())
                 opt_G.step()
                 metrics.update({
                     "Loss_G_fake": gen_loss.detach(), "Loss_G_time": t_reg.detach(),
@@ -194,26 +215,33 @@ def make_base_train_step(model, opt, *, task: str, l1_coef: float, sup_loss_fn,
     An `AdaHessian` `opt` gets the Hutchinson estimate of the Hessian
     diagonal in `opt.step`, z * (H z), from a double backward through the
     same forward (same dropout masks); `z_fn(params, generator)` draws the
-    Rademacher z (default: `rngs.device`)."""
+    Rademacher z (default: `rngs.device`; the parameters' shape is global, so
+    every rank draws the same z). Under a grid the double backward runs
+    through the collectives' backward rules as well, and both the gradients
+    and z * (H z) are summed over the world."""
     is_disc_task = task == "surv_nll"
     second_order = isinstance(opt, AdaHessian)
 
     def step(batch: dict, rngs: Rngs):
         t, e = batch["label"][:, 0], batch["label"][:, 1]
         model.train()
-        pred = model(batch["feats"], batch["mask"], batch.get("extra"), rng=rngs)
+        pred = comm.gather_rows(model(batch["feats"], batch["mask"], batch.get("extra"),
+                                      rng=rngs))
         loss = sup_loss_fn(pred if is_disc_task else pred[:, 0], t, e,
                            weight=batch["sample_mask"])
         total = loss + losses.loss_reg_l1(model.parameters(), l1_coef)
         opt.zero_grad(set_to_none=True)
         if second_order:
             params = [p for p in model.parameters() if p.requires_grad]
-            grads, hdiag = hutchinson_diag(total, params, z_fn(params, rngs.device))
+            grads, hdiag = hutchinson_diag(comm.for_backward(total), params,
+                                           z_fn(params, rngs.device))
+            grads, hdiag = comm.reduce_tensors(grads), comm.reduce_tensors(hdiag)
             for p, g in zip(params, grads):
                 p.grad = g
             opt.step(hdiag)
         else:
-            total.backward()
+            comm.for_backward(total).backward()
+            comm.reduce_grads(model.parameters())
             opt.step()
         return ({"loss_supervision": loss.detach(), "loss_total": total.detach()},
                 {"y_hat": pred.detach()})

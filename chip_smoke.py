@@ -83,6 +83,24 @@ Phases, each printed on its own line:
  29. every optimizer of the factory (and lookahead_adam, AdaHessian with the
      same z), three f32 ABMIL steps, card against CPU within 1e-5.
  30. one adversarial ESAT epoch with `opt_netG: lookahead_radam`.
+ 31. the flash kernels #5-#7 at the sequence-parallel op's shapes: 512 local
+     query rows against 1,024 keys, f32 and bf16, p = 0 and 0.25 with the
+     rank's seed (seed + rank * 7919), against the plain version; two ranks'
+     p = 0 results joined against the unsharded launch; CUDA-event times
+     beside the unsharded kernels'.
+ 32. dp_devices 2 on the one card (two ranks on cuda:0 through the
+     launcher's device list; gloo, which takes CUDA tensors and stages them
+     through pinned host memory itself: the phase checks each collective):
+     one f32 adversarial step on the long training
+     batch against the single-process card step, then the cfg_nlst bf16
+     2-epoch run over two ranks through `advmil_tpu_torch.main.run_one`:
+     equal metrics on both ranks, each artifact written once, each rank's
+     kernel launches.
+ 33. inst_devices 2 on the one card: one f32 adversarial ESAT step on the
+     two long training bags (a bucket of 1,000 regions: flash on 500 local
+     rows against 1,000 keys) and one ABMIL base step, each against the
+     single-process card step; test mode from phase 32's best checkpoint
+     over two inst ranks against the same test mode in one process.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -2405,6 +2423,437 @@ def phase_other_optimizer(paths, small_split, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 31-33: parallelism (dp_devices, inst_devices) on the one card
+# ---------------------------------------------------------------------------
+
+def phase_inst_kernels(card):
+    """Phase 31: the flash kernels #5-#7 at the shapes the sequence-parallel
+    op gives them on two inst ranks: B=2, 1,024 keys, 512 local query rows
+    (rank r: rows r*512 .. r*512+511, seed + r*7919), f32 and bf16, p = 0 and
+    0.25, each rank's forward, dQ and dK/dV against the plain version (bf16
+    also `_flash_tight`); at p = 0 the two ranks' outputs and dQ concatenated
+    against the unsharded launch, and their partial dK / dV summed (what the
+    reduce-scatter does) against the unsharded dK / dV. CUDA-event times of
+    the local launches beside the unsharded ones, the plain version at the
+    local shape and F.scaled_dot_product_attention at the same shape.
+    Returns per kernel the local shape's times and bound."""
+    import torch
+    from advmil_tpu_torch.ops import attention as attn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    B, L, Lq, H, Dh = 2, 1024, 512, 8, 48
+    q32, k32, v32, do32 = (torch.randn(B, L, H, Dh, device=dev, generator=g) for _ in range(4))
+    mask = torch.ones(B, L, device=dev)
+    mask[0, L - 200:] = 0.0
+    mask[0, 320:384] = 0.0            # a key tile with no real key
+    mask[1, 600:] = 0.0
+    keys = int(mask.sum())
+    pairs = Lq * keys * H * Dh        # one rank's products over the real keys
+    out_report = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        q, k, v, dout = (t.to(dtype) for t in (q32, k32, v32, do32))
+        for p in (0.0, 0.25):
+            seed = 0x1D57 if p else None
+            got_r = []
+            for r in range(2):
+                rows = slice(r * Lq, (r + 1) * Lq)
+                qr, dor = q[:, rows].contiguous(), dout[:, rows].contiguous()
+                sr = attn.rank_seed(seed, r)
+                out, lse = attn.flash_attention_fwd(qr, k, v, mask, p, sr)
+                got = (out,) + attn.flash_attention_bwd(qr, k, v, mask, out, lse, dor, p, sr)
+                leaves = [t.detach().clone().requires_grad_(True) for t in (qr, k, v)]
+                ref = attn.masked_attention_reference(*leaves, mask, p, sr)
+                want = (ref,) + torch.autograd.grad(ref, leaves, dor)
+                torch.cuda.synchronize()
+                errs = []
+                for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                    errs.append(f"{name} {max_abs(a, b):.3e}")
+                    torch.testing.assert_close(
+                        a.float(), b.float(), atol=tol, rtol=tol,
+                        msg=lambda m, n=name: f"31 flash Lq<Lk rank {r} p={p} {n}: {m}")
+                tight = _flash_tight(got, (qr, k, v, mask, dor, p, sr),
+                                     f"31 flash Lq<Lk rank {r} p={p}") \
+                    if dtype == torch.bfloat16 else ""
+                log(f"[31 inst kernels] flash rank {r} of 2: q rows {rows.start}-{rows.stop - 1} "
+                    f"(Lq={Lq}) against Lk={L} keys, B={B} H={H} Dh={Dh} p={p} "
+                    f"{str(dtype)[6:]}, seed + {r}*{attn.INST_SEED_STRIDE}: max_abs_err "
+                    f"{' '.join(errs)} (atol {tol}, rtol {tol}){tight}")
+                got_r.append(got)
+                del leaves, ref, want
+            if p == 0.0:
+                full, lse_f = attn.flash_attention_fwd(q, k, v, mask)
+                full_g = attn.flash_attention_bwd(q, k, v, mask, full, lse_f, dout)
+                cat_out = torch.cat([x[0] for x in got_r], dim=1)
+                cat_dq = torch.cat([x[1] for x in got_r], dim=1)
+                sum_dk = got_r[0][2].float() + got_r[1][2].float()
+                sum_dv = got_r[0][3].float() + got_r[1][3].float()
+                torch.cuda.synchronize()
+                errs = []
+                for name, a, b in (("out", cat_out, full), ("dq", cat_dq, full_g[0]),
+                                   ("dk", sum_dk, full_g[1]), ("dv", sum_dv, full_g[2])):
+                    errs.append(f"{name} {max_abs(a, b):.3e}")
+                    torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                               msg=lambda m, n=name: f"31 sharded {n}: {m}")
+                bit = torch.equal(cat_out, full)
+                qr, dor = q[:, :Lq].contiguous(), dout[:, :Lq].contiguous()
+                o_r, l_r = attn.flash_attention_fwd(qr, k, v, mask)
+                ops_r = attn.flash_bwd_inputs(qr, k, v, mask, o_r, l_r, dor)
+                ops_f = attn.flash_bwd_inputs(q, k, v, mask, full, lse_f, dout)
+                leaves = [t.detach().clone().requires_grad_(True) for t in (qr, k, v)]
+                ref = attn.masked_attention_reference(*leaves, mask)
+                times = {}
+                times["fwd"] = timed_pair(lambda: attn.flash_attention_fwd(qr, k, v, mask),
+                                          lambda: attn.masked_attention_reference(qr, k, v, mask))
+                plain_bwd = lambda: torch.autograd.grad(ref, leaves, dor, retain_graph=True)  # noqa: E731
+                times["dq"] = timed_pair(lambda: attn.flash_bwd_dq(ops_r), plain_bwd)
+                times["dkv"] = timed_pair(lambda: attn.flash_bwd_dkv(ops_r), plain_bwd)
+                full_ms = {"fwd": timed_one(lambda: attn.flash_attention_fwd(q, k, v, mask)),
+                           "dq": timed_one(lambda: attn.flash_bwd_dq(ops_f)),
+                           "dkv": timed_one(lambda: attn.flash_bwd_dkv(ops_f))}
+                lib = {"fwd": timed_one(_sdpa(qr, k, v, mask, 0.0)),
+                       "bwd": timed_one(_sdpa(qr, k, v, mask, 0.0, dor))}
+                io = nbytes(qr, k, v, o_r)
+                bounds = {"fwd": bound(io + nbytes(mask, l_r), 4 * pairs,
+                                       "bf16" if dtype == torch.bfloat16 else "f32"),
+                          "dq": bound(io + nbytes(dor, qr, mask, l_r), 6 * pairs,
+                                      "bf16" if dtype == torch.bfloat16 else "f32"),
+                          "dkv": bound(io + nbytes(dor, k, v, mask, l_r), 8 * pairs,
+                                       "bf16" if dtype == torch.bfloat16 else "f32")}
+                log(f"[31 inst kernels] p=0 {str(dtype)[6:]}: the two ranks' outputs and dQ "
+                    f"concatenated, their dK / dV summed, against the unsharded launch: "
+                    f"max_abs_err {' '.join(errs)} (atol {tol}, rtol {tol}); outputs bit for "
+                    f"bit: {bit} | per rank (Lq={Lq}, Lk={L}): fwd {times['fwd'][0]:.4f} ms, dq "
+                    f"{times['dq'][0]:.4f} ms, dk/dv {times['dkv'][0]:.4f} ms | unsharded "
+                    f"(Lq=Lk={L}): fwd {full_ms['fwd']:.4f} ms, dq {full_ms['dq']:.4f} ms, dk/dv "
+                    f"{full_ms['dkv']:.4f} ms | bounds per rank fwd "
+                    f"{bounds['fwd']['bound_ms']:.4f} dq {bounds['dq']['bound_ms']:.4f} dk/dv "
+                    f"{bounds['dkv']['bound_ms']:.4f} ms | plain per rank fwd "
+                    f"{times['fwd'][1]:.4f} ms, autograd bwd {times['dq'][1]:.4f} ms | "
+                    f"F.scaled_dot_product_attention per rank fwd {lib['fwd']:.4f} ms, bwd "
+                    f"{lib['bwd']:.4f} ms | {card}")
+                if dtype == torch.bfloat16:
+                    for name, key, lib_key in (("masked_flash_attention", "fwd", "fwd"),
+                                               ("flash_bwd_dq", "dq", "bwd"),
+                                               ("flash_bwd_dkv", "dkv", "bwd")):
+                        out_report[name] = dict(
+                            shape=f"B={B} Lq={Lq} Lk={L} H={H} Dh={Dh} bf16 p=0",
+                            ms=times[key][0], unsharded_ms=full_ms[key],
+                            plain_ms=times[key][1], library_ms=lib[lib_key], **bounds[key])
+                del leaves, ref, ops_r, ops_f
+    return out_report
+
+
+def _timed_collectives():
+    """Wrap torch.distributed's all_reduce / all_gather / reduce_scatter_tensor
+    (the calls `parallel/comm.py` makes) with a device sync and a host clock on
+    each side; returns the running totals."""
+    import torch
+    import torch.distributed as tdist
+    box = {"ms": 0.0, "calls": 0}
+    for name in ("all_reduce", "all_gather", "reduce_scatter_tensor"):
+        orig = getattr(tdist, name)
+
+        def wrapped(*args, _orig=orig, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            box["ms"] += (time.perf_counter() - t0) * 1e3
+            box["calls"] += 1
+            return out
+        setattr(tdist, name, wrapped)
+    return box
+
+
+def _collective_probe(device) -> dict:
+    """Which of the collectives `parallel/comm.py` calls the process group
+    (gloo where ranks share a card, NCCL where each has its own) runs on
+    CUDA tensors, each checked."""
+    import torch
+    import torch.distributed as tdist
+    w, r = tdist.get_world_size(), tdist.get_rank()
+    x = torch.full((4 * w,), float(r + 1), device=device)
+    out = {}
+    y = x.clone()
+    tdist.all_reduce(y)
+    out["all_reduce"] = float(y[0]) == w * (w + 1) / 2
+    parts = [torch.empty_like(x) for _ in range(w)]
+    tdist.all_gather(parts, x)
+    out["all_gather"] = all(float(p[0]) == i + 1 for i, p in enumerate(parts))
+    z = torch.empty(4, device=device)
+    tdist.reduce_scatter_tensor(z, x)
+    out["reduce_scatter_tensor"] = float(z[0]) == w * (w + 1) / 2
+    torch.cuda.synchronize()
+    return dict(out, backend=tdist.get_backend())
+
+
+def _one_step(kind, cfg, weights, batch, dev):
+    """One f32 step from `weights` (dropout off, zero noise) through the
+    port's step function, under the registered grid if any (the model sees
+    this rank's rows and share of the patch axis): the parameters after it
+    and the gradients the optimizer stepped on (the world's sum; coupled L2
+    added), name -> CPU tensor."""
+    import torch
+    from advmil_tpu_torch.models.layers import Rngs, XAVIER, set_dropout_rates
+    from advmil_tpu_torch.parallel import mesh
+    from advmil_tpu_torch.train import steps
+    from advmil_tpu_torch.train.optim import create_optimizer
+    cfg = dict(cfg, precision="f32")
+    if kind == "adv":
+        from advmil_tpu_torch.train.handler import build_models
+        G, D = build_models(cfg)
+        nets = {"G": G, "D": D}
+    else:
+        from advmil_tpu_torch.train.baseline import build_survnet
+        nets = {"net": build_survnet(cfg, "sigmoid", XAVIER)}
+    for t, m in nets.items():
+        m.load_state_dict(weights[t])
+        set_dropout_rates(m.to(dev), 0.0)
+    if kind == "adv":
+        opt_G = create_optimizer(cfg["opt_netG"], G.parameters(), cfg["opt_netG_lr"],
+                                 weight_decay=cfg["opt_netG_weight_decay"])
+        opt_D = create_optimizer("adam", D.parameters(), cfg["opt_netD_lr"])
+        step = steps.make_adv_train_step(
+            _ZeroNoise(G), D, opt_G, opt_D, loss_netD=cfg["loss_netD"],
+            coef_gan=cfg["loss_gan_coef"], l1_coef=cfg["loss_regl1_coef"], gen_updates=1,
+            sup_loss_fn=steps.make_supervised_loss(cfg["task"], cfg))
+        wd = {"G": cfg["opt_netG_weight_decay"], "D": 0.0}
+    else:
+        opt = create_optimizer(cfg["opt_net"], nets["net"].parameters(), cfg["opt_net_lr"],
+                               weight_decay=cfg["opt_net_weight_decay"])
+        step = steps.make_base_train_step(
+            nets["net"], opt, task=cfg["task"], l1_coef=cfg["loss_regl1_coef"],
+            sup_loss_fn=steps.make_supervised_loss(cfg["task"], cfg))
+        wd = {"net": cfg["opt_net_weight_decay"]}
+    local = mesh.shard_batch_2d({"feats": batch.feats, "mask": batch.mask})
+    shipped = {"feats": torch.from_numpy(local["feats"].copy()).to(dev),
+               "mask": torch.from_numpy(local["mask"].copy()).to(dev),
+               "label": torch.from_numpy(batch.label).to(dev),
+               "sample_mask": torch.from_numpy(batch.sample_mask).to(dev),
+               "visible": torch.from_numpy(batch.sample_mask).to(dev)}
+    start = {f"{t}.{n}": p.detach().clone() for t, m in nets.items()
+             for n, p in m.named_parameters()}
+    step(shipped, Rngs(device=torch.Generator(device=dev).manual_seed(0),
+                       host=torch.Generator().manual_seed(1)))
+    after, stepped = {}, {}
+    for t, m in nets.items():
+        for n, p in m.named_parameters():
+            key = f"{t}.{n}"
+            after[key] = p.detach().cpu()
+            decay = wd[t] if p.ndim > 1 else 0.0
+            stepped[key] = (p.grad.detach() + decay * start[key]).cpu()
+    return after, stepped
+
+
+def _rank_step(rank, device, kind, cfg, weights, batch, dp, inst):
+    """A spawned rank of phases 32 / 33: the collective probe, then
+    `_one_step` under the dp x inst grid twice (the first warms the fresh
+    process up), the launch counters and the collectives' time around the
+    second. The step's wall includes building the models and the optimizer
+    from `weights` and shipping the batch."""
+    from advmil_tpu_torch.parallel import mesh
+    probe = _collective_probe(device)
+    import torch
+    mesh.set_grid(mesh.make_grid(dp, inst, device))
+    _one_step(kind, cfg, weights, batch, device)     # warm-up: a fresh process's first step
+    coll = _timed_collectives()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after, stepped = _one_step(kind, cfg, weights, batch, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"probe": probe, "launches": read_counters(), "coll_ms": coll["ms"],
+            "coll_calls": coll["calls"], "step_s": wall,
+            **({"after": after, "stepped": stepped} if rank == 0 else {})}
+
+
+def _rank_run(rank, device, handler_name, cfg):
+    """A spawned rank of a run through `advmil_tpu_torch.main`'s `run_one`,
+    with its launch counters reset before and read after."""
+    from advmil_tpu_torch import main as port_main
+    reset_counters()
+    handler, metrics = port_main.run_one(port_main.handler_class(handler_name), cfg)
+    return {"metrics": metrics, "launches": read_counters(),
+            "train_timings": getattr(handler, "train_timings", []),
+            "eval_timings": handler.eval_timings}
+
+
+def _hold_step(tag, want, got, kind, cfg, shape):
+    """Parameters after the sharded step (`got`) against the single-process
+    card step (`want`): the stepped gradients within 1e-4, the parameters
+    within 1e-5 where f32 determines the sign of Adam's first step
+    (`_check_params`, as phases 26 / 29)."""
+    start, (after_w, grad_w), (after_g, grad_g) = want[0], want[1], got
+    if kind == "adv":
+        lr_of = lambda n: cfg["opt_netG_lr"] if n.startswith("G.") else cfg["opt_netD_lr"]  # noqa: E731
+    else:
+        lr_of = lambda n: cfg["opt_net_lr"]  # noqa: E731
+    worst, worst_n, n_open, n_all, moved, g_diff = _check_params(
+        tag, after_g, after_w, start, [grad_g], [grad_w], lr_of, 1)
+    log(f"[{tag}] f32 step on batch {shape}, sharded against the single-process card step: "
+        f"stepped gradients within {g_diff:.3e} (bound 1e-4); parameters max |diff| "
+        f"{worst:.3e} at {worst_n} (bound 1e-5) where Adam's first step is determined; "
+        f"{n_open} of {n_all} elements undetermined (cap 0.1%); largest move {moved:.3e}")
+    if not moved > 0:
+        raise AssertionError(f"{tag}: the step moved no parameter")
+
+
+def _weights(nets):
+    return {t: {k: v.detach().cpu() for k, v in m.state_dict().items()} for t, m in nets.items()}
+
+
+def _ranks_summary(tag, results, card):
+    probe = dict(results[0]["probe"])
+    backend = probe.pop("backend")
+    refused = [k for k, ok in probe.items() if not ok]
+    if refused:
+        raise AssertionError(f"{tag}: {backend} refused CUDA tensors for {refused}")
+    coll = " ".join(f"rank {i} {r['coll_ms']:.1f} ms in {r['coll_calls']} calls "
+                    f"(step {r['step_s']:.3f} s);" for i, r in enumerate(results))
+    staged = (" (gloo stages CUDA tensors through pinned host memory)"
+              if backend == "gloo" else "")
+    log(f"[{tag}] {backend} collectives on CUDA tensors ({len(results)} ranks): "
+        f"{', '.join(f'{k} ok' for k in probe)}{staged} | collective time per step, "
+        f"{backend}'s, device-synced host clock: {coll} | {card}")
+
+
+def phase_dp2(paths, train_handler, card):
+    """Phase 32: dp_devices 2 on the one card (two ranks on cuda:0 through
+    the launcher's device list, gloo): one f32 adversarial step on the long
+    training batch against the single-process card step, then the cfg_nlst
+    bf16 2-epoch `exec` over two ranks: equal metrics on both ranks, each
+    artifact written once, each rank's kernel launches."""
+    import torch
+    from advmil_tpu_torch.config import with_defaults
+    from advmil_tpu_torch.parallel import launch
+    _, batcher = train_handler.loaders["train"]
+    batch = list(batcher.epoch_batches())[-1]          # the two long training bags
+    cfg = dict(train_handler.cfg)
+    weights = _weights({"G": train_handler.gen_model, "D": train_handler.disc_model})
+    start = {f"{t}.{n}": v.float() for t, sd in weights.items() for n, v in sd.items()}
+    want = (start, _one_step("adv", cfg, weights, batch, torch.device("cuda")))
+    results = launch.run_ranks(_rank_step, [0, 0], ("adv", cfg, weights, batch, 2, 1))
+    _ranks_summary("32 dp2 step", results, card)
+    _hold_step("32 dp2 step", want, (results[0]["after"], results[0]["stepped"]), "adv", cfg,
+               tuple(batch.feats.shape))
+
+    run_cfg = with_defaults(_smoke_cfg(paths, "run_dp2", test=False, epochs=2, es_warmup=0,
+                                       dp_devices=2))
+    out = launch.run_ranks(_rank_run, [0, 0], ("adv", run_cfg))
+    if out[0]["metrics"] != out[1]["metrics"]:
+        raise AssertionError(f"32 dp2 exec: the ranks' metrics differ: {out[0]['metrics']} "
+                             f"vs {out[1]['metrics']}")
+    run_dir = run_cfg["save_path"]
+    for f in ("train_modelG-best.ckpt", "train_modelD-best.ckpt", "train_modelG-last.ckpt",
+              "train_metrics-best.txt", "print_config.txt", "train_best_pred_test.csv"):
+        if not osp.exists(osp.join(run_dir, f)):
+            raise AssertionError(f"32 dp2 exec wrote no {f}")
+    with open(osp.join(run_dir, "run_dp2_scalars.jsonl")) as f:
+        steps_ = [json.loads(line)["_step"] for line in f]
+    if steps_ != list(range(1, len(steps_) + 1)):
+        raise AssertionError("32 dp2 exec: the scalars log was written by more than one rank")
+    for i, r in enumerate(out):
+        for name in LN_KERNELS + FLASH_KERNELS:
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"32 dp2 exec: rank {i} never launched {name}")
+    m = out[0]["metrics"]
+    rates = " / ".join(f"{b / s:.2f}" for b, s in out[0]["train_timings"])
+    log(f"[32 dp2 exec] cfg_nlst bf16, 2 epochs over two ranks on one card: metrics equal on "
+        f"both ranks; C-index train {dict(m['train'])['cindex']:.4f} validation "
+        f"{dict(m['validation'])['cindex']:.4f} test {dict(m['test'])['cindex']:.4f}; "
+        f"checkpoints, CSVs, print_config and one scalars log ({len(steps_)} records, steps "
+        f"1..{len(steps_)}) written by rank 0 | launches rank 0 "
+        f"{ {k: v for k, v in out[0]['launches'].items() if v} } rank 1 "
+        f"{ {k: v for k, v in out[1]['launches'].items() if v} }")
+    log(f"[32 dp2 exec] rank 0 training bags/s (its half of each batch; both ranks share the "
+        f"card), epochs 1 / 2: {rates} beside phase 4's one process "
+        f"{' / '.join(f'{b / s:.2f}' for b, s in train_handler.train_timings)} (no gain "
+        f"claimed) | {card}")
+    launches = {name: out[0]["launches"][name] + out[1]["launches"][name]
+                for name in out[0]["launches"]}
+    return run_cfg, launches
+
+
+def phase_inst2(paths, train_handler, base_handler, dp2_cfg, card):
+    """Phase 33: inst_devices 2 on the one card: one f32 adversarial ESAT
+    step on the two long training bags (their bucket holds 1,000 regions:
+    the flash kernels run on 500 local query rows against 1,000 keys) and
+    one ABMIL base step,
+    each against the single-process card step; then test mode from phase
+    32's best checkpoint over two inst ranks against the same test mode in
+    one process."""
+    import numpy as np
+    import torch
+    from advmil_tpu_torch import main as port_main
+    from advmil_tpu_torch.config import with_defaults
+    from advmil_tpu_torch.parallel import launch
+    dev = torch.device("cuda")
+    _, batcher = train_handler.loaders["train"]
+    batch = list(batcher.epoch_batches())[-1]
+    cfg = dict(train_handler.cfg)
+    weights = _weights({"G": train_handler.gen_model, "D": train_handler.disc_model})
+    start = {f"{t}.{n}": v.float() for t, sd in weights.items() for n, v in sd.items()}
+    want = (start, _one_step("adv", cfg, weights, batch, dev))
+    results = launch.run_ranks(_rank_step, [0, 0], ("adv", cfg, weights, batch, 1, 2))
+    _ranks_summary("33 inst2 ESAT step", results, card)
+    _hold_step("33 inst2 ESAT step", want, (results[0]["after"], results[0]["stepped"]), "adv",
+               cfg, tuple(batch.feats.shape))
+    step_launches = {name: results[0]["launches"][name] + results[1]["launches"][name]
+                     for name in results[0]["launches"]}
+    for name in LN_KERNELS + ("masked_flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+        if any(r["launches"][name] <= 0 for r in results):
+            raise AssertionError(f"33 inst2 ESAT step: a rank never launched {name}")
+
+    _, bbatcher = base_handler.loaders["train"]
+    bbatch = list(bbatcher.epoch_batches())[-1]
+    bcfg = dict(base_handler.cfg)
+    bweights = _weights({"net": base_handler.model})
+    bstart = {f"net.{n}": v.float() for n, v in bweights["net"].items()}
+    bwant = (bstart, _one_step("base", bcfg, bweights, bbatch, dev))
+    bres = launch.run_ranks(_rank_step, [0, 0], ("base", bcfg, bweights, bbatch, 1, 2))
+    _ranks_summary("33 inst2 ABMIL step", bres, card)
+    _hold_step("33 inst2 ABMIL step", bwant, (bres[0]["after"], bres[0]["stepped"]), "base",
+               bcfg, tuple(bbatch.feats.shape))
+
+    test_cfg = with_defaults(dict(dp2_cfg, test=True, dp_devices=1, inst_devices=2,
+                                  test_save_path=osp.join(WORK_DIR, "run_dp2_inst2_test_{}-{}")))
+    out = launch.run_ranks(_rank_run, [0, 0], ("adv", test_cfg))
+    if out[0]["metrics"] != out[1]["metrics"]:
+        raise AssertionError("33 inst2 test mode: the ranks' metrics differ")
+    one_cfg = with_defaults(dict(test_cfg, inst_devices=1,
+                                 test_save_path=osp.join(WORK_DIR, "run_dp2_one_test_{}-{}")))
+    reset_counters()
+    one, one_metrics = port_main.run_one(port_main.handler_class("adv"), one_cfg)
+    csv_name = "test_mode_best_pred_exec-test.csv"
+    a = _read_csv_preds(osp.join(test_cfg["test_save_path"].format(
+        test_cfg["test_mask_ratio"], test_cfg["data_split_seed"]), csv_name))
+    b = _read_csv_preds(osp.join(one.save_dir, csv_name))
+    diff = float(np.abs(a - b).max())
+    ci_a, ci_b = (dict(m["exec-test"])["cindex"] for m in (out[0]["metrics"], one_metrics))
+    # a pair whose order differs between the runs: each prediction moves by
+    # at most the bound, so such a pair lies within twice the bound (the
+    # C-indices may then differ)
+    flips = [abs(b[i] - b[j]) for i in range(len(b)) for j in range(i + 1, len(b))
+             if np.sign(a[i] - a[j]) != np.sign(b[i] - b[j])] if len(a) == len(b) else []
+    for name in ("ln_relu_region_mean", "masked_flash_attention"):
+        if any(r["launches"][name] <= 0 for r in out):
+            raise AssertionError(f"33 inst2 test mode: a rank never launched {name}")
+    log(f"[33 inst2 test] test mode from phase 32's best checkpoint over two inst ranks "
+        f"(bf16; the 2,048-region test bag: flash on 1,024 local rows): metrics equal on both "
+        f"ranks, C-index {ci_a:.6f} beside {ci_b:.6f} in one process; {len(a)} predictions "
+        f"within {diff:.3e} of the one-process run's (bound 5e-3, bf16); {len(flips)} pairs "
+        f"ordered otherwise, their one-process gap at most {max(flips, default=0.0):.3e} | "
+        f"launches rank 0 "
+        f"{ {k: v for k, v in out[0]['launches'].items() if v} } | {card}")
+    if not (len(a) == len(b) and diff <= 5e-3 and np.all(np.isfinite(a))):
+        raise AssertionError(f"33 inst2 test mode: predictions differ by {diff}")
+    test_launches = {name: out[0]["launches"][name] + out[1]["launches"][name]
+                     for name in out[0]["launches"]}
+    return step_launches, test_launches
+
+
 SOURCES = {
     "ln_relu_region_mean": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:67"),
     "ln_relu_region_mean_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu",
@@ -2521,6 +2970,10 @@ def main():
     base_cluster_launches = timed("28 base cluster", phase_base_cluster, paths, card)
     timed("29 optimizer sweep", phase_optimizer_sweep, base_handler)
     la_launches = timed("30 lookahead_radam", phase_other_optimizer, paths, small_split, card)
+    inst_report = timed("31 inst kernels", phase_inst_kernels, card)
+    dp2_cfg, dp2_launches = timed("32 dp2", phase_dp2, paths, train_handler, card)
+    inst2_step_launches, inst2_test_launches = timed(
+        "33 inst2", phase_inst2, paths, train_handler, base_handler, dp2_cfg, card)
     shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
@@ -2553,7 +3006,10 @@ def main():
                        "cluster_test_mode": cluster_launches["test"][name],
                        "base_cluster_adahessian_train": base_cluster_launches["adahessian"][name],
                        "base_cluster_refregime_train": base_cluster_launches["refregime"][name],
-                       "lookahead_radam_train": la_launches[name]}
+                       "lookahead_radam_train": la_launches[name],
+                       "dp2_train": dp2_launches[name],
+                       "inst2_esat_step": inst2_step_launches[name],
+                       "inst2_test_mode": inst2_test_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched")
@@ -2566,12 +3022,18 @@ def main():
                            ("accum_train", LN_KERNELS + FLASH_KERNELS),
                            ("cluster_train", LN_KERNELS),
                            ("cluster_test_mode", LN_KERNELS[:1]),
-                           ("lookahead_radam_train", LN_KERNELS)):
+                           ("lookahead_radam_train", LN_KERNELS),
+                           ("dp2_train", LN_KERNELS + FLASH_KERNELS),
+                           ("inst2_esat_step", LN_KERNELS + FLASH_KERNELS[:1]
+                            + FLASH_KERNELS[2:]),
+                           ("inst2_test_mode", LN_KERNELS[:1] + FLASH_KERNELS[:1])):
             if name in need and entry["launches_by_path"][path] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
         entry.update({k: r[k] for k in ("dtype", "bf16") if k in r})
+        if name in inst_report:       # phase 31: the local query rows of an inst rank
+            entry["lq_lt_lk"] = inst_report[name]
         kernels.append(entry)
     assert all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms"))
     log(json.dumps({"kernels": kernels}))

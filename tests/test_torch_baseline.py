@@ -519,7 +519,10 @@ def test_base_handler_refusals_name_the_roadmap(synth, tmp_path, key, value, ite
     """(cluster, the other optimizers and accumulation, refused here until
     their items were done, are held against JAX in test_torch_cluster.py and
     test_torch_optim.py.)"""
-    cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **{key: value}))
+    # data parallelism runs; under it, inst_devices over graph / cluster is refused
+    over = {key: value, **({"inst_devices": 2, "bcb_mode": "graph"}
+                           if key == "dp_devices" else {})}
+    cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **over))
     with pytest.raises(NotImplementedError, match=item):
         tbaseline.BaselineHandler(cfg)
 

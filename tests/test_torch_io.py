@@ -51,7 +51,11 @@ def _nlst_test_cfg(**over):
 
 
 # graph mode itself is ported; what it still refuses is its grid-resident layout
-_UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True}}
+_UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True},
+                  # parallelism runs; inst_devices over graph / cluster is refused
+                  ("dist_num_processes", 2): {"inst_devices": 2, "bcb_mode": "graph"},
+                  ("inst_devices", 2): {"bcb_mode": "cluster"},
+                  ("dp_devices", 2): {"inst_devices": 2, "bcb_mode": "graph"}}
 
 
 @pytest.mark.parametrize("key,value,item", [

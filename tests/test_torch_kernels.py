@@ -243,6 +243,82 @@ def test_flash_kernels_skip_masked_tiles_and_take_lq_unlike_lk(cuda_device, B, L
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.25])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_flash_kernels_at_inst_rank_shapes(cuda_device, dtype, tol, p):
+    """The shapes the sequence-parallel op gives the kernels on two inst
+    ranks: each rank's 256 query rows against all 512 keys with the rank's
+    seed (seed + rank * 7919), against the plain version; at p = 0 the
+    ranks' outputs and dQ joined, and their dK / dV summed (the
+    reduce-scatter's sum), against the unsharded launch."""
+    B, L, Lq, H, Dh = 2, 512, 256, 4, 48
+    g = torch.Generator().manual_seed(14)
+    q, k, v, dout = (torch.randn(B, L, H, Dh, generator=g).to(cuda_device).to(dtype)
+                     for _ in range(4))
+    mask = torch.ones(B, L, device=cuda_device)
+    mask[0, 300:] = 0.0            # rank 1's rows see a ragged bag
+    mask[1, 64:128] = 0.0
+    seed = 0x7E57 if p else None
+    parts = []
+    for r in range(2):
+        rows = slice(r * Lq, (r + 1) * Lq)
+        qr, dor = q[:, rows].contiguous(), dout[:, rows].contiguous()
+        sr = tattn.rank_seed(seed, r)
+        out, lse = tattn.flash_attention_fwd(qr, k, v, mask, p, sr)
+        got = (out,) + tattn.flash_attention_bwd(qr, k, v, mask, out, lse, dor, p, sr)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (qr, k, v)]
+        ref = tattn.masked_attention_reference(*leaves, mask, p, sr)
+        want = (ref.detach(),) + torch.autograd.grad(ref, leaves, dor)
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                       msg=f"rank {r} {name}")
+        if dtype == torch.bfloat16:
+            _assert_tight(got, qr, k, v, mask, dor, p, sr)
+        parts.append(got)
+    if p == 0.0:
+        full, lse = tattn.flash_attention_fwd(q, k, v, mask)
+        full_g = tattn.flash_attention_bwd(q, k, v, mask, full, lse, dout)
+        for name, a, b in (("out", torch.cat([x[0] for x in parts], 1), full),
+                           ("dq", torch.cat([x[1] for x in parts], 1), full_g[0]),
+                           ("dk", parts[0][2].float() + parts[1][2].float(), full_g[1]),
+                           ("dv", parts[0][3].float() + parts[1][3].float(), full_g[2])):
+            torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+    else:      # the two ranks' seeds give other keep masks on the same rows
+        other = tattn.flash_attention_fwd(q[:, :Lq].contiguous(), k, v, mask, p,
+                                          tattn.rank_seed(seed, 1))[0]
+        assert not torch.equal(parts[0][0], other)
+
+
+@pytest.mark.cuda
+def test_flash_inst_op_in_a_one_rank_group(cuda_device):
+    """`masked_flash_attention_inst` on the card in a process group of one
+    rank (the all-gather and the reduce-scatter are then the identity): the
+    kernels' result and gradients, one launch of each kernel."""
+    import torch.distributed as tdist
+    from advmil_tpu_torch.parallel.launch import free_port
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0)
+    try:
+        g = torch.Generator().manual_seed(3)
+        q, k, v = (torch.randn(2, 300, 4, 48, generator=g).to(cuda_device).requires_grad_(True)
+                   for _ in range(3))
+        mask = torch.ones(2, 300, device=cuda_device)
+        mask[1, 200:] = 0.0
+        before = (tattn.LAUNCHES, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV)
+        out = tattn.masked_flash_attention_inst(q, k, v, mask, None)
+        got = torch.autograd.grad(out.sum(), (q, k, v))
+        assert (tattn.LAUNCHES, tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV) == \
+            tuple(b + 1 for b in before)
+        ref = tattn.masked_attention_reference(q, k, v, mask)
+        want = torch.autograd.grad(ref.sum(), (q, k, v))
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("p", [0.25, 0.6])
 def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p):
     """The tensor-core forward and dK/dV kernels share one Philox block between

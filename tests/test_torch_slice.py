@@ -142,8 +142,8 @@ def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
         h.exec_semi_sl()                       # semi_training: False
     with pytest.raises(NotImplementedError, match="A9"):
         AdvHandler(with_defaults(dict(cfg, log_plot=True)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        AdvHandler(with_defaults(dict(cfg, dp_devices=2)))
+    with pytest.raises(NotImplementedError, match="A14 rest"):
+        AdvHandler(with_defaults(dict(cfg, dp_devices=2, inst_devices=2, bcb_mode="cluster")))
 
 
 def test_port_imports_no_jax():

@@ -441,10 +441,15 @@ def test_training_path_imports_no_jax():
     assert "BAD []" in r.stdout, r.stdout
 
 
+_REFUSED_WITH = {"dist_num_processes": {"inst_devices": 2, "bcb_mode": "cluster"}}
+
+
 @pytest.mark.parametrize("key,value,item", [("log_plot", True, "A9"),
                                             ("dist_num_processes", 2, "A14"),
                                             ("graph_grid_resident", True, "A13")])
 def test_unported_training_options_name_the_roadmap(synth, tmp_path, key, value, item):
-    cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **{key: value}))
+    # parallelism runs; under it, what is refused is inst_devices over cluster / graph
+    over = {key: value, **_REFUSED_WITH.get(key, {})}
+    cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **over))
     with pytest.raises(NotImplementedError, match=item):
         thandler.AdvHandler(cfg)
