@@ -41,7 +41,11 @@ PORT_DEFAULTS = {
     "num_graph_layers": 1,
     "graph_edge_agg": "spatial",   # spatial | latent: which npz edge set
     "graph_edges_per_node": 9,     # dense edge slots per node (in-degree cap)
-    "graph_banded": "auto",        # auto: banded route when coverage >= 0.7 | off
+    "graph_banded": "auto",        # auto: banded or grid route when coverage >= 0.7 | off
+    # the grid route engages only while the slides' grids hold at most this
+    # many cells per patch
+    "graph_grid_max_inflation": 3.0,
+    # grid route: keep the whole GCN stack on the grid rows (place once)
     "graph_grid_resident": False,
     "cache_bags": True,
     "num_workers": 0,              # > 1: thread-pool batch assembly
@@ -201,7 +205,6 @@ BASE_TASKS = ("surv_cox", "surv_nll", "surv_reg")
 def _not_ported(cfg: dict, handler: str) -> list:
     """(key, value, ROADMAP item) for every requested mode the port lacks."""
     checks = [
-        ("graph_grid_resident", bool, "A13"),
         ("log_plot", bool, "A9"),
     ]
     if cfg.get("bcb_mode") in ("graph", "cluster"):

@@ -15,13 +15,30 @@ from `<path_cluster>/<pid>.npy` (one id per patch, in the order of the
 concatenated features), shipped as `cluster_id` [B, N] int32, -1 on padding.
 
 Graph mode (PatchGCN) adds each bag's kNN graph, read from per-slide
-`<sid>.npz` files ([2, E] (dst, src) rows). The batcher pre-scans every
-bag's graph once and picks one route for all of them: the banded route
-when at least 70% of the edges sit on per-slot constant offsets (raster
-spatial kNN graphs), else the dense route. Per bag it ships, in
-`Batch.extra`, the band tables (`band_offs`, `band_mask`, `band_urows`,
-`band_usrc`, `band_uemask`, `band_uinv`) or the dense `edge_src` /
-`edge_mask` tables, cached by dataset index.
+`<sid>.npz` files ([2, E] (dst, src) rows, as `tools/build_graphs.py`
+writes them) or from the reference's torch_geometric `<sid>.pt` files
+(`utils/io.py::read_geom_graph`; PyG rows are (src, dst)). The batcher
+pre-scans every bag's graph once and picks one route for all of them:
+
+- the banded route when at least 70% of the edges sit on per-slot constant
+  offsets in the bags' own node order (raster spatial kNN graphs);
+- else the grid route, when every slide's graph file holds its patch
+  centroids on a regular grid: each slide is laid out on its bounding-box
+  patch grid (empty rows and columns cropped, a patient's slides stacked
+  vertically), where every grid neighbour is a constant offset. It engages
+  when at least 70% of the edges sit on the offset-matched bands and the
+  grids hold at most `grid_max_inflation` times the patches;
+- else the dense route.
+
+Per bag it ships, in `Batch.extra`, the band tables (`band_offs`,
+`band_mask`, `band_urows`, `band_usrc`, `band_uemask`, `band_uinv`; on the
+grid route in grid space, with the maps `band_gidx` (bag row -> grid cell,
+`grid_n` on padded rows) and `band_ginv` (grid cell -> bag row, `bucket_n`
+on empty cells) and the JAX package's residual edge lists `res_node`,
+`res_src`, `res_mask`) or the dense `edge_src` / `edge_mask` tables, cached
+by dataset index. On the grid route the kernels' work scales with the grid's
+area, so each node bucket is split by grid area into batch groups with a
+padded grid size each.
 """
 from __future__ import annotations
 
@@ -32,12 +49,15 @@ import numpy as np
 import torch
 
 from ..ops.banded import build_u_inv, build_u_tables
-from ..ops.segment import band_coverage, build_band_tables
+from ..ops.segment import (band_coverage, build_band_tables, build_band_tables_matched,
+                           crop_empty_grid_lines, grid_layout)
 from ..utils.func import random_mask_square_instance, sampling_data
-from ..utils.io import read_patch_coord, read_patch_feature, retrieve_from_table
+from ..utils.io import (import_h5py, read_geom_graph, read_patch_coord, read_patch_feature,
+                        retrieve_from_table)
 
 BAND_KEYS = ("band_offs", "band_mask", "band_urows", "band_usrc", "band_uemask",
              "band_uinv")
+GRID_KEYS = BAND_KEYS + ("band_gidx", "band_ginv", "res_node", "res_src", "res_mask")
 DENSE_KEYS = ("edge_src", "edge_mask")
 
 
@@ -57,6 +77,47 @@ def default_buckets(max_n: int, min_bucket: int = 256,
         b = max(b + m, -(-int(b * growth) // m) * m)
     sizes.append(top)
     return sizes
+
+
+def dense_table(edge_index: np.ndarray, n_rows: int, epn: int, node_map=None):
+    """(edge_src, edge_mask [n_rows, epn], dropped) of a dst-sorted [2, E]
+    (dst, src) edge table: each node's first `epn` incoming edges in file
+    order, one slot each; `dropped` counts the edges beyond them. With
+    `node_map` the node ids are mapped through it (the grid cells)."""
+    dst, src = edge_index[0], edge_index[1]
+    pos = np.arange(dst.shape[0]) - np.searchsorted(dst, dst, side="left")
+    keep = pos < epn
+    dst, pos, src = dst[keep], pos[keep], src[keep]
+    if node_map is not None:
+        dst, src = node_map[dst], node_map[src]
+    esrc = np.zeros((n_rows, epn), np.int32)
+    em = np.zeros((n_rows, epn), np.float32)
+    esrc[dst, pos] = src
+    em[dst, pos] = 1.0
+    return esrc, em, int((~keep).sum())
+
+
+def grid_tables(edge_index: np.ndarray, rc: np.ndarray, W: int, grid_n: int, bucket_n: int,
+                epn: int, res_slots: int | None = None, u_slots: int | None = None):
+    """(tables, dropped): one bag's tables on the grid route. Its nodes sit
+    at the cells rc [N, 2] (row, col) of a W-wide grid padded to `grid_n`
+    cells; the bag is padded to `bucket_n` rows. The offset-matched band
+    tables and their u tables in grid space (`band_*`, `res_*`), the map
+    `band_gidx` [bucket_n] (row -> cell, `grid_n` on padded rows) and its
+    inverse `band_ginv` [grid_n] (cell -> row, `bucket_n` on empty cells)."""
+    gidx = (rc[:, 0] * W + rc[:, 1]).astype(np.int64)
+    esrc, em, dropped = dense_table(edge_index, grid_n, epn, gidx)
+    offs, bmask, ebanded, rn, rs, rm = build_band_tables_matched(esrc, em, k=epn,
+                                                                 res_slots=res_slots)
+    ur, us, ue = build_u_tables(esrc, em, ebanded, u_slots=u_slots)
+    n = rc.shape[0]
+    gfull = np.full(bucket_n, grid_n, np.int32)
+    gfull[:n] = gidx
+    ginv = np.full(grid_n, bucket_n, np.int32)
+    ginv[gidx] = np.arange(n, dtype=np.int32)
+    return dict(band_offs=offs, band_mask=bmask, band_urows=ur, band_usrc=us, band_uemask=ue,
+                band_uinv=build_u_inv(ur, grid_n), band_gidx=gfull, band_ginv=ginv,
+                res_node=rn, res_src=rs, res_mask=rm), dropped
 
 
 class BagDataset:
@@ -109,15 +170,21 @@ class BagDataset:
         return osp.join(self.read_path, f"{sid}.{self.read_format}")
 
     def bag_size(self, index: int) -> int:
-        """Patch count of a bag from the file headers (no feature load, no
-        RNG draw)."""
+        """Patch count of a bag from the file headers (.npy, .h5, .pt; .npz
+        reads the array), with no RNG draw."""
         total = 0
         for sid in self.pid2sid[self.pids[index]]:
+            path = self._path(sid)
             if self.read_format == "npy":
-                total += int(np.load(self._path(sid), mmap_mode="r").shape[0])
+                total += int(np.load(path, mmap_mode="r").shape[0])
+            elif self.read_format == "npz":
+                with np.load(path) as z:
+                    total += int(z["features"].shape[0])
+            elif self.read_format == "h5":
+                with import_h5py(path).File(path, "r") as hf:
+                    total += int(hf["features"].shape[0])
             else:
-                t = torch.load(self._path(sid), map_location="cpu", mmap=True,
-                               weights_only=True)
+                t = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
                 total += int(t.shape[0])
         return total
 
@@ -149,6 +216,23 @@ class BagDataset:
         raise FileNotFoundError(f"no coord file for slide {sid} under "
                                 f"{self.coord_path} (tried .h5/.npz/.npy)")
 
+    def _graph_file(self, sid: str) -> dict:
+        """The slide's graph as numpy arrays with its edges as (dst, src)
+        rows: `<sid>.npz` as written, else the reference's `<sid>.pt` with
+        its (src, dst) rows flipped (PyG aggregates at the target)."""
+        path = osp.join(self.graph_path, f"{sid}.npz")
+        if osp.exists(path):
+            with np.load(path) as g:
+                return dict(g)
+        pt = osp.join(self.graph_path, f"{sid}.pt")
+        if not osp.exists(pt):
+            raise FileNotFoundError(f"no graph file {path} or {pt}")
+        g = read_geom_graph(pt)
+        for k in ("edge_index", "edge_latent"):
+            if k in g:
+                g[k] = g[k][::-1]
+        return g
+
     def _load_edges(self, pid: str) -> np.ndarray:
         """The patient's [2, E] (dst, src) edge table: the slides' tables
         with each slide's node ids offset by the nodes before it, dst-sorted
@@ -156,16 +240,9 @@ class BagDataset:
         key = "edge_index" if self.edge_agg == "spatial" else "edge_latent"
         edges, offset = [], 0
         for sid in self.pid2sid[pid]:
-            path = osp.join(self.graph_path, f"{sid}.npz")
-            if not osp.exists(path):
-                if osp.exists(osp.join(self.graph_path, f"{sid}.pt")):
-                    raise NotImplementedError(
-                        f"{sid}.pt: reference geomData graph files are not read yet "
-                        "(ROADMAP A13); write <sid>.npz graphs")
-                raise FileNotFoundError(f"no graph file {path}")
-            with np.load(path) as g:
-                edges.append(g[key].astype(np.int64) + offset)
-                offset += int(g["num_nodes"])
+            g = self._graph_file(sid)
+            edges.append(g[key].astype(np.int64) + offset)
+            offset += int(g["num_nodes"])
         ei = np.concatenate(edges, axis=1)
         if not np.all(np.diff(ei[0]) >= 0):
             ei = ei[:, np.argsort(ei[0], kind="stable")]
@@ -175,6 +252,27 @@ class BagDataset:
         """Bag `index`'s edge table without loading its features (the
         batcher's pre-scan)."""
         return self._load_edges(self.pids[index])
+
+    def peek_grid(self, index: int):
+        """Bag `index`'s grid layout for the grid route, or None: (rc [N, 2]
+        int64 (row, col) of each node, W, H). Each slide's centroids (stored
+        in its graph file) are snapped to their grid, its empty rows and
+        columns are cropped, and a patient's slides are stacked vertically
+        in the order of their node ids (edges never cross slides). None when
+        a slide has no centroids or they are not on a regular grid."""
+        rcs, row_off, wmax = [], 0, 0
+        for sid in self.pid2sid[self.pids[index]]:
+            cent = self._graph_file(sid).get("centroid")
+            if cent is None:
+                return None
+            gl = grid_layout(np.asarray(cent))
+            if gl is None:
+                return None
+            row, col, W, H = crop_empty_grid_lines(gl[0], gl[1])
+            rcs.append(np.stack([row + row_off, col], axis=1))
+            row_off += H
+            wmax = max(wmax, W)
+        return np.concatenate(rcs, axis=0), wmax, row_off
 
     def __getitem__(self, index: int) -> dict:
         if self._cache is not None and index in self._cache:
@@ -222,13 +320,15 @@ class BucketBatcher:
     Per bucket of size Nb the batch size is clip(token_budget // Nb, 1,
     max_batch), rounded down to a multiple of `batch_multiple` (at least
     one multiple: the dp rank count); bucket sizes are multiples of
-    `n_multiple` (16 times the inst rank count)."""
+    `n_multiple` (16 times the inst rank count). In graph mode the route
+    (banded, grid or dense) is fixed here, from one pre-scan of every bag's
+    graph file."""
 
     def __init__(self, dataset: BagDataset, token_budget: int = 32768,
                  max_batch: int = 64, min_bucket: int = 256,
                  bucket_growth: float = 2.0, edges_per_node: int = 9,
-                 banded: str = "auto", batch_multiple: int = 1,
-                 n_multiple: int = 16):
+                 banded: str = "auto", grid_max_inflation: float = 3.0,
+                 batch_multiple: int = 1, n_multiple: int = 16):
         self.ds = dataset
         self.token_budget = token_budget
         self.max_batch = max_batch
@@ -240,12 +340,9 @@ class BucketBatcher:
         self.buckets = default_buckets(int(sizes.max()), min_bucket,
                                        growth=bucket_growth, n_multiple=n_multiple)
         item_bucket = np.searchsorted(self.buckets, sizes)
-        by_bucket: dict = {}
+        self._by_bucket: dict = {}
         for i, b in enumerate(item_bucket):
-            by_bucket.setdefault(int(b), []).append(i)
-        # sorted bucket order, ascending dataset index inside a bucket
-        self._groups = [(int(self.buckets[b]), by_bucket[b])
-                        for b in sorted(by_bucket)]
+            self._by_bucket.setdefault(int(b), []).append(i)
         # graph mode: per-bag tables keyed by dataset index (static per bag),
         # following the dataset's cache policy; the route is fixed here
         self._tab_cache = {} if dataset._cache is not None else None
@@ -253,31 +350,26 @@ class BucketBatcher:
         self.band_on = False
         self._band_u_slots = 0
         self.coverage = None
+        self.grid_on = False
+        self.grid_coverage = self.grid_inflation = None
+        self._grid_max_inflation = float(grid_max_inflation)
+        self._grid_res_slots = self._grid_u_slots = 0
+        self._grid_rc: dict = {}        # dataset index -> (rc [N, 2], W, H)
         if dataset.mode == "graph" and banded != "off":
             self._scan_band(sizes)
-
-    def _dense_table(self, edge_index: np.ndarray, n_rows: int):
-        """(edge_src, edge_mask [n_rows, epn], dropped): each node's first
-        `edges_per_node` incoming edges in file order; edges beyond that are
-        dropped."""
-        epn = self.edges_per_node
-        dst, src = edge_index[0], edge_index[1]
-        pos = np.arange(dst.shape[0]) - np.searchsorted(dst, dst, side="left")
-        keep = pos < epn
-        esrc = np.zeros((n_rows, epn), np.int32)
-        em = np.zeros((n_rows, epn), np.float32)
-        esrc[dst[keep], pos[keep]] = src[keep]
-        em[dst[keep], pos[keep]] = 1.0
-        return esrc, em, int((~keep).sum())
+        # [(bucket_n, grid_n or None, items)], sorted bucket order, ascending
+        # dataset index inside a group
+        self._groups = self._groups_list()
 
     def _scan_band(self, sizes):
         """Pre-scan every bag's graph once (edge files only): the banded route
         engages when the banded share of all real edges is >= 0.7, and fixes
-        the residual-row slot count, so every batch has one table layout."""
+        the residual-row slot count, so every batch has one table layout;
+        else the grid route is tried."""
         band_edges = band_total = 0.0
         u_max = 0
         for i, n in enumerate(sizes):
-            esrc, em, _ = self._dense_table(self.ds.peek_edges(i), int(n))
+            esrc, em, _ = dense_table(self.ds.peek_edges(i), int(n), self.edges_per_node)
             cov, _, nrows, _ = band_coverage(esrc, em)
             band_edges += cov * em.sum()
             band_total += em.sum()
@@ -288,33 +380,88 @@ class BucketBatcher:
             self._band_u_slots = -(-max(u_max, 1) // 8) * 8
             print(f"[batcher] banded graph route ON: coverage {self.coverage:.3f}, "
                   f"residual rows {self._band_u_slots}")
-        else:
-            print(f"[batcher] banded graph route off: coverage {self.coverage:.3f} < 0.7; "
-                  "grid-raster banding is not ported (ROADMAP A13), so the dense "
-                  "route aggregates these graphs")
+            return
+        print(f"[batcher] banded graph route off: coverage {self.coverage:.3f} < 0.7 in "
+              "the bags' node order; trying the slides' grid layout")
+        if not self._scan_grid(sizes):
+            print("[batcher] the dense route aggregates these graphs")
 
-    def _graph_tables(self, it: dict, bucket_n: int) -> dict:
-        """The bag's padded graph tables for a bucket of `bucket_n` nodes:
-        the band tables on the banded route, else the dense edge tables.
-        Cached by dataset index."""
+    def _scan_grid(self, sizes) -> bool:
+        """Second pre-scan, after compact banding failed its gate: lay every
+        bag out on its grid (`BagDataset.peek_grid`) and build its
+        offset-matched band tables. The grid route engages when the banded
+        share of the edges is >= 0.7 and the grids' cells number at most
+        `grid_max_inflation` times the nodes; it fixes the residual edge and
+        row slot counts. Returns whether it engaged."""
+        band_edges = band_total = 0.0
+        res_max = u_max = 0
+        grid_sum = node_sum = 0
+        for i, n in enumerate(sizes):
+            g = self.ds.peek_grid(i)
+            if g is None or g[0].shape[0] != int(n):
+                print("[batcher] grid-raster banding not engaged: a slide's graph file "
+                      "holds no centroids on a regular grid")
+                self._grid_rc.clear()
+                return False
+            rc, W, H = g
+            self._grid_rc[i] = g
+            esrc_g, em_g, _ = dense_table(self.ds.peek_edges(i), W * H, self.edges_per_node,
+                                          rc[:, 0] * W + rc[:, 1])
+            _, _, ebanded, _, _, res_mask = build_band_tables_matched(
+                esrc_g, em_g, k=self.edges_per_node)
+            band_edges += float(ebanded.sum())
+            band_total += float(em_g.sum())
+            res_max = max(res_max, int(res_mask.sum()))
+            u_max = max(u_max, np.unique(np.nonzero((em_g > 0) & (ebanded <= 0))[0]).size)
+            grid_sum += W * H
+            node_sum += int(n)
+        self.grid_coverage = band_edges / max(band_total, 1)
+        self.grid_inflation = grid_sum / max(node_sum, 1)
+        if self.grid_coverage < 0.7 or self.grid_inflation > self._grid_max_inflation:
+            print(f"[batcher] grid-raster banding not engaged: coverage "
+                  f"{self.grid_coverage:.3f}, inflation {self.grid_inflation:.2f}")
+            self._grid_rc.clear()
+            return False
+        self.grid_on = True
+        self._grid_res_slots = -(-max(res_max, 1) // 128) * 128
+        self._grid_u_slots = -(-max(u_max, 1) // 8) * 8
+        print(f"[batcher] grid-raster banded streaming ON: coverage "
+              f"{self.grid_coverage:.3f}, inflation {self.grid_inflation:.2f}, residual "
+              f"slots {self._grid_res_slots}, residual rows {self._grid_u_slots}")
+        return True
+
+    def _graph_tables(self, it: dict, bucket_n: int, grid_n: int | None = None) -> dict:
+        """The bag's padded graph tables for a bucket of `bucket_n` nodes (and
+        on the grid route a padded grid of `grid_n` cells): the band tables
+        on the banded and grid routes, else the dense edge tables. Cached by
+        dataset index."""
         idx = int(it["index"])
         if self._tab_cache is not None:
             cached = self._tab_cache.get(idx)
-            if cached is not None and cached["_bucket_n"] == bucket_n:
+            if (cached is not None and cached["_bucket_n"] == bucket_n
+                    and cached["_grid_n"] == grid_n):
                 return cached
-        esrc, em, dropped = self._dense_table(it["edge_index"], bucket_n)
+        tabs = {"_bucket_n": bucket_n, "_grid_n": grid_n}
+        if self.grid_on:
+            rc, W, H = self._grid_rc[idx]
+            assert grid_n is not None and W * H <= grid_n
+            grid, dropped = grid_tables(it["edge_index"], rc, W, grid_n, bucket_n,
+                                        self.edges_per_node, res_slots=self._grid_res_slots,
+                                        u_slots=self._grid_u_slots)
+            tabs.update(grid)
+        else:
+            esrc, em, dropped = dense_table(it["edge_index"], bucket_n, self.edges_per_node)
+            if self.band_on:
+                offs, bmask, _, _, _ = build_band_tables(esrc, em)
+                ur, us, ue = build_u_tables(esrc, em, bmask, u_slots=self._band_u_slots)
+                tabs.update(band_offs=offs, band_mask=bmask, band_urows=ur, band_usrc=us,
+                            band_uemask=ue, band_uinv=build_u_inv(ur, bucket_n))
+            else:
+                tabs.update(edge_src=esrc, edge_mask=em)
         if dropped and not self._warned_edge_truncation:
             self._warned_edge_truncation = True
             print(f"[batcher] WARNING: node in-degree exceeds {self.edges_per_node}; "
                   f"dropping {dropped} edges per bag (raise graph_edges_per_node)")
-        tabs = {"_bucket_n": bucket_n}
-        if self.band_on:
-            offs, bmask, _, _, _ = build_band_tables(esrc, em)
-            ur, us, ue = build_u_tables(esrc, em, bmask, u_slots=self._band_u_slots)
-            tabs.update(band_offs=offs, band_mask=bmask, band_urows=ur, band_usrc=us,
-                        band_uemask=ue, band_uinv=build_u_inv(ur, bucket_n))
-        else:
-            tabs.update(edge_src=esrc, edge_mask=em)
         if self._tab_cache is not None:
             self._tab_cache[idx] = tabs
         return tabs
@@ -324,13 +471,60 @@ class BucketBatcher:
         m = self.batch_multiple
         return max(m, (bb // m) * m) if m > 1 else bb
 
+    def _groups_list(self) -> list:
+        """The batch groups [(bucket_n, grid_n, items)]. Off the grid route
+        each node bucket is one group and grid_n is None. On it the kernels'
+        work scales with the padded grid area, so each bucket's items, sorted
+        by grid area, are cut (an exact DP over cuts at batch-size multiples)
+        to minimise the sum over groups of (batches + 0.5) * batch size *
+        grid_n, grid_n being the group's largest area rounded up to 128: one
+        sprawling slide then pays for its own bounding box, and half a batch
+        prices each extra shape. A group's items keep ascending index order,
+        so a bucket that stays whole batches as off the grid route."""
+        groups = []
+        for b in sorted(self._by_bucket):
+            items = self._by_bucket[b]
+            bn = int(self.buckets[b])
+            if not self.grid_on:
+                groups.append((bn, None, list(items)))
+                continue
+            area = {i: int(self._grid_rc[i][1]) * int(self._grid_rc[i][2]) for i in items}
+            order = sorted(items, key=lambda i: (area[i], i))
+            bb = self.batch_size_for(bn)
+            m = len(order)
+            rup = lambda a: -(-max(a, 1) // 128) * 128  # noqa: E731
+            pos = list(range(0, m, bb)) + [m]
+
+            def seg_cost(s: int, e: int) -> float:      # items order[s:e]
+                return (-(-(e - s) // bb) + 0.5) * bb * rup(area[order[e - 1]])
+
+            best, cut = {0: 0.0}, {}
+            for e in pos[1:]:
+                best[e] = np.inf
+                for s in pos:
+                    if s >= e:
+                        break
+                    c = best[s] + seg_cost(s, e)
+                    if c < best[e]:
+                        best[e], cut[e] = c, s
+            bounds, e = [], m
+            while e > 0:
+                bounds.append((cut[e], e))
+                e = cut[e]
+            for s, e in reversed(bounds):
+                groups.append((bn, rup(area[order[e - 1]]), sorted(order[s:e])))
+        return groups
+
+    def num_batches(self) -> int:
+        return sum(-(-len(items) // self.batch_size_for(bn)) for bn, _, items in self._groups)
+
     def _epoch_chunks(self, shuffle: bool = False,
                       rng: np.random.Generator | None = None) -> list:
         """The pass's (group, item chunk) schedule. With `shuffle`, the items
         of each bucket and then the chunks are shuffled by `rng` (numpy's
         global stream if None), draw for draw as the JAX package does."""
         chunks = []
-        for gi, (bn, items) in enumerate(self._groups):
+        for gi, (bn, _, items) in enumerate(self._groups):
             items = list(items)
             if shuffle:
                 (rng or np.random).shuffle(items)
@@ -425,7 +619,7 @@ class BucketBatcher:
                 yield pending.popleft().result()
 
     def _make_batch(self, group_i: int, item_ids: list) -> Batch:
-        bucket_n, _ = self._groups[group_i]
+        bucket_n, grid_n, _ = self._groups[group_i]
         bb = self.batch_size_for(bucket_n)
         n_real = len(item_ids)
         ids = list(item_ids) + [item_ids[0]] * (bb - n_real)
@@ -449,8 +643,9 @@ class BucketBatcher:
                 cid[j, :it["feats"].shape[0]] = it["cluster_id"]
             extra["cluster_id"] = cid
         elif self.ds.mode == "graph":
-            per = [self._graph_tables(it, bucket_n) for it in items]
-            for k in (BAND_KEYS if self.band_on else DENSE_KEYS):
+            per = [self._graph_tables(it, bucket_n, grid_n) for it in items]
+            keys = GRID_KEYS if self.grid_on else BAND_KEYS if self.band_on else DENSE_KEYS
+            for k in keys:
                 extra[k] = np.stack([t[k] for t in per])
         elif "coords" in items[0]:
             # region-level coordinates: one per 16 patches

@@ -126,3 +126,50 @@ def chain_skip_graph(n: int) -> np.ndarray:
     b = a + np.tile(np.asarray([-1, 1, -4, 4]), n)
     keep = (b >= 0) & (b < n)
     return np.stack([a[keep], b[keep]]).astype(np.int64)
+
+
+def tissue_coords(rng: np.random.Generator, width: int, height: int, hole_share: float = 0.04,
+                  patch: int = 256) -> np.ndarray:
+    """CLAM-like patch coordinates [N, 2] (x, y, pixels) of one slide: the
+    cells of a width x height grid of `patch`-pixel patches inside an
+    ellipse that fills the grid (its centre moved by up to a tenth of each
+    side), less a share `hole_share` of cells at random (background holes),
+    in raster order (row by row)."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    cy = height / 2 + rng.uniform(-0.1, 0.1) * height
+    cx = width / 2 + rng.uniform(-0.1, 0.1) * width
+    inside = ((yy - cy) / (height / 2)) ** 2 + ((xx - cx) / (width / 2)) ** 2 <= 1.0
+    inside &= rng.random((height, width)) >= hole_share
+    ys, xs = np.nonzero(inside)
+    return (np.stack([xs, ys], 1) * patch).astype(np.float32)
+
+
+def tissue_grid_tables(shapes, rng: np.random.Generator, epn: int = 9) -> dict:
+    """The grid route's tables of one slide per (width, height) of `shapes`
+    (a tissue mask `tissue_coords(rng, width, height)`, its 8-nearest-neighbour
+    graph from the port's graph tool, laid out on its cropped grid), padded
+    to one grid size and one residual-row count as the batcher pads a batch:
+    the `band_*` / `res_*` arrays [B, ...] plus `cropped_widths`."""
+    from ..data.bags import grid_tables
+    from ..ops.segment import crop_empty_grid_lines, grid_layout
+    from ..tools.build_graphs import build_graph
+    slides = []
+    for w, h in shapes:
+        coords = tissue_coords(rng, w, h)
+        g = build_graph(coords, np.zeros((len(coords), 1), np.float32),
+                        use_device_for_feats=False)
+        gl = grid_layout(coords)
+        row, col, Wc, Hc = crop_empty_grid_lines(gl[0], gl[1])
+        slides.append((g["edge_index"], np.stack([row, col], 1), Wc, Hc))
+    grid_n = -(-max(w * h for _, _, w, h in slides) // 128) * 128
+    bucket_n = -(-max(len(rc) for _, rc, _, _ in slides) // 16) * 16
+
+    def tables(u_slots=None):
+        return [grid_tables(e, rc, w, grid_n, bucket_n, epn, res_slots=grid_n * epn,
+                            u_slots=u_slots)[0] for e, rc, w, _ in slides]
+
+    u_slots = -(-max(int((t["band_urows"] < grid_n).sum()) for t in tables()) // 8) * 8
+    tabs = tables(u_slots)
+    out = {k: np.stack([t[k] for t in tabs]) for k in tabs[0]}
+    out["cropped_widths"] = [w for _, _, w, _ in slides]
+    return out

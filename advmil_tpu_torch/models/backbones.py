@@ -8,8 +8,9 @@ patch); returns the bag embedding [B, dim_out]. ABMIL ignores `extra`. In
 cluster mode `extra` is the patches' cluster ids [B, N] (int, -1 on
 padding). In patch mode `extra` is None or the region coordinates [B, L, 2]
 (`use_coords_pe`). In graph mode it is the batch's dict of graph tables
-(data/bags.py): the band tables of the banded route or `edge_src` /
-`edge_mask` of the dense route. `dense_init` selects the init of every
+(data/bags.py): the band tables of the banded route, the grid-space band
+tables and the grid maps of the grid route, or `edge_src` / `edge_mask` of
+the dense route. `dense_init` selects the init of every
 Dense except the patch embedding's (torch init), the packed attention
 in-projection (xavier) and DeepAttnMISL's `phis` (see there), as in the
 JAX factory.
@@ -23,7 +24,8 @@ from torch import nn
 
 from ..ops.banded import banded_aggregate
 from ..ops.masked import masked_softmax, region_mask_from_patch_mask
-from ..ops.segment import fused_knn_softmax_aggregate, knn_edge_softmax_aggregate
+from ..ops.segment import (fused_knn_softmax_aggregate, grid_place, grid_take,
+                           knn_edge_softmax_aggregate)
 from ..ops.pe import compute_pe
 from ..parallel import comm, mesh
 from .layers import (TORCH, XAVIER, Dense, Dropout, GAPool, GatedAttention, LayerNorm,
@@ -142,12 +144,17 @@ class GENConv(nn.Module):
     MLP(x_i + sum alpha * m), MLP = Dense(C, 2C) -> LayerNorm -> ReLU ->
     Dense(2C, C).
 
-    Two routes, chosen per batch by the batcher's tables: the banded route
+    Three routes, chosen per batch by the batcher's tables: the banded route
     (`band_offs` present) aggregates without gathering the messages
     (ops/banded.py, kernels #14/#15 and, for the residual rows, #12/#13);
-    the dense route gathers [B, N, epn, C] messages and aggregates them
-    (ops/segment.py, kernels #12/#13). `use_pallas` False takes the plain
-    versions on every device."""
+    the grid route (`band_gidx` present as well) places the messages on the
+    slides' grids (`grid_place`), aggregates there as the banded route does
+    and takes the result back to the bag rows (`grid_take`); the dense
+    route gathers [B, N, epn, C] messages and aggregates them
+    (ops/segment.py, kernels #12/#13). Given band tables without
+    `band_gidx`, x is taken to lie on the grid already (PatchGCN's
+    `grid_resident`). `use_pallas` False takes the plain versions on every
+    device."""
 
     def __init__(self, dim: int, eps: float = 1e-7, use_pallas: bool = True,
                  dense_init: str = XAVIER, dtype=torch.float32):
@@ -161,10 +168,15 @@ class GENConv(nn.Module):
     def forward(self, x, graph: dict):
         xr = torch.relu(x)
         if "band_offs" in graph:
-            aggr = banded_aggregate(xr + self.eps, graph["band_offs"], graph["band_mask"],
+            y = xr + self.eps
+            if "band_gidx" in graph:
+                y = grid_place(y, graph["band_gidx"], graph["band_ginv"])
+            aggr = banded_aggregate(y, graph["band_offs"], graph["band_mask"],
                                     graph["band_urows"], graph["band_usrc"],
                                     graph["band_uemask"], graph["band_uinv"], self.t,
                                     use_kernels=self.use_pallas)
+            if "band_gidx" in graph:
+                aggr = grid_take(aggr, graph["band_gidx"], graph["band_ginv"])
         else:
             src = graph["edge_src"].long()                            # [B, N, epn]
             B, N, epn = src.shape
@@ -202,13 +214,21 @@ class PatchGCN(nn.Module):
 
     The batch dimension goes into the aggregation ops directly (the JAX
     package vmaps one graph at a time with shared parameters); there is no
-    loop over bags."""
+    loop over bags.
+
+    `grid_resident` (grid route only): place the embedding on the grid rows
+    once, run the whole stack there with no per-layer place / take, and pool
+    over the grid rows with the mask placed through the same map. With
+    dropout off it computes what the per-layer route computes; dropout
+    draws at the grid's shape."""
 
     def __init__(self, dims: Sequence[int], num_layers: int = 1, dropout: float = 0.25,
-                 use_pallas: bool = True, dense_init: str = XAVIER, dtype=torch.float32):
+                 use_pallas: bool = True, dense_init: str = XAVIER,
+                 grid_resident: bool = False, dtype=torch.float32):
         super().__init__()
         dim_in, dim_hid, dim_out = dims
         self.num_layers = num_layers
+        self.grid_resident = grid_resident
         self.fc = Dense(dim_in, dim_hid, dense_init, dtype)
         self.layer0_conv = GENConv(dim_hid, use_pallas=use_pallas, dense_init=dense_init,
                                    dtype=dtype)
@@ -222,6 +242,11 @@ class PatchGCN(nn.Module):
 
     def forward(self, x, mask, extra: dict, rng: Rngs | None = None):
         h = self.drop(torch.relu(self.fc(x)), rng)
+        if self.grid_resident and "band_gidx" in extra:
+            gidx, ginv = extra["band_gidx"], extra["band_ginv"]
+            extra = {k: v for k, v in extra.items() if k not in ("band_gidx", "band_ginv")}
+            h = grid_place(h, gidx, ginv)
+            mask = grid_place(mask[..., None], gidx, ginv)[..., 0]
         cur = self.layer0_conv(h, extra)
         feats = [h, cur]
         for i in range(1, self.num_layers):
@@ -237,7 +262,7 @@ def load_backbone(mode: str, dims: Sequence[int], dense_init: str = XAVIER,
                   use_pallas: bool = True, use_fused_embed: bool = False,
                   use_lnpool: bool = True, tra_backbone: str = "Transformer",
                   flash_min_len: int = 512, num_graph_layers: int = 1,
-                  dtype=torch.float32) -> nn.Module:
+                  grid_resident: bool = False, dtype=torch.float32) -> nn.Module:
     """Backbone factory with the reference's default hyperparameters (dropout
     0.25, as `advmil_tpu/models/backbones.py::load_backbone`)."""
     dims = list(dims)[:3]
@@ -249,7 +274,8 @@ def load_backbone(mode: str, dims: Sequence[int], dense_init: str = XAVIER,
                            dtype=dtype)
     if mode == "graph":
         return PatchGCN(dims, num_layers=num_graph_layers, dropout=0.25,
-                        use_pallas=use_pallas, dense_init=dense_init, dtype=dtype)
+                        use_pallas=use_pallas, dense_init=dense_init,
+                        grid_resident=grid_resident, dtype=dtype)
     if mode == "abmil":
         return ABMIL(dims, dropout=0.25, dense_init=dense_init, dtype=dtype)
     if mode == "cluster":

@@ -15,9 +15,12 @@ tensor goes to `FusedKnnSoftmaxAggregate`, whose forward and backward are
 the hand-written kernels of `csrc/knn_agg.cu`, or raises. There is no
 fallback from the kernels to the plain version.
 
-`build_band_tables` and `band_coverage` are numpy copies of the JAX
+`build_band_tables`, `band_coverage`, `build_band_tables_matched`,
+`grid_layout` and `crop_empty_grid_lines` are numpy copies of the JAX
 package's host functions (the port imports no JAX), used by the batcher's
-pre-scan and tables.
+pre-scans and tables. `grid_place` / `grid_take` move a batch between its
+bag rows and the slides' bounding-box grids (the grid route), as gathers
+both ways.
 """
 from __future__ import annotations
 
@@ -234,3 +237,149 @@ def band_coverage(edge_src: np.ndarray, edge_mask: np.ndarray):
     n_rows = len(np.unique(np.nonzero((edge_mask > 0) & (bmask <= 0))[0]))
     return ((n_band / max(n_valid, 1)), int(res_mask.sum()), n_rows,
             int(np.abs(offs).max(initial=0)))
+
+
+def build_band_tables_matched(edge_src: np.ndarray, edge_mask: np.ndarray,
+                              k: int | None = None, offsets: np.ndarray | None = None,
+                              res_slots: int | None = None, multiple: int = 128):
+    """Band tables by offset matching instead of slot position (the grid
+    route's tables).
+
+    `build_band_tables` gives slot s the modal offset of the edges that sit
+    in column s, which depends on the kNN's neighbour order and collapses on
+    tissue graphs (distance ties put one grid neighbour in different columns
+    row to row). The aggregation does not depend on slot order, so this
+    builder takes the k most frequent offsets of the whole table (or
+    `offsets`) and sets band_mask[n, s] = 1 iff n + offs[s] is one of n's
+    real sources, whatever column holds that edge. When fewer than k offsets
+    occur, small distinct offsets fill the rest (a repeated offset would
+    count an edge twice).
+
+    Returns (offs [k] int32 sorted, band_mask [N, k] f32 slot space,
+    edge_banded [N, epn] f32 edge space (for `build_u_tables`), res_node [R],
+    res_src [R] int32, res_mask [R] f32), R = res_slots or the residual edge
+    count rounded up to `multiple`."""
+    N, epn = edge_src.shape
+    if k is None:
+        k = epn
+    n_idx = np.arange(N, dtype=np.int64)[:, None]
+    valid = edge_mask > 0
+    d = edge_src.astype(np.int64) - n_idx
+    if offsets is None:
+        col = d[valid]
+        if col.size:
+            vals, counts = np.unique(col, return_counts=True)
+            top = vals[np.argsort(-counts)[:k]]
+        else:
+            top = np.zeros(0, np.int64)
+        if len(top) < k:
+            pads = [o for o in range(-(k + 1), k + 2)
+                    if o not in set(top.tolist())][:k - len(top)]
+            top = np.concatenate([top, np.asarray(pads, np.int64)])
+        offs = np.sort(top).astype(np.int32)
+    else:
+        offs = np.asarray(offsets, np.int32)
+        assert offs.shape == (k,)
+    edge_banded = (valid & np.isin(d, offs)).astype(np.float32)
+    hit = valid[:, :, None] & (d[:, :, None] == offs[None, None, :].astype(np.int64))
+    target = n_idx + offs[None, :].astype(np.int64)
+    band_mask = (hit.any(axis=1) & (target >= 0) & (target < N)).astype(np.float32)
+    rn, rs = np.nonzero(valid & (edge_banded <= 0))
+    n_res = len(rn)
+    if res_slots is None:
+        res_slots = -(-max(n_res, 1) // multiple) * multiple
+    assert n_res <= res_slots, f"need {n_res} residual slots, given {res_slots}"
+    res_node = np.zeros(res_slots, np.int32)
+    res_src = np.zeros(res_slots, np.int32)
+    res_mask = np.zeros(res_slots, np.float32)
+    res_node[:n_res] = rn
+    res_src[:n_res] = edge_src[rn, rs]
+    res_mask[:n_res] = 1.0
+    return offs, band_mask, edge_banded, res_node, res_src, res_mask
+
+
+def crop_empty_grid_lines(gidx: np.ndarray, W: int):
+    """Drop the grid rows and columns that hold no patch from a slide's
+    bounding-box grid: (row [N], col [N], W_cropped, H_cropped). Cells
+    that were neighbours stay neighbours (no empty line lies between cells
+    one apart), so banded edges keep their offsets, and the grid's area,
+    which the banded kernels' work scales with, shrinks."""
+    row, col = gidx // W, gidx % W
+    ur, uc = np.unique(row), np.unique(col)
+    return (np.searchsorted(ur, row), np.searchsorted(uc, col),
+            int(len(uc)), int(len(ur)))
+
+
+def grid_layout(coords: np.ndarray, tol: float = 0.25):
+    """Snap a slide's patch coordinates [N, 2] (x, y) to their extraction
+    grid: (grid_idx [N] int64 row-major cell, W, H), or None when the
+    coordinates do not lie within `tol` steps of a regular grid or two
+    patches share a cell. In the grid every neighbour sits at a constant
+    offset (+-1, +-W, +-(W +- 1)), which compact numbering of a tissue mask
+    loses."""
+    if coords is None or coords.ndim != 2 or coords.shape[1] < 2:
+        return None
+    out_rc, dims = [], []
+    for axis in range(2):
+        v = coords[:, axis].astype(np.float64)
+        lo = v.min()
+        u = np.unique(v)
+        if len(u) == 1:
+            step = 1.0
+        else:
+            diffs = np.diff(u)
+            step = float(np.min(diffs[diffs > 0]))
+        idx = np.round((v - lo) / step)
+        if np.max(np.abs((v - lo) / step - idx)) > tol:
+            return None
+        out_rc.append(idx.astype(np.int64))
+        dims.append(int(idx.max()) + 1)
+    col, row = out_rc
+    W, H = dims
+    gidx = row * W + col
+    if len(np.unique(gidx)) != len(gidx):
+        return None
+    return gidx, W, H
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[b, i] = x[b, idx[b, i]] where idx[b, i] < x.shape[1], else 0:
+    x [B, M, ...], idx [B, K] -> [B, K, ...] (a sentinel >= M gives 0)."""
+    M = x.shape[1]
+    valid = idx < M
+    safe = idx.long().clamp(max=M - 1)
+    tail = x.shape[2:]
+    g = torch.gather(x, 1, safe.reshape(safe.shape + (1,) * len(tail)).expand(
+        safe.shape + tail))
+    return torch.where(valid.reshape(valid.shape + (1,) * len(tail)), g,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _GridGather(torch.autograd.Function):
+    """out = x gathered through `idx`; its backward gathers the cotangent
+    through `inv`, the inverse map of the same bijection."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return _take_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return _take_rows(g, inv), None, None
+
+
+def grid_place(y: torch.Tensor, gidx: torch.Tensor, ginv: torch.Tensor) -> torch.Tensor:
+    """Bag rows -> grid cells as a gather: y [B, N, ...], gidx [B, N] (the
+    grid cell of each row; sentinel >= G on padded rows), ginv [B, G] (the
+    row of each cell; sentinel >= N on cells without tissue) -> [B, G, ...],
+    0 on empty cells. gidx and ginv are one bijection on the valid entries,
+    so the backward is the gather through gidx: no scatter, no atomics."""
+    return _GridGather.apply(y, ginv, gidx)
+
+
+def grid_take(agg: torch.Tensor, gidx: torch.Tensor, ginv: torch.Tensor) -> torch.Tensor:
+    """Grid cells -> bag rows, the inverse of `grid_place`: agg [B, G, ...]
+    -> [B, N, ...], 0 on padded rows; the backward gathers through ginv."""
+    return _GridGather.apply(agg, gidx, ginv)

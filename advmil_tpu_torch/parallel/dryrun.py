@@ -6,9 +6,10 @@
 spawns n gloo ranks on the CPU and runs, on a random global batch of 2n
 bags, one adversarial step of G and D (cont_gansurv, bce, L1) under pure
 data parallelism in patch, cluster and graph mode (the dense graph route),
+on the grid route (`graph_grid`: the chain+skip graph laid out on a grid
+16 patches wide with 4 empty cells a row, as the JAX dry run's grid case),
 then in patch mode on an (n/2) x 2 dp x inst grid; every rank asserts
-finite, equal losses. The JAX dry run's grid-raster graph case waits on
-ROADMAP A13.
+finite, equal losses.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ C, N = 64, 256          # feature width, patches per bag (16 regions)
 def _cfg(mode: str) -> dict:
     from ..config import with_defaults
     return with_defaults({
-        "task": "cont_gansurv", "device": "cpu", "bcb_mode": mode,
+        "task": "cont_gansurv", "device": "cpu",
+        "bcb_mode": "graph" if mode == "graph_grid" else mode,
         "bcb_dims": f"{C}-64-64", "gen_dims": "64-1", "gen_noi_noise": "0-1",
         "gen_noi_noise_dist": "uniform", "gen_noi_hops": 1, "gen_norm": False,
         "gen_dropout": 0.6, "gen_out_scale": "sigmoid", "disc_type": "prj",
@@ -50,6 +52,14 @@ def _batch(B: int, mode: str) -> dict:
         src = rng.integers(0, N // 2, size=(B, N, 9)).astype(np.int32)
         batch["graph"] = {"edge_src": src,
                           "edge_mask": np.repeat(mask[..., None], 9, axis=2)}
+    elif mode == "graph_grid":
+        from ..data.bags import grid_tables
+        from ..data.synthetic import chain_skip_graph
+        a = np.arange(N)
+        rc = np.stack([a // 16, a % 16], axis=1)          # rows of 20 cells, 4 empty
+        tabs, _ = grid_tables(chain_skip_graph(N), rc, 20, -(-(N // 16) * 20 // 128) * 128,
+                              N, 9, res_slots=128, u_slots=64)
+        batch["graph"] = {k: np.repeat(v[None], B, axis=0) for k, v in tabs.items()}
     return batch
 
 
@@ -91,7 +101,8 @@ def _step(device, mode: str, dp: int, inst: int) -> dict:
 
 
 def _rank(rank, device, n: int) -> dict:
-    runs = {f"dp{n} {mode}": _step(device, mode, n, 1) for mode in ("patch", "cluster", "graph")}
+    runs = {f"dp{n} {mode}": _step(device, mode, n, 1)
+            for mode in ("patch", "cluster", "graph", "graph_grid")}
     if n >= 4 and n % 2 == 0:
         runs[f"dp{n // 2} x inst2 patch"] = _step(device, "patch", n // 2, 2)
     return runs

@@ -55,6 +55,7 @@ def build_survnet(cfg: dict, out_scale: str, dense_init: str) -> SurvNet:
                              tra_backbone=cfg["tra_backbone"],
                              flash_min_len=int(cfg["flash_min_len"]),
                              num_graph_layers=int(cfg["num_graph_layers"]),
+                             grid_resident=bool(cfg["graph_grid_resident"]),
                              dtype=dtype)
     dim_in, dim_out = sparse_str(cfg["pdh_dims"])
     return SurvNet(backbone, dim_in, dim_out, hops=cfg.get("mlp_hops", 1),

@@ -133,6 +133,7 @@ class HandlerCommon:
                           bucket_growth=float(self.cfg["bucket_growth"]),
                           edges_per_node=int(self.cfg["graph_edges_per_node"]),
                           banded=graph_banded(self.cfg),
+                          grid_max_inflation=float(self.cfg["graph_grid_max_inflation"]),
                           # every rank gets the same number of bags, and whole
                           # 16-patch regions of each
                           batch_multiple=g.dp if g else 1,

@@ -55,6 +55,7 @@ def build_models(cfg: dict):
                              tra_backbone=cfg["tra_backbone"],
                              flash_min_len=int(cfg["flash_min_len"]),
                              num_graph_layers=int(cfg["num_graph_layers"]),
+                             grid_resident=bool(cfg["graph_grid_resident"]),
                              dtype=dtype)
     dim_in, dim_out = sparse_str(cfg["gen_dims"])
     noi = SimpleNamespace(**sparse_key(cfg, prefixes="gen_noi"))

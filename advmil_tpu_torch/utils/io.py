@@ -1,8 +1,13 @@
-"""Host-side I/O: label tables, split files, patch features, predictions.
+"""Host-side I/O: label tables, split files, patch features and coordinates,
+reference-format graph files, predictions.
 
 The same file contracts as `advmil_tpu.utils.io` (csv label tables with
-patient_id, pathology_id, t, e; npz split files; .pt / .npy feature files;
-the prediction CSV and its `_dist.npz`), written with `csv` and numpy only.
+patient_id, pathology_id, t, e; npz split files; .pt / .npy / .npz / .h5
+feature files and .npy / .npz / .h5 coordinate files, as CLAM writes them;
+torch_geometric `geomData` graph pickles; the prediction CSV and its
+`_dist.npz`), written with `csv` and numpy. `.h5` files are read through
+h5py, imported when one is opened: without h5py such a read raises an error
+that names it.
 """
 from __future__ import annotations
 
@@ -119,20 +124,37 @@ def read_maxt_from_table(path: str, at_column: str = "t") -> float:
     return max(float(r[at_column]) for r in rows)
 
 
+def import_h5py(path: str):
+    """The h5py module, or an ImportError that names h5py and `path`."""
+    try:
+        import h5py
+    except ImportError as exc:
+        raise ImportError(f"{path}: reading .h5 files needs the h5py package, "
+                          "which is not installed") from exc
+    return h5py
+
+
 def read_patch_feature(path: str) -> np.ndarray:
-    """Read an [N, C] patch-feature matrix from .pt or .npy as float32."""
+    """Read an [N, C] patch-feature matrix from .pt, .npy, .npz (key
+    `features`) or .h5 (dataset `features`) as float32."""
     ext = osp.splitext(path)[1]
     if ext == ".pt":
         x = torch.load(path, map_location="cpu", weights_only=True)
         return x.float().numpy()
     if ext == ".npy":
         return np.asarray(np.load(path), dtype=np.float32)
-    raise ValueError(f"Unsupported feature format {ext} (the port reads .pt "
-                     "and .npy)")
+    if ext == ".npz":
+        with np.load(path) as z:
+            return np.asarray(z["features"], dtype=np.float32)
+    if ext == ".h5":
+        with import_h5py(path).File(path, "r") as hf:
+            return np.asarray(hf["features"][:], dtype=np.float32)
+    raise ValueError(f"Unsupported feature format {ext}")
 
 
 def read_patch_coord(path: str) -> np.ndarray:
-    """Read an [L, 2] coordinate matrix from .npy or .npz (key `coords`)."""
+    """Read an [L, 2] coordinate matrix from .npy, .npz (key `coords`) or
+    .h5 (dataset `coords`)."""
     ext = osp.splitext(path)[1]
     if ext == ".npy":
         return np.load(path)
@@ -140,10 +162,62 @@ def read_patch_coord(path: str) -> np.ndarray:
         with np.load(path) as z:
             return z["coords"]
     if ext == ".h5":
-        raise NotImplementedError(
-            f"{path}: reading .h5 coordinates needs h5py, which the port does not "
-            "depend on; convert the `coords` dataset to .npz or .npy")
+        with import_h5py(path).File(path, "r") as hf:
+            return np.asarray(hf["coords"][:])
     raise ValueError(f"Unsupported coord format {ext}")
+
+
+class _GeomStub:
+    """Stands in for every pickled torch_geometric class: keeps the pickled
+    attributes without importing torch_geometric."""
+
+    def __init__(self, *args, **kwargs):
+        self.__dict__.update(kwargs)
+
+    def __setstate__(self, state):
+        if isinstance(state, tuple):  # (dict_state, slots_state)
+            for part in state:
+                if part:
+                    self.__dict__.update(part)
+        elif isinstance(state, dict):
+            self.__dict__.update(state)
+
+
+def read_geom_graph(path: str) -> dict:
+    """Read a reference-format torch_geometric `geomData` graph `.pt` without
+    torch_geometric: every `torch_geometric.*` class in the pickle is read as
+    a `_GeomStub`. PyG < 2 keeps the attributes in the object's `__dict__`,
+    PyG >= 2 in a `_store` mapping; both are read.
+
+    Returns numpy arrays x [N, C], edge_index [2, E], edge_latent [2, E] and
+    centroid [N, 2] (a missing field is an absent key; PyG rows are
+    (source, target)), plus num_nodes when x is present."""
+    import pickle
+
+    class _Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module.startswith("torch_geometric"):
+                return _GeomStub
+            return super().find_class(module, name)
+
+    shim = type("pickle_shim", (), {"Unpickler": _Unpickler,
+                                    "load": staticmethod(pickle.load),
+                                    "dump": staticmethod(pickle.dump)})
+    obj = torch.load(path, map_location="cpu", pickle_module=shim, weights_only=False)
+    attrs = dict(getattr(obj, "__dict__", {}) or {})
+    store = attrs.pop("_store", None)
+    if store is not None:
+        inner = getattr(store, "__dict__", None) or {}
+        attrs.update(inner.get("_mapping", inner))
+    out = {}
+    for k in ("x", "edge_index", "edge_latent", "centroid"):
+        v = attrs.get(k)
+        if v is None:
+            continue
+        out[k] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    if "x" in out:
+        out["num_nodes"] = int(out["x"].shape[0])
+    return out
 
 
 def read_datasplit_npz(path: str):

@@ -101,6 +101,25 @@ Phases, each printed on its own line:
      rows against 1,000 keys) and one ABMIL base step, each against the
      single-process card step; test mode from phase 32's best checkpoint
      over two inst ranks against the same test mode in one process.
+ 34. the offline tools: 12 CLAM-like patients written with numpy (elliptical
+     tissue masks with holes on a 256-px grid, 1,500-12,000 patches a slide,
+     two over 200 patches wide after cropping, 1024-d features, coordinates
+     as .npy); their graphs built by the port's `build_graphs` CLI (feature
+     kNN on the card); the C++ spatial kNN against torch.cdist and the card's
+     feature kNN against the C++ kNN, ties aside; a slide written as a
+     reference-format torch_geometric .pt graph and read back.
+ 35. adversarial PatchGCN at full width (1024-384-384, 3 graph layers, bf16)
+     on those graphs, 2 epochs, then test mode from the best checkpoint: the
+     grid route engages (compact and grid coverage, inflation printed) and
+     #12-#15, #1 and #2 launch.
+ 36. one f32 grid-route step, card against CPU (gradients 1e-4); on the card
+     the grid route against the dense route on the same two bags (bag
+     embedding 1e-5, gradients 1e-4), with graph_grid_resident off and on.
+ 37. #14 / #15 on grid tables at cropped widths ~40, ~60 and ~220 (offset
+     spans inside and past the rows the kernels stage), f32 and bf16, and
+     #12 / #13 on their residual rows, against the plain versions, with
+     CUDA-event times and byte bounds; rows `<kernel>@grid_W<width>` in the
+     kernels JSON.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -2854,6 +2873,393 @@ def phase_inst2(paths, train_handler, base_handler, dp2_cfg, card):
     return step_launches, test_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 34-37: real-slide graphs: the tools, the grid route
+# ---------------------------------------------------------------------------
+
+# the phase-34 patients: each slide an elliptical tissue mask with holes on a
+# (width x height) grid of 256-px patches (advmil_tpu_torch.data.synthetic.
+# tissue_coords); patient 8 has two slides, patients 3 and 4 are over 200
+# patches wide after cropping
+TISSUE_SLIDES = [[(60, 45)], [(80, 50)], [(100, 60)], [(240, 66)], [(236, 58)], [(120, 70)],
+                 [(90, 90)], [(150, 60)], [(70, 40), (66, 36)], [(110, 80)], [(200, 50)],
+                 [(130, 100)]]
+# phase 37: (cropped width aimed at, tissue_coords width, height): two slides
+# of about 16,000 grid cells each
+GRID_WIDTHS = ((40, 42, 390), (60, 62, 265), (220, 228, 72))
+GRAPH_KERNELS = ("fused_knn_softmax_aggregate", "fused_knn_softmax_aggregate_bwd",
+                 "banded_aggregate", "banded_aggregate_bwd")
+
+
+def _write_geom_pt(path, x, edge_index_pyg, centroid):
+    """Write a graph as the reference does: a pickled torch_geometric `Data`
+    (PyG 2 layout: the attributes in `_store._mapping`). torch_geometric is
+    not installed, so stand-in classes are registered under its module names
+    for the pickler and removed afterwards."""
+    import types
+    import torch
+    names = ("torch_geometric", "torch_geometric.data", "torch_geometric.data.storage")
+    mods = {n: types.ModuleType(n) for n in names}
+
+    class BaseStorage:
+        def __init__(self, mapping):
+            self._mapping = mapping
+
+    class Data:
+        def __init__(self, **kw):
+            self._store = BaseStorage(dict(kw))
+
+    for cls, mod in ((BaseStorage, "torch_geometric.data.storage"), (Data, "torch_geometric.data")):
+        cls.__module__, cls.__qualname__ = mod, cls.__name__
+        setattr(mods[mod], cls.__name__, cls)
+    sys.modules.update(mods)
+    try:
+        torch.save(Data(x=torch.from_numpy(x), edge_index=torch.from_numpy(edge_index_pyg),
+                        edge_latent=torch.from_numpy(edge_index_pyg),
+                        centroid=torch.from_numpy(centroid)), path)
+    finally:
+        for n in names:
+            sys.modules.pop(n, None)
+
+
+def phase_tools(card):
+    """Phase 34: CLAM-like patients written with numpy (TISSUE_SLIDES: 1024-d
+    features as .pt, coordinates as .npy), their graphs built by the port's
+    `build_graphs` CLI on the card (feature kNN on the card, spatial kNN in
+    C++); the C++ spatial kNN against torch.cdist and the card's feature kNN
+    against the C++ kNN; one slide written as a reference-format .pt graph
+    and read back."""
+    import numpy as np
+    import torch
+    from advmil_tpu_torch import native
+    from advmil_tpu_torch.data.synthetic import tissue_coords
+    from advmil_tpu_torch.ops.segment import crop_empty_grid_lines, grid_layout
+    from advmil_tpu_torch.tools import build_graphs
+    from advmil_tpu_torch.utils.io import read_geom_graph
+    t0 = time.perf_counter()
+    root = osp.join(WORK_DIR, "tissue")
+    dirs = {d: osp.join(root, d) for d in ("feats", "coords", "graphs", "refgraphs")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(34)
+    rows, sizes, widths = [], [], []
+    for p, slides in enumerate(TISSUE_SLIDES):
+        signal = rng.uniform(-1.0, 1.0)
+        t = float(np.clip(50.0 * (1.0 + signal) + rng.normal(0, 5.0), 1.0, 120.0))
+        for s, (w, h) in enumerate(slides):
+            sid = f"T{p:02d}_{s}"
+            coords = tissue_coords(rng, w, h)
+            feats = rng.normal(size=(len(coords), 1024)).astype(np.float32)
+            feats[:, :8] += signal
+            np.save(osp.join(dirs["coords"], f"{sid}.npy"), coords)
+            torch.save(torch.from_numpy(feats), osp.join(dirs["feats"], f"{sid}.pt"))
+            gl = grid_layout(coords)
+            widths.append(crop_empty_grid_lines(gl[0], gl[1])[2])
+            sizes.append(len(coords))
+            rows.append(f"{sid},TP{p:02d},{int(p % 4 != 3)},{t:.4f}")
+    with open(osp.join(root, "labels.csv"), "w") as f:
+        f.write("pathology_id,patient_id,e,t\n" + "\n".join(rows) + "\n")
+    pids = [f"TP{p:02d}" for p in range(len(TISSUE_SLIDES))]
+    np.savez(osp.join(root, "split-fold0.npz"), train_patients=np.asarray(pids[3:11]),
+             val_patients=np.asarray(pids[1:3]), test_patients=np.asarray([pids[0], pids[11]]))
+    if sum(w > 200 for w in widths) < 2 or not (1500 <= min(sizes) and max(sizes) <= 12000):
+        raise AssertionError(f"tissue slides: sizes {sizes}, cropped widths {widths}")
+    t_data = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    build_graphs.main(["--coords", dirs["coords"], "--feats", dirs["feats"],
+                       "--save", dirs["graphs"], "--device", "cuda"])
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+
+    # the C++ spatial kNN against brute force on the card, ties aside: every
+    # neighbour kept lies within the 9th distance, every point nearer than it
+    # is kept
+    sp_sid = "T01_0"
+    coords = np.load(osp.join(dirs["coords"], f"{sp_sid}.npy"))
+    idx = native.knn_l2(coords, 9)
+    c = torch.from_numpy(coords).cuda().double()
+    d = torch.cdist(c, c)
+    kth = d.sort(dim=1).values[:, 8:9]
+    kept = torch.zeros_like(d, dtype=torch.bool)
+    kept[torch.arange(len(coords))[:, None], torch.from_numpy(idx).long().cuda()] = True
+    ties = int(((d == kth).sum(1) > 1).sum())
+    if not (bool((d[kept] <= kth.expand_as(d)[kept]).all())
+            and bool((kept | (d >= kth)).all()) and int(kept.sum()) == 9 * len(coords)):
+        raise AssertionError("C++ spatial kNN disagrees with torch.cdist")
+    # the card's feature kNN against the C++ kNN (1024-d): equal sets, but for
+    # near-ties at the 9th distance, which the card's |q|^2 + |x|^2 - 2 q x in
+    # f32 cannot order (each neighbour that differs lies within 1e-4 of the
+    # 9th squared distance, in f64)
+    sid = "T00_0"
+    feats = torch.load(osp.join(dirs["feats"], f"{sid}.pt")).numpy()
+    dev_idx = build_graphs.knn_l2_device(feats, 9, device="cuda")
+    host_idx = native.knn_l2(feats, 9)
+    differ = [i for i, (a, b) in enumerate(zip(dev_idx, host_idx)) if set(a) != set(b)]
+    x64 = torch.from_numpy(feats).cuda().double()
+    for i in differ:
+        d2 = ((x64 - x64[i]) ** 2).sum(dim=1)
+        kth = float(d2.sort().values[8])
+        odd = set(dev_idx[i]) ^ set(host_idx[i])
+        if any(abs(float(d2[j]) - kth) > 1e-4 * kth for j in odd):
+            raise AssertionError(f"feature kNN: row {i} differs card vs C++ beyond a near-tie")
+    # a reference-format .pt graph, read back
+    with np.load(osp.join(dirs["graphs"], f"{sid}.npz")) as g:
+        g = dict(g)
+    pt = osp.join(dirs["refgraphs"], f"{sid}.pt")
+    _write_geom_pt(pt, feats, np.ascontiguousarray(g["edge_index"][::-1]), g["centroid"])
+    back = read_geom_graph(pt)
+    if not (np.array_equal(back["edge_index"][::-1], g["edge_index"])
+            and np.array_equal(back["centroid"], g["centroid"])
+            and back["num_nodes"] == int(g["num_nodes"]) and "torch_geometric" not in sys.modules):
+        raise AssertionError("reference-format .pt graph did not read back")
+    log(f"[34 tools] {len(TISSUE_SLIDES)} CLAM-like patients, {len(sizes)} slides of "
+        f"{min(sizes)}-{max(sizes)} patches (cropped grid widths {min(widths)}-{max(widths)}, "
+        f"{sum(w > 200 for w in widths)} over 200), 1024-d ({t_data:.1f} s); build_graphs CLI "
+        f"(feature kNN on the card) {t_build:.1f} s; C++ spatial kNN = torch.cdist on {sp_sid} "
+        f"({len(coords)} patches, {ties} rows with ties at the 9th distance); card feature "
+        f"kNN = C++ kNN on {sid} ({len(feats)} patches; sets equal in all but {len(differ)} "
+        f"rows, which differ by near-ties at the 9th distance); reference "
+        f".pt graph read back | {card}")
+    return {"path_patch": dirs["feats"], "path_label": osp.join(root, "labels.csv"),
+            "path_graph": dirs["graphs"], "path_coordx5": None,
+            "data_split_path": osp.join(root, "split-fold{}.npz")}
+
+
+def _tissue_cfg(tpaths, run, **over):
+    return _smoke_cfg(tpaths, bcb_mode="graph", num_graph_layers=3,
+                      path_graph=tpaths["path_graph"], save_path=osp.join(WORK_DIR, run),
+                      test_load_path=osp.join(WORK_DIR, run),
+                      test_save_path=osp.join(WORK_DIR, run + "_test_{}-{}"),
+                      test_mask_ratio=0.0, **over)
+
+
+def phase_grid_train(tpaths, card):
+    """Phase 35: adversarial PatchGCN at full width (1024-384-384, 3 graph
+    layers, bf16) on phase 34's graphs, 2 epochs, then test mode from the
+    best checkpoint; the grid route must engage and #12-#15 launch."""
+    from advmil_tpu_torch import main as port_main
+    runs = {}
+    for mode, over in (("train", dict(test=False, epochs=2, es_warmup=0)),
+                       ("test", dict(test=True))):
+        yaml_path = osp.join(WORK_DIR, f"grid_{mode}.yaml")
+        _write_yaml(yaml_path, _tissue_cfg(tpaths, "grid_run", **over))
+        reset_counters()
+        [(handler, metrics)] = port_main.main(["--config", yaml_path, "--handler", "adv"])
+        runs[mode] = (handler, metrics, read_counters())
+    handler, metrics, launches = runs["train"]
+    for name in GRAPH_KERNELS + LN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the grid training path")
+    if runs["test"][2]["banded_aggregate"] <= 0:
+        raise AssertionError("banded_aggregate was not launched in grid test mode")
+    _check_run(handler, metrics, ("train", "validation", "test"), "train_best_pred_{}.csv")
+    _check_run(runs["test"][0], runs["test"][1], ("exec-test",), "test_mode_best_pred_{}.csv")
+    routes = []
+    for split, (_, b) in list(handler.loaders.items()) + [
+            ("exec-test", runs["test"][0].loaders["exec-test"])]:
+        if not (b.grid_on and not b.band_on and b.coverage < 0.7 <= b.grid_coverage
+                and b.grid_inflation <= 3.0):
+            raise AssertionError(f"{split}: the grid route did not engage (compact coverage "
+                                 f"{b.coverage}, grid {b.grid_coverage}, inflation "
+                                 f"{b.grid_inflation})")
+        shapes = sorted({(bn, gn) for bn, gn, _ in b._groups})
+        routes.append(f"{split}: compact coverage {b.coverage:.3f}, grid coverage "
+                      f"{b.grid_coverage:.3f}, inflation {b.grid_inflation:.2f}, (bucket, grid) "
+                      f"{shapes}, residual rows {b._grid_u_slots}")
+    log(f"[35 grid train] grid-raster banded streaming ON: " + "; ".join(routes))
+    rates = " ".join(f"epoch {i + 1} {b / s:.2f} ({b} bags, {s:.3f} s);"
+                     for i, (b, s) in enumerate(handler.train_timings))
+    k = {n: launches[n] for n in GRAPH_KERNELS + LN_KERNELS}
+    log(f"[35 grid train] exec C-index train {dict(metrics['train'])['cindex']:.4f} validation "
+        f"{dict(metrics['validation'])['cindex']:.4f} test {dict(metrics['test'])['cindex']:.4f}; "
+        f"test mode from the best checkpoint C-index "
+        f"{dict(runs['test'][1]['exec-test'])['cindex']:.4f}; predictions finite in [0, 1] | "
+        f"launches #12-#15, #1 / #2: {k}; test mode {runs['test'][2]} | {card}")
+    log(f"[35 grid train] training bags/s: {rates} | {card}")
+    return handler, launches, runs["test"][2]
+
+
+def _dense_batch(handler, batch):
+    """`batch` with its grid tables replaced by the dense edge tables of the
+    same bags (the dense route's `edge_src` / `edge_mask`)."""
+    import numpy as np
+    from advmil_tpu_torch.data.bags import Batch, dense_table
+    ds = handler.loaders["train"][1].ds
+    epn = int(handler.cfg["graph_edges_per_node"])
+    tabs = [dense_table(ds.peek_edges(int(i)), batch.feats.shape[1], epn)[:2] for i in batch.idx]
+    return Batch(idx=batch.idx, feats=batch.feats, mask=batch.mask, label=batch.label,
+                 sample_mask=batch.sample_mask,
+                 extra={"edge_src": np.stack([t[0] for t in tabs]),
+                        "edge_mask": np.stack([t[1] for t in tabs])})
+
+
+def _g_forward(handler, batch, **over):
+    """G's bag embedding [B, 384] in f32, eval mode, on the card."""
+    import torch
+    from advmil_tpu_torch.train.handler import build_models
+    G, _ = build_models(dict(handler.cfg, precision="f32", **over))
+    G.load_state_dict(handler.gen_model.state_dict())
+    G.cuda().eval()
+    extra = {k: torch.from_numpy(v).cuda() for k, v in batch.extra.items()}
+    with torch.no_grad():
+        return G.embed(torch.from_numpy(batch.feats).cuda(), torch.from_numpy(batch.mask).cuda(),
+                       extra).float().cpu()
+
+
+def phase_grid_checks(handler):
+    """Phase 36: one f32 grid-route step card against CPU (gradients 1e-4);
+    then on the card the grid route against the dense route on the same two
+    bags (G's forward 1e-5, the step's gradients 1e-4), with
+    graph_grid_resident off and on."""
+    batch = _two_bag_batch(handler)
+    shape = tuple(batch.feats.shape)
+    grads = {dev: _step_grads(handler, batch, dev) for dev in ("cuda", "cpu")}
+    _compare_grads("36 grid gpu-vs-cpu train", "grid route, card against CPU", grads["cuda"],
+                   grads["cpu"], shape)
+    dense = _dense_batch(handler, batch)
+    want_g = _step_grads(handler, dense, "cuda")
+    want_f = _g_forward(handler, dense)
+    for resident in (False, True):
+        before = read_counters()
+        got_f = _g_forward(handler, batch, graph_grid_resident=resident)
+        got_g = _step_grads(handler, batch, "cuda", graph_grid_resident=resident)
+        now = read_counters()
+        if now["banded_aggregate_bwd"] <= before["banded_aggregate_bwd"]:
+            raise AssertionError("36: the grid step did not launch #15")
+        d = max_abs(got_f, want_f)
+        log(f"[36 grid-vs-dense] f32 on batch {shape}, graph_grid_resident {resident}: G's "
+            f"bag embedding max |diff| {d:.3e} (bound 1e-5; largest |value| "
+            f"{float(want_f.abs().max()):.3e})")
+        if not d <= 1e-5:
+            raise AssertionError(f"36: grid and dense forwards differ by {d}")
+        _compare_grads("36 grid-vs-dense", f"grid (resident {resident}) against dense on the "
+                       "card", got_g, want_g, shape)
+
+
+def phase_grid_kernels(card):
+    """Phase 37: #14 / #15 on the grid tables of two tissue slides (epn 9, as
+    the path; C=384) about 40, 60 and 220 patches wide, f32 and bf16, against
+    the plain versions (f32 1e-5; bf16 2e-2 and `banded_tol`), with
+    CUDA-event times and byte bounds. The offsets are the 8 grid neighbours
+    and a ninth (+-2W or +-2 on these slides), so the span is about 3W:
+    within the 128 rows every kernel stages at W~40; at W~60 beyond the bf16
+    backward's 128 but within the others' 192; at W~220 beyond all, so the
+    far slots read device memory. Then #12 / #13 on the same tables'
+    residual rows (their messages gathered in f32, as the path gathers
+    them), against the plain version within 1e-5."""
+    import numpy as np
+    import torch
+    from advmil_tpu_torch.data.synthetic import tissue_grid_tables
+    from advmil_tpu_torch.ops import banded as tband
+    from advmil_tpu_torch.ops import segment as tseg
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+    rng = np.random.default_rng(37)
+    report = {}
+    for W, width, height in GRID_WIDTHS:
+        tabs = tissue_grid_tables([(width, height), (width - 2, height - 2)], rng)
+        widths = tabs["cropped_widths"]
+        offs = torch.from_numpy(tabs["band_offs"]).to(dev)
+        bm = torch.from_numpy(tabs["band_mask"]).to(dev)
+        span = int((offs.max(1).values - offs.min(1).values).max())
+        if (W == 40 and span > 128) or (W == 220 and span <= 192):
+            raise AssertionError(f"37: offset span {span} at cropped widths {widths}")
+        B, grid_n, C = 2, bm.shape[1], 384
+        y32 = torch.relu(torch.randn(B, grid_n, C, device=dev, generator=g)) + 1e-7
+        g32 = torch.randn(B, grid_n, C, device=dev, generator=g)
+        t = torch.tensor([1.3], device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            y, gout = y32.to(dtype), g32.to(dtype)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            out, stats = tband.banded_core_fwd(y, offs, bm, t, save_stats=True)
+            dy, dt = tband.banded_core_bwd(y, offs, bm, t, stats, gout)
+            yy, tt = y.detach().clone().requires_grad_(True), t.clone().requires_grad_(True)
+            ref = tband.banded_core_plain(yy, offs, bm, tt)
+            want = torch.autograd.grad(ref, (yy, tt), gout, retain_graph=True)
+            torch.cuda.synchronize()
+            tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else \
+                dict(atol=2e-2, rtol=2e-2)
+            for what, a, b in (("out", out, ref), ("dy", dy, want[0])):
+                torch.testing.assert_close(a.float(), b.float(), **tol,
+                                           msg=lambda m, w=what: f"37 W~{W} {tag} {w}: {m}")
+            torch.testing.assert_close(dt, want[1].reshape(1).float(), atol=0.0, rtol=1e-4)
+            tight = ""
+            if dtype == torch.bfloat16:
+                shares = [share_of(a, b, **tband.banded_tol(b.float()))
+                          for a, b in ((out, ref), (dy, want[0]))]
+                if max(shares) > 1:
+                    raise AssertionError(f"37 W~{W}: outside banded_tol ({shares})")
+                tight = f"; banded_tol used out {shares[0]:.3f} dy {shares[1]:.3f}"
+            f_ms, fp_ms = timed_pair(lambda: tband.banded_core_fwd(y, offs, bm, t, True),
+                                     lambda: tband.banded_core_plain(y, offs, bm, t))
+            b_ms, bp_ms = timed_pair(
+                lambda: tband.banded_core_bwd(y, offs, bm, t, stats, gout),
+                lambda: torch.autograd.grad(ref, (yy, tt), gout, retain_graph=True))
+            epn = bm.shape[2]
+            fb = bound(nbytes(y, offs, bm, out, *stats), 8 * epn * y.numel(), "f32")
+            bb = bound(nbytes(y, offs, bm, gout, dy, *stats), 16 * epn * y.numel(), "f32")
+            errs = (max_abs(out, ref.detach()), max_abs(dy, want[0]),
+                    max_abs(dt, want[1].reshape(1)))
+            log(f"[37 grid kernels] banded core on grid tables, cropped widths {widths} (offset "
+                f"span {span} against the staged 128 / 192 rows), B={B} "
+                f"grid_n={grid_n} epn={epn} C={C} {tag}: max_abs_err out {errs[0]:.3e} dy "
+                f"{errs[1]:.3e} dt {errs[2]:.3e}{tight} | fwd {f_ms:.4f} ms (plain {fp_ms:.4f}, "
+                f"bound {fb['bound_ms']:.4f} {fb['bound_by']}) | bwd {b_ms:.4f} ms (plain "
+                f"{bp_ms:.4f}, bound {bb['bound_ms']:.4f} {bb['bound_by']}) | {card}")
+            for name, ms, pms, b_, err in (("banded_aggregate", f_ms, fp_ms, fb, errs[0]),
+                                           ("banded_aggregate_bwd", b_ms, bp_ms, bb,
+                                            max(errs[1:]))):
+                row = dict(ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_["bound_ms"],
+                           bound_by=b_["bound_by"])
+                if dtype == torch.float32:
+                    report.setdefault(name, {})[W] = {"f32": row}
+                else:       # bf16: the grid path's dtype in phase 35
+                    report[name][W].update(row, dtype="bf16", library_ms=None, span=span,
+                                           grid_n=grid_n)
+            del out, stats, dy, ref, want
+        # #12 / #13 on the residual rows: the messages of their whole edge rows
+        u_src = torch.from_numpy(tabs["band_usrc"]).to(dev).long()
+        u_em = torch.from_numpy(tabs["band_uemask"]).to(dev)
+        U, epn = u_src.shape[1], u_src.shape[2]
+        msg = torch.gather(y32, 1, u_src.reshape(B, -1, 1).expand(B, U * epn, C)
+                           ).reshape(B, U, epn, C)
+        gu = g32[:, :U]
+        out = tseg.fused_agg_fwd(msg, u_em, t)
+        dm, dt = tseg.fused_agg_bwd(msg, u_em, t, gu)
+        mm, tt = msg.clone().requires_grad_(True), t.clone().requires_grad_(True)
+        ref = tseg.knn_edge_softmax_aggregate(mm, u_em, tt)
+        want = torch.autograd.grad(ref, (mm, tt), gu, retain_graph=True)
+        torch.cuda.synchronize()
+        for what, a, b in (("out", out, ref), ("dmessages", dm, want[0])):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0.0,
+                                       msg=lambda m, w=what: f"37 W~{W} knn {w}: {m}")
+        torch.testing.assert_close(dt, want[1].reshape(1), atol=0.0, rtol=1e-4)
+        f_ms, fp_ms = timed_pair(lambda: tseg.fused_agg_fwd(msg, u_em, t),
+                                 lambda: tseg.knn_edge_softmax_aggregate(msg, u_em, t))
+        b_ms, bp_ms = timed_pair(lambda: tseg.fused_agg_bwd(msg, u_em, t, gu),
+                                 lambda: torch.autograd.grad(ref, (mm, tt), gu,
+                                                             retain_graph=True))
+        fb = bound(nbytes(msg, u_em, out), 8 * msg.numel(), "f32")
+        bb = bound(nbytes(msg, dm, u_em, gu), 16 * msg.numel(), "f32")
+        errs = (max_abs(out, ref.detach()), max_abs(dm, want[0]), max_abs(dt, want[1].reshape(1)))
+        real = int((tabs["band_urows"] < grid_n).sum(1).max())
+        log(f"[37 grid kernels] kNN aggregation on the residual rows of the same tables (U={U} "
+            f"slots, at most {real} real a bag), B={B} epn={epn} C={C} f32: max_abs_err out "
+            f"{errs[0]:.3e} dmessages {errs[1]:.3e} dt {errs[2]:.3e} | fwd {f_ms:.4f} ms (plain "
+            f"{fp_ms:.4f}, bound {fb['bound_ms']:.4f} {fb['bound_by']}) | bwd {b_ms:.4f} ms "
+            f"(plain {bp_ms:.4f}, bound {bb['bound_ms']:.4f} {bb['bound_by']}) | {card}")
+        for name, ms, pms, b_, err in (("fused_knn_softmax_aggregate", f_ms, fp_ms, fb, errs[0]),
+                                       ("fused_knn_softmax_aggregate_bwd", b_ms, bp_ms, bb,
+                                        max(errs[1:]))):
+            report.setdefault(name, {})[W] = dict(
+                ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_["bound_ms"],
+                bound_by=b_["bound_by"], dtype="f32", library_ms=None, span=span,
+                grid_n=grid_n, u_slots=U)
+        del msg, out, dm, ref, want
+    return report
+
+
 SOURCES = {
     "ln_relu_region_mean": ("advmil_tpu_torch/csrc/ln_pool.cu", "advmil_tpu/ops/ln_pool.py:67"),
     "ln_relu_region_mean_bwd": ("advmil_tpu_torch/csrc/ln_pool.cu",
@@ -2974,7 +3380,16 @@ def main():
     dp2_cfg, dp2_launches = timed("32 dp2", phase_dp2, paths, train_handler, card)
     inst2_step_launches, inst2_test_launches = timed(
         "33 inst2", phase_inst2, paths, train_handler, base_handler, dp2_cfg, card)
-    shutil.rmtree(osp.join(WORK_DIR, "data"), ignore_errors=True)
+    tpaths = timed("34 tools", phase_tools, card)
+    grid_handler, grid_launches, grid_test_launches = timed("35 grid train", phase_grid_train,
+                                                            tpaths, card)
+    log(f"[35 grid train] training bags/s, epochs 1 / 2: grid route on the tool-built graphs "
+        f"{rate(grid_handler)} beside phase 8's banded route {rate(banded_handler)} (other "
+        f"data, a reading only) | {card}")
+    timed("36 grid checks", phase_grid_checks, grid_handler)
+    grid_report = timed("37 grid kernels", phase_grid_kernels, card)
+    for d in ("data", "tissue"):
+        shutil.rmtree(osp.join(WORK_DIR, d), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
 
     import torch
@@ -3009,7 +3424,9 @@ def main():
                        "lookahead_radam_train": la_launches[name],
                        "dp2_train": dp2_launches[name],
                        "inst2_esat_step": inst2_step_launches[name],
-                       "inst2_test_mode": inst2_test_launches[name]}
+                       "inst2_test_mode": inst2_test_launches[name],
+                       "grid_train": grid_launches[name],
+                       "grid_test_mode": grid_test_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
         if entry["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched")
@@ -3026,7 +3443,9 @@ def main():
                            ("dp2_train", LN_KERNELS + FLASH_KERNELS),
                            ("inst2_esat_step", LN_KERNELS + FLASH_KERNELS[:1]
                             + FLASH_KERNELS[2:]),
-                           ("inst2_test_mode", LN_KERNELS[:1] + FLASH_KERNELS[:1])):
+                           ("inst2_test_mode", LN_KERNELS[:1] + FLASH_KERNELS[:1]),
+                           ("grid_train", GRAPH_KERNELS + LN_KERNELS),
+                           ("grid_test_mode", ("banded_aggregate", "ln_relu_region_mean"))):
             if name in need and entry["launches_by_path"][path] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3035,6 +3454,17 @@ def main():
         if name in inst_report:       # phase 31: the local query rows of an inst rank
             entry["lq_lt_lk"] = inst_report[name]
         kernels.append(entry)
+        # phase 37: the graph kernels on grid tables, one row per cropped
+        # width (#14 / #15 in bf16, the grid path's dtype in phase 35, with
+        # f32 beside it; #12 / #13 in f32, as the path runs them); their
+        # launches are the grid path's (phase 35)
+        for W, row in grid_report.get(name, {}).items():
+            kernels.append(dict(
+                {k: entry[k] for k in ("route", "source", "replaces")}, **row,
+                name=f"{name}@grid_W{W}",
+                launches=grid_launches[name] + grid_test_launches[name],
+                launches_by_path={"grid_train": grid_launches[name],
+                                  "grid_test_mode": grid_test_launches[name]}))
     assert all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms"))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

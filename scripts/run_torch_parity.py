@@ -62,6 +62,58 @@ import run_parity  # noqa: E402
 
 run_parity.REF_CFG = osp.join(REPO, "config", "cfg_nlst.yaml")
 
+
+def tissue_slide_coords(n: int, rng: np.random.Generator) -> np.ndarray:
+    """Patch coordinates [n, 2] (pixels, 256-px grid) of a tissue-like
+    slide of exactly n patches: an ellipse about 10% larger than n cells,
+    less randomly chosen cells (holes), in raster order."""
+    side = int(np.ceil(np.sqrt(1.15 * n / (np.pi / 4)))) + 1
+    while True:
+        yy, xx = np.mgrid[0:side, 0:side].astype(np.float64)
+        cy, cx = side / 2 + rng.uniform(-0.5, 0.5, size=2)
+        cells = np.argwhere(((yy - cy) / (side / 2)) ** 2 + ((xx - cx) / (side / 2)) ** 2 <= 1.0)
+        if len(cells) >= n:
+            break
+        side += 1
+    keep = np.sort(rng.choice(len(cells), size=n, replace=False))
+    return (cells[keep][:, ::-1] * 256).astype(np.float32)
+
+
+def write_tissue_graphs(paths: dict) -> str:
+    """The adv_graph_grid arm's graphs: for every slide of the dataset a
+    tissue slide of its patch count (`tissue_slide_coords`, seeded by the
+    slide id) and its 8-nearest-neighbour graph from the port's graph tool
+    (`edge_index`, `edge_latent`: the spatial kNN; `centroid`), written once
+    under `<data>/tissue_graphs/`. Both packages read these files, and both
+    take the grid route on them."""
+    import torch
+    sys.path.insert(0, REPO)
+    from advmil_tpu_torch.tools.build_graphs import build_graph
+    out = osp.join(osp.dirname(paths["path_label"]), "tissue_graphs")
+    os.makedirs(out, exist_ok=True)
+    for f in sorted(os.listdir(paths["path_patch"])):
+        sid = osp.splitext(f)[0]
+        dst = osp.join(out, f"{sid}.npz")
+        if osp.exists(dst):
+            continue
+        n = int(torch.load(osp.join(paths["path_patch"], f), mmap=True,
+                           weights_only=True).shape[0])
+        coords = tissue_slide_coords(n, np.random.default_rng(int(sid[1:])))
+        g = build_graph(coords, np.zeros((n, 1), np.float32), use_device_for_feats=False)
+        g["edge_latent"] = g["edge_index"]
+        np.savez(dst, **g)
+    return out
+
+
+def graph_grid_cfg(paths: dict, fold: int, run_dir: str, epochs: int) -> dict:
+    """adv_esat's config with PatchGCN (2 graph layers) on the tissue graphs
+    (`path_tissue_graph`), where the grid route engages on both sides."""
+    cfg = run_parity.adv_cfg(paths, fold, run_dir, epochs)
+    cfg.update(bcb_mode="graph", num_graph_layers=2, path_graph=paths["path_tissue_graph"],
+               graph_banded="auto")
+    return cfg
+
+
 # arm -> (handler, run_parity config function, run_parity batching decorator)
 ARMS = {"adv_esat": ("adv", run_parity.adv_cfg, run_parity.ours_extra),
         "adv_esat_disc": ("adv", run_parity.disc_cfg, run_parity.ours_extra),
@@ -69,7 +121,8 @@ ARMS = {"adv_esat": ("adv", run_parity.adv_cfg, run_parity.ours_extra),
         "base_reg_abmil": ("base", run_parity.reg_cfg, run_parity.ours_extra),
         "base_nll_cluster": ("base", run_parity.cluster_cfg, run_parity.ours_extra),
         "base_nll_abmil_refregime": ("base", run_parity.base_cfg,
-                                     run_parity.ours_refregime)}
+                                     run_parity.ours_refregime),
+        "adv_graph_grid": ("adv", graph_grid_cfg, run_parity.ours_extra)}
 CRITERION = 0.005
 RECORD = osp.join(REPO, "TORCH_PARITY.json")
 
@@ -285,6 +338,8 @@ def main():
 
     os.makedirs(args.workdir, exist_ok=True)
     paths = run_parity.build_dataset(args.workdir, args.folds)
+    if "adv_graph_grid" in args.arms:
+        paths["path_tissue_graph"] = write_tissue_graphs(paths)
     jobs = []
     for arm in args.arms:
         for fold in range(args.folds):

@@ -513,15 +513,16 @@ def test_cli_base_handler_runs_without_jax(synth, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [("log_plot", True, "A9"),
-                                            ("graph_grid_resident", True, "A13"),
+                                            ("inst_devices", 2, "A14"),
                                             ("dp_devices", 2, "A14")])
 def test_base_handler_refusals_name_the_roadmap(synth, tmp_path, key, value, item):
     """(cluster, the other optimizers and accumulation, refused here until
     their items were done, are held against JAX in test_torch_cluster.py and
-    test_torch_optim.py.)"""
+    test_torch_optim.py; graph_grid_resident, refused until A13, runs in
+    test_torch_grid.py.)"""
     # data parallelism runs; under it, inst_devices over graph / cluster is refused
-    over = {key: value, **({"inst_devices": 2, "bcb_mode": "graph"}
-                           if key == "dp_devices" else {})}
+    over = {key: value, **({"inst_devices": 2, "bcb_mode": "graph"} if key == "dp_devices"
+                           else {"bcb_mode": "cluster"} if key == "inst_devices" else {})}
     cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **over))
     with pytest.raises(NotImplementedError, match=item):
         tbaseline.BaselineHandler(cfg)

@@ -189,6 +189,7 @@ def test_single_process_helpers(monkeypatch):
 def test_dryrun_multichip_on_four_cpu_ranks(capfd):
     from advmil_tpu_torch.parallel.dryrun import dryrun_multichip
     out = dryrun_multichip(4)
-    assert set(out) == {"dp4 patch", "dp4 cluster", "dp4 graph", "dp2 x inst2 patch"}
+    assert set(out) == {"dp4 patch", "dp4 cluster", "dp4 graph", "dp4 graph_grid",
+                        "dp2 x inst2 patch"}
     printed = capfd.readouterr().out
-    assert len(re.findall(r"\[dryrun_multichip\] .* ok on 4 ranks", printed)) == 4
+    assert len(re.findall(r"\[dryrun_multichip\] .* ok on 4 ranks", printed)) == 5

@@ -342,12 +342,14 @@ def test_region_coords_reach_the_batch_as_in_jax(synth, tmp_path):
         assert a.extra["coords"].shape == (a.feats.shape[0], a.feats.shape[1] // 16, 2)
         np.testing.assert_array_equal(a.extra["coords"], b.extra["coords"])
     assert "coords" not in tbags.prepare_dataset(pids, dict(cfg, use_coords_pe=False))[0]
-    # .npy reads like .npz; .h5 names what it would need
+    # .npy and .h5 (dataset `coords`, as CLAM writes it) read like .npz
+    import h5py
     c = tio.read_patch_coord(osp.join(synth["path_coordx5"], "S0000.npz"))
     np.save(str(tmp_path / "c.npy"), c)
     np.testing.assert_array_equal(tio.read_patch_coord(str(tmp_path / "c.npy")), c)
-    with pytest.raises(NotImplementedError, match="h5py"):
-        tio.read_patch_coord(str(tmp_path / "c.h5"))
+    with h5py.File(str(tmp_path / "c.h5"), "w") as hf:
+        hf["coords"] = c
+    np.testing.assert_array_equal(tio.read_patch_coord(str(tmp_path / "c.h5")), c)
     with pytest.raises(ValueError):
         tio.read_patch_coord(str(tmp_path / "c.txt"))
 

@@ -50,8 +50,9 @@ def _nlst_test_cfg(**over):
     return cfg
 
 
-# graph mode itself is ported; what it still refuses is its grid-resident layout
-_UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True},
+# graph mode is ported whole (its grid-resident layout too, ROADMAP A13); what
+# it still refuses is inst_devices
+_UNPORTED_WITH = {("bcb_mode", "graph"): {"inst_devices": 2},
                   # parallelism runs; inst_devices over graph / cluster is refused
                   ("dist_num_processes", 2): {"inst_devices": 2, "bcb_mode": "graph"},
                   ("inst_devices", 2): {"bcb_mode": "cluster"},
@@ -59,7 +60,7 @@ _UNPORTED_WITH = {("bcb_mode", "graph"): {"graph_grid_resident": True},
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("bcb_mode", "graph", "A13"), ("log_plot", True, "A9"),
+    ("bcb_mode", "graph", "A14"), ("log_plot", True, "A9"),
     ("dist_num_processes", 2, "A14"), ("inst_devices", 2, "A14"),
     ("dp_devices", 2, "A14")])
 def test_check_configs_rejects_unported_modes(key, value, item):

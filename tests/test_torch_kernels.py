@@ -534,6 +534,46 @@ def test_banded_kernels_match_plain(cuda_device, B, N, W, C, dtype):
     _assert_graph_close(got, dense, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,height", [(42, 390), (228, 72)])
+def test_banded_kernels_on_grid_tables(cuda_device, width, height, dtype):
+    """#14 / #15 and the whole banded op on the grid route's tables of two
+    tissue slides (epn 9, C=384): at width ~40 every offset lies inside the
+    rows the kernels stage; at ~220 the offset span (~3W) is past all of
+    them, so the +-W, +-(W +- 1) and +-2W slots read device memory. Against
+    the plain versions (f32 1e-5; bf16 the plain bound and `banded_tol`);
+    padded grid cells without edges are exactly 0."""
+    from advmil_tpu_torch.data.synthetic import tissue_grid_tables
+    tabs = tissue_grid_tables([(width, height), (width - 2, height - 2)],
+                              np.random.default_rng(width))
+    tabs = {k: torch.from_numpy(v).to(cuda_device) for k, v in tabs.items()
+            if k.startswith("band_")}
+    offs, bm = tabs["band_offs"], tabs["band_mask"]
+    span = int((offs.max(1).values - offs.min(1).values).max())
+    assert (span <= 128) if width < 100 else (span > 192)
+    B, G, C = 2, bm.shape[1], 384
+    gen = torch.Generator(device=cuda_device).manual_seed(height)
+    y = (torch.relu(torch.randn(B, G, C, device=cuda_device, generator=gen)) + 1e-7).to(dtype)
+    g = torch.randn(B, G, C, device=cuda_device, generator=gen).to(dtype)
+    t = torch.tensor([1.3], device=cuda_device)
+    got = _core_grads(y, offs, bm, t, g)
+    want = _op_grads(lambda yy, tt: tband.banded_core_plain(yy, offs, bm, tt), y, t, g)
+    torch.cuda.synchronize()
+    _assert_graph_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        for name, a, b in zip(("out", "dy"), got[:2], want[:2]):
+            torch.testing.assert_close(a.float(), b.float(), **tband.banded_tol(b.float()),
+                                       msg=lambda m, name=name: f"{name} (banded_tol): {m}")
+    u = [tabs[k] for k in ("band_urows", "band_usrc", "band_uemask", "band_uinv")]
+    got = _op_grads(lambda yy, tt: tband.banded_aggregate(yy, offs, bm, *u, tt), y, t, g)
+    want = _op_grads(lambda yy, tt: tband.banded_aggregate(yy, offs, bm, *u, tt,
+                                                           use_kernels=False), y, t, g)
+    _assert_graph_close(got, want, dtype)
+    empty = (tabs["band_ginv"] >= tabs["band_gidx"].shape[1])         # cells without tissue
+    assert bool((got[0][empty] == 0).all())
+
+
 def _hand_bands(B, N, epn, far, seed):
     """offs [B, epn] different in every bag (with `far`: one slot at +600 and
     one at -300, beyond what the kernels stage), band_mask [B, N, epn] with
