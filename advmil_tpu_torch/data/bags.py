@@ -34,8 +34,9 @@ Per bag it ships, in `Batch.extra`, the band tables (`band_offs`,
 `band_mask`, `band_urows`, `band_usrc`, `band_uemask`, `band_uinv`; on the
 grid route in grid space, with the maps `band_gidx` (bag row -> grid cell,
 `grid_n` on padded rows) and `band_ginv` (grid cell -> bag row, `bucket_n`
-on empty cells) and the JAX package's residual edge lists `res_node`,
-`res_src`, `res_mask`) or the dense `edge_src` / `edge_mask` tables, cached
+on empty cells); the JAX package's residual edge lists `res_*` feed its
+rolls path, which the port does not have, and are not shipped) or the
+dense `edge_src` / `edge_mask` tables, cached
 by dataset index. On the grid route the kernels' work scales with the grid's
 area, so each node bucket is split by grid area into batch groups with a
 padded grid size each.
@@ -57,7 +58,7 @@ from ..utils.io import (import_h5py, read_geom_graph, read_patch_coord, read_pat
 
 BAND_KEYS = ("band_offs", "band_mask", "band_urows", "band_usrc", "band_uemask",
              "band_uinv")
-GRID_KEYS = BAND_KEYS + ("band_gidx", "band_ginv", "res_node", "res_src", "res_mask")
+GRID_KEYS = BAND_KEYS + ("band_gidx", "band_ginv")
 DENSE_KEYS = ("edge_src", "edge_mask")
 
 
@@ -98,17 +99,16 @@ def dense_table(edge_index: np.ndarray, n_rows: int, epn: int, node_map=None):
 
 
 def grid_tables(edge_index: np.ndarray, rc: np.ndarray, W: int, grid_n: int, bucket_n: int,
-                epn: int, res_slots: int | None = None, u_slots: int | None = None):
+                epn: int, u_slots: int | None = None):
     """(tables, dropped): one bag's tables on the grid route. Its nodes sit
     at the cells rc [N, 2] (row, col) of a W-wide grid padded to `grid_n`
     cells; the bag is padded to `bucket_n` rows. The offset-matched band
-    tables and their u tables in grid space (`band_*`, `res_*`), the map
+    tables and their u tables in grid space (`band_*`), the map
     `band_gidx` [bucket_n] (row -> cell, `grid_n` on padded rows) and its
     inverse `band_ginv` [grid_n] (cell -> row, `bucket_n` on empty cells)."""
     gidx = (rc[:, 0] * W + rc[:, 1]).astype(np.int64)
     esrc, em, dropped = dense_table(edge_index, grid_n, epn, gidx)
-    offs, bmask, ebanded, rn, rs, rm = build_band_tables_matched(esrc, em, k=epn,
-                                                                 res_slots=res_slots)
+    offs, bmask, ebanded = build_band_tables_matched(esrc, em, k=epn)
     ur, us, ue = build_u_tables(esrc, em, ebanded, u_slots=u_slots)
     n = rc.shape[0]
     gfull = np.full(bucket_n, grid_n, np.int32)
@@ -116,8 +116,7 @@ def grid_tables(edge_index: np.ndarray, rc: np.ndarray, W: int, grid_n: int, buc
     ginv = np.full(grid_n, bucket_n, np.int32)
     ginv[gidx] = np.arange(n, dtype=np.int32)
     return dict(band_offs=offs, band_mask=bmask, band_urows=ur, band_usrc=us, band_uemask=ue,
-                band_uinv=build_u_inv(ur, grid_n), band_gidx=gfull, band_ginv=ginv,
-                res_node=rn, res_src=rs, res_mask=rm), dropped
+                band_uinv=build_u_inv(ur, grid_n), band_gidx=gfull, band_ginv=ginv), dropped
 
 
 class BagDataset:
@@ -233,20 +232,40 @@ class BagDataset:
                 g[k] = g[k][::-1]
         return g
 
-    def _load_edges(self, pid: str) -> np.ndarray:
-        """The patient's [2, E] (dst, src) edge table: the slides' tables
-        with each slide's node ids offset by the nodes before it, dst-sorted
-        (stable)."""
+    def _read_graph(self, pid: str, with_grid: bool = False):
+        """(edge_index, grid) of the patient from one read of each slide's
+        graph file. edge_index [2, E] (dst, src): the slides' tables with
+        each slide's node ids offset by the nodes before it, dst-sorted
+        (stable). grid (with `with_grid`, else None): (rc [N, 2] int64
+        (row, col) of each node, W, H), each slide's centroids snapped to
+        their grid with its empty rows and columns cropped and the slides
+        stacked vertically in the order of their node ids (edges never cross
+        slides); None when a slide has no centroids or they are not on a
+        regular grid."""
         key = "edge_index" if self.edge_agg == "spatial" else "edge_latent"
         edges, offset = [], 0
+        rcs, row_off, wmax = ([] if with_grid else None), 0, 0
         for sid in self.pid2sid[pid]:
             g = self._graph_file(sid)
             edges.append(g[key].astype(np.int64) + offset)
             offset += int(g["num_nodes"])
+            cent = g.get("centroid") if rcs is not None else None
+            gl = None if cent is None else grid_layout(np.asarray(cent))
+            if gl is None:
+                rcs = None
+                continue
+            row, col, W, H = crop_empty_grid_lines(gl[0], gl[1])
+            rcs.append(np.stack([row + row_off, col], axis=1))
+            row_off += H
+            wmax = max(wmax, W)
         ei = np.concatenate(edges, axis=1)
         if not np.all(np.diff(ei[0]) >= 0):
             ei = ei[:, np.argsort(ei[0], kind="stable")]
-        return ei
+        grid = (np.concatenate(rcs, axis=0), wmax, row_off) if rcs else None
+        return ei, grid
+
+    def _load_edges(self, pid: str) -> np.ndarray:
+        return self._read_graph(pid)[0]
 
     def peek_edges(self, index: int) -> np.ndarray:
         """Bag `index`'s edge table without loading its features (the
@@ -254,25 +273,14 @@ class BagDataset:
         return self._load_edges(self.pids[index])
 
     def peek_grid(self, index: int):
-        """Bag `index`'s grid layout for the grid route, or None: (rc [N, 2]
-        int64 (row, col) of each node, W, H). Each slide's centroids (stored
-        in its graph file) are snapped to their grid, its empty rows and
-        columns are cropped, and a patient's slides are stacked vertically
-        in the order of their node ids (edges never cross slides). None when
-        a slide has no centroids or they are not on a regular grid."""
-        rcs, row_off, wmax = [], 0, 0
-        for sid in self.pid2sid[self.pids[index]]:
-            cent = self._graph_file(sid).get("centroid")
-            if cent is None:
-                return None
-            gl = grid_layout(np.asarray(cent))
-            if gl is None:
-                return None
-            row, col, W, H = crop_empty_grid_lines(gl[0], gl[1])
-            rcs.append(np.stack([row + row_off, col], axis=1))
-            row_off += H
-            wmax = max(wmax, W)
-        return np.concatenate(rcs, axis=0), wmax, row_off
+        """Bag `index`'s grid layout for the grid route, or None (see
+        `_read_graph`)."""
+        return self._read_graph(self.pids[index], with_grid=True)[1]
+
+    def peek_graph(self, index: int):
+        """(edge table, grid layout or None) of bag `index` from one read of
+        its graph files: the grid pre-scan's input."""
+        return self._read_graph(self.pids[index], with_grid=True)
 
     def __getitem__(self, index: int) -> dict:
         if self._cache is not None and index in self._cache:
@@ -353,7 +361,7 @@ class BucketBatcher:
         self.grid_on = False
         self.grid_coverage = self.grid_inflation = None
         self._grid_max_inflation = float(grid_max_inflation)
-        self._grid_res_slots = self._grid_u_slots = 0
+        self._grid_u_slots = 0
         self._grid_rc: dict = {}        # dataset index -> (rc [N, 2], W, H)
         if dataset.mode == "graph" and banded != "off":
             self._scan_band(sizes)
@@ -388,16 +396,16 @@ class BucketBatcher:
 
     def _scan_grid(self, sizes) -> bool:
         """Second pre-scan, after compact banding failed its gate: lay every
-        bag out on its grid (`BagDataset.peek_grid`) and build its
+        bag out on its grid (`BagDataset.peek_graph`) and build its
         offset-matched band tables. The grid route engages when the banded
         share of the edges is >= 0.7 and the grids' cells number at most
-        `grid_max_inflation` times the nodes; it fixes the residual edge and
-        row slot counts. Returns whether it engaged."""
+        `grid_max_inflation` times the nodes; it fixes the residual row slot
+        count. Returns whether it engaged."""
         band_edges = band_total = 0.0
-        res_max = u_max = 0
+        u_max = 0
         grid_sum = node_sum = 0
         for i, n in enumerate(sizes):
-            g = self.ds.peek_grid(i)
+            edges, g = self.ds.peek_graph(i)
             if g is None or g[0].shape[0] != int(n):
                 print("[batcher] grid-raster banding not engaged: a slide's graph file "
                       "holds no centroids on a regular grid")
@@ -405,13 +413,11 @@ class BucketBatcher:
                 return False
             rc, W, H = g
             self._grid_rc[i] = g
-            esrc_g, em_g, _ = dense_table(self.ds.peek_edges(i), W * H, self.edges_per_node,
+            esrc_g, em_g, _ = dense_table(edges, W * H, self.edges_per_node,
                                           rc[:, 0] * W + rc[:, 1])
-            _, _, ebanded, _, _, res_mask = build_band_tables_matched(
-                esrc_g, em_g, k=self.edges_per_node)
+            _, _, ebanded = build_band_tables_matched(esrc_g, em_g, k=self.edges_per_node)
             band_edges += float(ebanded.sum())
             band_total += float(em_g.sum())
-            res_max = max(res_max, int(res_mask.sum()))
             u_max = max(u_max, np.unique(np.nonzero((em_g > 0) & (ebanded <= 0))[0]).size)
             grid_sum += W * H
             node_sum += int(n)
@@ -423,11 +429,10 @@ class BucketBatcher:
             self._grid_rc.clear()
             return False
         self.grid_on = True
-        self._grid_res_slots = -(-max(res_max, 1) // 128) * 128
         self._grid_u_slots = -(-max(u_max, 1) // 8) * 8
         print(f"[batcher] grid-raster banded streaming ON: coverage "
               f"{self.grid_coverage:.3f}, inflation {self.grid_inflation:.2f}, residual "
-              f"slots {self._grid_res_slots}, residual rows {self._grid_u_slots}")
+              f"rows {self._grid_u_slots}")
         return True
 
     def _graph_tables(self, it: dict, bucket_n: int, grid_n: int | None = None) -> dict:
@@ -446,8 +451,7 @@ class BucketBatcher:
             rc, W, H = self._grid_rc[idx]
             assert grid_n is not None and W * H <= grid_n
             grid, dropped = grid_tables(it["edge_index"], rc, W, grid_n, bucket_n,
-                                        self.edges_per_node, res_slots=self._grid_res_slots,
-                                        u_slots=self._grid_u_slots)
+                                        self.edges_per_node, u_slots=self._grid_u_slots)
             tabs.update(grid)
         else:
             esrc, em, dropped = dense_table(it["edge_index"], bucket_n, self.edges_per_node)

@@ -149,7 +149,7 @@ def tissue_grid_tables(shapes, rng: np.random.Generator, epn: int = 9) -> dict:
     (a tissue mask `tissue_coords(rng, width, height)`, its 8-nearest-neighbour
     graph from the port's graph tool, laid out on its cropped grid), padded
     to one grid size and one residual-row count as the batcher pads a batch:
-    the `band_*` / `res_*` arrays [B, ...] plus `cropped_widths`."""
+    the `band_*` arrays [B, ...] plus `cropped_widths`."""
     from ..data.bags import grid_tables
     from ..ops.segment import crop_empty_grid_lines, grid_layout
     from ..tools.build_graphs import build_graph
@@ -165,8 +165,8 @@ def tissue_grid_tables(shapes, rng: np.random.Generator, epn: int = 9) -> dict:
     bucket_n = -(-max(len(rc) for _, rc, _, _ in slides) // 16) * 16
 
     def tables(u_slots=None):
-        return [grid_tables(e, rc, w, grid_n, bucket_n, epn, res_slots=grid_n * epn,
-                            u_slots=u_slots)[0] for e, rc, w, _ in slides]
+        return [grid_tables(e, rc, w, grid_n, bucket_n, epn, u_slots=u_slots)[0]
+                for e, rc, w, _ in slides]
 
     u_slots = -(-max(int((t["band_urows"] < grid_n).sum()) for t in tables()) // 8) * 8
     tabs = tables(u_slots)

@@ -17,7 +17,8 @@ fallback from the kernels to the plain version.
 
 `build_band_tables`, `band_coverage`, `build_band_tables_matched`,
 `grid_layout` and `crop_empty_grid_lines` are numpy copies of the JAX
-package's host functions (the port imports no JAX), used by the batcher's
+package's host functions (the port imports no JAX; the matched builder
+without the residual edge lists of JAX's rolls path), used by the batcher's
 pre-scans and tables. `grid_place` / `grid_take` move a batch between its
 bag rows and the slides' bounding-box grids (the grid route), as gathers
 both ways.
@@ -240,8 +241,7 @@ def band_coverage(edge_src: np.ndarray, edge_mask: np.ndarray):
 
 
 def build_band_tables_matched(edge_src: np.ndarray, edge_mask: np.ndarray,
-                              k: int | None = None, offsets: np.ndarray | None = None,
-                              res_slots: int | None = None, multiple: int = 128):
+                              k: int | None = None):
     """Band tables by offset matching instead of slot position (the grid
     route's tables).
 
@@ -249,53 +249,37 @@ def build_band_tables_matched(edge_src: np.ndarray, edge_mask: np.ndarray,
     in column s, which depends on the kNN's neighbour order and collapses on
     tissue graphs (distance ties put one grid neighbour in different columns
     row to row). The aggregation does not depend on slot order, so this
-    builder takes the k most frequent offsets of the whole table (or
-    `offsets`) and sets band_mask[n, s] = 1 iff n + offs[s] is one of n's
+    builder takes the k most frequent offsets of the whole table and sets band_mask[n, s] = 1 iff n + offs[s] is one of n's
     real sources, whatever column holds that edge. When fewer than k offsets
     occur, small distinct offsets fill the rest (a repeated offset would
     count an edge twice).
 
     Returns (offs [k] int32 sorted, band_mask [N, k] f32 slot space,
-    edge_banded [N, epn] f32 edge space (for `build_u_tables`), res_node [R],
-    res_src [R] int32, res_mask [R] f32), R = res_slots or the residual edge
-    count rounded up to `multiple`."""
+    edge_banded [N, epn] f32 edge space, for `build_u_tables`: the edges off
+    the bands are the residual rows' u tables). The JAX builder's residual
+    edge lists feed its rolls path, which the port does not have."""
     N, epn = edge_src.shape
     if k is None:
         k = epn
     n_idx = np.arange(N, dtype=np.int64)[:, None]
     valid = edge_mask > 0
     d = edge_src.astype(np.int64) - n_idx
-    if offsets is None:
-        col = d[valid]
-        if col.size:
-            vals, counts = np.unique(col, return_counts=True)
-            top = vals[np.argsort(-counts)[:k]]
-        else:
-            top = np.zeros(0, np.int64)
-        if len(top) < k:
-            pads = [o for o in range(-(k + 1), k + 2)
-                    if o not in set(top.tolist())][:k - len(top)]
-            top = np.concatenate([top, np.asarray(pads, np.int64)])
-        offs = np.sort(top).astype(np.int32)
+    col = d[valid]
+    if col.size:
+        vals, counts = np.unique(col, return_counts=True)
+        top = vals[np.argsort(-counts)[:k]]
     else:
-        offs = np.asarray(offsets, np.int32)
-        assert offs.shape == (k,)
+        top = np.zeros(0, np.int64)
+    if len(top) < k:
+        pads = [o for o in range(-(k + 1), k + 2)
+                if o not in set(top.tolist())][:k - len(top)]
+        top = np.concatenate([top, np.asarray(pads, np.int64)])
+    offs = np.sort(top).astype(np.int32)
     edge_banded = (valid & np.isin(d, offs)).astype(np.float32)
     hit = valid[:, :, None] & (d[:, :, None] == offs[None, None, :].astype(np.int64))
     target = n_idx + offs[None, :].astype(np.int64)
     band_mask = (hit.any(axis=1) & (target >= 0) & (target < N)).astype(np.float32)
-    rn, rs = np.nonzero(valid & (edge_banded <= 0))
-    n_res = len(rn)
-    if res_slots is None:
-        res_slots = -(-max(n_res, 1) // multiple) * multiple
-    assert n_res <= res_slots, f"need {n_res} residual slots, given {res_slots}"
-    res_node = np.zeros(res_slots, np.int32)
-    res_src = np.zeros(res_slots, np.int32)
-    res_mask = np.zeros(res_slots, np.float32)
-    res_node[:n_res] = rn
-    res_src[:n_res] = edge_src[rn, rs]
-    res_mask[:n_res] = 1.0
-    return offs, band_mask, edge_banded, res_node, res_src, res_mask
+    return offs, band_mask, edge_banded
 
 
 def crop_empty_grid_lines(gidx: np.ndarray, W: int):

@@ -58,7 +58,7 @@ def _batch(B: int, mode: str) -> dict:
         a = np.arange(N)
         rc = np.stack([a // 16, a % 16], axis=1)          # rows of 20 cells, 4 empty
         tabs, _ = grid_tables(chain_skip_graph(N), rc, 20, -(-(N // 16) * 20 // 128) * 128,
-                              N, 9, res_slots=128, u_slots=64)
+                              N, 9, u_slots=64)
         batch["graph"] = {k: np.repeat(v[None], B, axis=0) for k, v in tabs.items()}
     return batch
 

@@ -14,7 +14,7 @@ kNN (1,024-d) runs on the card as a blocked product and top-k
 the two may keep different neighbours.
 
     python -m advmil_tpu_torch.tools.build_graphs --coords DIR --feats DIR \\
-        --save DIR [--radius 9] [--feat-format pt] [--cpu-feats] [--device cuda]
+        --save DIR [--radius 9] [--feat-format pt] [--cpu-feats]
 
 `--coords` holds one coordinate file per slide (`.h5` as CLAM writes it,
 `.npz` or `.npy`), `--feats` the slide's features `<slide>.<feat-format>`.
@@ -91,7 +91,6 @@ def main(argv=None):
     ap.add_argument("--feat-format", default="pt")
     ap.add_argument("--cpu-feats", action="store_true",
                     help="the feature kNN on the host too (C++)")
-    ap.add_argument("--device", default="cuda", help="device of the feature kNN")
     args = ap.parse_args(argv)
     os.makedirs(args.save, exist_ok=True)
     files = sorted(f for f in os.listdir(args.coords) if osp.splitext(f)[1] in COORD_EXTS)
@@ -99,8 +98,7 @@ def main(argv=None):
         sid = osp.splitext(fname)[0]
         coords = read_patch_coord(osp.join(args.coords, fname))
         feats = read_patch_feature(osp.join(args.feats, f"{sid}.{args.feat_format}"))
-        g = build_graph(coords, feats, radius=args.radius,
-                        use_device_for_feats=not args.cpu_feats, device=args.device)
+        g = build_graph(coords, feats, radius=args.radius, use_device_for_feats=not args.cpu_feats)
         np.savez(osp.join(args.save, f"{sid}.npz"), **g)
         print(f"[{i + 1}/{len(files)}] {sid}: N={int(g['num_nodes'])} "
               f"E={g['edge_index'].shape[1]}")

@@ -189,10 +189,14 @@ def read_geom_graph(path: str) -> dict:
     a `_GeomStub`. PyG < 2 keeps the attributes in the object's `__dict__`,
     PyG >= 2 in a `_store` mapping; both are read.
 
-    Returns numpy arrays x [N, C], edge_index [2, E], edge_latent [2, E] and
-    centroid [N, 2] (a missing field is an absent key; PyG rows are
-    (source, target)), plus num_nodes when x is present."""
+    Returns numpy arrays edge_index [2, E], edge_latent [2, E] and centroid
+    [N, 2] (a missing field is an absent key; PyG rows are (source,
+    target)), plus num_nodes, the rows of x, when x is present. The features
+    x are not returned (the port reads them from the feature files), and a
+    zip-format file (torch.save's default) is memory-mapped, so they are not
+    read from disk either."""
     import pickle
+    import zipfile
 
     class _Unpickler(pickle.Unpickler):
         def find_class(self, module, name):
@@ -203,20 +207,21 @@ def read_geom_graph(path: str) -> dict:
     shim = type("pickle_shim", (), {"Unpickler": _Unpickler,
                                     "load": staticmethod(pickle.load),
                                     "dump": staticmethod(pickle.dump)})
-    obj = torch.load(path, map_location="cpu", pickle_module=shim, weights_only=False)
+    obj = torch.load(path, map_location="cpu", pickle_module=shim, weights_only=False,
+                     mmap=zipfile.is_zipfile(path))
     attrs = dict(getattr(obj, "__dict__", {}) or {})
     store = attrs.pop("_store", None)
     if store is not None:
         inner = getattr(store, "__dict__", None) or {}
         attrs.update(inner.get("_mapping", inner))
     out = {}
-    for k in ("x", "edge_index", "edge_latent", "centroid"):
+    for k in ("edge_index", "edge_latent", "centroid"):
         v = attrs.get(k)
         if v is None:
             continue
         out[k] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-    if "x" in out:
-        out["num_nodes"] = int(out["x"].shape[0])
+    if attrs.get("x") is not None:
+        out["num_nodes"] = int(attrs["x"].shape[0])
     return out
 
 

@@ -104,8 +104,9 @@ def _datasets(t):
 @pytest.mark.parametrize("seed,gw", [(0, 10), (3, 16), (5, 24)])
 def test_grid_host_functions_equal_jax(seed, gw):
     """`grid_layout`, `crop_empty_grid_lines` and `build_band_tables_matched`
-    (chosen offsets, given offsets, a fixed residual slot count) on a
-    tissue slide's graph laid out on its grid; and the grid refusals."""
+    (JAX's offsets, band mask and banded edges; the port ships no residual
+    edge lists) on a tissue slide's graph laid out on its grid; and the grid
+    refusals."""
     coords, esrc, em, n = _tissue_graph(seed=seed, gw=gw)
     got, want = tseg.grid_layout(coords), jseg.grid_layout(coords)
     for a, b in zip(got, want):
@@ -120,14 +121,13 @@ def test_grid_host_functions_equal_jax(seed, gw):
     em_g = np.zeros_like(esrc_g, dtype=np.float32)
     r, s = np.nonzero(em > 0)
     esrc_g[g2[r], s], em_g[g2[r], s] = g2[esrc[r, s]], 1.0
-    for kw in ({}, {"res_slots": 512}, {"offsets": [-Wc - 1, -Wc, -Wc + 1, -1, 1, Wc - 1,
-                                                     Wc, Wc + 1]}):
-        a = tseg.build_band_tables_matched(esrc_g, em_g, k=8, **kw)
-        b = jseg.build_band_tables_matched(esrc_g, em_g, k=8, **kw)
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(x, y)
-            assert x.dtype == y.dtype
-    assert tseg.build_band_tables_matched(esrc_g, em_g, k=8)[2].sum() >= 0.7 * em_g.sum()
+    a = tseg.build_band_tables_matched(esrc_g, em_g, k=8)
+    b = jseg.build_band_tables_matched(esrc_g, em_g, k=8)[:3]
+    assert len(a) == 3
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+        assert x.dtype == y.dtype
+    assert a[2].sum() >= 0.7 * em_g.sum()
     for bad in (np.random.default_rng(0).normal(size=(30, 2)).astype(np.float32),
                 np.concatenate([coords, coords[:1]])):
         assert tseg.grid_layout(bad) is None and jseg.grid_layout(bad) is None
@@ -166,9 +166,10 @@ def test_grid_place_and_take_match_jax_with_gradients():
         def jloss(xx, f=jfn):
             return jnp.sum(jax.vmap(f)(xx, jnp.asarray(gidx), jnp.asarray(ginv)) * w)
 
-        jout = jax.vmap(jfn)(jnp.asarray(x), jnp.asarray(gidx), jnp.asarray(ginv))
+        jout = jax.jit(jax.vmap(jfn))(jnp.asarray(x), jnp.asarray(gidx), jnp.asarray(ginv))
         np.testing.assert_array_equal(out.detach().numpy(), np.asarray(jout))
-        np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(jax.grad(jloss)(jnp.asarray(x))))
+        np.testing.assert_array_equal(tx.grad.numpy(),
+                                      np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(x))))
     # the two are inverse on the valid rows; padded rows come back 0
     back = tseg.grid_take(tseg.grid_place(torch.from_numpy(y), torch.from_numpy(gidx),
                                           torch.from_numpy(ginv)),
@@ -182,17 +183,23 @@ def test_grid_place_and_take_match_jax_with_gradients():
 # (c) GENConv's grid branch and PatchGCN against flax
 # ---------------------------------------------------------------------------
 
+GRID_KW = dict(token_budget=1024, min_bucket=256, edges_per_node=8, grid_max_inflation=3.5)
+
+
 @pytest.fixture(scope="module")
 def grid_batch(tissue):
-    """The port's first eval batch of the grid route (3 bags of the tissue
-    patients, the last a duplicate tail filler)."""
-    tds, _ = _datasets(tissue)
-    b = BucketBatcher(tds, token_budget=1024, min_bucket=256, edges_per_node=8,
-                      grid_max_inflation=3.5)
+    """The first eval batch of the grid route (3 bags of the tissue patients,
+    the last a duplicate tail filler): the port's, and JAX's `batch.extra`
+    for the flax side (it adds the residual edge lists of JAX's rolls
+    path)."""
+    tds, jds = _datasets(tissue)
+    b = BucketBatcher(tds, **GRID_KW)
     assert b.grid_on and not b.band_on
     batch = next(iter(b.epoch_batches()))
+    jbatch = next(iter(JBucketBatcher(jds, **GRID_KW).epoch_batches()))
     assert batch.feats.shape[0] >= 2 and "band_gidx" in batch.extra
-    return batch
+    np.testing.assert_array_equal(batch.idx, jbatch.idx)
+    return batch, jbatch.extra
 
 
 def _jax_band(ex, resident=False):
@@ -209,14 +216,15 @@ def test_genconv_grid_branch_matches_flax(grid_batch, resident):
     """Per layer (place, banded aggregation in grid space, take back, with
     the padded bag rows' sentinels) and on grid-resident input (band tables
     without the maps): output within 1e-5, every gradient within 2e-5."""
-    ex = grid_batch.extra
-    B, N = grid_batch.feats.shape[:2]
+    batch, jextra = grid_batch
+    ex = batch.extra
+    B, N = batch.feats.shape[:2]
     G = ex["band_mask"].shape[1]
     C = 12
     rng = np.random.default_rng(4)
     x = rng.normal(size=(B, G if resident else N, C)).astype(np.float32)
     w = rng.normal(size=x.shape).astype(np.float32)
-    jex = {k: jnp.asarray(v) for k, v in ex.items()}
+    jex = {k: jnp.asarray(v) for k, v in jextra.items()}
     band = _jax_band(jex, resident)
     jmod = jbb.GENConv(C, use_pallas=True)
 
@@ -224,10 +232,13 @@ def test_genconv_grid_branch_matches_flax(grid_batch, resident):
         return jax.vmap(lambda xb, bb: jmod.apply({"params": params}, xb, None, None, None,
                                                   None, bb, deterministic=True))(xx, band)
 
-    jparams = jmod.init(jax.random.PRNGKey(0), jnp.zeros(x.shape[1:]), None, None, None, None,
-                        jax.tree_util.tree_map(lambda v: v[0], band),
-                        deterministic=True)["params"]
-    jparams = jax.tree_util.tree_map(lambda a: a * 1.1 + 0.05, jparams)
+    @jax.jit        # one compile, not one per eager op
+    def jinit(bb):
+        p = jmod.init(jax.random.PRNGKey(0), jnp.zeros(x.shape[1:]), None, None, None, None,
+                      jax.tree_util.tree_map(lambda v: v[0], bb), deterministic=True)["params"]
+        return jax.tree_util.tree_map(lambda a: a * 1.1 + 0.05, p)
+
+    jparams = jinit(band)
     tmod = tbb.GENConv(C).eval()
     tmod.load_state_dict(bridge.flax_to_torch(jax.tree_util.tree_map(np.asarray, jparams)))
     drop = ("band_gidx", "band_ginv") if resident else ()
@@ -250,15 +261,20 @@ def test_patchgcn_grid_route_matches_flax(grid_batch, no_jax_dropout):
     against flax: output within 1e-5, every gradient within 2e-5 (the
     grid-resident stack equals this one in the next test, as the JAX
     package's own test pins it for flax)."""
-    ex, mask = grid_batch.extra, grid_batch.mask
-    B, N, C = grid_batch.feats.shape
-    x = grid_batch.feats
+    batch, jextra = grid_batch
+    ex, mask = batch.extra, batch.mask
+    B, N, C = batch.feats.shape
+    x = batch.feats
     w = np.random.default_rng(5).normal(size=(B, 16)).astype(np.float32)
     jmod = jbb.PatchGCN([C, 16, 16], num_layers=2)
-    jex = {k: jnp.asarray(v) for k, v in ex.items()}
-    jparams = jmod.init({"params": jax.random.PRNGKey(1)}, jnp.asarray(x), jnp.asarray(mask),
-                        jex, deterministic=True)["params"]
-    jparams = jax.tree_util.tree_map(lambda a: a * 1.1 + 0.05, jparams)
+    jex = {k: jnp.asarray(v) for k, v in jextra.items()}
+    @jax.jit        # one compile, not one per eager op
+    def jinit(xx, ex):
+        p = jmod.init({"params": jax.random.PRNGKey(1)}, xx, jnp.asarray(mask), ex,
+                      deterministic=True)["params"]
+        return jax.tree_util.tree_map(lambda a: a * 1.1 + 0.05, p)
+
+    jparams = jinit(jnp.asarray(x), jex)
     tmod = tbb.load_backbone("graph", [C, 16, 16], num_graph_layers=2)
     tmod.load_state_dict(bridge.flax_to_torch(jax.tree_util.tree_map(np.asarray, jparams)))
     tl.set_dropout_rates(tmod.train(), 0.0)
@@ -278,15 +294,16 @@ def test_patchgcn_grid_route_matches_flax(grid_batch, no_jax_dropout):
 def test_patchgcn_grid_resident_equals_the_per_layer_route(grid_batch):
     """Same weights, dropout off: grid_resident's forward and gradients equal
     the per-layer place / take route's."""
-    C = grid_batch.feats.shape[2]
-    tex = {k: torch.from_numpy(v) for k, v in grid_batch.extra.items()}
-    mask = torch.from_numpy(grid_batch.mask)
+    batch = grid_batch[0]
+    C = batch.feats.shape[2]
+    tex = {k: torch.from_numpy(v) for k, v in batch.extra.items()}
+    mask = torch.from_numpy(batch.mask)
     res = []
     for resident in (False, True):
         m = tl.init_parameters(tbb.load_backbone("graph", [C, 16, 16], num_graph_layers=3,
                                                  grid_resident=resident), seed=3)
         tl.set_dropout_rates(m.train(), 0.0)
-        x = torch.tensor(grid_batch.feats, requires_grad=True)
+        x = torch.tensor(batch.feats, requires_grad=True)
         out = m(x, mask, tex)
         out.square().sum().backward()
         res.append([out.detach(), x.grad] + [p.grad for p in m.parameters()])
@@ -303,19 +320,19 @@ def test_batcher_grid_tables_match_jax(tissue, capsys):
     compact banding fails; the same groups (the area DP splits the bucket of
     the block slides) and, over an eval pass and two shuffled epochs from
     one seed on each side, the same batches: every key of JAX's
-    `batch.extra` shipped and equal, dtype included."""
+    `batch.extra` but the residual edge lists `res_*` of its rolls path
+    shipped and equal, dtype included."""
     tds, jds = _datasets(tissue)
-    kw = dict(token_budget=1024, min_bucket=256, edges_per_node=8, grid_max_inflation=3.5)
-    tb = BucketBatcher(tds, **kw)
+    tb = BucketBatcher(tds, **GRID_KW)
     out = capsys.readouterr().out
-    jb = JBucketBatcher(jds, **kw)
+    jb = JBucketBatcher(jds, **GRID_KW)
     assert tb.grid_on and jb._grid_on and not tb.band_on and not jb._band_on
     assert tb.coverage < 0.7 <= tb.grid_coverage and tb.grid_inflation <= 3.5
     assert "grid-raster banded streaming ON" in out and "coverage" in out
     assert tb._groups == jb._groups_list()
     assert tb.num_batches() == jb.num_batches()
     assert len({bn for bn, _, _ in tb._groups}) < len(tb._groups)   # a bucket was split
-    assert (tb._grid_res_slots, tb._grid_u_slots) == (jb._grid_res_slots, jb._grid_u_slots)
+    assert tb._grid_u_slots == jb._grid_u_slots
     trng, jrng = np.random.default_rng(7), np.random.default_rng(7)
     runs = [(list(tb.epoch_batches()), list(jb.epoch_batches()))]
     runs += [(list(tb.epoch_batches(shuffle=True, rng=trng)),
@@ -327,10 +344,10 @@ def test_batcher_grid_tables_match_jax(tissue, capsys):
             np.testing.assert_array_equal(a.idx, b.idx)
             np.testing.assert_array_equal(a.feats, b.feats)
             np.testing.assert_array_equal(a.sample_mask, b.sample_mask)
-            assert set(a.extra) == set(b.extra)
-            for k, v in b.extra.items():
-                np.testing.assert_array_equal(a.extra[k], v, err_msg=k)
-                assert a.extra[k].dtype == v.dtype, k
+            assert set(a.extra) == {k for k in b.extra if not k.startswith("res_")}
+            for k, v in a.extra.items():
+                np.testing.assert_array_equal(v, b.extra[k], err_msg=k)
+                assert v.dtype == b.extra[k].dtype, k
             n = a.mask.sum(1).astype(int)
             G = a.extra["band_mask"].shape[1]
             for j in range(len(a.idx)):     # sentinels: padded rows, empty cells
