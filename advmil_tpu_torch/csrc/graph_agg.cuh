@@ -1,9 +1,10 @@
 // Shared pieces of the graph softmax-aggregation kernels (knn_agg.cu,
-// banded.cu): the per-(node, channel) masked softmax over at most kMaxEpn
-// incoming slots, 16-byte vectors of f32 or bf16 values, and the fixed-order
+// banded.cu): 16-byte vectors of f32 or bf16 values and the fixed-order
 // reduction of the temperature gradient.
 //
-// Numerics follow the TPU kernels (advmil_tpu/ops/segment.py:_alpha_from_block,
+// Numerics of the per-(node, channel) masked softmax over at most kMaxEpn
+// incoming slots, in every kernel, as in the TPU kernels
+// (advmil_tpu/ops/segment.py:_alpha_from_block,
 // advmil_tpu/ops/banded_pallas.py:_banded_fwd_kernel): the max over real slots
 // starts at -1e30 and is reset to 0 at <= -1e29 (a node without edges), the
 // slot mask selects before exp, so a junk value in a masked slot never
@@ -19,31 +20,8 @@ namespace {
 
 constexpr int kMaxEpn = 16;          // incoming slots per node the kernels take
 constexpr int kAggThreads = 256;     // threads per block of every graph kernel
-constexpr int kMaxAggBlocks = 1024;  // grid cap = dt partials per backward
+constexpr int kMaxAggBlocks = 1024;  // grid cap = dt partials of the banded backward
                                      // (ops/segment.py: DT_PARTIALS)
-
-// Slots s < epn with on[s]: mx = max(v * t) (0 without a real slot),
-// e[s] = exp(v * t - mx) (0 off the mask), den = sum e, num = sum e * v.
-struct SlotSoftmax {
-  float mx, den, num;
-};
-
-__device__ __forceinline__ SlotSoftmax slot_softmax(const float (&v)[kMaxEpn],
-                                                    const bool (&on)[kMaxEpn], int epn,
-                                                    float t, float (&e)[kMaxEpn]) {
-  SlotSoftmax r{-1e30f, 0.f, 0.f};
-#pragma unroll
-  for (int s = 0; s < kMaxEpn; ++s)
-    if (s < epn && on[s]) r.mx = fmaxf(r.mx, v[s] * t);
-  if (r.mx <= -1e29f) r.mx = 0.f;
-#pragma unroll
-  for (int s = 0; s < kMaxEpn; ++s) {
-    e[s] = (s < epn && on[s]) ? expf(v[s] * t - r.mx) : 0.f;
-    r.den += e[s];
-    r.num += e[s] * v[s];
-  }
-  return r;
-}
 
 // 16 bytes of T as kVec floats, and back (bf16: round to nearest even).
 template <typename T>
@@ -99,16 +77,21 @@ __device__ __forceinline__ void store16(T* p, const uint4& w, int valid, bool ve
     if (j < valid) p[j] = e[j];
 }
 // Sum of v over the block, in a fixed order (warp butterfly, then warps in
-// index order); the result is valid in thread 0. Blocks of kAggThreads.
-__device__ __forceinline__ float block_sum_fixed(float v) {
+// index order); the result is valid in the thread with linear index tid 0.
+// Blocks of kAggThreads; every thread of the block calls it.
+__device__ __forceinline__ float block_sum_fixed(float v, int tid) {
   __shared__ float s_warp[kAggThreads / 32];
   v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  if ((tid & 31) == 0) s_warp[tid >> 5] = v;
   __syncthreads();
   float a = 0.f;
-  if (threadIdx.x == 0)
+  if (tid == 0)
     for (int w = 0; w < kAggThreads / 32; ++w) a += s_warp[w];
   return a;
+}
+// The same for a 1-D block: valid in thread 0.
+__device__ __forceinline__ float block_sum_fixed(float v) {
+  return block_sum_fixed(v, threadIdx.x);
 }
 
 // dt[0] = sum of the n block partials, in a fixed order: one block; thread k
@@ -120,11 +103,6 @@ sum_dt_partials_kernel(const float* __restrict__ part, int n, float* __restrict_
   for (int k = threadIdx.x; k < n; k += kAggThreads) a += part[k];
   a = block_sum_fixed(a);
   if (threadIdx.x == 0) dt[0] = a;
-}
-
-inline int agg_blocks(long long total) {
-  const long long want = (total + kAggThreads - 1) / kAggThreads;
-  return static_cast<int>(want < 1 ? 1 : (want > kMaxAggBlocks ? kMaxAggBlocks : want));
 }
 
 }  // namespace

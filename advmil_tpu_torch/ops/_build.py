@@ -56,7 +56,8 @@ _SIGNATURES = {
     "advmil_keep_mask": [_P, _I, _I, _I, _U, _U, _U, _P],
     "advmil_philox_check": [_P, _P, _I, _P],
     "advmil_knn_agg_fwd": [_P] * 4 + [_I] * 4 + [_P],
-    "advmil_knn_agg_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    "advmil_knn_agg_bwd_blocks": [_I, _I, _I],              # returns a count
+    "advmil_knn_agg_bwd": [_P] * 6 + [_I, _P] + [_I] * 4 + [_P],
     "advmil_banded_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "advmil_banded_bwd": [_P] * 10 + [_I] * 5 + [_P],
 }

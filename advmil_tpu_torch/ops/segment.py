@@ -33,8 +33,8 @@ from . import _build
 LAUNCHES = 0       # forward kernel launches since the last reset (chip_smoke reads it)
 LAUNCHES_BWD = 0   # backward kernel launches since the last reset
 MAX_EPN = 16       # incoming slots per node the kernels take (csrc/graph_agg.cuh)
-DT_PARTIALS = 1024  # per-block dt partials a backward kernel writes at most
-MAX_FWD_ELEMS = 2 ** 31 - 1  # the forward's 32-bit index math: rows * epn * C below this
+DT_PARTIALS = 1024  # per-block dt partials the banded backward (#15) writes at most
+MAX_ELEMS = 2 ** 31 - 1  # the kernels' 32-bit index math: rows * epn * C below this
 
 
 def segment_mean(values: torch.Tensor, seg_ids: torch.Tensor, mask: torch.Tensor,
@@ -84,6 +84,25 @@ def knn_tol(want: torch.Tensor) -> dict:
     return dict(rtol=2.0 ** -7, atol=float(want.detach().abs().max()) / 1024)
 
 
+def knn_bwd_tol(want: torch.Tensor) -> dict:
+    """atol / rtol of the bf16 backward kernel's dmessages against the plain
+    version's autograd backward on the same bf16 messages and cotangent
+    (rounded to bf16 once), of the same form as `knn_tol`. Both compute
+    dm = g alpha_s (1 + t (m_s - out)) in f32 and round once; they differ only
+    in the f32 rounding of the exponentials and of the sums behind alpha and
+    out (a few f32 ulps each). So a value may land one bf16 ulp away, on the
+    other side of a rounding edge (2^-7 relative). Where 1 + t (m_s - out)
+    cancels to near 0, the factor keeps the f32 noise of its terms (~2^-22 of
+    1 + t |m_s| + t |out|); that stays below 2^-10 of the largest |dm| (the
+    absolute part) unless |g alpha_s| (1 + t |m_s| + t |out|) exceeds the
+    largest |dm| 4,096-fold. A slot dropped or its mask ignored moves every
+    alpha of the row by a share of itself (~1/epn), t dropped moves the
+    factor by (t - 1)(m_s - out), and another row's out moves it by t times
+    the gap between the two outs. The bound is `knn_tol`'s on purpose: the
+    same two roundings set it; this name carries the backward's derivation."""
+    return knn_tol(want)
+
+
 def _check(name: str, messages: torch.Tensor, edge_mask: torch.Tensor, t: torch.Tensor):
     if messages.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {messages.device}")
@@ -97,6 +116,9 @@ def _check(name: str, messages: torch.Tensor, edge_mask: torch.Tensor, t: torch.
                          f"{messages.shape[-2]}")
     if t.numel() != 1:
         raise ValueError(f"{name}: t must hold one element")
+    if messages.numel() > MAX_ELEMS:
+        raise ValueError(f"{name}: the kernels index rows * epn * C = {messages.numel()} "
+                         f"values in 32 bits (at most {MAX_ELEMS})")
 
 
 def _operands(messages, edge_mask, t):
@@ -112,9 +134,6 @@ def fused_agg_fwd(messages: torch.Tensor, edge_mask: torch.Tensor,
     global LAUNCHES
     _check("fused_knn_softmax_aggregate", messages, edge_mask, t)
     msg, em, tt, rows, epn, C = _operands(messages, edge_mask, t)
-    if msg.numel() > MAX_FWD_ELEMS:
-        raise ValueError(f"fused_knn_softmax_aggregate: the kernel indexes rows * epn * C "
-                         f"= {msg.numel()} values in 32 bits (at most {MAX_FWD_ELEMS})")
     _build.require_cuda("fused_knn_softmax_aggregate", msg, em, tt)
     out = torch.empty(messages.shape[:-2] + (C,), dtype=msg.dtype, device=msg.device)
     if out.numel() == 0:
@@ -142,16 +161,18 @@ def fused_agg_bwd(messages: torch.Tensor, edge_mask: torch.Tensor, t: torch.Tens
     g = g.to(msg.dtype).contiguous()
     _build.require_cuda("fused_knn_softmax_aggregate_bwd", msg, em, tt, g)
     dmsg = torch.empty_like(msg)
-    dt = torch.zeros(1, dtype=torch.float32, device=msg.device)
     if g.numel() == 0:
-        return dmsg, dt
-    partials = torch.empty(DT_PARTIALS, dtype=torch.float32, device=msg.device)
+        return dmsg, torch.zeros(1, dtype=torch.float32, device=msg.device)
+    dt = torch.empty(1, dtype=torch.float32, device=msg.device)
     lib = _build.load()
+    code = _build.DTYPE_CODES[msg.dtype]
+    n_part = lib.advmil_knn_agg_bwd_blocks(rows, C, code)
+    partials = torch.empty(n_part, dtype=torch.float32, device=msg.device)
     with torch.cuda.device(msg.device):
         rc = lib.advmil_knn_agg_bwd(msg.data_ptr(), em.data_ptr(), tt.data_ptr(),
                                     g.data_ptr(), dmsg.data_ptr(), partials.data_ptr(),
-                                    dt.data_ptr(), rows, epn, C,
-                                    _build.DTYPE_CODES[msg.dtype], _build.stream_of(msg))
+                                    n_part, dt.data_ptr(), rows, epn, C, code,
+                                    _build.stream_of(msg))
     _build.check(rc, "fused_knn_softmax_aggregate_bwd")
     LAUNCHES_BWD += 1
     return dmsg, dt

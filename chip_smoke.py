@@ -114,12 +114,15 @@ Phases, each printed on its own line:
      #12-#15, #1 and #2 launch.
  36. one f32 grid-route step, card against CPU (gradients 1e-4); on the card
      the grid route against the dense route on the same two bags (bag
-     embedding 1e-5, gradients 1e-4), with graph_grid_resident off and on.
+     embedding 1e-5, gradients 1e-4), with graph_grid_resident off and on;
+     the same grid-vs-dense gradient gap on the CPU and the dense route card
+     against CPU, logged beside the card's, and the dense step twice on the
+     card.
  37. #14 / #15 on grid tables at cropped widths ~40, ~60 and ~220 (offset
      spans inside and past the rows the kernels stage), f32 and bf16, and
-     #12 / #13 on their residual rows, against the plain versions, with
-     CUDA-event times and byte bounds; rows `<kernel>@grid_W<width>` in the
-     kernels JSON.
+     #12 / #13 on their residual rows (f32 and bf16; two backward calls bit
+     for bit), against the plain versions, with CUDA-event times and byte
+     bounds; rows `<kernel>@grid_W<width>` in the kernels JSON.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -571,6 +574,10 @@ def _kernels_training(card, dev, g):
             by_kernel = device_ms_by_kernel(
                 lambda: ln_pool.ln_relu_region_mean_bwd(gout, h, scale, bias))
             tail = sum(v for k, v in by_kernel.items() if "partials" in k)
+            # torch.profiler may record no device activity (CUPTI): then not measured
+            tail_txt = (f"tail {tail:.4f} ms, {tail / sum(by_kernel.values()):.1%} of the "
+                        f"call's device time, torch.profiler" if by_kernel else
+                        "tail not measured: torch.profiler recorded no device time")
             gbs = 2 * h.numel() * h.element_size() / k_ms / 1e6
             # bytes: h read, dh written, g as the kernel reads it, scale / bias
             # read and dscale / dbias written; beside it the count with g in f32, as the
@@ -581,9 +588,8 @@ def _kernels_training(card, dev, g):
             log(f"[3 kernel] ln_relu_region_mean_bwd M=32768 D={D} {str(dtype)[6:]}: "
                 f"max_abs_err dh {errs[0]:.3e} (atol {tol}, rtol {tol}){tight}, dscale "
                 f"{errs[1]:.3e}, dbias {errs[2]:.3e} (atol 1e-3, rtol 1e-4) | kernel "
-                f"{k_ms:.4f} ms ({gbs:.0f} GB/s of h + dh; tail {tail:.4f} ms, "
-                f"{tail / sum(by_kernel.values()):.1%} of the call's device time, torch.profiler) "
-                f"| bound {b_now['bound_ms']:.4f} ms (g as read; with g in f32 "
+                f"{k_ms:.4f} ms ({gbs:.0f} GB/s of h + dh; {tail_txt}) | bound "
+                f"{b_now['bound_ms']:.4f} ms (g as read; with g in f32 "
                 f"{b_f32g['bound_ms']:.4f}) | plain autograd bwd {p_ms:.4f} ms | {card}")
             if dtype == torch.bfloat16:
                 worst = max(worst, *errs)
@@ -794,6 +800,7 @@ def _kernels_graph(card, dev, g):
         msg = y[bidx, esrc]
         out = tseg.fused_agg_fwd(msg, em, t)
         dm, dt = tseg.fused_agg_bwd(msg, em, t, gout)
+        dm2, dt2 = tseg.fused_agg_bwd(msg, em, t, gout)
         ref, _, plain_bwd = grads(lambda m, tt: tseg.knn_edge_softmax_aggregate(m, em, tt),
                                   msg, gout)
         want = plain_bwd()
@@ -801,20 +808,26 @@ def _kernels_graph(card, dev, g):
         errs = check("knn", (out, dm, dt), (ref, *want), dtype, tag)
         if not (bool((out[:, 100] == 0).all()) and bool((dm[em == 0] == 0).all())):
             raise AssertionError("knn: a node without edges or a masked slot is not 0")
+        if not (torch.equal(dm, dm2) and torch.equal(dt, dt2)):
+            raise AssertionError(f"knn backward {tag}: two calls differ")
         knn_tight = ""
         if dtype == torch.bfloat16:
-            # both round once from f32: within a bf16 ulp (`knn_tol`)
-            share = share_of(out, ref, **tseg.knn_tol(ref))
-            if not share <= 1.0:
-                raise AssertionError(f"knn forward bf16: {share:.2f} times knn_tol")
-            knn_tight = f"; knn_tol used out {share:.3f}"
+            # both round once from f32: within a bf16 ulp (`knn_tol`, `knn_bwd_tol`)
+            shares = (share_of(out, ref, **tseg.knn_tol(ref)),
+                      share_of(dm, want[0], **tseg.knn_bwd_tol(want[0])))
+            if not all(x <= 1.0 for x in shares):
+                raise AssertionError(f"knn bf16: out / dmessages at {shares} times knn_tol / "
+                                     f"knn_bwd_tol")
+            knn_tight = f"; knn_tol used out {shares[0]:.3f}, knn_bwd_tol dm {shares[1]:.3f}"
+        del dm2, dt2
         f_ms, fp_ms = timed_pair(lambda: tseg.fused_agg_fwd(msg, em, t),
                                  lambda: tseg.knn_edge_softmax_aggregate(msg, em, t))
         b_ms, bp_ms = timed_pair(lambda: tseg.fused_agg_bwd(msg, em, t, gout), plain_bwd)
         gbs = 2 * msg.numel() * msg.element_size() / b_ms / 1e6
         log(f"[3 kernel] fused_knn_softmax_aggregate B={B} N={N} epn={epn} C={C} {tag}: "
             f"max_abs_err out {errs[0]:.3e} dmessages {errs[1]:.3e} dt {errs[2]:.3e} "
-            f"(f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 rel){knn_tight}; empty node exactly 0 | fwd "
+            f"(f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 rel){knn_tight}; empty node and masked "
+            f"slots exactly 0; two bwd calls bit for bit | fwd "
             f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | bwd kernel {b_ms:.4f} ms "
             f"({gbs:.0f} GB/s of messages + dmessages), plain autograd bwd {bp_ms:.4f} ms "
             f"| {card}")
@@ -3131,16 +3144,36 @@ def _g_forward(handler, batch, **over):
 
 def phase_grid_checks(handler):
     """Phase 36: one f32 grid-route step card against CPU (gradients 1e-4);
-    then on the card the grid route against the dense route on the same two
-    bags (G's forward 1e-5, the step's gradients 1e-4), with
-    graph_grid_resident off and on."""
+    the grid route against the dense route on the CPU and the dense route
+    card against CPU (gradients 1e-4: with the first line, every side of the
+    (route, device) square); the dense step twice on the card (its
+    run-to-run spread); then on the card the grid route
+    against the dense route on the same two bags (G's forward 1e-5, the
+    step's gradients 1e-4), with graph_grid_resident off and on.
+
+    The dense card step is the reference of the last check, so it is first
+    held to the CPU on this batch and these weights: graphs that the
+    build_graphs tool made from slide coordinates, where phase 11 holds the
+    dense route on phase 8's generated rasters. Its repeat tells a card that
+    sums in another order each run from one that does not; the four corners
+    and that spread are what ROADMAP C's diagnosis of the grid-vs-dense gap
+    reads."""
     batch = _two_bag_batch(handler)
     shape = tuple(batch.feats.shape)
     grads = {dev: _step_grads(handler, batch, dev) for dev in ("cuda", "cpu")}
     _compare_grads("36 grid gpu-vs-cpu train", "grid route, card against CPU", grads["cuda"],
                    grads["cpu"], shape)
     dense = _dense_batch(handler, batch)
+    # the four corners of (route, device) on one batch and one set of weights:
+    # which of them stands apart, beside the dense step's own spread on the card
+    cpu_dense = _step_grads(handler, dense, "cpu")
+    _compare_grads("36 grid-vs-dense cpu", "grid against dense on the CPU", grads["cpu"],
+                   cpu_dense, shape)
     want_g = _step_grads(handler, dense, "cuda")
+    _compare_grads("36 dense gpu-vs-cpu", "dense route, card against CPU", want_g, cpu_dense,
+                   shape)
+    _compare_grads("36 dense-vs-dense", "the dense route twice on the card",
+                   _step_grads(handler, dense, "cuda"), want_g, shape)
     want_f = _g_forward(handler, dense)
     for resident in (False, True):
         before = read_counters()
@@ -3244,41 +3277,65 @@ def phase_grid_kernels(card):
         u_src = torch.from_numpy(tabs["band_usrc"]).to(dev).long()
         u_em = torch.from_numpy(tabs["band_uemask"]).to(dev)
         U, epn = u_src.shape[1], u_src.shape[2]
-        msg = torch.gather(y32, 1, u_src.reshape(B, -1, 1).expand(B, U * epn, C)
-                           ).reshape(B, U, epn, C)
-        gu = g32[:, :U]
-        out = tseg.fused_agg_fwd(msg, u_em, t)
-        dm, dt = tseg.fused_agg_bwd(msg, u_em, t, gu)
-        mm, tt = msg.clone().requires_grad_(True), t.clone().requires_grad_(True)
-        ref = tseg.knn_edge_softmax_aggregate(mm, u_em, tt)
-        want = torch.autograd.grad(ref, (mm, tt), gu, retain_graph=True)
-        torch.cuda.synchronize()
-        for what, a, b in (("out", out, ref), ("dmessages", dm, want[0])):
-            torch.testing.assert_close(a, b, atol=1e-5, rtol=0.0,
-                                       msg=lambda m, w=what: f"37 W~{W} knn {w}: {m}")
-        torch.testing.assert_close(dt, want[1].reshape(1), atol=0.0, rtol=1e-4)
-        f_ms, fp_ms = timed_pair(lambda: tseg.fused_agg_fwd(msg, u_em, t),
-                                 lambda: tseg.knn_edge_softmax_aggregate(msg, u_em, t))
-        b_ms, bp_ms = timed_pair(lambda: tseg.fused_agg_bwd(msg, u_em, t, gu),
-                                 lambda: torch.autograd.grad(ref, (mm, tt), gu,
-                                                             retain_graph=True))
-        fb = bound(nbytes(msg, u_em, out), 8 * msg.numel(), "f32")
-        bb = bound(nbytes(msg, dm, u_em, gu), 16 * msg.numel(), "f32")
-        errs = (max_abs(out, ref.detach()), max_abs(dm, want[0]), max_abs(dt, want[1].reshape(1)))
+        msg32 = torch.gather(y32, 1, u_src.reshape(B, -1, 1).expand(B, U * epn, C)
+                             ).reshape(B, U, epn, C)
         real = int((tabs["band_urows"] < grid_n).sum(1).max())
-        log(f"[37 grid kernels] kNN aggregation on the residual rows of the same tables (U={U} "
-            f"slots, at most {real} real a bag), B={B} epn={epn} C={C} f32: max_abs_err out "
-            f"{errs[0]:.3e} dmessages {errs[1]:.3e} dt {errs[2]:.3e} | fwd {f_ms:.4f} ms (plain "
-            f"{fp_ms:.4f}, bound {fb['bound_ms']:.4f} {fb['bound_by']}) | bwd {b_ms:.4f} ms "
-            f"(plain {bp_ms:.4f}, bound {bb['bound_ms']:.4f} {bb['bound_by']}) | {card}")
-        for name, ms, pms, b_, err in (("fused_knn_softmax_aggregate", f_ms, fp_ms, fb, errs[0]),
-                                       ("fused_knn_softmax_aggregate_bwd", b_ms, bp_ms, bb,
-                                        max(errs[1:]))):
-            report.setdefault(name, {})[W] = dict(
-                ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_["bound_ms"],
-                bound_by=b_["bound_by"], dtype="f32", library_ms=None, span=span,
-                grid_n=grid_n, u_slots=U)
-        del msg, out, dm, ref, want
+        for dtype in (torch.float32, torch.bfloat16):   # the path gathers in f32
+            msg, gu = msg32.to(dtype), g32[:, :U].to(dtype)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            out = tseg.fused_agg_fwd(msg, u_em, t)
+            dm, dt = tseg.fused_agg_bwd(msg, u_em, t, gu)
+            dm2, dt2 = tseg.fused_agg_bwd(msg, u_em, t, gu)
+            mm, tt = msg.clone().requires_grad_(True), t.clone().requires_grad_(True)
+            ref = tseg.knn_edge_softmax_aggregate(mm, u_em, tt)
+            want = torch.autograd.grad(ref, (mm, tt), gu, retain_graph=True)
+            torch.cuda.synchronize()
+            tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else \
+                dict(atol=2e-2, rtol=2e-2)
+            for what, a, b in (("out", out, ref), ("dmessages", dm, want[0])):
+                torch.testing.assert_close(a.float(), b.float(), **tol,
+                                           msg=lambda m, w=what: f"37 W~{W} knn {tag} {w}: {m}")
+            torch.testing.assert_close(dt, want[1].reshape(1), atol=0.0, rtol=1e-4)
+            if not (torch.equal(dm, dm2) and torch.equal(dt, dt2)):
+                raise AssertionError(f"37 W~{W} knn {tag}: two backward calls differ")
+            if not (bool((out[u_em.sum(-1) == 0] == 0).all()) and bool((dm[u_em == 0] == 0).all())):
+                raise AssertionError(f"37 W~{W} knn {tag}: a slot row without edges or a masked "
+                                     f"slot is not 0")
+            tight = ""
+            if dtype == torch.bfloat16:
+                shares = (share_of(out, ref, **tseg.knn_tol(ref)),
+                          share_of(dm, want[0], **tseg.knn_bwd_tol(want[0])))
+                if not all(x <= 1.0 for x in shares):
+                    raise AssertionError(f"37 W~{W} knn bf16: outside knn_tol / knn_bwd_tol "
+                                         f"({shares})")
+                tight = f"; knn_tol used out {shares[0]:.3f}, knn_bwd_tol dm {shares[1]:.3f}"
+            f_ms, fp_ms = timed_pair(lambda: tseg.fused_agg_fwd(msg, u_em, t),
+                                     lambda: tseg.knn_edge_softmax_aggregate(msg, u_em, t))
+            b_ms, bp_ms = timed_pair(lambda: tseg.fused_agg_bwd(msg, u_em, t, gu),
+                                     lambda: torch.autograd.grad(ref, (mm, tt), gu,
+                                                                 retain_graph=True))
+            fb = bound(nbytes(msg, u_em, out), 8 * msg.numel(), "f32")
+            bb = bound(nbytes(msg, dm, u_em, gu), 16 * msg.numel(), "f32")
+            errs = (max_abs(out, ref.detach()), max_abs(dm, want[0]),
+                    max_abs(dt, want[1].reshape(1)))
+            log(f"[37 grid kernels] kNN aggregation on the residual rows of the same tables "
+                f"(U={U} slots, at most {real} real a bag), B={B} epn={epn} C={C} {tag}: "
+                f"max_abs_err out {errs[0]:.3e} dmessages {errs[1]:.3e} dt {errs[2]:.3e}{tight}; "
+                f"two bwd calls bit for bit | fwd {f_ms:.4f} ms (plain {fp_ms:.4f}, bound "
+                f"{fb['bound_ms']:.4f} {fb['bound_by']}) | bwd {b_ms:.4f} ms (plain {bp_ms:.4f}, "
+                f"bound {bb['bound_ms']:.4f} {bb['bound_by']}) | {card}")
+            for name, ms, pms, b_, err in (("fused_knn_softmax_aggregate", f_ms, fp_ms, fb,
+                                            errs[0]),
+                                           ("fused_knn_softmax_aggregate_bwd", b_ms, bp_ms, bb,
+                                            max(errs[1:]))):
+                row = dict(ms=ms, plain_ms=pms, max_abs_err=err, bound_ms=b_["bound_ms"],
+                           bound_by=b_["bound_by"])
+                if dtype == torch.float32:
+                    report.setdefault(name, {})[W] = dict(
+                        row, dtype="f32", library_ms=None, span=span, grid_n=grid_n, u_slots=U)
+                else:
+                    report[name][W]["bf16"] = row
+            del msg, out, dm, dm2, ref, want
     return report
 
 
@@ -3478,7 +3535,8 @@ def main():
         kernels.append(entry)
         # phase 37: the graph kernels on grid tables, one row per cropped
         # width (#14 / #15 in bf16, the grid path's dtype in phase 35, with
-        # f32 beside it; #12 / #13 in f32, as the path runs them); their
+        # f32 beside it; #12 / #13 in f32, as the path runs them, with bf16
+        # beside it); their
         # launches are the grid path's (phase 35)
         for W, row in grid_report.get(name, {}).items():
             kernels.append(dict(

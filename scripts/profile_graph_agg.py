@@ -45,14 +45,23 @@ window one row short, G2 without out), each checked in bf16; fails unless
 
 `--knn`: the messages of phase 3 gathered from y by the dense tables
 ([2, 16,384, 9, 384]; a node without edges, masked slots holding 300.0),
-knn_agg.cu compiled alone per build, #12 checked (f32 within 1e-5; bf16
-within `segment.knn_tol` and the plain 2e-2 bound) and #12 / #13 timed in
-turns in f32 and bf16 (`KNN_VARIANTS`, `KNN_PARENT_VARIANTS` for the kernel
-before its redesign; `--only-other` times the other builds alone). With
-`--mutants`: three faulty forwards (`KNN_MUTANTS`: a slot dropped, a slot's
-mask ignored, the channel tail left unwritten), checked in bf16 at phase 3's
-shape and at C = 38 (a channel tail), outputs filled with NaN first; fails
-unless `knn_tol` catches every one.
+then phase 37's residual rows of grid tables at W ~ 40, 60 and 220 ([2, U,
+9, 384], U = 1,120-1,256), each in f32 and bf16; knn_agg.cu compiled alone
+per build (ptxas lines of the epn = 9 and 16 instantiations). Every build that computes the right function is checked
+at every shape: #12 and #13's dmessages against the plain version and its
+autograd backward (f32 within 1e-5; bf16 within the plain 2e-2 bound and
+`segment.knn_tol` / `segment.knn_bwd_tol`), dt within 1e-4 relative, two
+backward calls bit for bit, nodes without edges and masked slots exactly 0;
+then #12 / #13 are timed in turns. `KNN_VARIANTS` patch the package's
+kernels, `KNN_PARENT_VARIANTS` the backward before its redesign (whose
+entry point takes a 1,024-float dt scratch; both stay while PERF.md's
+numbers for that kernel come from them, reproduced with `--other-csrc` on a
+tree that still has it); `--only-other` times the other builds alone. With `--mutants`: three faulty forwards and three
+faulty backwards (`KNN_MUTANTS`: a slot dropped, a slot's mask ignored, the
+channel tail left unwritten; a slot dropped from dm, one block's dt partial
+lost, dm's channel tail left unwritten), checked in bf16 at phase 3's shape
+and at C = 38 (a channel tail), outputs filled with NaN first; fails unless
+`knn_tol`, `knn_bwd_tol` or the dt bound catches every one.
 
 JSON lines go to stdout and to `chiprun_out/profile_graph_agg.jsonl`
 (`profile_graph_agg_knn.jsonl` with `--knn`).
@@ -190,65 +199,87 @@ MUTANTS = {
 }
 
 
-# knn_agg.cu: the forward before its redesign (one thread per element, grid-stride)
-_K_LOOP = """  for (long long i = blockIdx.x * static_cast<long long>(kAggThreads) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kAggThreads) {
-    const long long r = i / C;
-    const int c = static_cast<int>(i - r * C);
-    const T* mp = msg + r * epn * C + c;"""
-_K_LAUNCH = """  knn_agg_fwd_kernel<T><<<agg_blocks(total), kAggThreads, 0, stream>>>("""
-_K_OUT = "    out[i] = from_f32<T>(sm.num / fmaxf(sm.den, 1e-16f));"
-_K_SOFTMAX = "    const SlotSoftmax sm = slot_softmax(v, on, epn, t, e);\n    out[i]"
-
+# knn_agg.cu: the backward before its redesign (one thread per element, grid-stride)
+_KP_SOFTMAX = "    const SlotSoftmax sm = slot_softmax(v, on, epn, t, e);"
+_KP_DM = "        dmsg[base + static_cast<long long>(s) * C] ="
 KNN_PARENT_VARIANTS = {
-    # a 2-D grid of 128-thread blocks (row, channel block): no division, no grid-stride loop
-    "grid2d": ([(_K_LOOP, """  {
-    const long long r = blockIdx.x;
-    const int c = blockIdx.y * 128 + threadIdx.x;
-    if (c >= C) return;
-    const long long i = r * C + c;
-    const T* mp = msg + r * epn * C + c;"""),
-                (_K_LAUNCH, """  knn_agg_fwd_kernel<T><<<dim3(rows, (C + 127) / 128), 128, 0, stream>>>(""")],
-               False),
-    # no division routine at all (right at C = 384 only)
-    "const_div": ([("    const long long r = i / C;\n    const int c = static_cast<int>(i - r * C);\n"
-                    "    const T* mp = msg",
-                    "    const long long r = i / 384;\n    const int c = static_cast<int>(i - r * 384);"
-                    "\n    const T* mp = msg")], False),
     # the slot arrays unrolled to the 9 slots of the shape, not to 16
     "epn9": ([("graph_agg.cuh", "constexpr int kMaxEpn = 16;", "constexpr int kMaxEpn = 9;")],
              False),
-    # every load and the store, no softmax: the slots summed
-    "loads_only": ([(_K_SOFTMAX, "    SlotSoftmax sm{0.f, 1.f, 0.f};\n    for (int s = 0; s < "
-                                 "kMaxEpn; ++s) sm.num += v[s];\n    out[i]")], True),
-    # everything but the store
-    "no_store": ([(_K_OUT, "    if (sm.num == 1.2345e-30f) out[i] = from_f32<T>(sm.num);")], True),
+    # no division routine at all (right at C = 384 only)
+    "const_div": ([("    const long long r = i / C;\n"
+                    "    const int c = static_cast<int>(i - r * C);",
+                    "    const long long r = i / 384;\n"
+                    "    const int c = static_cast<int>(i - r * 384);")], False),
+    # no dt arithmetic (the partials and the second launch stay)
+    "no_dt": ([("    dt += gi * dts;\n", "")], True),
+    # every load and store, no softmax: the slots summed, alpha 1 on the mask
+    "loads_only": ([(_KP_SOFTMAX, "    SlotSoftmax sm{0.f, 1.f, 0.f};\n    for (int s = 0; s < "
+                                  "kMaxEpn; ++s) {\n      e[s] = on[s] ? 1.f : 0.f;\n      "
+                                  "sm.num += v[s];\n    }")], True),
+    # everything but the stores of dm
+    "no_store": ([(_KP_DM, "        if (a == 1.2345e-30f) " + _KP_DM.strip())], True),
 }
 _KN_EXP = "      const float e = expf(v[j] * t - mx[j]);"
 _KN_STORE = "  store16<T>(out + r * C + c0, pack16<T>(v), C - c0, vec);"
 _KN_BITS = "bits |= (em[s] > 0.f ? 1u : 0u) << s;"
+_KB_TERMS = """          const float a = expf(v[j] * t - mx[j]) * inv[j];
+          d[j] = gv[j] * a * (1.f + t * (v[j] - o[j]));
+          w[j] += a * v[j] * (v[j] - o[j]);"""
+_KB_STORE = "      store_stream16<T>(dp + s * C, pack16<T>(d), C - c0, vec);"
+_KB_PART = "part_dt[blockIdx.y * gridDim.x + blockIdx.x] = dt;"
 KNN_VARIANTS = {
-    # the exponentials replaced by their arguments
+    # the exponentials of the softmax statistics (both kernels) replaced by their arguments
     "no_exp": ([(_KN_EXP, "      const float e = v[j] * t - mx[j];")], True),
-    # plain cached loads in place of the streaming ones
+    # plain cached loads of the messages (both kernels) in place of the streaming ones
     "ldg": ([("raw[s] = vec ? ld_stream16(mp + s * C)",
               "raw[s] = vec ? __ldg(reinterpret_cast<const uint4*>(mp + s * C))")], False),
-    # everything but the store
+    # everything but the forward's store
     "no_store": ([(_KN_STORE, "  if (v[0] == 1.2345e-30f) " + _KN_STORE.strip())], True),
-    # every slot loaded and summed, no softmax
+    # every slot loaded and summed, no softmax (both kernels' statistics)
     "loads_only": ([(_KN_EXP, "      const float e = 1.f;")], True),
     # registers capped for 4 blocks of 256 threads an SM (bf16 takes 93 without)
     "min_blocks4": ([("__global__ void __launch_bounds__(kAggThreads)\nknn_agg_fwd_kernel(",
                       "__global__ void __launch_bounds__(kAggThreads, 4)\nknn_agg_fwd_kernel(")],
                     False),
-    # one block width for every C: 32 threads of channels
+    # one block width for every C: 32 threads of channels (both kernels)
     "tx32": ([("const int narrower[] = {16, 8};", "const int narrower[] = {32};")], False),
+    # the backward's last pass without its exponentials
+    "bwd_no_exp": ([(_KB_TERMS.split("\n")[0],
+                     "          const float a = (v[j] * t - mx[j]) * inv[j];")], True),
+    # the backward's loads, mask and stores, no arithmetic but a sum
+    "bwd_loads_only": ([(_KB_TERMS, "          d[j] = v[j] + gv[j];\n          w[j] += v[j];")],
+                       True),
+    # everything but the backward's stores of dm
+    "bwd_no_store": ([(_KB_STORE, "      if (d[0] == 1.2345e-30f) " + _KB_STORE.strip())], True),
+    # dm by plain (write-back) stores in place of the streaming ones
+    "plain_store": ([("st.global.cs.v4.u32", "st.global.v4.u32")], False),
+    # the backward without its second launch (dt left unwritten)
+    "no_dt_launch": ([("    if (err != cudaSuccess) return err;\n    sum_dt_partials_kernel<<<",
+                       "    if (err != cudaSuccess || nblocks > 0) return err;\n"
+                       "    sum_dt_partials_kernel<<<")], True),
+    # the backward's last pass with exp2f (ex2.approx) in place of expf
+    "bwd_fast_exp": ([(_KB_TERMS.split("\n")[0],
+                       "          const float a = exp2f((v[j] * t - mx[j]) * 1.44269504f) * inv[j];")],
+                     False),
+    # registers capped for 3 blocks of 256 threads an SM in the backward
+    "bwd_min_blocks3": ([("__global__ void __launch_bounds__(kAggThreads)\nknn_agg_bwd_kernel(",
+                          "__global__ void __launch_bounds__(kAggThreads, 3)\n"
+                          "knn_agg_bwd_kernel(")], False),
 }
 KNN_MUTANTS = {
+    # the forward's (the mask bits are shared: the backward sees them too)
     "slot 3 dropped": [(_KN_BITS, "bits |= (em[s] > 0.f && s != 3 ? 1u : 0u) << s;")],
     "slot 5's mask ignored": [(_KN_BITS, "bits |= (em[s] > 0.f || s == 5 ? 1u : 0u) << s;")],
     "the channel tail left unwritten": [
         (_KN_STORE, "  if (vec || C - c0 >= kVec) " + _KN_STORE.strip())],
+    # the backward's
+    "slot 3 dropped from dm": [("      if ((on >> s) & 1u) {",
+                                "      if (((on >> s) & 1u) && s != 3) {")],
+    "one block's dt partial lost": [
+        (_KB_PART, "part_dt[blockIdx.y * gridDim.x + blockIdx.x] = blockIdx.x == 7 ? 0.f : dt;")],
+    "the channel tail of dm left unwritten": [
+        (_KB_STORE, "      if (vec || C - c0 >= kVec) " + _KB_STORE.strip())],
 }
 
 # ---------------------------------------------------------------------------
@@ -307,17 +338,22 @@ def build_all(trees, source="banded.cu"):
             lib.advmil_banded_fwd.argtypes = [P] * npf + [I] * 5 + [P]
             lib.advmil_banded_bwd.argtypes = [P] * npb + [I] * 5 + [P]
             lib.advmil_banded_fwd.restype = lib.advmil_banded_bwd.restype = I
-        else:
-            api = "knn"
+        else:   # "knn": partials sized by advmil_knn_agg_bwd_blocks; "knn1024": the earlier one
+            api = "knn" if "advmil_knn_agg_bwd_blocks" in (Path(csrc) / source).read_text() \
+                else "knn1024"
             lib.advmil_knn_agg_fwd.argtypes = [P] * 4 + [I] * 4 + [P]
-            lib.advmil_knn_agg_bwd.argtypes = [P] * 7 + [I] * 4 + [P]
+            lib.advmil_knn_agg_bwd.argtypes = [P] * 6 + [I, P] + [I] * 4 + [P] \
+                if api == "knn" else [P] * 7 + [I] * 4 + [P]
             lib.advmil_knn_agg_fwd.restype = lib.advmil_knn_agg_bwd.restype = I
+            if api == "knn":
+                lib.advmil_knn_agg_bwd_blocks.argtypes = [I] * 3
+                lib.advmil_knn_agg_bwd_blocks.restype = I
         libs[name] = (lib, api, log)
         lines = log.splitlines()
         kind = source.split("_")[0].split(".")[0]   # "banded" or "knn"
         for i, ln in enumerate(lines):
-            if kind == "knn" and "fwd" in ln and "Li" in ln and "Li9E" not in ln:
-                continue   # one forward per slot count: the shape's (epn = 9) is printed
+            if kind == "knn" and "Li" in ln and "Li9E" not in ln and "Li16E" not in ln:
+                continue   # one kernel per slot count: the shape's (epn = 9) and 16 are printed
             if "Compiling entry function" in ln and kind in ln:
                 emit(build=name, ptxas=ln.split("'")[1],
                      used=" ".join(x.strip() for x in lines[i + 1:i + 4]
@@ -424,8 +460,7 @@ def check(name, entry, args, ref):
     rec = dict(check=f"{name} {str(y.dtype)[6:]}", share_of_plain=plain, share_of_tight=tight,
                share_of_dt_bound=dt_share, dt=float(dt), dt_plain=float(ref[2]),
                bit_for_bit=same, finite=finite,
-               ok=finite and same and max(plain.values()) <= 1 and dt_share <= 1
-               and max(tight.values(), default=0.0) <= 1)
+               ok=finite and same and _within(plain) and dt_share <= 1 and _within(tight))
     emit(**rec)
     return rec
 
@@ -526,10 +561,9 @@ def run_mutants(dev):
     caught_all = True
     for (desc, _), name in zip(MUTANTS.items(), libs):
         rec = check(f"mutant '{desc}'", libs[name], a, ref)
-        # NaN compares false: a share that is not <= 1 is outside the bound
-        caught = not (max(rec["share_of_tight"].values()) <= 1 and rec["share_of_dt_bound"] <= 1)
+        caught = not (_within(rec["share_of_tight"]) and rec["share_of_dt_bound"] <= 1)
         emit(mutant=desc, caught_by_tight_bound=caught, finite=rec["finite"],
-             passes_plain_bound=bool(max(rec["share_of_plain"].values()) <= 1),
+             passes_plain_bound=_within(rec["share_of_plain"]),
              dt_caught=not rec["share_of_dt_bound"] <= 1)
         caught_all = caught_all and caught
     if not caught_all:
@@ -543,12 +577,11 @@ def run_mutants(dev):
 def knn_inputs(dev, dtype, C=384, N=16384):
     """Phase 3's messages: y gathered by the dense tables of two tissue
     graphs ([2, N, 9, C]; node 100 of each bag without edges), masked slots
-    holding 300.0; the cotangent, t = 1.3 and the dt partials."""
+    holding 300.0; the cotangent and t = 1.3."""
     import numpy as np
     import torch
 
     import chip_smoke
-    from advmil_tpu_torch.ops import segment as tseg
     B, epn = 2, 9
     tabs, _ = chip_smoke._graph_kernel_inputs(B, N, epn, np.random.default_rng(3))
     g = torch.Generator(device=dev).manual_seed(0)
@@ -559,8 +592,35 @@ def knn_inputs(dev, dtype, C=384, N=16384):
     msg = torch.where(em[..., None] > 0, msg, torch.full_like(msg, 300.0)).to(dtype).contiguous()
     gout = torch.randn(B, N, C, device=dev, generator=g).to(dtype)
     t = torch.tensor([1.3], device=dev)
-    part = torch.empty(tseg.DT_PARTIALS, dtype=torch.float32, device=dev)
-    return msg, em, t, gout, part
+    return msg, em, t, gout
+
+
+def grid_row_inputs(dev):
+    """Phase 37's residual rows, as `chip_smoke.phase_grid_kernels` makes
+    them (the same seeds and draws): for each W of `GRID_WIDTHS`, the
+    messages of the grid tables' residual rows of two tissue slides gathered
+    from y in f32 ([2, U, 9, 384], U = 1,120-1,256), their edge mask (the
+    sentinel slots without edges), the cotangent and t = 1.3."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from advmil_tpu_torch.data.synthetic import tissue_grid_tables
+    g = torch.Generator(device=dev).manual_seed(37)
+    rng = np.random.default_rng(37)
+    out = []
+    for W, width, height in chip_smoke.GRID_WIDTHS:
+        tabs = tissue_grid_tables([(width, height), (width - 2, height - 2)], rng)
+        B, grid_n, C = 2, tabs["band_mask"].shape[1], 384
+        y32 = torch.relu(torch.randn(B, grid_n, C, device=dev, generator=g)) + 1e-7
+        g32 = torch.randn(B, grid_n, C, device=dev, generator=g)
+        u_src = torch.from_numpy(tabs["band_usrc"]).to(dev).long()
+        u_em = torch.from_numpy(tabs["band_uemask"]).to(dev).float().contiguous()
+        U, epn = u_src.shape[1], u_src.shape[2]
+        msg = torch.gather(y32, 1, u_src.reshape(B, -1, 1).expand(B, U * epn, C)
+                           ).reshape(B, U, epn, C)
+        out.append((W, msg, u_em, torch.tensor([1.3], device=dev), g32[:, :U].contiguous()))
+    return out
 
 
 def knn_fwd_of(entry, msg, em, t, fill_nan=False):
@@ -579,43 +639,73 @@ def knn_fwd_of(entry, msg, em, t, fill_nan=False):
     return out
 
 
-def knn_bwd_of(entry, msg, em, t, g, part):
+def knn_bwd_of(entry, msg, em, t, g, fill_nan=False):
+    """(dm, dt) from a build's backward, its dt partials sized as the
+    package's wrapper sizes them (1,024 for the earlier entry point)."""
     import torch
     from advmil_tpu_torch.ops import _build
-    lib = entry[0]
+    lib, api, _ = entry
     B, N, epn, C = msg.shape
+    code = _build.DTYPE_CODES[msg.dtype]
     dm = torch.empty_like(msg)
-    dt = torch.zeros(1, dtype=torch.float32, device=msg.device)
-    rc = lib.advmil_knn_agg_bwd(msg.data_ptr(), em.data_ptr(), t.data_ptr(), g.data_ptr(),
-                                dm.data_ptr(), part.data_ptr(), dt.data_ptr(), B * N, epn, C,
-                                _build.DTYPE_CODES[msg.dtype], _build.stream_of(msg))
+    if fill_nan:   # a value the kernel leaves unwritten then shows
+        dm.fill_(float("nan"))
+    dt = torch.empty(1, dtype=torch.float32, device=msg.device)
+    n_part = lib.advmil_knn_agg_bwd_blocks(B * N, C, code) if api == "knn" else 1024
+    part = torch.empty(n_part, dtype=torch.float32, device=msg.device)
+    ptrs = [msg.data_ptr(), em.data_ptr(), t.data_ptr(), g.data_ptr(), dm.data_ptr(),
+            part.data_ptr()] + ([n_part] if api == "knn" else [])
+    rc = lib.advmil_knn_agg_bwd(*ptrs, dt.data_ptr(), B * N, epn, C, code,
+                                _build.stream_of(msg))
     if rc != 0:
         raise RuntimeError(f"advmil_knn_agg_bwd: CUDA error {rc}")
     return dm, dt
 
 
 def knn_check(name, entry, args):
-    """#12 against the plain version: shares of the plain bound and of
-    `knn_tol` (bf16) or of 1e-5 (f32); a node without edges exactly 0."""
+    """#12 / #13 against the plain version and its autograd backward:
+    shares of the plain bound and of `knn_tol` / `knn_bwd_tol` (bf16) or of
+    1e-5 (f32), dt within 1e-4 relative, two backward calls bit for bit, a
+    node without edges and every masked slot exactly 0."""
     import torch
 
     import chip_smoke
     from advmil_tpu_torch.ops import segment as tseg
-    msg, em, t = args[:3]
+    msg, em, t, gout = args
     out = knn_fwd_of(entry, msg, em, t, fill_nan=True)
-    want = tseg.knn_edge_softmax_aggregate(msg, em, t)
+    dm, dt = knn_bwd_of(entry, msg, em, t, gout, fill_nan=True)
+    dm2, dt2 = knn_bwd_of(entry, msg, em, t, gout)
+    leaves = [msg.detach().clone().requires_grad_(True), t.clone().requires_grad_(True)]
+    want = tseg.knn_edge_softmax_aggregate(leaves[0], em, leaves[1])
+    want_dm, want_dt = torch.autograd.grad(want, leaves, gout)
+    want = want.detach()
     torch.cuda.synchronize()
     share = chip_smoke.share_of
     if msg.dtype == torch.float32:
-        plain, tight = share(out, want, 1e-5, 0.0), None
+        plain = {"out": share(out, want, 1e-5, 0.0), "dm": share(dm, want_dm, 1e-5, 0.0)}
+        tight = {}
     else:
-        plain, tight = share(out, want, 2e-2, 2e-2), share(out, want, **tseg.knn_tol(want))
-    empty = bool((out[:, 100] == 0).all())
-    rec = dict(check=f"{name} C={msg.shape[-1]} {str(msg.dtype)[6:]}", share_of_plain=plain,
-               share_of_tight=tight, empty_node_zero=empty,
-               ok=empty and plain <= 1 and (tight is None or tight <= 1))
+        plain = {"out": share(out, want, 2e-2, 2e-2), "dm": share(dm, want_dm, 2e-2, 2e-2)}
+        tight = {"out": share(out, want, **tseg.knn_tol(want)),
+                 "dm": share(dm, want_dm, **tseg.knn_bwd_tol(want_dm))}
+    dt_share = float((dt - want_dt).abs() / (1e-4 * want_dt.abs()))
+    zero = bool((out[em.sum(-1) == 0] == 0).all() and (dm[em == 0] == 0).all())
+    same = bool(torch.equal(dm, dm2) and torch.equal(dt, dt2))
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(dm).all()
+                  and torch.isfinite(dt).all())
+    rec = dict(check=f"{name} {'x'.join(map(str, msg.shape))} {str(msg.dtype)[6:]}",
+               share_of_plain=plain, share_of_tight=tight, share_of_dt_bound=dt_share,
+               dt=float(dt), dt_plain=float(want_dt), empty_and_masked_zero=zero,
+               bit_for_bit=same, finite=finite,
+               ok=finite and same and zero and _within(plain) and dt_share <= 1
+               and _within(tight))
     emit(**rec)
     return rec
+
+
+def _within(shares):
+    """Every share <= 1 (NaN compares false, so a NaN share is outside)."""
+    return all(v <= 1 for v in shares.values())
 
 
 def run_knn(args, card, dev):
@@ -637,25 +727,32 @@ def run_knn(args, card, dev):
         trees[f"other_{name}"] = patched_tree(f"other_{name}", base_other, changes, "knn_agg.cu")
         wrong |= {f"other_{name}"} if bad else set()
     libs = build_all(trees, "knn_agg.cu")
+    shapes = [(f"phase 3 B=2 N=16384 epn=9 C=384 {str(dt)[6:]}", lambda dt=dt: knn_inputs(dev, dt))
+              for dt in (torch.float32, torch.bfloat16)]
+    rows = grid_row_inputs(dev)
+    shapes += [(f"phase 37 residual rows W~{W} B=2 U={m.shape[1]} epn=9 C=384 {str(dt)[6:]}",
+                lambda m=m, e=e, t=t, g=g, dt=dt: (m.to(dt), e, t, g.to(dt)))
+               for dt in (torch.float32, torch.bfloat16) for W, m, e, t, g in rows]
     ok = True
-    for dtype in (torch.float32, torch.bfloat16):
-        a = knn_inputs(dev, dtype)
-        msg, em, t, gout, part = a
+    for tag, make in shapes:
+        a = make()
+        msg, em, t, gout = a
         for name, entry in libs.items():
             if name not in wrong:
                 ok = knn_check(name, entry, a)["ok"] and ok
         arms = {}
         for n, e in libs.items():
             arms[f"{n}_fwd"] = lambda e=e: knn_fwd_of(e, msg, em, t)
-            arms[f"{n}_bwd"] = lambda e=e: knn_bwd_of(e, msg, em, t, gout, part)
+            arms[f"{n}_bwd"] = lambda e=e: knn_bwd_of(e, msg, em, t, gout)
         med = turns(arms, args.reps)
         out_b = msg.numel() // msg.shape[2] * msg.element_size()
         fwd_bytes = msg.numel() * msg.element_size() + em.numel() * 4 + out_b
         bwd_bytes = 2 * msg.numel() * msg.element_size() + em.numel() * 4 + out_b
         for n in libs:
-            emit(time=f"{n} knn B=2 N=16384 epn=9 C=384 {str(dtype)[6:]}", card=card,
-                 fwd_ms=med[f"{n}_fwd"], bwd_ms=med[f"{n}_bwd"],
-                 fwd_bound_ms=fwd_bytes / 3.35e9, bwd_bound_ms=bwd_bytes / 3.35e9)
+            emit(time=f"{n} knn {tag}", card=card, fwd_ms=med[f"{n}_fwd"],
+                 bwd_ms=med[f"{n}_bwd"], fwd_bound_ms=fwd_bytes / 3.35e9,
+                 bwd_bound_ms=bwd_bytes / 3.35e9,
+                 bwd_share_of_bound=bwd_bytes / 3.35e9 / med[f"{n}_bwd"])
         del a, msg, gout, arms
     if not ok:
         raise SystemExit("a check failed")
@@ -671,13 +768,14 @@ def run_knn_mutants(dev):
     caught_all = True
     for (desc, _), name in zip(KNN_MUTANTS.items(), libs):
         recs = [knn_check(f"mutant '{desc}'", libs[name], a) for a in shapes]
-        # NaN compares false: a share that is not <= 1 is outside the bound
-        caught = any(not r["share_of_tight"] <= 1 for r in recs)
+        caught = any(not (_within(r["share_of_tight"]) and r["share_of_dt_bound"] <= 1)
+                     for r in recs)
         emit(mutant=desc, caught_by_tight_bound=caught,
-             passes_plain_bound=all(r["share_of_plain"] <= 1 for r in recs))
+             dt_caught=any(not r["share_of_dt_bound"] <= 1 for r in recs),
+             passes_plain_bound=all(_within(r["share_of_plain"]) for r in recs))
         caught_all = caught_all and caught
     if not caught_all:
-        raise SystemExit("a mutant passed knn_tol")
+        raise SystemExit("a mutant passed knn_tol / knn_bwd_tol / the dt bound")
 
 
 def main():

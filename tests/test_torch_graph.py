@@ -144,6 +144,59 @@ def test_knn_tol_holds_a_right_forward_and_catches_mutants(mutant):
     assert _share(got, want, **tol) > 1.5
 
 
+def _knn_dm(msg, em, t, g, drop_t=False, out_shift=0):
+    """dmessages of the kNN aggregation in f64 from its formula, g alpha_s
+    (1 + t (m_s - out)); `drop_t` makes the factor 1 + (m_s - out) and
+    `out_shift` takes out from the row that many rows before."""
+    m, t = msg.double(), float(t)
+    masked = torch.where(em.bool()[..., None], m * t, float("-inf"))
+    mx = masked.amax(dim=-2, keepdim=True)
+    ex = torch.exp(masked - torch.where(torch.isfinite(mx), mx, torch.zeros(())))
+    alpha = ex / ex.sum(dim=-2, keepdim=True).clamp_min(1e-16)
+    out = torch.roll((alpha * m).sum(dim=-2, keepdim=True), out_shift, dims=0)
+    return g.double()[..., None, :] * alpha * (1 + (1.0 if drop_t else t) * (m - out))
+
+
+@pytest.mark.parametrize("mutant", ["slot 3 dropped", "slot 5's mask ignored", "t dropped",
+                                    "out from the previous row"])
+def test_knn_bwd_tol_holds_a_right_backward_and_catches_mutants(mutant):
+    """`segment.knn_bwd_tol`, the bound the card holds the bf16 backward
+    kernel's dmessages (#13) to: the formula in f64, rounded once to bf16,
+    stays inside it against the plain version's autograd backward on the same
+    bf16 messages and cotangent; each mutant falls outside it, while the plain
+    bound (2e-2 + 2e-2 relative) lets it pass. Messages 1 + 0.3 N(0, 1), a
+    cotangent of 0.005 N(0, 1) (a loss's gradient a value), 5% of the slots
+    masked, four nodes without edges."""
+    rng = np.random.default_rng(5)
+    N, epn, C = 2048, 9, 64
+    msg = torch.from_numpy(1.0 + 0.3 * rng.normal(size=(N, epn, C))).bfloat16()
+    em = torch.from_numpy((rng.random((N, epn)) >= 0.05).astype(np.float32))
+    em[:4] = 0.0
+    g = torch.from_numpy(0.005 * rng.normal(size=(N, C))).bfloat16()
+    t = torch.tensor([1.3])
+    m = msg.clone().requires_grad_(True)
+    tseg.knn_edge_softmax_aggregate(m, em, t).backward(g)
+    want = m.grad
+    assert want.dtype == torch.bfloat16 and bool((want[:4] == 0).all())
+    m32 = msg.float().requires_grad_(True)     # the formula against autograd in f32
+    tseg.knn_edge_softmax_aggregate(m32, em, t).backward(g.float())
+    torch.testing.assert_close(_knn_dm(msg, em, t, g).float(), m32.grad, atol=1e-8, rtol=1e-5)
+    tol = tseg.knn_bwd_tol(want)
+    assert _share(_knn_dm(msg, em, t, g).bfloat16(), want, **tol) <= 1.0
+    bad, kw = em.clone(), {}
+    if mutant == "slot 3 dropped":
+        bad[:, 3] = 0.0
+    elif mutant == "slot 5's mask ignored":
+        bad[4:, 5] = 1.0
+    elif mutant == "t dropped":
+        kw = dict(drop_t=True)
+    else:
+        kw = dict(out_shift=1)
+    got = _knn_dm(msg, bad, t, g, **kw).bfloat16()
+    assert _share(got, want, 2e-2, 2e-2) <= 1.0
+    assert _share(got, want, **tol) > 1.5
+
+
 def _share(got, want, atol, rtol):
     """The largest |got - want| as a share of atol + rtol |want| (1: at the bound)."""
     got, want = got.double(), want.double()

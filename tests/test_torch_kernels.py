@@ -474,12 +474,24 @@ def _assert_graph_close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,epn,C", [(2, 4096, 9, 384), (3, 77, 16, 40), (1, 50, 1, 7)])
-def test_knn_agg_kernels_match_plain(cuda_device, B, N, epn, C, dtype):
+@pytest.mark.parametrize("B,N,epn,C,skew", [(2, 4096, 9, 384, 0), (3, 77, 16, 40, 0),
+                                            (1, 50, 1, 7, 0), (2, 2048, 16, 384, 0),
+                                            (2, 1000, 9, 384, 4)])
+def test_knn_agg_kernels_match_plain(cuda_device, B, N, epn, C, skew, dtype):
     """#12 / #13 against the plain op and its autograd backward, with nodes
-    without edges (exactly 0) and masked slots holding large junk."""
+    without edges (exactly 0) and masked slots holding large junk; bf16 also
+    within `segment.knn_tol` / `segment.knn_bwd_tol`. epn = 16 at C = 384 is
+    the backward's largest register set; `skew` = 4 starts the messages 4
+    bytes off a 16-byte boundary (a slice of a larger buffer), so the kernels
+    take their element-by-element path. Two backward calls give the same
+    dmessages and dt bit for bit (dt: fixed-order partial sums)."""
     gen = torch.Generator(device=cuda_device).manual_seed(N)
     msg = torch.randn(B, N, epn, C, device=cuda_device, generator=gen).to(dtype)
+    if skew:
+        buf = torch.empty(msg.numel() + 16, dtype=dtype, device=cuda_device)
+        at = skew // msg.element_size()
+        msg = buf[at:at + msg.numel()].view(msg.shape).copy_(msg)
+        assert msg.is_contiguous() and msg.data_ptr() % 16 == skew
     em = (torch.rand(B, N, epn, device=cuda_device, generator=gen) < 0.8).float()
     em[:, :3] = 0.0
     msg[:, 3:, -1] = torch.where(em[:, 3:, -1:] > 0, msg[:, 3:, -1], 300.0).to(dtype)
@@ -492,6 +504,16 @@ def test_knn_agg_kernels_match_plain(cuda_device, B, N, epn, C, dtype):
     want = _op_grads(lambda m, tt: tseg.knn_edge_softmax_aggregate(m, em, tt), msg, t, g)
     _assert_graph_close(got, want, dtype)
     assert torch.all(got[0][:, :3] == 0) and torch.all(got[1][em == 0] == 0)
+    # the kernels on msg itself (the autograd leaf above is an aligned copy)
+    direct = (tseg.fused_agg_fwd(msg, em, t), *tseg.fused_agg_bwd(msg, em, t, g))
+    twice = tseg.fused_agg_bwd(msg, em, t, g)
+    torch.cuda.synchronize()
+    _assert_graph_close(direct, want, dtype)
+    assert torch.equal(direct[1], twice[0]) and torch.equal(direct[2], twice[1])
+    if dtype == torch.bfloat16:   # one rounding each from f32
+        for res in (got, direct):
+            assert _share(res[0], want[0], **tseg.knn_tol(want[0])) <= 1.0
+            assert _share(res[1], want[1], **tseg.knn_bwd_tol(want[1])) <= 1.0
 
 
 @pytest.mark.cuda
