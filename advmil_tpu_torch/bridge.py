@@ -20,8 +20,18 @@ with these rules:
   (`layer0_conv/{t, mlp0, mlp_norm, mlp1}`, `layer{i}/conv/...`,
   `layer{i}/norm`) carry no batch axis and map one to one.
 
-Reading the JAX package's msgpack `.ckpt` without flax is ROADMAP A1; until
-then trees come from numpy dicts or `.npz` files.
+Trees come from numpy dicts, `.npz` files or the JAX package's msgpack
+`.ckpt` (`utils/flax_msgpack.py`, read by `train/checkpoint.py`), whose
+bfloat16 leaves are torch tensors.
+
+The optimizer state of such a checkpoint maps onto the port's optimizer
+(`adam_state_from_flax`) for Adam, the optimizer of every shipped config
+(G: coupled L2 on the matrices; D: plain; the baseline's `opt_net`): optax's
+`scale_by_adam` state `mu` / `nu` / `count` becomes torch's `exp_avg` /
+`exp_avg_sq` / `step` per parameter, and the learning rate that
+`optax.inject_hyperparams` carries becomes the groups' `lr`. Other
+optimizers, and the one fused vector of `opt_flatten: true`, are refused
+(ROADMAP A1 rest).
 """
 from __future__ import annotations
 
@@ -56,6 +66,8 @@ def flax_to_torch(params: dict) -> dict:
     """Nested flax params (numpy leaves) -> torch state_dict (f32 tensors)."""
     sd = {}
     for path, arr in _flatten(params).items():
+        if isinstance(arr, torch.Tensor):          # a bfloat16 leaf of a .ckpt
+            arr = arr.float().numpy()
         arr = np.asarray(arr, dtype=np.float32)
         *mods, leaf = path
         mods = [_TOP_RENAME.get(mods[0], mods[0])] + mods[1:] if mods else mods
@@ -101,3 +113,60 @@ def load_npz(path: str) -> dict:
     with np.load(path) as z:
         return _unflatten({tuple(k.split("/")): z[k] for k in z.files})
 
+
+
+def _adam_entry(tree: dict, name: str) -> tuple[dict, float | None]:
+    """(optax `scale_by_adam` state, injected learning rate or None) of a
+    JAX optimizer state: `optax.inject_hyperparams` around a chain whose
+    entries ("0", "1", ...) are the L2 decay's (empty), Adam's and the
+    learning rate's (empty). Anything else raises, naming `name`."""
+    refuse = (f"resuming optimizer {name!r} from a JAX package checkpoint is not "
+              "ported (ROADMAP A1 rest): the port maps Adam's state only")
+    lr = None
+    if "hyperparams" in tree and "inner_state" in tree:
+        lr = float(np.asarray(tree["hyperparams"]["learning_rate"]))
+        tree = tree["inner_state"]
+    if not isinstance(tree, dict) or not all(k.isdigit() for k in tree):
+        raise NotImplementedError(refuse)
+    adam = [v for v in tree.values() if isinstance(v, dict) and v.get("mu") is not None]
+    rest = [v for v in tree.values() if not (isinstance(v, dict) and v.get("mu") is not None)]
+    if (len(adam) != 1 or set(adam[0]) != {"count", "mu", "nu"}
+            or any(v not in ({}, {"inner_state": {}}) for v in rest)):
+        raise NotImplementedError(refuse)
+    if not isinstance(adam[0]["mu"], dict):
+        raise NotImplementedError(
+            f"optimizer {name!r}: the checkpoint was saved with opt_flatten: true (one "
+            "fused moment vector), which the port does not map (ROADMAP A1 rest); "
+            "train the JAX run with opt_flatten: false")
+    return adam[0], lr
+
+
+def adam_state_from_flax(opt_state: dict, optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module, name: str) -> dict:
+    """`optimizer.state_dict()` with the JAX Adam state of `opt_state` (a
+    flax state dict of the optimizer that stepped `model`'s parameters, as
+    the JAX handlers build it) in place of its own: exp_avg / exp_avg_sq in
+    torch's layout, step = optax's count, and the injected learning rate on
+    every group. Raises before anything is loaded when `optimizer` is not
+    torch's Adam or the state is not an unflattened Adam's."""
+    if type(optimizer) is not torch.optim.Adam:
+        raise NotImplementedError(
+            f"resuming optimizer {name!r} from a JAX package checkpoint is not ported "
+            "(ROADMAP A1 rest): the port maps Adam's state only")
+    adam, lr = _adam_entry(opt_state, name)
+    mu, nu = flax_to_torch(adam["mu"]), flax_to_torch(adam["nu"])
+    step = float(np.asarray(adam["count"]))
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    named = {n: p for n, p in model.named_parameters() if id(p) in index}
+    if set(named) != set(mu):
+        raise ValueError("the checkpoint's Adam moments do not match the model's "
+                         f"parameters: {sorted(set(named) ^ set(mu))[:5]}")
+    sd = optimizer.state_dict()
+    sd["state"] = {index[id(p)]: {"step": torch.tensor(step, dtype=torch.float32),
+                                  "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                   for n, p in named.items()}
+    if lr is not None:
+        for g in sd["param_groups"]:
+            g["lr"] = lr
+    return sd

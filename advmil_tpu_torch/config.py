@@ -10,10 +10,9 @@ disc_gansurv, supervised and semi-supervised) and the baseline handler
 (`--handler base`), each in training (`exec`, `test: False`) and test mode
 (`test: True`), on the four backbones, with every optimizer of the JAX
 factory (AdaHessian under `--handler base`) and gradient accumulation, in
-one process or over several (`dp_devices`, `dist_*`; `inst_devices` for
-`bcb_mode` patch and abmil). Keys that select a mode the port does not have
-yet are rejected by `check_configs` with an error naming the ROADMAP item
-that brings it.
+one process or over several (`dp_devices`, `dist_*`, `inst_devices`), with
+`log_plot`. The one mode it lacks (AdaHessian through the kernels on the
+card) is rejected by `check_configs` with an error naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -203,24 +202,17 @@ BASE_TASKS = ("surv_cox", "surv_nll", "surv_reg")
 
 
 def _not_ported(cfg: dict, handler: str) -> list:
-    """(key, value, ROADMAP item) for every requested mode the port lacks."""
-    checks = [
-        ("log_plot", bool, "A9"),
-    ]
-    if cfg.get("bcb_mode") in ("graph", "cluster"):
-        # graph mode gathers by global node index and DeepAttnMISL's cluster
-        # means sum across N: neither splits over the patch axis yet
-        checks += [("inst_devices", lambda v: int(v or 1) > 1,
-                    f"A14 rest: inst_devices with bcb_mode {cfg['bcb_mode']}")]
+    """(key, value, ROADMAP item) for every requested mode the port lacks:
+    AdaHessian through the patch or graph backbone's kernels on the card,
+    whose backwards refuse the double backward (`ops/_build.py::
+    first_order`)."""
     if (handler == "base" and cfg.get("device") == "cuda"
-            and cfg.get("bcb_mode") in ("patch", "graph")):
-        # AdaHessian's double backward goes through the backbone's kernels,
-        # whose backwards refuse create_graph (`ops/_build.py::first_order`)
-        checks += [("opt_net", lambda v: str(v).lower() == "adahessian",
-                    f"A19: AdaHessian through the {cfg['bcb_mode']} backbone's kernels "
-                    "on the card; device: cpu runs it")]
-    return [(k, cfg[k], item) for k, bad, item in checks
-            if k in cfg and bad(cfg[k])]
+            and cfg.get("bcb_mode") in ("patch", "graph")
+            and str(cfg.get("opt_net")).lower() == "adahessian"):
+        return [("opt_net", cfg["opt_net"],
+                 f"A19: AdaHessian through the {cfg['bcb_mode']} backbone's kernels "
+                 "on the card; device: cpu runs it")]
+    return []
 
 
 def check_configs(cfg: dict, handler: str = "adv"):
@@ -267,6 +259,12 @@ def check_configs(cfg: dict, handler: str = "adv"):
             raise ValueError("semi_training runs under --handler adv (the baseline "
                              "handler has no semi-supervised mode)")
         return
+    if cfg.get("log_plot"):     # drawn by the adversarial handler only, as in JAX
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as exc:
+            raise ImportError("log_plot: True draws its histograms with matplotlib, "
+                              "which cannot be imported here; set log_plot: False") from exc
     if cfg.get("disc_netx_backbone") not in (None, "avgpool", "gapool"):
         raise ValueError("disc_netx_backbone must be avgpool or gapool, got "
                          f"{cfg['disc_netx_backbone']!r}")

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.banded import banded_aggregate
-from ..ops.masked import masked_softmax, region_mask_from_patch_mask
+from ..ops.masked import region_mask_from_patch_mask
 from ..ops.segment import (fused_knn_softmax_aggregate, grid_place, grid_take,
                            knn_edge_softmax_aggregate)
 from ..ops.pe import compute_pe
@@ -64,7 +64,12 @@ class DeepAttnMISL(nn.Module):
     Init rule of the JAX package: the reference's `phis` is a Conv2d, which
     its xavier re-init (Linear only) leaves at torch's default, so under
     XAVIER `phis` draws torch's default init; under PT041 (which re-inits
-    Conv2d too) it follows PT041."""
+    Conv2d too) it follows PT041.
+
+    Under an inst grid `phis` runs on the rank's patches, the clusters'
+    totals and counts are summed over the inst group before the division,
+    and the rest runs on the bag's clusters, which every rank then holds
+    whole."""
 
     def __init__(self, dims: Sequence[int], num_clusters: int = 8, dropout: float = 0.25,
                  dense_init: str = XAVIER, dtype=torch.float32):
@@ -85,11 +90,11 @@ class DeepAttnMISL(nn.Module):
         # one-hot of -1 is all zeros: padding joins no cluster
         onehot = (cid[..., None] == torch.arange(self.num_clusters, device=x.device)
                   ).to(phi.dtype)                                       # [B, N, K]
-        totals = torch.einsum("bnk,bnd->bkd", onehot, phi)
-        counts = onehot.sum(dim=1)                                      # [B, K]
+        totals = comm.inst_sum(torch.einsum("bnk,bnd->bkd", onehot, phi))
+        counts = comm.inst_sum(onehot.sum(dim=1))                       # [B, K]
         h_cluster = totals / torch.clamp(counts, min=1.0)[..., None]
         h = self.drop(torch.relu(self.attn_fc(h_cluster)), rng)
-        attn = torch.softmax(self.gate(h, rng)[..., 0], dim=-1)        # [B, K]
+        attn = torch.softmax(self.gate(h, rng, inst_dim=None)[..., 0], dim=-1)   # [B, K]
         return torch.einsum("bk,bkd->bd", attn, h)
 
 
@@ -154,7 +159,14 @@ class GENConv(nn.Module):
     (ops/segment.py, kernels #12/#13). Given band tables without
     `band_gidx`, x is taken to lie on the grid already (PatchGCN's
     `grid_resident`). `use_pallas` False takes the plain versions on every
-    device."""
+    device.
+
+    Under an inst grid x holds the rank's block of node rows (of grid rows
+    under `grid_resident`) and the input is all-gathered over the group
+    (`comm.inst_gather`; its backward reduce-scatters). The dense route
+    gathers messages for the rank's rows only (its `edge_src` rows, global
+    indices); the banded and grid routes aggregate the whole bag, as their
+    tables are the bag's, and keep the rank's rows."""
 
     def __init__(self, dim: int, eps: float = 1e-7, use_pallas: bool = True,
                  dense_init: str = XAVIER, dtype=torch.float32):
@@ -166,7 +178,7 @@ class GENConv(nn.Module):
         self.mlp1 = Dense(2 * dim, dim, dense_init, dtype)
 
     def forward(self, x, graph: dict):
-        xr = torch.relu(x)
+        xr = comm.inst_gather(torch.relu(x))          # the whole bag's rows
         if "band_offs" in graph:
             y = xr + self.eps
             if "band_gidx" in graph:
@@ -177,8 +189,9 @@ class GENConv(nn.Module):
                                     use_kernels=self.use_pallas)
             if "band_gidx" in graph:
                 aggr = grid_take(aggr, graph["band_gidx"], graph["band_ginv"])
+            aggr = aggr[:, mesh.inst_slice(aggr.shape[1])]
         else:
-            src = graph["edge_src"].long()                            # [B, N, epn]
+            src = graph["edge_src"].long()                            # [B, n, epn]
             B, N, epn = src.shape
             # the messages in f32, as the banded route's residual rows: the
             # gather's backward then sums a row's gradients in f32 and rounds once
@@ -204,7 +217,7 @@ class DeepGCNBlock(nn.Module):
 
     def forward(self, x, graph: dict, rng: Rngs | None = None):
         h = torch.relu(self.norm(self.conv(x, graph)))
-        return self.drop(x + h, rng)
+        return self.drop(x + h, rng, inst_dim=1)
 
 
 class PatchGCN(nn.Module):
@@ -220,7 +233,14 @@ class PatchGCN(nn.Module):
     once, run the whole stack there with no per-layer place / take, and pool
     over the grid rows with the mask placed through the same map. With
     dropout off it computes what the per-layer route computes; dropout
-    draws at the grid's shape."""
+    draws at the grid's shape.
+
+    Under an inst grid each rank holds its block of the bag's node rows
+    (whole 16-row blocks; under `grid_resident`, once placed, its block of
+    the grid's rows): `fc`, the convolutions' MLPs, the LayerNorms and
+    `path_phi` run on those rows, GENConv gathers its input over the group,
+    dropout draws at the global shape (`mesh.rand_global`), and the gated
+    attention's softmax and sum run over the group (`attention_pool`)."""
 
     def __init__(self, dims: Sequence[int], num_layers: int = 1, dropout: float = 0.25,
                  use_pallas: bool = True, dense_init: str = XAVIER,
@@ -241,21 +261,22 @@ class PatchGCN(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x, mask, extra: dict, rng: Rngs | None = None):
-        h = self.drop(torch.relu(self.fc(x)), rng)
+        h = self.drop(torch.relu(self.fc(x)), rng, inst_dim=1)
         if self.grid_resident and "band_gidx" in extra:
             gidx, ginv = extra["band_gidx"], extra["band_ginv"]
             extra = {k: v for k, v in extra.items() if k not in ("band_gidx", "band_ginv")}
-            h = grid_place(h, gidx, ginv)
-            mask = grid_place(mask[..., None], gidx, ginv)[..., 0]
+            h = grid_place(comm.inst_gather(h), gidx, ginv)
+            h = h[:, mesh.inst_slice(h.shape[1])]
+            mask = grid_place(comm.inst_gather(mask)[..., None], gidx, ginv)[..., 0]
+            mask = mask[:, mesh.inst_slice(mask.shape[1])]
         cur = self.layer0_conv(h, extra)
         feats = [h, cur]
         for i in range(1, self.num_layers):
             cur = getattr(self, f"layer{i}")(cur, extra, rng)
             feats.append(cur)
-        h_path = self.drop(torch.relu(self.path_phi(torch.cat(feats, dim=-1))), rng)
-        scores = self.gate(h_path, rng)
-        attn = masked_softmax(scores[..., 0], mask, dim=-1)       # [B, N]
-        return torch.einsum("bn,bnd->bd", attn, h_path.to(attn.dtype))
+        h_path = self.drop(torch.relu(self.path_phi(torch.cat(feats, dim=-1))), rng,
+                           inst_dim=1)
+        return attention_pool(self.gate(h_path, rng)[..., 0], mask, h_path)
 
 
 def load_backbone(mode: str, dims: Sequence[int], dense_init: str = XAVIER,

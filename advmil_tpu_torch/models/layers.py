@@ -267,8 +267,9 @@ class GatedAttention(nn.Module):
     """Gated attention scores [..., N, dim_l] -> [..., N, n_classes]:
     attention_c(Dropout(tanh(attention_a(x))) * Dropout(sigmoid(attention_b(x))));
     the caller takes the masked softmax over N. As in the JAX package, the
-    dropout rate is 0.25 whenever `dropout` is non-zero. Dim 1 is the
-    instance axis."""
+    dropout rate is 0.25 whenever `dropout` is non-zero. `inst_dim`: the dim
+    that holds the rank's share of the instance axis (None where every rank
+    holds N whole, as DeepAttnMISL's clusters)."""
 
     def __init__(self, dim_l: int, dim_d: int, dropout: float = 0.25,
                  n_classes: int = 1, dense_init: str = XAVIER, dtype=torch.float32):
@@ -278,9 +279,9 @@ class GatedAttention(nn.Module):
         self.attention_c = Dense(dim_d, n_classes, dense_init, dtype)
         self.drop = Dropout(0.25 if dropout else 0.0)
 
-    def forward(self, x, rng: Rngs | None = None):
-        a = self.drop(torch.tanh(self.attention_a(x)), rng, inst_dim=1)
-        b = self.drop(torch.sigmoid(self.attention_b(x)), rng, inst_dim=1)
+    def forward(self, x, rng: Rngs | None = None, inst_dim: int | None = 1):
+        a = self.drop(torch.tanh(self.attention_a(x)), rng, inst_dim=inst_dim)
+        b = self.drop(torch.sigmoid(self.attention_b(x)), rng, inst_dim=inst_dim)
         return self.attention_c(a * b)
 
 

@@ -21,6 +21,7 @@ checkpoints, prediction CSVs and logs; every rank reads checkpoints back from
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 import torch.distributed as tdist
@@ -57,7 +58,18 @@ def local_device(cfg: dict) -> torch.device:
     return torch.device("cuda", idx)
 
 
+def whole_lines() -> None:
+    """Make this process's stdout write each line in one piece. The ranks of
+    a world share their launcher's stdout: block-buffered, a flush can cut a
+    line around another rank's writes, and unbuffered (PYTHONUNBUFFERED, as
+    in torchrun's children when the launcher's environment sets it) every
+    piece of a `print` is its own write. Line buffering with write-through
+    off gathers a line and writes it at its newline."""
+    sys.stdout.reconfigure(line_buffering=True, write_through=False)
+
+
 def _init(device: torch.device, **kwargs) -> None:
+    whole_lines()
     backend = backend_for(device.type)
     if backend == "nccl":
         kwargs["device_id"] = device

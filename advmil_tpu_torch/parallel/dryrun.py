@@ -8,8 +8,8 @@ bags, one adversarial step of G and D (cont_gansurv, bce, L1) under pure
 data parallelism in patch, cluster and graph mode (the dense graph route),
 on the grid route (`graph_grid`: the chain+skip graph laid out on a grid
 16 patches wide with 4 empty cells a row, as the JAX dry run's grid case),
-then in patch mode on an (n/2) x 2 dp x inst grid; every rank asserts
-finite, equal losses.
+then in every one of these modes on an (n/2) x 2 dp x inst grid; every rank
+asserts finite, equal losses.
 """
 from __future__ import annotations
 
@@ -101,10 +101,11 @@ def _step(device, mode: str, dp: int, inst: int) -> dict:
 
 
 def _rank(rank, device, n: int) -> dict:
-    runs = {f"dp{n} {mode}": _step(device, mode, n, 1)
-            for mode in ("patch", "cluster", "graph", "graph_grid")}
+    modes = ("patch", "cluster", "graph", "graph_grid")
+    runs = {f"dp{n} {mode}": _step(device, mode, n, 1) for mode in modes}
     if n >= 4 and n % 2 == 0:
-        runs[f"dp{n // 2} x inst2 patch"] = _step(device, "patch", n // 2, 2)
+        runs.update({f"dp{n // 2} x inst2 {mode}": _step(device, mode, n // 2, 2)
+                     for mode in modes})
     return runs
 
 

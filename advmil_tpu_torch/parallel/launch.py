@@ -19,13 +19,12 @@ from __future__ import annotations
 import os
 import pickle
 import socket
-import sys
 import traceback
 
 import torch
 import torch.distributed as tdist
 
-from .dist import backend_for
+from .dist import backend_for, whole_lines
 
 
 def grid_shape(cfg: dict) -> tuple[int, int]:
@@ -50,13 +49,15 @@ def torchrun_env() -> bool:
 
 def init_from_env(cfg: dict) -> torch.device:
     """Join a torchrun world (env://): one card per rank (LOCAL_RANK) under
-    `device: cuda`. The world size must be dp_devices * inst_devices."""
+    `device: cuda`. The world size must be dp_devices * inst_devices. Like a
+    spawned rank, this one writes whole lines to the stdout it shares."""
     from .dist import local_device
     dp, inst = grid_shape(cfg)
     world = int(os.environ["WORLD_SIZE"])
     if world != dp * inst:
         raise ValueError(f"torchrun started {world} ranks; the config asks for "
                          f"dp_devices {dp} x inst_devices {inst} = {dp * inst}")
+    whole_lines()
     device = local_device(cfg)
     kwargs = {"device_id": device} if backend_for(device.type) == "nccl" else {}
     if not tdist.is_initialized():
@@ -71,9 +72,7 @@ def free_port() -> int:
 
 
 def _rank_main(rank, fn, devices, port, queue, args):
-    # whole lines: the ranks share the parent's stdout, and a block-buffered
-    # flush could cut one rank's line in two around another's
-    sys.stdout.reconfigure(line_buffering=True)
+    whole_lines()       # the ranks share the parent's stdout
     dev = devices[rank]
     if dev == "cpu":
         device = torch.device("cpu")

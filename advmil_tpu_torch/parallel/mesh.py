@@ -127,8 +127,10 @@ def inst_slice(n_global: int, g: Grid | None = None) -> slice:
 
 
 # patch-axis arrays: split over N as well as B under inst (region coords [B, L, 2]
-# split over L, which is N / 16)
-BY_INSTANCE = ("feats", "mask", "cluster_id", "coords")
+# split over L, which is N / 16; the dense graph route's edge tables [B, N, epn]
+# over their node rows, whose indices stay global). The banded and grid
+# routes' tables stay whole: every rank aggregates the whole bag.
+BY_INSTANCE = ("feats", "mask", "cluster_id", "coords", "edge_src", "edge_mask")
 
 
 def shard_batch(batch: dict, g: Grid | None = None) -> dict:

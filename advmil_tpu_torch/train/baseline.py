@@ -15,7 +15,9 @@ The task fixes the rest, as in the JAX package:
 saves `{run}_model-{best,last}.ckpt` (parameters and optimizer state), then
 evaluates the best checkpoint on every split and writes
 `{group}_{ckpt}_pred_{split}.csv`; `exec_test` evaluates the occluded test
-split from a training run's best checkpoint. Both write metrics, CSVs and
+split from a training run's best checkpoint (the port's or the JAX
+package's); `resume_model` restores parameters and optimizer state from
+either package's checkpoint. Both write metrics, CSVs and
 checkpoints under the JAX package's names and paths, in one process or as
 one rank of a parallel world (`train/common.py`, `parallel/`).
 """
@@ -203,6 +205,19 @@ class BaselineHandler(HandlerCommon):
                 f"checkpoint {path} not found (no '{ckpt_type}' model was "
                 "saved - check es_warmup/epochs or test_load_path)")
         self.model.load_state_dict(ckpt_lib.restore_checkpoint(path)[1])
+
+    def resume_model(self, ckpt_type="best", run_name="train"):
+        """Restore the parameters and the optimizer state from
+        `{run_name}_model-{ckpt_type}.ckpt` under save_path, as the JAX
+        handler's `resume_model`: the port's own checkpoint, or the JAX
+        package's (Adam, see `checkpoint.optimizer_state`), mapped before
+        anything is loaded."""
+        epoch, params, opt_state = ckpt_lib.restore_checkpoint(
+            self._ckpt_path(ckpt_type, run_name))
+        opt_sd = ckpt_lib.optimizer_state(opt_state, self.opt, self.model, self.cfg["opt_net"])
+        self.model.load_state_dict(params)
+        self.opt.load_state_dict(opt_sd)
+        print(f"[model] resumed from {ckpt_type}_{run_name} at epoch {epoch}")
 
     def save_model(self, epoch, ckpt_type="best", run_name="train"):
         self._save(lambda: ckpt_lib.save_checkpoint(

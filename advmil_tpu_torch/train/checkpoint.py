@@ -1,13 +1,33 @@
 """Checkpoints of the port: one torch file per network, `{epoch, params,
 opt_state}` with `params` a state_dict and `opt_state` the optimizer's
 state_dict (or None), under the JAX package's naming contract
-`{run}_model{G|D}-{best|last}.ckpt`. Test mode reads only `params`."""
+`{run}_model{G|D}-{best|last}.ckpt`.
+
+`restore_checkpoint` also reads the JAX package's files: its default
+`ckpt_backend: msgpack` writes `flax.serialization.msgpack_serialize` of
+`{epoch, params, opt_state}` (flax state dicts), read here by the port's own
+decoder (`utils/flax_msgpack.py`); the parameters come back as a state_dict
+through `bridge.flax_to_torch`, the optimizer state as a `FlaxOptState`,
+which `optimizer_state` maps onto the port's optimizer
+(`bridge.adam_state_from_flax`). The format is told from the file's first
+bytes. An orbax checkpoint (`ckpt_backend: orbax`, a directory) is refused.
+"""
 from __future__ import annotations
 
 import os
 import os.path as osp
 
 import torch
+
+from .. import bridge
+from ..utils import flax_msgpack
+
+_TORCH_ZIP = b"PK\x03\x04"
+
+
+class FlaxOptState(dict):
+    """The optimizer state of a JAX package checkpoint: its flax state dict
+    (nested dicts of numpy arrays)."""
 
 
 def _to_cpu(obj):
@@ -28,6 +48,33 @@ def save_checkpoint(path: str, epoch: int, state_dict: dict,
 
 
 def restore_checkpoint(path: str) -> tuple[int, dict, dict | None]:
-    """(epoch, state_dict on CPU, optimizer state_dict on CPU or None)."""
-    bundle = torch.load(path, map_location="cpu", weights_only=True)
-    return int(bundle["epoch"]), bundle["params"], bundle.get("opt_state")
+    """(epoch, state_dict on CPU, optimizer state or None): the port's
+    optimizer state_dict, or a `FlaxOptState` from a JAX package file."""
+    if osp.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: an orbax checkpoint (ckpt_backend: orbax), which the "
+            "port does not read (ROADMAP A15); save the JAX run with ckpt_backend: msgpack")
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == _TORCH_ZIP:
+        bundle = torch.load(path, map_location="cpu", weights_only=True)
+        return int(bundle["epoch"]), bundle["params"], bundle.get("opt_state")
+    if not flax_msgpack.is_msgpack_map(head):
+        raise ValueError(f"{path}: neither a torch checkpoint nor a JAX package "
+                         f"msgpack checkpoint (first bytes {head!r})")
+    bundle = flax_msgpack.read(path)
+    opt = bundle.get("opt_state")
+    return (int(bundle["epoch"]), bridge.flax_to_torch(bundle["params"]),
+            None if opt is None else FlaxOptState(opt))
+
+
+def optimizer_state(opt_state, optimizer, model: torch.nn.Module, name: str) -> dict:
+    """The state_dict to load into `optimizer` (which steps `model`'s
+    parameters) from a checkpoint's optimizer state: the port's as it is, a
+    JAX package's mapped through the bridge (Adam only; `name` is the
+    config's optimizer name, for the refusals, which raise here)."""
+    if isinstance(opt_state, FlaxOptState):
+        return bridge.adam_state_from_flax(opt_state, optimizer, model, name)
+    if opt_state is None:
+        raise ValueError("the checkpoint holds no optimizer state")
+    return opt_state

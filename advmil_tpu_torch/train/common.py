@@ -24,8 +24,8 @@ import torch
 from ..data.bags import BucketBatcher
 from ..parallel import comm, mesh
 from ..parallel.dist import barrier, is_multi_process, is_primary, multi_host_settings
-from ..utils.func import (EarlyStopping, add_prefix_to_filename, print_config,
-                          print_metrics, rename_keys)
+from ..utils.func import (EarlyStopping, add_prefix_to_filename, plot_time_kde,
+                          print_config, print_metrics, rename_keys)
 from ..utils.io import save_prediction
 from ..utils.logging import RunLogger
 from .optim import ReduceLROnPlateau, reset_multisteps_accum, set_lr
@@ -58,7 +58,11 @@ class HandlerCommon:
     `accum_reset` (the accumulating optimizers whose partial accumulator
     is dropped at epoch end), `batch_log_prefix`,
     `_eval_step(n_samples, zero_noise)`, `load_params`, `save_model`, and
-    `evaluator` / `metrics_list` / `ret_metrics`."""
+    `evaluator` / `metrics_list` / `ret_metrics`. `draws_plots`: whether a
+    checkpoint's evaluation draws `log_plot`'s time histograms (the
+    adversarial handler's, as in the JAX package)."""
+
+    draws_plots = False
 
     def _setup_paths(self):
         cfg = self.cfg
@@ -337,7 +341,9 @@ class HandlerCommon:
                   test_mode_name="test_mode"):
         """Evaluate a checkpoint (test mode: the training run's, from
         `test_load_path`) on every loader with `n_samples` samples; writes
-        the metrics file and `{group}_{ckpt_type}_pred_{split}.csv`."""
+        the metrics file and `{group}_{ckpt_type}_pred_{split}.csv`, and
+        with `log_plot` (`draws_plots`) each split's time histograms through
+        the run logger (`<run>_<group>_<split>_chart.png` without wandb)."""
         cfg = self.cfg
         if test_mode:
             print("[warning] you are in test mode now.")
@@ -356,6 +362,9 @@ class HandlerCommon:
                                    zero_noise=zero_noise, rng_tag=tag)
             ci, loss = self._eval_and_print(cltor, name=f"{wandb_group}/{k}")
             metrics[k] = [("cindex", ci), ("loss", loss)]
+            if self.draws_plots and cfg.get("log_plot") and is_primary():
+                fig = plot_time_kde(cltor["y"], cltor.get("avg_y_hat", cltor["y_hat"]))
+                self.logger.log_image(f"{wandb_group}/{k}/chart", fig)
             if cfg["save_prediction"] and is_primary():
                 path = osp.join(self.save_dir, f"{group}_{ckpt_type}_pred_{k}.csv")
                 pids = [ds.pids[int(i)] for i in cltor["idx"]]

@@ -10,7 +10,11 @@ AdvHandler`): builds G and D on the configured device and runs
   pretraining run, then `semitrain_{LD_UD,LD,UD}` in which only the labelled
   patients' labels reach the supervised loss;
 - `exec_test`: test mode, which loads the `best` checkpoints of a training
-  run, evaluates the occluded test split with zero noise;
+  run (the port's, or the JAX package's `.ckpt`: `test_load_path` may name
+  an `advmil_tpu` run directory), evaluates the occluded test split with
+  zero noise;
+- `resume_model`: parameters and optimizer states from either package's
+  checkpoints;
 
 for cont_gansurv (one continuous time) and disc_gansurv (hazards over
 `time_bins` quantile bins), writing metrics, prediction CSVs and
@@ -82,6 +86,8 @@ def build_models(cfg: dict):
 
 class AdvHandler(HandlerCommon):
     """Adversarial (generator/discriminator) survival model."""
+
+    draws_plots = True
 
     def __init__(self, cfg: dict):
         check_configs(cfg)
@@ -309,6 +315,27 @@ class AdvHandler(HandlerCommon):
                 "saved - check es_warmup/epochs or test_load_path)")
         self.gen_model.load_state_dict(ckpt_lib.restore_checkpoint(gpath)[1])
         self.disc_model.load_state_dict(ckpt_lib.restore_checkpoint(dpath)[1])
+
+    def resume_model(self, ckpt_type="best", run_name="train"):
+        """Restore G's and D's parameters and optimizer states from
+        `{run_name}_model{G,D}-{ckpt_type}.ckpt` under save_path, as the JAX
+        handler's `resume_model`: the port's own checkpoints, or the JAX
+        package's (Adam, see `checkpoint.optimizer_state`). Both files are
+        read and mapped before anything is loaded."""
+        if self.opt_G is None:          # built for test mode
+            self._setup_training()
+        nets = (("G", self.gen_model, self.opt_G, self.cfg["opt_netG"]),
+                ("D", self.disc_model, self.opt_D, "adam"))
+        read = []
+        for net, model, opt, name in nets:
+            epoch, params, opt_state = ckpt_lib.restore_checkpoint(
+                self._ckpt_path(net, ckpt_type, run_name))
+            read.append((epoch, params, ckpt_lib.optimizer_state(opt_state, opt, model, name)))
+        for (_, model, opt, _), (_, params, opt_sd) in zip(nets, read):
+            model.load_state_dict(params)
+            opt.load_state_dict(opt_sd)
+        print(f"[model] resumed netG/netD from {ckpt_type}_{run_name} "
+              f"at epochs {read[0][0]}/{read[1][0]}")
 
     def save_model(self, epoch, ckpt_type="best", run_name="train"):
         def write():

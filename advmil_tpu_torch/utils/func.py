@@ -175,6 +175,28 @@ def print_config(config: dict, print_to_path: str | None = None):
         f.close()
 
 
+def plot_time_kde(y: np.ndarray, y_hat: np.ndarray):
+    """Histogram panels of real vs predicted time for all / event / censored
+    samples (the JAX package's `plot_time_kde`, reference utils/func.py:
+    235-260). Returns a matplotlib figure (Agg); matplotlib is imported here
+    only."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    y = np.squeeze(np.asarray(y))
+    t, e = y[:, 0], y[:, 1]
+    y_hat = np.squeeze(np.asarray(y_hat))
+    fig, axis = plt.subplots(1, 3, figsize=(12, 3), tight_layout=True)
+    panels = [("All samples", slice(None)), ("Event samples", e == 1),
+              ("Censored samples", e == 0)]
+    for ax, (title, sel) in zip(axis, panels):
+        ax.hist(t[sel], bins=100, density=True, label="real_time")
+        ax.hist(y_hat[sel], bins=100, density=True, label="pred_time")
+        ax.set_title(title)
+        ax.legend()
+    return fig
+
+
 def print_metrics(metrics: dict, print_to_path: str | None = None):
     f = open(print_to_path, "w") if print_to_path is not None else sys.stdout
     print("**************** MODEL METRICS ****************", file=f)

@@ -62,6 +62,8 @@ class RunLogger:
         else:
             path = osp.join(self.log_dir, f"{self.name}_{name.replace('/', '_')}.png")
             figure.savefig(path)
+        import matplotlib.pyplot as plt
+        plt.close(figure)
 
     def finish(self):
         if not self.enabled:

@@ -98,9 +98,12 @@ Phases, each printed on its own line:
      kernel launches.
  33. inst_devices 2 on the one card: one f32 adversarial ESAT step on the
      two long training bags (a bucket of 1,000 regions: flash on 500 local
-     rows against 1,000 keys) and one ABMIL base step, each against the
-     single-process card step; test mode from phase 32's best checkpoint
-     over two inst ranks against the same test mode in one process.
+     rows against 1,000 keys), then in one spawn an ABMIL base step, a
+     PatchGCN step on the banded and on the dense route (#12-#15 launch:
+     kernels line path `inst2_graph_step`) and a DeepAttnMISL step
+     (`inst2_cluster_step`), each against the single-process card step;
+     test mode from phase 32's best checkpoint over two inst ranks against
+     the same test mode in one process.
  34. the offline tools: 12 CLAM-like patients written with numpy (elliptical
      tissue masks with holes on a 256-px grid, 1,500-12,000 patches a slide,
      two over 200 patches wide after cropping, 1024-d features, coordinates
@@ -123,6 +126,14 @@ Phases, each printed on its own line:
      #12 / #13 on their residual rows (f32 and bf16; two backward calls bit
      for bit), against the plain versions, with CUDA-event times and byte
      bounds; rows `<kernel>@grid_W<width>` in the kernels JSON.
+ 38. the JAX package's msgpack checkpoints: test mode with `test_load_path`
+     at a JAX run directory, then `resume_model` and one f32 step, held to
+     the JAX package's numbers within 1e-4 (this machine has no JAX: the
+     small pair and the numbers are committed under tests/data/jax_ckpt/,
+     written by scripts/make_jax_ckpt_fixture.py); paths
+     `jax_ckpt_test_mode` and `jax_ckpt_resume_step` (#1, #2).
+ 39. `python -m advmil_tpu_torch.stats` at cfg_nlst width in every mode on
+     the card, parameter counts and FLOPs equal to the CPU's.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
@@ -2301,6 +2312,7 @@ def phase_cluster(paths, card):
                 if not osp.exists(osp.join(handler.save_dir, f)):
                     raise AssertionError(f"cluster training wrote no {f}")
             _log_adv_run("27 cluster train", handler, metrics, launches, widths, splits, card)
+            out["handler"] = handler
         else:
             (b, sec), = handler.eval_timings[-1:]
             log(f"[27 cluster test] exec-test C-index {dict(metrics['exec-test'])['cindex']:.4f}"
@@ -2658,12 +2670,22 @@ def _one_step(kind, cfg, weights, batch, dev):
             nets["net"], opt, task=cfg["task"], l1_coef=cfg["loss_regl1_coef"],
             sup_loss_fn=steps.make_supervised_loss(cfg["task"], cfg))
         wd = {"net": cfg["opt_net_weight_decay"]}
-    local = mesh.shard_batch_2d({"feats": batch.feats, "mask": batch.mask})
+    arrays = {"feats": batch.feats, "mask": batch.mask}
+    if "cluster_id" in batch.extra:
+        arrays["cluster_id"] = batch.extra["cluster_id"]
+    elif batch.extra:
+        arrays["graph"] = batch.extra
+    local = mesh.shard_batch_2d(arrays)      # as the handlers' `_ship` cuts a batch
     shipped = {"feats": torch.from_numpy(local["feats"].copy()).to(dev),
                "mask": torch.from_numpy(local["mask"].copy()).to(dev),
                "label": torch.from_numpy(batch.label).to(dev),
                "sample_mask": torch.from_numpy(batch.sample_mask).to(dev),
                "visible": torch.from_numpy(batch.sample_mask).to(dev)}
+    if "cluster_id" in local:
+        shipped["extra"] = torch.from_numpy(local["cluster_id"].copy()).to(dev)
+    elif "graph" in local:
+        shipped["extra"] = {k: torch.from_numpy(v.copy()).to(dev)
+                            for k, v in local["graph"].items()}
     start = {f"{t}.{n}": p.detach().clone() for t, m in nets.items()
              for n, p in m.named_parameters()}
     step(shipped, Rngs(device=torch.Generator(device=dev).manual_seed(0),
@@ -2699,6 +2721,12 @@ def _rank_step(rank, device, kind, cfg, weights, batch, dp, inst):
     return {"probe": probe, "launches": read_counters(), "coll_ms": coll["ms"],
             "coll_calls": coll["calls"], "step_s": wall,
             **({"after": after, "stepped": stepped} if rank == 0 else {})}
+
+
+def _rank_steps(rank, device, jobs, dp, inst):
+    """A spawned rank of several `_rank_step`s, one (kind, cfg, weights,
+    batch) job after another in one process."""
+    return [_rank_step(rank, device, *job, dp, inst) for job in jobs]
 
 
 def _rank_run(rank, device, handler_name, cfg):
@@ -2808,14 +2836,17 @@ def phase_dp2(paths, train_handler, card):
     return run_cfg, launches
 
 
-def phase_inst2(paths, train_handler, base_handler, dp2_cfg, card):
+def phase_inst2(paths, train_handler, base_handler, dp2_cfg, card, graph_handlers,
+                cluster_handler):
     """Phase 33: inst_devices 2 on the one card: one f32 adversarial ESAT
     step on the two long training bags (their bucket holds 1,000 regions:
-    the flash kernels run on 500 local query rows against 1,000 keys) and
-    one ABMIL base step,
-    each against the single-process card step; then test mode from phase
-    32's best checkpoint over two inst ranks against the same test mode in
-    one process."""
+    the flash kernels run on 500 local query rows against 1,000 keys);
+    then, in one spawn, one ABMIL base step, one f32 adversarial PatchGCN
+    step on the banded and on the dense route (phases 8 / 9's weights, two
+    bags of their first training batch: #12-#15 on the gathered bag) and one
+    DeepAttnMISL step (phase 27's); each against the single-process card
+    step; then test mode from phase 32's best checkpoint over two inst ranks
+    against the same test mode in one process."""
     import numpy as np
     import torch
     from advmil_tpu_torch import main as port_main
@@ -2838,16 +2869,35 @@ def phase_inst2(paths, train_handler, base_handler, dp2_cfg, card):
         if any(r["launches"][name] <= 0 for r in results):
             raise AssertionError(f"33 inst2 ESAT step: a rank never launched {name}")
 
+    # the ABMIL base step, PatchGCN on both routes and DeepAttnMISL: one spawn
     _, bbatcher = base_handler.loaders["train"]
     bbatch = list(bbatcher.epoch_batches())[-1]
-    bcfg = dict(base_handler.cfg)
-    bweights = _weights({"net": base_handler.model})
-    bstart = {f"net.{n}": v.float() for n, v in bweights["net"].items()}
-    bwant = (bstart, _one_step("base", bcfg, bweights, bbatch, dev))
-    bres = launch.run_ranks(_rank_step, [0, 0], ("base", bcfg, bweights, bbatch, 1, 2))
-    _ranks_summary("33 inst2 ABMIL step", bres, card)
-    _hold_step("33 inst2 ABMIL step", bwant, (bres[0]["after"], bres[0]["stepped"]), "base",
-               bcfg, tuple(bbatch.feats.shape))
+    jobs = {"33 inst2 ABMIL step": ("base", dict(base_handler.cfg),
+                                    _weights({"net": base_handler.model}), bbatch)}
+    for tag, h in (("33 inst2 PatchGCN banded step", graph_handlers[0]),
+                   ("33 inst2 PatchGCN dense step", graph_handlers[1]),
+                   ("33 inst2 DeepAttnMISL step", cluster_handler)):
+        jobs[tag] = ("adv", dict(h.cfg), _weights({"G": h.gen_model, "D": h.disc_model}),
+                     _two_bag_batch(h))
+    wants = {tag: ({f"{t}.{n}": v.float() for t, sd in w.items() for n, v in sd.items()},
+                   _one_step(kind, c, w, b, dev))
+             for tag, (kind, c, w, b) in jobs.items()}
+    res = launch.run_ranks(_rank_steps, [0, 0], (list(jobs.values()), 1, 2))
+    graph_launches, cluster_launches = {}, {}
+    for i, (tag, (kind, c, _, b)) in enumerate(jobs.items()):
+        per = [r[i] for r in res]
+        _ranks_summary(tag, per, card)
+        _hold_step(tag, wants[tag], (per[0]["after"], per[0]["stepped"]), kind, c,
+                   tuple(b.feats.shape))
+        into = (cluster_launches if "DeepAttnMISL" in tag else
+                graph_launches if "PatchGCN" in tag else {})
+        for name, n in per[0]["launches"].items():
+            into[name] = into.get(name, 0) + n + per[1]["launches"][name]
+    for launches, need, what in ((graph_launches, GRAPH_KERNELS, "PatchGCN"),
+                                 (cluster_launches, LN_KERNELS, "DeepAttnMISL")):
+        missing = [k for k in need if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"33 inst2 {what} steps never launched {missing}")
 
     test_cfg = with_defaults(dict(dp2_cfg, test=True, dp_devices=1, inst_devices=2,
                                   test_save_path=osp.join(WORK_DIR, "run_dp2_inst2_test_{}-{}")))
@@ -2883,7 +2933,7 @@ def phase_inst2(paths, train_handler, base_handler, dp2_cfg, card):
         raise AssertionError(f"33 inst2 test mode: predictions differ by {diff}")
     test_launches = {name: out[0]["launches"][name] + out[1]["launches"][name]
                      for name in out[0]["launches"]}
-    return step_launches, test_launches
+    return step_launches, test_launches, graph_launches, cluster_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3374,6 +3424,128 @@ SOURCES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phases 38-39: a JAX package checkpoint, model statistics
+# ---------------------------------------------------------------------------
+
+JAX_FIXTURE = osp.join(ROOT, "tests", "data", "jax_ckpt")
+JAX_LOSSES = ("Loss_D", "Loss_G_total", "Loss_G_fake", "Loss_G_time", "D_real")
+
+
+def _fixture_cfg(work, device):
+    """The fixture's config (`config.json`, paths relative to the fixture)
+    with the data read from the fixture, the checkpoints read from the JAX
+    run directory, and everything written under `work`."""
+    with open(osp.join(JAX_FIXTURE, "config.json")) as f:
+        cfg = json.load(f)
+    fx = lambda k: osp.join(JAX_FIXTURE, cfg[k])  # noqa: E731
+    return dict(cfg, path_patch=fx("path_patch"), path_label=fx("path_label"),
+                data_split_path=fx("data_split_path"), test_load_path=fx("test_load_path"),
+                save_path=osp.join(work, "run"), test_save_path=osp.join(work, "test"),
+                device=device)
+
+
+def phase_jax_ckpt(card, device="cuda"):
+    """Phase 38: the JAX package's msgpack checkpoints on the card. This
+    machine has no JAX, so the run directory (G on ABMIL 16-32-32, D's X
+    tower 16 -> 128: the narrowest model that still runs #1) and the JAX
+    package's numbers for it were written on the CPU by
+    `scripts/make_jax_ckpt_fixture.py` (`tests/data/jax_ckpt/`); the
+    full-width check of the same path is the CPU test
+    `tests/test_torch_ckpt.py`. Test mode with `test_load_path` at the JAX
+    run directory: its prediction CSV within 1e-4 of the JAX test mode's.
+    Then `resume_model` from the same files (parameters, Adam moments, the
+    halved injected learning rate) and one f32 step on the fixture's second
+    batch: the step's losses, G's parameters after it and the eval outputs
+    of G and D after it within 1e-4 of the JAX step's. Counters are reset
+    before and read after each of the two."""
+    import numpy as np
+    import torch
+    from advmil_tpu_torch import main as port_main
+    from advmil_tpu_torch.config import with_defaults
+    from advmil_tpu_torch.data.bags import BucketBatcher, prepare_dataset
+    from advmil_tpu_torch.models.layers import set_dropout_rates
+    work = osp.join(WORK_DIR, "jax_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(osp.join(work, "run"))
+    for f in ("train_modelG-best.ckpt", "train_modelD-best.ckpt"):    # resume reads save_path
+        shutil.copy(osp.join(JAX_FIXTURE, "run", f), osp.join(work, "run", f))
+    cfg = _fixture_cfg(work, device)
+    want = np.load(osp.join(JAX_FIXTURE, "expected.npz"))
+
+    reset_counters()
+    handler, metrics = port_main.run_one(port_main.handler_class("adv"),
+                                         with_defaults(dict(cfg, test=True)))
+    test_launches = read_counters()
+    name = "test_mode_best_pred_exec-test.csv"
+    got = _read_csv_preds(osp.join(handler.save_dir, name))
+    jax_test = _read_csv_preds(osp.join(JAX_FIXTURE, "test", name))
+    test_diff = max_abs(torch.from_numpy(got), torch.from_numpy(jax_test))
+    if not (len(got) == len(jax_test) == 12 and test_diff <= 1e-4):
+        raise AssertionError(f"38 jax test mode: predictions differ from JAX's by {test_diff}")
+
+    h = port_main.handler_class("adv")(with_defaults(dict(cfg)))
+    reset_counters()
+    h.resume_model("best", "train")
+    for m in (h.gen_model, h.disc_model):
+        set_dropout_rates(m, 0.0)
+    ds = prepare_dataset([f"P{i:04d}" for i in range(12)], h.cfg)
+    batch = list(BucketBatcher(ds, token_budget=cfg["batch_token_budget"],
+                               min_bucket=cfg["bucket_min"]).epoch_batches())[1]
+    if not np.array_equal(batch.idx, want["batch_idx"]):
+        raise AssertionError("38 jax resume: the second batch holds other bags than JAX's")
+    resumed = {k: v.clone() for k, v in h.gen_model.state_dict().items()}
+    metrics_step, _ = h.train_step(h._ship(batch, train=True), h.train_rngs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    step_launches = read_counters()
+    loss_diff = max(abs(float(metrics_step[k]) - float(want[f"loss/{k}"])) for k in JAX_LOSSES)
+    g_diff = max(max_abs(v.cpu(), torch.from_numpy(want[f"G/{k}"]))
+                 for k, v in h.gen_model.state_dict().items())
+    g_moved = max(max_abs(v, resumed[k]) for k, v in h.gen_model.state_dict().items())
+    with torch.no_grad():
+        h.gen_model.eval()
+        h.disc_model.eval()
+        feats = torch.from_numpy(batch.feats).to(h.device)
+        mask = torch.from_numpy(batch.mask).to(h.device)
+        t = torch.from_numpy(batch.label[:, :1]).to(h.device)
+        y_hat = h.gen_model(feats, mask, None, zero_noise=True).reshape(-1)
+        d_out = h.disc_model(feats, t, mask).reshape(-1)
+    out_diff = max(max_abs(y_hat.cpu(), torch.from_numpy(want["y_hat_after"])),
+                   max_abs(d_out.cpu(), torch.from_numpy(want["d_after"])))
+    lr = [g["lr"] for g in h.opt_G.param_groups]
+    log(f"[38 jax checkpoint] {device}: the JAX package's .ckpt pair (scripts/"
+        f"make_jax_ckpt_fixture.py) read by the port's decoder; test mode from the JAX run "
+        f"directory: {len(got)} predictions within {test_diff:.3e} of JAX's (bound 1e-4), "
+        f"C-index {dict(metrics['exec-test'])['cindex']:.6f} | resume + one f32 step: G's "
+        f"injected learning rate {lr[0]:.6g}, losses within {loss_diff:.3e}, G's parameters "
+        f"(moved up to {g_moved:.3e}) within {g_diff:.3e}, G's / D's eval outputs after the step within {out_diff:.3e} "
+        f"of JAX's (bounds 1e-4) | launches test {({k: v for k, v in test_launches.items() if v})}"
+        f" step {({k: v for k, v in step_launches.items() if v})} | {card}")
+    if not (loss_diff <= 1e-4 and g_diff <= 1e-4 and out_diff <= 1e-4 and g_moved > 1e-4):
+        raise AssertionError(f"38 jax resume: losses {loss_diff}, G {g_diff}, outputs "
+                             f"{out_diff} from JAX's (bound 1e-4); G moved {g_moved}")
+    if abs(lr[0] - float(cfg["opt_netG_lr"]) * 0.5) > 1e-9:
+        raise AssertionError(f"38 jax resume: G's learning rate {lr} is not the injected one")
+    return {"test": test_launches, "step": step_launches}
+
+
+def phase_stats(card, device="cuda"):
+    """Phase 39: `python -m advmil_tpu_torch.stats` at cfg_nlst width
+    (1024-384-384, 3,360 patches) in every mode on the card, beside the CPU:
+    parameter counts and counted FLOPs equal."""
+    from advmil_tpu_torch import stats
+    rows = []
+    for mode in ("patch", "abmil", "cluster", "graph"):
+        on = stats.main(["--mode", mode, "--device", device])
+        cpu = stats.backbone_stats(mode, [1024, 384, 384], 3360, device="cpu")
+        if on["params"] != cpu["params"] or on["flops_forward"] != cpu["flops_forward"]:
+            raise AssertionError(f"39 stats {mode}: {device} {on} against the CPU's {cpu}")
+        rows.append(f"{mode} {on['params']} params, {on['flops_forward'] / 1e9:.3f} GFLOP")
+    log(f"[39 stats] {device} and CPU agree: {'; '.join(rows)} (forward at 3,360 patches, "
+        f"products counted by FlopCounterMode) | {card}")
+
+
 def timed(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -3457,8 +3629,9 @@ def main():
     la_launches = timed("30 lookahead_radam", phase_other_optimizer, paths, small_split, card)
     inst_report = timed("31 inst kernels", phase_inst_kernels, card)
     dp2_cfg, dp2_launches = timed("32 dp2", phase_dp2, paths, train_handler, card)
-    inst2_step_launches, inst2_test_launches = timed(
-        "33 inst2", phase_inst2, paths, train_handler, base_handler, dp2_cfg, card)
+    inst2_step_launches, inst2_test_launches, inst2_graph_launches, inst2_cluster_launches = \
+        timed("33 inst2", phase_inst2, paths, train_handler, base_handler, dp2_cfg, card,
+              (banded_handler, dense_handler), cluster_launches.pop("handler"))
     tpaths = timed("34 tools", phase_tools, card)
     grid_handler, grid_launches, grid_test_launches = timed("35 grid train", phase_grid_train,
                                                             tpaths, card)
@@ -3467,6 +3640,8 @@ def main():
         f"data, a reading only) | {card}")
     timed("36 grid checks", phase_grid_checks, grid_handler)
     grid_report = timed("37 grid kernels", phase_grid_kernels, card)
+    jax_launches = timed("38 jax checkpoint", phase_jax_ckpt, card)
+    timed("39 stats", phase_stats, card)
     for d in ("data", "tissue"):
         shutil.rmtree(osp.join(WORK_DIR, d), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
@@ -3504,6 +3679,10 @@ def main():
                        "dp2_train": dp2_launches[name],
                        "inst2_esat_step": inst2_step_launches[name],
                        "inst2_test_mode": inst2_test_launches[name],
+                       "inst2_graph_step": inst2_graph_launches[name],
+                       "inst2_cluster_step": inst2_cluster_launches[name],
+                       "jax_ckpt_test_mode": jax_launches["test"][name],
+                       "jax_ckpt_resume_step": jax_launches["step"][name],
                        "grid_train": grid_launches[name],
                        "grid_test_mode": grid_test_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -3523,6 +3702,10 @@ def main():
                            ("inst2_esat_step", LN_KERNELS + FLASH_KERNELS[:1]
                             + FLASH_KERNELS[2:]),
                            ("inst2_test_mode", LN_KERNELS[:1] + FLASH_KERNELS[:1]),
+                           ("inst2_graph_step", GRAPH_KERNELS),
+                           ("inst2_cluster_step", LN_KERNELS),
+                           ("jax_ckpt_test_mode", LN_KERNELS[:1]),
+                           ("jax_ckpt_resume_step", LN_KERNELS),
                            ("grid_train", GRAPH_KERNELS + LN_KERNELS),
                            ("grid_test_mode", ("banded_aggregate", "ln_relu_region_mean"))):
             if name in need and entry["launches_by_path"][path] <= 0:

@@ -516,16 +516,22 @@ def test_cli_base_handler_runs_without_jax(synth, tmp_path):
                                             ("inst_devices", 2, "A14"),
                                             ("dp_devices", 2, "A14")])
 def test_base_handler_refusals_name_the_roadmap(synth, tmp_path, key, value, item):
-    """(cluster, the other optimizers and accumulation, refused here until
-    their items were done, are held against JAX in test_torch_cluster.py and
+    """Options refused, naming `item`, until that item was done (log_plot,
+    A9; inst_devices over graph / cluster, A14 rest) pass the checks now: the
+    baseline handler builds with log_plot and draws nothing, as in JAX; a
+    parallel config built in one process asks for its ranks. (cluster, the
+    other optimizers and accumulation, refused here until their items were
+    done, are held against JAX in test_torch_cluster.py and
     test_torch_optim.py; graph_grid_resident, refused until A13, runs in
-    test_torch_grid.py.)"""
-    # data parallelism runs; under it, inst_devices over graph / cluster is refused
+    test_torch_grid.py; the one refusal left, A19, in test_torch_optim.py.)"""
     over = {key: value, **({"inst_devices": 2, "bcb_mode": "graph"} if key == "dp_devices"
                            else {"bcb_mode": "cluster"} if key == "inst_devices" else {})}
     cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **over))
-    with pytest.raises(NotImplementedError, match=item):
-        tbaseline.BaselineHandler(cfg)
+    if key == "log_plot":
+        assert not tbaseline.BaselineHandler(cfg).draws_plots
+    else:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            tbaseline.BaselineHandler(cfg)
 
 
 def test_task_refusals_name_the_handler(synth, tmp_path):

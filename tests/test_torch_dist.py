@@ -150,8 +150,9 @@ def test_grid_needs_its_ranks(synth, tmp_path):
 
 
 def test_parallel_config_keys(synth, tmp_path):
-    """dp_devices / dist_* pass the checks; inst_devices passes for patch and
-    abmil and is refused for graph and cluster, naming ROADMAP A14 rest."""
+    """dp_devices / dist_* pass the checks, and inst_devices passes in every
+    mode: patch and abmil, and graph and cluster (refused, naming ROADMAP A14
+    rest, until they were sharded over the inst group)."""
     single, _ = _cfgs(synth, tmp_path, "adv")
     for over in ({"dp_devices": 4}, {"dist_num_processes": 2, "dist_process_id": 1,
                                      "dist_coordinator": "127.0.0.1:1"},
@@ -159,8 +160,8 @@ def test_parallel_config_keys(synth, tmp_path):
                  {"inst_devices": 2, "dp_devices": 2}):
         check_configs(with_defaults(dict(single, **over)))
     for mode in ("graph", "cluster"):
-        with pytest.raises(NotImplementedError, match=f"A14 rest.*{mode}"):
-            check_configs(with_defaults(dict(single, bcb_mode=mode, inst_devices=2)))
+        check_configs(with_defaults(dict(single, bcb_mode=mode, inst_devices=2,
+                                         dp_devices=2)))
     with pytest.raises(ValueError, match="dp_devices"):
         check_configs(with_defaults(dict(single, dp_devices=0)))
 
@@ -189,7 +190,7 @@ def test_single_process_helpers(monkeypatch):
 def test_dryrun_multichip_on_four_cpu_ranks(capfd):
     from advmil_tpu_torch.parallel.dryrun import dryrun_multichip
     out = dryrun_multichip(4)
-    assert set(out) == {"dp4 patch", "dp4 cluster", "dp4 graph", "dp4 graph_grid",
-                        "dp2 x inst2 patch"}
+    modes = ("patch", "cluster", "graph", "graph_grid")
+    assert set(out) == {f"dp4 {m}" for m in modes} | {f"dp2 x inst2 {m}" for m in modes}
     printed = capfd.readouterr().out
-    assert len(re.findall(r"\[dryrun_multichip\] .* ok on 4 ranks", printed)) == 5
+    assert len(re.findall(r"\[dryrun_multichip\] .* ok on 4 ranks", printed)) == 8

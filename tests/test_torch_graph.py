@@ -708,11 +708,16 @@ def test_graph_banded_off_reads_yaml_false(value, banded):
 
 def test_graph_grid_resident_names_the_roadmap():
     """graph_grid_resident was refused naming ROADMAP A13 until the grid route
-    was ported: it passes the checks now, and no refusal names A13."""
+    was ported: it passes the checks now, under inst_devices and with
+    log_plot too (once refused, naming A14 rest and A9), and the one
+    refusal left (A19) names no A13."""
     cfg = tconfig.get_config(osp.join(REPO, "config", "cfg_nlst.yaml"))
     cfg.update(test=True, device="cpu", bcb_mode="graph")
     tconfig.check_configs(cfg)
     tconfig.check_configs(dict(cfg, graph_grid_resident=True))
-    with pytest.raises(NotImplementedError, match="A9") as err:
-        tconfig.check_configs(dict(cfg, graph_grid_resident=True, log_plot=True))
+    tconfig.check_configs(dict(cfg, graph_grid_resident=True, log_plot=True,
+                               inst_devices=2))
+    with pytest.raises(NotImplementedError, match="A19") as err:
+        tconfig.check_configs(dict(cfg, graph_grid_resident=True, device="cuda",
+                                   opt_net="adahessian"), "base")
     assert "A13" not in str(err.value)

@@ -50,10 +50,9 @@ def _nlst_test_cfg(**over):
     return cfg
 
 
-# graph mode is ported whole (its grid-resident layout too, ROADMAP A13); what
-# it still refuses is inst_devices
+# refused, naming `item`, until their items were done: graph mode (A13),
+# inst_devices over graph / cluster (A14 rest), log_plot (A9)
 _UNPORTED_WITH = {("bcb_mode", "graph"): {"inst_devices": 2},
-                  # parallelism runs; inst_devices over graph / cluster is refused
                   ("dist_num_processes", 2): {"inst_devices": 2, "bcb_mode": "graph"},
                   ("inst_devices", 2): {"bcb_mode": "cluster"},
                   ("dp_devices", 2): {"inst_devices": 2, "bcb_mode": "graph"}}
@@ -64,12 +63,16 @@ _UNPORTED_WITH = {("bcb_mode", "graph"): {"inst_devices": 2},
     ("dist_num_processes", 2, "A14"), ("inst_devices", 2, "A14"),
     ("dp_devices", 2, "A14")])
 def test_check_configs_rejects_unported_modes(key, value, item):
+    """Each combination here was refused, naming `item`, until that item was
+    done: all pass the checks now. The one refusal left names its item:
+    AdaHessian through the patch / graph kernels on the card (A19)."""
     tconfig.check_configs(_nlst_test_cfg())
     over = {key: value, **_UNPORTED_WITH.get((key, value), {})}
-    if len(over) > 1:
-        tconfig.check_configs(_nlst_test_cfg(**{key: value}))
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.check_configs(_nlst_test_cfg(**over))
+    tconfig.check_configs(_nlst_test_cfg(**{key: value}))
+    tconfig.check_configs(_nlst_test_cfg(**over))
+    a19 = dict(over, bcb_mode="graph", device="cuda", opt_net="adahessian")
+    with pytest.raises(NotImplementedError, match="A19"):
+        tconfig.check_configs(_nlst_test_cfg(**a19), "base")
 
 
 @pytest.mark.parametrize("key,value", [

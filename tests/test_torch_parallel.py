@@ -31,6 +31,7 @@ from advmil_tpu_torch.data.synthetic import make_synthetic_dataset
 from advmil_tpu_torch.ops import attention as tattn
 from advmil_tpu_torch.main import handler_class
 from advmil_tpu_torch.parallel import launch
+from advmil_tpu_torch.train.common import graph_banded
 from tests import torch_dist_workers as workers
 from tests.test_torch_baseline import _cfg as base_cfg
 from tests.test_torch_train import _cfg as adv_cfg, _np_tree
@@ -114,18 +115,67 @@ def _jax_flash(d):
 MODEL_DIMS = (64, 32, 32)
 
 
-def _model_inputs(seed, coords=False, t=False):
+BAG_NODES = (192, 88, 64, 32)      # bag 3 lies on the first inst shard only
+
+
+def _grid_graph(n, W, rng):
+    """A bag of n nodes on a W-wide grid with a tenth of the cells empty:
+    (rc [n, 2], dst-sorted [2, E] edges from each node's occupied 8
+    neighbours and, for one node in ten, a node half the bag away (a
+    residual row); no edge twice)."""
+    cells = np.sort(rng.choice(int(n * 1.1) + W, size=n, replace=False))
+    rc = np.stack([cells // W, cells % W], 1)
+    at = {int(c): i for i, c in enumerate(cells)}
+    edges = []
+    for i, (r, c) in enumerate(rc):
+        for dr in (-1, 0, 1):
+            for dc in (-1, 0, 1):
+                j = at.get(int((r + dr) * W + c + dc)) if 0 <= c + dc < W else None
+                if (dr or dc) and j is not None:
+                    edges.append((i, j))
+        far = (i + n // 2) % n
+        if i % 10 == 3 and (i, far) not in edges and far != i:
+            edges.append((i, far))
+    return rc, np.asarray(edges, np.int64).T
+
+
+def _graph_inputs(route, rng):
+    """(port tables, JAX tables) of the bags of BAG_NODES on one route. The
+    dense and banded routes' raster graphs span the padded rows too (as in
+    tests/test_torch_graph.py); the grid route's JAX side is the dense route
+    of the same graphs (the grid route computes the same aggregation)."""
+    from tests.test_torch_graph import _graph_extras
+    B, N = len(BAG_NODES), BAG_NODES[0]
+    if route in ("dense", "banded"):
+        return _graph_extras(B, N, 9, rng, route)
+    from advmil_tpu_torch.data.bags import dense_table, grid_tables
+    W = 14
+    graphs = [_grid_graph(n, W, rng) for n in BAG_NODES]
+    grid_n = -(-max(int(rc[:, 0].max() + 1) * W for rc, _ in graphs) // 128) * 128
+    tabs = [grid_tables(e, rc, W, grid_n, N, 9, u_slots=32)[0] for rc, e in graphs]
+    port = {k: np.stack([t[k] for t in tabs]) for k in tabs[0]}
+    dense = [dense_table(e, N, 9)[:2] for _, e in graphs]
+    return port, {"edge_src": np.stack([d[0] for d in dense]),
+                  "edge_mask": np.stack([d[1] for d in dense])}
+
+
+def _model_inputs(seed, coords=False, t=False, graph=None, cluster=False):
     rng = np.random.default_rng(seed)
-    B, N, C = 4, 192, 64
+    B, N, C = len(BAG_NODES), BAG_NODES[0], 64
     x = rng.normal(size=(B, N, C)).astype(np.float32)
     mask = np.zeros((B, N), np.float32)
-    for b, n in enumerate((192, 88, 64, 32)):   # bag 3 lies on the first inst shard only
+    for b, n in enumerate(BAG_NODES):
         mask[b, :n] = 1.0
     d = {"x": x * mask[..., None], "mask": mask}
     if coords:
         d["coords"] = rng.integers(0, 40, size=(B, N // 16, 2)).astype(np.float32)
     if t:
         d["t"] = rng.uniform(0.1, 1.0, size=(B, 1)).astype(np.float32)
+    if graph:
+        d["graph"], d["jax_graph"] = _graph_inputs(graph, rng)
+    if cluster:
+        d["cluster_id"] = np.where(mask > 0, rng.integers(0, 8, size=(B, N)),
+                                   -1).astype(np.int32)
     return d
 
 
@@ -141,6 +191,16 @@ MODEL_CASES = {
     "disc_rlip_ksize3_gapool": ({"kind": "disc", "kw": dict(_DISC_KW, netx_ksize=3,
                                                             netx_backbone="gapool")},
                                 {"t": True}),
+    "graph_dense": ({"kind": "graph", "dims": MODEL_DIMS, "kw": {"num_graph_layers": 2}},
+                    {"graph": "dense"}),
+    "graph_banded": ({"kind": "graph", "dims": MODEL_DIMS, "kw": {"num_graph_layers": 2}},
+                     {"graph": "banded"}),
+    "graph_grid": ({"kind": "graph", "dims": MODEL_DIMS, "kw": {"num_graph_layers": 2}},
+                   {"graph": "grid"}),
+    "graph_grid_resident": ({"kind": "graph", "dims": MODEL_DIMS,
+                             "kw": {"num_graph_layers": 2, "grid_resident": True}},
+                            {"graph": "grid"}),
+    "cluster": ({"kind": "cluster", "dims": MODEL_DIMS}, {"cluster": True}),
 }
 
 
@@ -156,6 +216,12 @@ def _jax_model(spec, d):
     if spec["kind"] == "disc":
         m = jgan.PrjDiscriminator(**kw)
         args = (x, jnp.asarray(d["t"]), mask)
+    elif spec["kind"] in ("graph", "cluster"):
+        kw.pop("grid_resident", None)       # with dropout off, the per-layer route
+        m = jbb.load_backbone(spec["kind"], list(spec["dims"]), **kw)
+        extra = ({k: jnp.asarray(v) for k, v in d["jax_graph"].items()}
+                 if spec["kind"] == "graph" else jnp.asarray(d["cluster_id"]))
+        args = (x, mask, extra)
     else:
         kw.pop("flash_min_len", None)
         m = (jbb.DualTransHS(spec["dims"], use_pallas=False, **kw) if spec["kind"] == "esat"
@@ -184,9 +250,11 @@ def synth(tmp_path_factory):
 
 
 def _batches(cfg, n):
-    """The first n global batches of 8 bags (N = 256) in eval order."""
+    """The first n global batches of 8 bags (N = 256) in eval order (on the
+    config's graph route)."""
     ds = prepare_dataset([f"P{i:04d}" for i in range(36)], cfg)
-    batches = list(BucketBatcher(ds, token_budget=2048).epoch_batches())[:n]
+    batches = list(BucketBatcher(ds, token_budget=2048,
+                                 banded=graph_banded(cfg)).epoch_batches())[:n]
     assert all(len(b.idx) == 8 and b.feats.shape[1] == 256 for b in batches)
     return batches
 
@@ -213,8 +281,16 @@ STEP_CASES = {
                     1, {}, ("2x1", "2x2")),
     "abmil_dropout": ("base", dict(flash_min_len=512), 1, {}, ("2x1", "2x2")),
     "graph": ("base", dict(bcb_mode="graph", bcb_dims="64-16-16", pdh_dims="16-1"), 1, {},
-              ("2x1",)),
-    "cluster": ("adv", dict(bcb_mode="cluster", bcb_dims="64-128-128"), 1, {}, ("2x1",)),
+              ("2x1", "2x2")),
+    "graph_dense": ("base", dict(bcb_mode="graph", bcb_dims="64-16-16", pdh_dims="16-1",
+                                 graph_banded="off"), 1, {}, ("2x2",)),
+    "cluster": ("adv", dict(bcb_mode="cluster", bcb_dims="64-128-128"), 1, {},
+                ("2x1", "2x2")),
+    "graph_dropout": ("base", dict(bcb_mode="graph", bcb_dims="64-16-16", pdh_dims="16-1"),
+                      1, {}, ("2x2",)),
+    "cluster_dropout": ("adv", dict(bcb_mode="cluster", bcb_dims="64-128-128",
+                                    gen_noi_noise="0-1", times_test_sample=3), 1, {},
+                        ("2x2",)),
 }
 
 
@@ -405,7 +481,10 @@ def test_step_on_grid_matches_single_process_and_jax(runs, name, grid):
     (its double backward through the collectives), ESAT and ABMIL with
     dropout and noise on (every dropout site of the encoder, the attention
     probabilities, the discriminator's instance MLP and its GAPool, ABMIL's
-    gated attention), graph and cluster mode (dp only)."""
+    gated attention), graph mode (dp 2 and 2x2 on the banded route, 2x2 on
+    the dense route) and cluster mode (dp 2 and 2x2), both also on 2x2 with
+    dropout on (PatchGCN's node-row draws, DeepAttnMISL's cluster-level
+    ones, which every inst rank draws whole)."""
     world = runs["world4"] if grid == "2x2" else runs["world2"]
     res = world[0][f"step_{name}_{grid}"]
     for r in world[1:]:

@@ -127,7 +127,7 @@ def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
     (tests/test_torch_ssl.py), which as in the JAX package asserts that the
     config asks for it. As in the JAX package, a run whose warm-up outlasts
     its epochs saves no best checkpoint, and the final evaluation says so;
-    the modes still missing name their item."""
+    the modes once missing build."""
     from advmil_tpu_torch.config import with_defaults
     from advmil_tpu_torch.train.handler import AdvHandler
     cfg = _cfg(synth, tmp_path, device="cpu", es_warmup=5)    # epochs: 1
@@ -140,9 +140,10 @@ def test_exec_and_other_modes_name_the_roadmap(synth, tmp_path):
     assert osp.exists(osp.join(cfg["save_path"], "train_modelG-last.ckpt"))
     with pytest.raises(AssertionError):
         h.exec_semi_sl()                       # semi_training: False
-    with pytest.raises(NotImplementedError, match="A9"):
-        AdvHandler(with_defaults(dict(cfg, log_plot=True)))
-    with pytest.raises(NotImplementedError, match="A14 rest"):
+    # log_plot (A9) and inst_devices over cluster (A14 rest) were refused here
+    # until their items were done
+    assert AdvHandler(with_defaults(dict(cfg, log_plot=True))).draws_plots
+    with pytest.raises(RuntimeError, match="torchrun"):
         AdvHandler(with_defaults(dict(cfg, dp_devices=2, inst_devices=2, bcb_mode="cluster")))
 
 

@@ -33,7 +33,7 @@ from advmil_tpu.train.optim import ReduceLROnPlateau as JPlateau
 from advmil_tpu.utils.func import EarlyStopping as JEarlyStopping
 from advmil_tpu_torch import bridge
 from advmil_tpu_torch import losses as tlosses
-from advmil_tpu_torch.config import with_defaults
+from advmil_tpu_torch.config import check_configs, with_defaults
 from advmil_tpu_torch.data.bags import BucketBatcher, prepare_dataset
 from advmil_tpu_torch.data.synthetic import make_synthetic_dataset
 from advmil_tpu_torch.models import layers as tl
@@ -441,7 +441,8 @@ def test_training_path_imports_no_jax():
     assert "BAD []" in r.stdout, r.stdout
 
 
-# graph_grid_resident, refused until ROADMAP A13, runs in test_torch_grid.py
+# refused until their items were done: log_plot (A9), inst_devices over cluster /
+# graph (A14 rest); graph_grid_resident (A13) runs in test_torch_grid.py
 _REFUSED_WITH = {"dist_num_processes": {"inst_devices": 2, "bcb_mode": "cluster"},
                  "inst_devices": {"bcb_mode": "graph"}}
 
@@ -450,8 +451,15 @@ _REFUSED_WITH = {"dist_num_processes": {"inst_devices": 2, "bcb_mode": "cluster"
                                             ("dist_num_processes", 2, "A14"),
                                             ("inst_devices", 2, "A14")])
 def test_unported_training_options_name_the_roadmap(synth, tmp_path, key, value, item):
-    # parallelism runs; under it, what is refused is inst_devices over cluster / graph
+    """Options the port refused, naming `item`, until that item was done pass
+    the checks now: log_plot builds a handler that draws it; a parallel one,
+    built in one process, asks for its ranks. The one refusal left (A19) is
+    held in test_torch_optim.py."""
     over = {key: value, **_REFUSED_WITH.get(key, {})}
     cfg = with_defaults(_cfg(synth, tmp_path, "port", device="cpu", **over))
-    with pytest.raises(NotImplementedError, match=item):
-        thandler.AdvHandler(cfg)
+    check_configs(cfg)
+    if key == "log_plot":
+        assert thandler.AdvHandler(cfg).draws_plots
+    else:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            thandler.AdvHandler(cfg)

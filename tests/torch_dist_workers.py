@@ -59,6 +59,9 @@ def build_model(spec: dict):
     if kind == "disc":
         m = tgan.PrjDiscriminator(**kw)
         return m, lambda m, x, mask, extra, t, rng: m(x, t, mask, rng)
+    if kind in ("graph", "cluster"):
+        m = tbb.load_backbone(kind, spec["dims"], **kw)
+        return m, lambda m, x, mask, extra, t, rng: m(x, mask, extra, rng)
     raise ValueError(kind)
 
 
@@ -74,6 +77,11 @@ def model_case(device, case):
     d = case["inputs"]
     x, mask = _local(d["x"], True), _local(d["mask"], True)
     extra = _local(d["coords"], True) if "coords" in d else None
+    if "cluster_id" in d:
+        extra = _local(d["cluster_id"], True)
+    elif "graph" in d:      # the batch's tables as `_ship` cuts them
+        extra = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in mesh.shard_batch_2d({"graph": d["graph"]})["graph"].items()}
     t = _local(d["t"], False) if "t" in d else None
     rngs = tl.Rngs(device=torch.Generator().manual_seed(0),
                    host=torch.Generator().manual_seed(1))
