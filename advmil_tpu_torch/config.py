@@ -202,16 +202,18 @@ BASE_TASKS = ("surv_cox", "surv_nll", "surv_reg")
 
 
 def _not_ported(cfg: dict, handler: str) -> list:
-    """(key, value, ROADMAP item) for every requested mode the port lacks:
+    """(key, value, reason) for every requested mode the port refuses:
     AdaHessian through the patch or graph backbone's kernels on the card,
     whose backwards refuse the double backward (`ops/_build.py::
-    first_order`)."""
+    first_order`), as the JAX package's Pallas kernels have none
+    (`tests/test_torch_second_order.py`)."""
     if (handler == "base" and cfg.get("device") == "cuda"
             and cfg.get("bcb_mode") in ("patch", "graph")
             and str(cfg.get("opt_net")).lower() == "adahessian"):
         return [("opt_net", cfg["opt_net"],
-                 f"A19: AdaHessian through the {cfg['bcb_mode']} backbone's kernels "
-                 "on the card; device: cpu runs it")]
+                 f"ROADMAP A19: AdaHessian's Hessian-vector product through the "
+                 f"{cfg['bcb_mode']} backbone's kernels on the card; the JAX package has no "
+                 "second derivative through its kernels either; device: cpu runs it")]
     return []
 
 
@@ -231,8 +233,7 @@ def check_configs(cfg: dict, handler: str = "adv"):
     missing = _not_ported(cfg, handler)
     if missing:
         raise NotImplementedError("; ".join(
-            f"{k}: {v} is not ported yet (ROADMAP {item})"
-            for k, v, item in missing))
+            f"{k}: {v} is refused ({reason})" for k, v, reason in missing))
     for key in ("dp_devices", "inst_devices"):
         if cfg.get(key) is not None and int(cfg[key]) < 1:
             raise ValueError(f"{key} must be a positive rank count, got {cfg[key]!r}")

@@ -210,8 +210,8 @@ class BaselineHandler(HandlerCommon):
         """Restore the parameters and the optimizer state from
         `{run_name}_model-{ckpt_type}.ckpt` under save_path, as the JAX
         handler's `resume_model`: the port's own checkpoint, or the JAX
-        package's (Adam, see `checkpoint.optimizer_state`), mapped before
-        anything is loaded."""
+        package's (any optimizer state it saves, fused or per leaf: see
+        `bridge.opt_state_from_flax`), mapped before anything is loaded."""
         epoch, params, opt_state = ckpt_lib.restore_checkpoint(
             self._ckpt_path(ckpt_type, run_name))
         opt_sd = ckpt_lib.optimizer_state(opt_state, self.opt, self.model, self.cfg["opt_net"])

@@ -9,8 +9,10 @@ state_dict (or None), under the JAX package's naming contract
 decoder (`utils/flax_msgpack.py`); the parameters come back as a state_dict
 through `bridge.flax_to_torch`, the optimizer state as a `FlaxOptState`,
 which `optimizer_state` maps onto the port's optimizer
-(`bridge.adam_state_from_flax`). The format is told from the file's first
-bytes. An orbax checkpoint (`ckpt_backend: orbax`, a directory) is refused.
+(`bridge.opt_state_from_flax`: every optimizer name, `lookahead_`,
+MultiSteps and AdaHessian, per leaf or fused by `opt_flatten`). The format
+is told from the file's first bytes. An orbax checkpoint (`ckpt_backend:
+orbax`, a directory) is refused.
 """
 from __future__ import annotations
 
@@ -71,10 +73,10 @@ def restore_checkpoint(path: str) -> tuple[int, dict, dict | None]:
 def optimizer_state(opt_state, optimizer, model: torch.nn.Module, name: str) -> dict:
     """The state_dict to load into `optimizer` (which steps `model`'s
     parameters) from a checkpoint's optimizer state: the port's as it is, a
-    JAX package's mapped through the bridge (Adam only; `name` is the
-    config's optimizer name, for the refusals, which raise here)."""
+    JAX package's mapped through the bridge (`name` is the config's
+    optimizer name; a state the bridge does not recognise raises here)."""
     if isinstance(opt_state, FlaxOptState):
-        return bridge.adam_state_from_flax(opt_state, optimizer, model, name)
+        return bridge.opt_state_from_flax(opt_state, optimizer, model, name)
     if opt_state is None:
         raise ValueError("the checkpoint holds no optimizer state")
     return opt_state

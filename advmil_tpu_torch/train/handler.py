@@ -320,8 +320,9 @@ class AdvHandler(HandlerCommon):
         """Restore G's and D's parameters and optimizer states from
         `{run_name}_model{G,D}-{ckpt_type}.ckpt` under save_path, as the JAX
         handler's `resume_model`: the port's own checkpoints, or the JAX
-        package's (Adam, see `checkpoint.optimizer_state`). Both files are
-        read and mapped before anything is loaded."""
+        package's (any optimizer state it saves, fused or per leaf: see
+        `bridge.opt_state_from_flax`). Both files are read and mapped
+        before anything is loaded."""
         if self.opt_G is None:          # built for test mode
             self._setup_training()
         nets = (("G", self.gen_model, self.opt_G, self.cfg["opt_netG"]),

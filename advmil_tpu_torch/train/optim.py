@@ -243,6 +243,13 @@ class _Wrapper(torch.optim.Optimizer):
     def _params(self) -> list:
         return [p for g in self.param_groups for p in g["params"]]
 
+    def _load_inner(self, state: dict) -> None:
+        """Load the inner optimizer's state. torch's `load_state_dict` puts
+        new group dicts in its place, which become this optimizer's too (an
+        LR set here after a resume must still reach the inner step)."""
+        self.inner.load_state_dict(state)
+        self.param_groups = self.inner.param_groups
+
 
 class Lookahead(_Wrapper):
     """The JAX package's `lookahead` over an inner optimizer: the slow
@@ -272,7 +279,7 @@ class Lookahead(_Wrapper):
                 "slow": [s.clone() for s in self.slow]}
 
     def load_state_dict(self, state: dict) -> None:
-        self.inner.load_state_dict(state["inner"])
+        self._load_inner(state["inner"])
         self.count = int(state["count"])
         for s, v in zip(self.slow, state["slow"]):
             s.copy_(v)
@@ -320,7 +327,7 @@ class MultiSteps(_Wrapper):
                 "acc": [a.clone() for a in self.acc]}
 
     def load_state_dict(self, state: dict) -> None:
-        self.inner.load_state_dict(state["inner"])
+        self._load_inner(state["inner"])
         self.mini_step = int(state["mini_step"])
         self.gradient_step = int(state["gradient_step"])
         for a, v in zip(self.acc, state["acc"]):

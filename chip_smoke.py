@@ -129,9 +129,17 @@ Phases, each printed on its own line:
  38. the JAX package's msgpack checkpoints: test mode with `test_load_path`
      at a JAX run directory, then `resume_model` and one f32 step, held to
      the JAX package's numbers within 1e-4 (this machine has no JAX: the
-     small pair and the numbers are committed under tests/data/jax_ckpt/,
-     written by scripts/make_jax_ckpt_fixture.py); paths
-     `jax_ckpt_test_mode` and `jax_ckpt_resume_step` (#1, #2).
+     small runs and the numbers are committed under tests/data/jax_ckpt/,
+     written by scripts/make_jax_ckpt_fixture.py); the same resume and step
+     from the JAX defaults' fused Adam moments (`flat/`), lookahead_radam
+     under accum_steps 2 with half an accumulator (`lookahead_accum/`), and
+     the baseline with sgd, adamp and AdaHessian; then, at cfg_nlst width
+     with no JAX, G's and D's Adam state laid out as `optax.flatten` lays
+     it out, resumed in a fresh handler through the bridge: its next step
+     equal to the uninterrupted one within the spread of two uninterrupted
+     steps; paths `jax_ckpt_test_mode`, `jax_ckpt_resume_step` (#1, #2)
+     and `jax_flat_full_width_step` (#1, #2 at D = 384 and 128; the other
+     runs' models, ABMIL and a D tower of 32, take no kernel).
  39. `python -m advmil_tpu_torch.stats` at cfg_nlst width in every mode on
      the card, parameter counts and FLOPs equal to the CPU's.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
@@ -3430,17 +3438,25 @@ SOURCES = {
 
 JAX_FIXTURE = osp.join(ROOT, "tests", "data", "jax_ckpt")
 JAX_LOSSES = ("Loss_D", "Loss_G_total", "Loss_G_fake", "Loss_G_time", "D_real")
+# the fixture's other run directories (scripts/make_jax_ckpt_fixture.py):
+# adversarial at the JAX defaults (fused Adam moments) and with
+# lookahead_radam under accum_steps 2 (half an accumulator), D's tower at 32;
+# the baseline on ABMIL with three more optimizers
+JAX_ADV_RUNS = ("flat", "lookahead_accum")
+JAX_BASE_OPTS = ("sgd", "adamp", "adahessian")
 
 
-def _fixture_cfg(work, device):
-    """The fixture's config (`config.json`, paths relative to the fixture)
-    with the data read from the fixture, the checkpoints read from the JAX
-    run directory, and everything written under `work`."""
-    with open(osp.join(JAX_FIXTURE, "config.json")) as f:
+def _fixture_cfg(work, device, sub=""):
+    """The config of the fixture's run `sub` (`config.json`; data paths
+    relative to the fixture, run paths to the run's directory) with the
+    data read from the fixture, the checkpoints read from the JAX run
+    directory, and everything written under `work`."""
+    with open(osp.join(JAX_FIXTURE, sub, "config.json")) as f:
         cfg = json.load(f)
     fx = lambda k: osp.join(JAX_FIXTURE, cfg[k])  # noqa: E731
     return dict(cfg, path_patch=fx("path_patch"), path_label=fx("path_label"),
-                data_split_path=fx("data_split_path"), test_load_path=fx("test_load_path"),
+                data_split_path=fx("data_split_path"),
+                test_load_path=osp.join(JAX_FIXTURE, sub, cfg["test_load_path"]),
                 save_path=osp.join(work, "run"), test_save_path=osp.join(work, "test"),
                 device=device)
 
@@ -3458,7 +3474,10 @@ def phase_jax_ckpt(card, device="cuda"):
     halved injected learning rate) and one f32 step on the fixture's second
     batch: the step's losses, G's parameters after it and the eval outputs
     of G and D after it within 1e-4 of the JAX step's. Counters are reset
-    before and read after each of the two."""
+    before and read after each of the two. Then the same resume and step
+    from the fixture's other runs (`_resume_fixture_step`): the JAX
+    defaults' fused Adam moments, lookahead_radam under accum_steps 2, and
+    the baseline with sgd, adamp and AdaHessian."""
     import numpy as np
     import torch
     from advmil_tpu_torch import main as port_main
@@ -3527,7 +3546,199 @@ def phase_jax_ckpt(card, device="cuda"):
                              f"{out_diff} from JAX's (bound 1e-4); G moved {g_moved}")
     if abs(lr[0] - float(cfg["opt_netG_lr"]) * 0.5) > 1e-9:
         raise AssertionError(f"38 jax resume: G's learning rate {lr} is not the injected one")
+    # the other runs' models take no kernel (ABMIL; D's tower at 32 takes
+    # the plain LN-pool): their launches are printed, not required
+    for sub in JAX_ADV_RUNS + tuple(osp.join("base_opts", o) for o in JAX_BASE_OPTS):
+        _resume_fixture_step(sub, "adv" if sub in JAX_ADV_RUNS else "base", card, device)
     return {"test": test_launches, "step": step_launches}
+
+
+def _resume_fixture_step(sub, handler_name, card, device):
+    """Phase 38: `resume_model` of a fresh port handler from the fixture's
+    JAX run directory `sub`, then the next step on the batch the JAX run
+    took (`batch_idx`): its losses, every parameter after it and the eval
+    outputs after it within 1e-4 of the JAX numbers. An AdaHessian step
+    takes the JAX step's Rademacher z (`z/<parameter>`). Returns the step's
+    launch counts (counters reset before the resume, read after the step)."""
+    import numpy as np
+    import torch
+    from advmil_tpu_torch import main as port_main
+    from advmil_tpu_torch.config import with_defaults
+    from advmil_tpu_torch.data.bags import BucketBatcher, prepare_dataset
+    from advmil_tpu_torch.models.layers import set_dropout_rates
+    from advmil_tpu_torch.train.steps import make_base_train_step
+    tag = f"38 jax checkpoint {sub}"
+    work = osp.join(WORK_DIR, "jax_ckpt", sub)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(osp.join(JAX_FIXTURE, sub, "run"), osp.join(work, "run"))
+    cfg = _fixture_cfg(work, device, sub)
+    want = np.load(osp.join(JAX_FIXTURE, sub, "expected.npz"))
+    h = port_main.handler_class(handler_name)(with_defaults(dict(cfg)))
+    nets = ({"G": h.gen_model, "D": h.disc_model} if handler_name == "adv"
+            else {"net": h.model})
+    reset_counters()
+    h.resume_model("best", "train")
+    for m in nets.values():
+        set_dropout_rates(m, 0.0)
+    ds = prepare_dataset([f"P{i:04d}" for i in range(12)], h.cfg)
+    batch = next(b for b in BucketBatcher(ds, token_budget=cfg["batch_token_budget"],
+                                          min_bucket=cfg["bucket_min"]).epoch_batches()
+                 if np.array_equal(b.idx, want["batch_idx"]))
+    if any(k.startswith("z/") for k in want.files):
+        names = [n for n, p in h.model.named_parameters() if p.requires_grad]
+        z = [torch.from_numpy(want[f"z/{n}"]).to(h.device) for n in names]
+        h.train_step = make_base_train_step(h.model, h.opt, task=h.task,
+                                            l1_coef=h.cfg["loss_regl1_coef"] or 0.0,
+                                            sup_loss_fn=h.sup_loss_fn,
+                                            z_fn=lambda params, gen: z)
+    resumed = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in nets.items()}
+    metrics_step, _ = h.train_step(h._ship(batch, train=True), h.train_rngs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counters()
+    losses = [k[5:] for k in want.files if k.startswith("loss/")]
+    loss_diff = max(abs(float(metrics_step[k]) - float(want[f"loss/{k}"])) for k in losses)
+    p_diff = max(max_abs(v.cpu(), torch.from_numpy(want[f"{n}/{k}"]))
+                 for n, m in nets.items() for k, v in m.state_dict().items())
+    moved = max(max_abs(v, resumed[n][k]) for n, m in nets.items()
+                for k, v in m.state_dict().items())
+    feats = torch.from_numpy(batch.feats).to(h.device)
+    mask = torch.from_numpy(batch.mask).to(h.device)
+    with torch.no_grad():
+        for m in nets.values():
+            m.eval()
+        if handler_name == "adv":
+            t = torch.from_numpy(batch.label[:, :1]).to(h.device)
+            outs = {"y_hat_after": h.gen_model(feats, mask, None, zero_noise=True),
+                    "d_after": h.disc_model(feats, t, mask)}
+        else:
+            outs = {"pred_after": h.model(feats, mask, None)}
+    out_diff = max(max_abs(v.reshape(-1).float().cpu(), torch.from_numpy(want[k]))
+                   for k, v in outs.items())
+    lr = sorted({g["lr"] for g in (h.opt_G if handler_name == "adv" else h.opt).param_groups})
+    log(f"[{tag}] {device}: resume + the next f32 step ({type(h.opt_G if handler_name == 'adv' else h.opt).__name__}, lr "
+        f"{lr}): losses within {loss_diff:.3e}, {'G and D' if handler_name == 'adv' else 'the net'}'s parameters "
+        f"(moved up to {moved:.3e}) within {p_diff:.3e}, eval outputs after the step within "
+        f"{out_diff:.3e} of JAX's (bounds 1e-4) | launches "
+        f"{({k: v for k, v in launches.items() if v})} | {card}")
+    if not (loss_diff <= 1e-4 and p_diff <= 1e-4 and out_diff <= 1e-4 and moved > 1e-4):
+        raise AssertionError(f"{tag}: losses {loss_diff}, parameters {p_diff}, outputs "
+                             f"{out_diff} from JAX's (bound 1e-4); moved {moved}")
+    return launches
+
+
+def _sorted_leaves(tree: dict) -> list:
+    """A nested dict's leaves in `jax.tree_util.tree_leaves` order (every
+    dict's keys sorted)."""
+    return [leaf for k in sorted(tree) for leaf in (
+        _sorted_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def _optax_flat_adam(model, opt, inject_lr=None) -> dict:
+    """The flax state dict that the JAX package's Adam with `opt_flatten:
+    true` saves for the state of torch Adam `opt` over `model`, written here
+    with numpy (the inverse of the bridge's split): `mu` / `nu` one vector
+    each over the flax leaves in tree_leaves order; with `inject_lr`, G's
+    chain (flat decay, Adam, learning rate) inside inject_hyperparams, else
+    D's (Adam, learning rate)."""
+    import numpy as np
+    from advmil_tpu_torch import bridge
+    named = dict(model.named_parameters())
+    st = {n: opt.state[p] for n, p in named.items()}
+    adam = {"count": np.asarray(int(next(iter(st.values()))["step"]), np.int32)}
+    for ours, theirs in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        tree = bridge.torch_to_flax({n: s[ours] for n, s in st.items()})
+        adam[theirs] = np.concatenate([leaf.ravel() for leaf in _sorted_leaves(tree)])
+    if inject_lr is None:
+        return {"0": adam, "1": {}}
+    return {"count": adam["count"], "hyperparams": {"learning_rate": np.float32(inject_lr)},
+            "hyperparams_states": {}, "inner_state": {"0": {}, "1": adam, "2": {}}}
+
+
+def phase_jax_flat_full(paths, card, device="cuda", pids=None, dims=(384, 128), **over):
+    """Phase 38, full width, no JAX: the main path at cfg_nlst width (ESAT
+    1024-384, 8 heads; D's tower 128; bf16; dropout off, zero noise) takes one
+    step; G's and D's Adam state is laid out as `optax.flatten` lays it out
+    (`_optax_flat_adam`) and a fresh handler resumes from it through
+    `bridge.opt_state_from_flax` (with the same parameters). Its next step
+    must equal the uninterrupted handler's next step, within the spread of
+    two uninterrupted steps from one state. Counters are reset before and
+    read after the resumed step; #1 (at each width of `dims`) and #2 must
+    launch. Returns the launches."""
+    import copy
+    import numpy as np
+    import torch
+    from advmil_tpu_torch import bridge
+    from advmil_tpu_torch import main as port_main
+    from advmil_tpu_torch.config import with_defaults
+    from advmil_tpu_torch.data.bags import BucketBatcher, prepare_dataset
+    from advmil_tpu_torch.models.layers import set_dropout_rates
+    tag = "38 jax checkpoint full width"
+    cfg = with_defaults(_smoke_cfg(paths, "jax_flat_full", gen_noi_noise="0-0", device=device,
+                                   times_test_sample=1,
+                                   **over))
+
+    def handler():
+        h = port_main.handler_class("adv")(dict(cfg))
+        for m in (h.gen_model, h.disc_model):
+            set_dropout_rates(m, 0.0)
+        return h
+
+    h1 = handler()
+    ds = prepare_dataset(pids or [f"P{i:04d}" for i in range(7, 19)], h1.cfg)
+    a, b = list(BucketBatcher(ds, token_budget=cfg["batch_token_budget"],
+                              min_bucket=cfg["bucket_min"]).epoch_batches())[:2]
+    h1.train_step(h1._ship(a, train=True), h1.train_rngs)
+    nets = (("G", "gen_model", "opt_G"), ("D", "disc_model", "opt_D"))
+    saved = {n: (copy.deepcopy(getattr(h1, m).state_dict()),
+                 copy.deepcopy(getattr(h1, o).state_dict())) for n, m, o in nets}
+    layout = {"G": _optax_flat_adam(h1.gen_model, h1.opt_G, h1.opt_G.param_groups[0]["lr"]),
+              "D": _optax_flat_adam(h1.disc_model, h1.opt_D)}
+
+    def step(h):
+        met, _ = h.train_step(h._ship(b, train=True), h.train_rngs)
+        return ({k: float(v) for k, v in met.items()},
+                {f"{n}.{k}": v.detach().cpu().clone() for n, m, _ in nets
+                 for k, v in getattr(h, m).state_dict().items()})
+
+    def diff(x, y):
+        return max([abs(x[0][k] - y[0][k]) for k in x[0]]
+                   + [max_abs(x[1][k], y[1][k]) for k in x[1]])
+
+    first = step(h1)
+    for n, m, o in nets:                  # the same state again: the spread
+        getattr(h1, m).load_state_dict(saved[n][0])
+        getattr(h1, o).load_state_dict(saved[n][1])
+    second = step(h1)
+    spread = diff(first, second)
+    h2 = handler()
+    for n, m, o in nets:
+        getattr(h2, m).load_state_dict(saved[n][0])
+        getattr(h2, o).load_state_dict(bridge.opt_state_from_flax(
+            layout[n], getattr(h2, o), getattr(h2, m), "adam"))
+    reset_counters()
+    resumed = step(h2)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches, widths = read_counters(), read_widths()
+    got = diff(resumed, first)
+    moved = max(max_abs(first[1][f"{n}.{k}"], v.cpu()) for n, _, _ in nets
+                for k, v in saved[n][0].items())
+    n_g = int(np.size(layout["G"]["inner_state"]["1"]["mu"]))
+    log(f"[{tag}] {device}: one step at {cfg['bcb_dims']} / D tower "
+        f"{cfg['disc_netx_out_dim']}, {cfg['precision']}; G's and D's Adam state as one "
+        f"fused vector each ({n_g:,} and {np.size(layout['D']['0']['mu']):,} elements), "
+        f"resumed in a fresh handler: its next step (batch {tuple(b.feats.shape)}) differs "
+        f"from the uninterrupted one by {got:.3e}, the spread of two uninterrupted steps "
+        f"{spread:.3e} (bound), parameters moved up to {moved:.3e} | launches "
+        f"{({k: v for k, v in launches.items() if v})}, LN-pool by width {widths} | {card}")
+    if not (got <= spread and moved > 0):
+        raise AssertionError(f"{tag}: the resumed step differs by {got} (spread {spread})")
+    for way, kernel in (("fwd", "ln_relu_region_mean"), ("bwd", "ln_relu_region_mean_bwd")):
+        if device == "cuda" and not all(widths[way].get(d, 0) > 0 for d in dims):
+            raise AssertionError(f"{tag}: {kernel} launches by width {widths[way]}, not at "
+                                 f"each of {dims}")
+    return launches
 
 
 def phase_stats(card, device="cuda"):
@@ -3641,6 +3852,7 @@ def main():
     timed("36 grid checks", phase_grid_checks, grid_handler)
     grid_report = timed("37 grid kernels", phase_grid_kernels, card)
     jax_launches = timed("38 jax checkpoint", phase_jax_ckpt, card)
+    jax_full_launches = timed("38 jax checkpoint full width", phase_jax_flat_full, paths, card)
     timed("39 stats", phase_stats, card)
     for d in ("data", "tissue"):
         shutil.rmtree(osp.join(WORK_DIR, d), ignore_errors=True)
@@ -3683,6 +3895,7 @@ def main():
                        "inst2_cluster_step": inst2_cluster_launches[name],
                        "jax_ckpt_test_mode": jax_launches["test"][name],
                        "jax_ckpt_resume_step": jax_launches["step"][name],
+                       "jax_flat_full_width_step": jax_full_launches[name],
                        "grid_train": grid_launches[name],
                        "grid_test_mode": grid_test_launches[name]}
             entry.update(launches=sum(by_path.values()), launches_by_path=by_path)
@@ -3706,6 +3919,7 @@ def main():
                            ("inst2_cluster_step", LN_KERNELS),
                            ("jax_ckpt_test_mode", LN_KERNELS[:1]),
                            ("jax_ckpt_resume_step", LN_KERNELS),
+                           ("jax_flat_full_width_step", LN_KERNELS),
                            ("grid_train", GRAPH_KERNELS + LN_KERNELS),
                            ("grid_test_mode", ("banded_aggregate", "ln_relu_region_mean"))):
             if name in need and entry["launches_by_path"][path] <= 0:

@@ -189,12 +189,27 @@ def _jax_params(handler, jh):
     return {"net": jh.state.params}
 
 
+def _jax_step_save(handler, jh, batches):
+    """One step on batch 0, the injected learning rate halved,
+    `save_model(1, "best")`; (parameters saved, parameters after a step on
+    batch 1)."""
+    jh.state, _, _ = jh.train_step(jh.state, jh._ship(_jax_dev(batches[0])))
+    jh._set_lr(LR * 0.5)
+    jh.save_model(1, "best", "train")
+    saved = {k: _np_tree(v) for k, v in _jax_params(handler, jh).items()}
+    jh.state, _, _ = jh.train_step(jh.state, jh._ship(_jax_dev(batches[1])))
+    return saved, {k: bridge.flax_to_torch(_np_tree(v))
+                   for k, v in _jax_params(handler, jh).items()}
+
+
 @pytest.fixture(scope="module")
 def jax_runs(synth, tmp_path_factory):
     """Per handler, from a JAX handler (opt_flatten: false): one step on
     batch 0, the injected learning rate halved, `save_model(1, "best")`
     into its run directory, then the parameters after a step on batch 1;
-    and the JAX test mode from that directory."""
+    and the JAX test mode from that directory. Then the same run at the JAX
+    defaults (`opt_flatten` unset: one fused moment vector) into a run
+    directory of its own (`default`), without test mode."""
     from advmil_tpu.train.baseline import BaselineHandler as JBase
     from advmil_tpu.train.handler import AdvHandler as JAdv
     tmp = tmp_path_factory.mktemp("ckpt_runs")
@@ -204,23 +219,21 @@ def jax_runs(synth, tmp_path_factory):
         for handler, jcls in (("adv", JAdv), ("base", JBase)):
             cfg = _make(handler, synth, tmp, f"jax_{handler}", rng_impl="threefry",
                         opt_flatten=False)
-            jh = jcls(j_with_defaults(dict(cfg)))
             batches = _batches(cfg, 3)
-            jh.state, _, _ = jh.train_step(jh.state, jh._ship(_jax_dev(batches[0])))
-            jh._set_lr(LR * 0.5)
-            jh.save_model(1, "best", "train")
-            saved = {k: _np_tree(v) for k, v in _jax_params(handler, jh).items()}
-            jh.state, _, _ = jh.train_step(jh.state, jh._ship(_jax_dev(batches[1])))
-            stepped = {k: bridge.flax_to_torch(_np_tree(v))
-                       for k, v in _jax_params(handler, jh).items()}
+            saved, stepped = _jax_step_save(handler, jcls(j_with_defaults(dict(cfg))),
+                                            batches)
             test_cfg = dict(cfg, test=True, test_load_path=cfg["save_path"],
                             test_save_path=str(tmp / f"jax_{handler}-test-{{}}-{{}}"))
             jt = jcls(j_with_defaults(test_cfg)).exec_test()
+            dcfg = _make(handler, synth, tmp, f"jax_{handler}_default", rng_impl="threefry")
+            dsaved, dstepped = _jax_step_save(handler, jcls(j_with_defaults(dict(dcfg))),
+                                              batches)
             out[handler] = {"cfg": cfg, "batches": batches, "saved": saved,
                             "stepped": stepped, "jax_test": jt,
                             "jax_test_dir": str(tmp / f"jax_{handler}-test-0.8-0"
                                                 if handler == "adv"
                                                 else tmp / f"jax_{handler}-test-0.0-0"),
+                            "default": {"cfg": dcfg, "saved": dsaved, "stepped": dstepped},
                             "tmp": tmp}
     return out
 
@@ -264,7 +277,8 @@ def _port_handler(handler, run, **o):
     """A port handler on the CPU whose save_path is the JAX run's directory
     (resume_model reads from save_path, as the JAX handler's), dropout off."""
     cfg = dict(run["cfg"], device="cpu", **o)
-    del cfg["rng_impl"], cfg["opt_flatten"]
+    cfg.pop("opt_flatten", None)
+    del cfg["rng_impl"]
     h = handler_class(handler)(with_defaults(cfg))
     for m, _, _ in _nets(handler, h).values():
         tl.set_dropout_rates(m, 0.0)
@@ -324,33 +338,105 @@ def test_resume_from_jax_checkpoint_then_step(jax_runs, handler):
             assert torch.equal(v, w), k
 
 
+@pytest.mark.parametrize("handler", ["adv", "base"])
+def test_resume_at_jax_defaults_then_step(jax_runs, handler):
+    """A JAX run at its defaults (`opt_flatten` unset) saves Adam's moments
+    of G, D and the baseline's net as one fused vector each; resume_model
+    maps them (split by the leaves' sizes in tree_leaves order) and the
+    halved learning rate, and the next f32 step on batch 1 is within 1e-5 of
+    the JAX step from the same state."""
+    run = dict(jax_runs[handler], **jax_runs[handler]["default"])
+    h = _port_handler(handler, run)
+    h.resume_model("best", "train")
+    for net, (m, opt, _) in _nets(handler, h).items():
+        fname = f"train_model{'' if net == 'net' else net}-best.ckpt"
+        with open(osp.join(run["cfg"]["save_path"], fname), "rb") as f:
+            jopt = serialization.msgpack_restore(f.read())["opt_state"]
+        jopt = jopt.get("inner_state", jopt)
+        adam = next(v for v in jopt.values() if v.get("mu") is not None)
+        n = sum(p.numel() for p in m.parameters())
+        assert np.shape(adam["mu"]) == (n,) == np.shape(adam["nu"]), net
+        lr = np.float32(LR if net == "D" else LR * 0.5)   # D's is not injected
+        assert all(g["lr"] == lr for g in opt.param_groups), net
+        got = np.concatenate([opt.state[p]["exp_avg"].numpy().ravel() for p in m.parameters()])
+        assert np.abs(got).sum() == pytest.approx(np.abs(adam["mu"]).sum(), rel=1e-6), net
+    _step(h, run["batches"][1])
+    for net, (m, _, _) in _nets(handler, h).items():
+        want = run["stepped"][net]
+        for k, v in m.state_dict().items():
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-5,
+                                       err_msg=f"{net} {k}")
+
+
 def _write_jax_ckpt(path, params, opt_name, flatten):
-    """A JAX package checkpoint of `params` with a fresh `opt_name` state,
-    built as the JAX handler builds G's (inject_hyperparams, coupled L2)."""
+    """A JAX package checkpoint of `params` with an `opt_name` state after
+    one update (gradient: the parameters / 10), built as the JAX handler
+    builds G's (inject_hyperparams, coupled L2); returns the state."""
+    import jax
     tx = optax.inject_hyperparams(lambda learning_rate: j_create_optimizer(
         opt_name, learning_rate, weight_decay=5e-4, params=params, flatten=flatten))(
         learning_rate=LR)
-    jckpt.save_checkpoint(path, 1, params, tx.init(params))
+    grads = jax.tree_util.tree_map(lambda p: p / 10, params)
+    _, state = jax.jit(tx.update)(grads, tx.init(params), params)
+    jckpt.save_checkpoint(path, 1, params, state)
+    return state
 
 
 @pytest.mark.parametrize("case", ["opt_flatten", "jax_momentum", "port_radam"])
 def test_resume_refusals_raise_before_loading(jax_runs, tmp_path, case):
-    """A JAX checkpoint with one fused moment vector (opt_flatten: true), one
-    whose state is another optimizer's (momentum's trace), and a port run of
-    another optimizer given a JAX checkpoint: each raises naming ROADMAP A1
-    rest, and the model keeps its parameters (nothing was loaded)."""
+    """Once refused, now resumed: a JAX checkpoint with one fused moment
+    vector (opt_flatten: true), one of momentum's state (its trace) into a
+    port run of momentum, and a JAX Adam state into a port run of RAdam
+    (the same layout; the config's name decides). G's and D's parameters
+    load, and each mapped per-parameter field equals the JAX state's leaf
+    for leaf (the fused vector against the same update's unflattened
+    state)."""
+    run = jax_runs["adv"]
+    save = str(tmp_path / "run")
+    opt_name = "momentum" if case == "jax_momentum" else "adam"
+    states = {net: _write_jax_ckpt(osp.join(save, f"train_model{net}-best.ckpt"),
+                                   run["saved"][net], opt_name if net == "G" else "adam",
+                                   flatten=case == "opt_flatten")
+              for net in ("G", "D")}
+    port_name = {"jax_momentum": "momentum", "port_radam": "radam"}.get(case, "adam")
+    h = _port_handler("adv", run, save_path=save, opt_netG=port_name)
+    h.resume_model("best", "train")
+    fields = {"adam": {"exp_avg": "mu", "exp_avg_sq": "nu"}, "radam": {"mu": "mu", "nu": "nu"},
+              "momentum": {"trace": "trace"}}[port_name]
+    m, opt = h.gen_model, h.opt_G
+    want_sd = bridge.flax_to_torch(run["saved"]["G"])
+    for k, v in m.state_dict().items():
+        assert torch.equal(v, want_sd[k]), k
+    entry = serialization.to_state_dict(states["G"])["inner_state"]["1"]
+    if case == "opt_flatten":        # the same update unflattened: the per-leaf reference
+        assert np.ndim(entry["mu"]) == 1
+        entry = serialization.to_state_dict(_write_jax_ckpt(
+            str(tmp_path / "twin.ckpt"), run["saved"]["G"], opt_name, False))["inner_state"]["1"]
+    moved = 0.0
+    for field, jfield in fields.items():
+        want = bridge.flax_to_torch(_np_tree(entry[jfield]))
+        for k, p in m.named_parameters():
+            np.testing.assert_allclose(opt.state[p][field].numpy(), want[k].numpy(),
+                                       rtol=1e-6, atol=1e-12, err_msg=f"{field} {k}")
+            moved = max(moved, float(want[k].abs().max()))
+    assert moved > 0
+    first = opt.state[next(iter(m.parameters()))]
+    assert float(first["step" if port_name == "adam" else "count"]) == 1.0
+    assert all(g["lr"] == np.float32(LR) for g in opt.param_groups)
+
+
+def test_resume_unrecognised_state_raises_before_loading(jax_runs, tmp_path):
+    """A state of another structure than the port's optimizer needs (a JAX
+    momentum trace for a port run of Adam) raises, naming the optimizer and
+    what it found, and the model keeps its parameters (nothing was loaded)."""
     run = jax_runs["adv"]
     save = str(tmp_path / "run")
     for net in ("G", "D"):
         _write_jax_ckpt(osp.join(save, f"train_model{net}-best.ckpt"), run["saved"][net],
-                        "momentum" if case == "jax_momentum" else "adam",
-                        flatten=case == "opt_flatten")
-    h = _port_handler("adv", run, save_path=save,
-                      **({"opt_netG": "radam"} if case == "port_radam" else {}))
+                        "momentum" if net == "G" else "adam", flatten=True)
+    h = _port_handler("adv", run, save_path=save)
     before = {k: v.clone() for k, v in h.gen_model.state_dict().items()}
-    match = {"opt_flatten": "opt_flatten: true.*A1 rest", "jax_momentum": "A1 rest",
-             "port_radam": "'radam'.*A1 rest"}[case]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match="'adam'.*found.*trace"):
         h.resume_model("best", "train")
     for k, v in h.gen_model.state_dict().items():
         assert torch.equal(v, before[k]), k
@@ -452,15 +538,66 @@ def test_log_plot_without_matplotlib_raises(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_chip_smoke_jax_fixture_phase_on_cpu(monkeypatch, tmp_path, capsys):
-    """`chip_smoke.phase_jax_ckpt` with `device: cpu`: the committed JAX run
+    """`chip_smoke.phase_jax_ckpt` with `device: cpu`: the committed JAX runs
     (`scripts/make_jax_ckpt_fixture.py`) evaluated and resumed by the port
     within the phase's 1e-4 of the committed JAX numbers, with no JAX in the
-    phase's path; the fixture stays under 1 MB."""
+    phase's path: the Adam pair, the JAX defaults' fused moments, lookahead
+    under accumulation, and the baseline with sgd, adamp and AdaHessian. The
+    Adam pair and the dataset stay under 1 MB, and so do the other runs
+    together."""
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "WORK_DIR", str(tmp_path))
-    size = sum(osp.getsize(osp.join(d, f)) for d, _, fs in os.walk(chip_smoke.JAX_FIXTURE)
-               for f in fs)
-    assert 0 < size <= 1 << 20
+    runs = chip_smoke.JAX_ADV_RUNS + ("base_opts",)
+    size = lambda root: sum(osp.getsize(osp.join(d, f))   # noqa: E731
+                            for d, _, fs in os.walk(root) for f in fs)
+    added = sum(size(osp.join(chip_smoke.JAX_FIXTURE, r)) for r in runs)
+    assert 0 < size(chip_smoke.JAX_FIXTURE) - added <= 1 << 20
+    assert 0 < added <= 1 << 20
     launches = chip_smoke.phase_jax_ckpt("cpu", device="cpu")
     assert set(launches) == {"test", "step"}
-    assert "[38 jax checkpoint] cpu" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "[38 jax checkpoint] cpu" in out
+    for sub in runs[:-1] + tuple(f"base_opts/{o}" for o in chip_smoke.JAX_BASE_OPTS):
+        assert f"[38 jax checkpoint {sub}] cpu" in out, sub
+
+
+def test_chip_smoke_full_width_flat_resume_on_cpu(monkeypatch, tmp_path, capsys):
+    """`chip_smoke.phase_jax_flat_full` on the CPU at a narrow width: G's
+    and D's Adam state laid out as `optax.flatten` lays it out (numpy, in
+    the script), resumed through the bridge in a fresh handler, and its next
+    step equal to the uninterrupted one within the spread of two
+    uninterrupted steps (0 here). The layout is the JAX package's: the JAX
+    optimizers' flattened state has the same structure and shapes."""
+    import jax
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "WORK_DIR", str(tmp_path))
+    paths = make_synthetic_dataset(str(tmp_path / "data"), n_patients=14, dim=32,
+                                   min_regions=2, max_regions=6, seed=4, feat_format="pt")
+    over = dict(bcb_dims="32-64-64", gen_dims="64-1", disc_netx_in_dim=32,
+                disc_netx_out_dim=32, disc_nety_hid_dims="16-32", precision="f32",
+                batch_token_budget=256, bucket_min=32)
+    chip_smoke.phase_jax_flat_full(paths, "cpu", device="cpu",
+                                   pids=[f"P{i:04d}" for i in range(14)], **over)
+    assert "resumed in a fresh handler" in capsys.readouterr().out
+    # the layout against the JAX package's own flattened Adam, on a small tree
+    params = {"b": {"kernel": np.ones((3, 2), np.float32)}, "a": {"bias": np.ones(2, np.float32)}}
+    model = torch.nn.Module()
+    for name, sd in (("b", {"weight": torch.ones(2, 3)}), ("a", {"bias": torch.ones(2)})):
+        sub = torch.nn.Module()
+        for k, v in sd.items():
+            sub.register_parameter(k, torch.nn.Parameter(v))
+        model.add_module(name, sub)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    for inject in (None, LR):
+        mine = chip_smoke._optax_flat_adam(model, opt, inject)
+        if inject is None:
+            tx = j_create_optimizer("adam", LR, betas=(0.9, 0.999))
+        else:
+            tx = optax.inject_hyperparams(lambda learning_rate: j_create_optimizer(
+                "adam", learning_rate, weight_decay=5e-4, params=params))(learning_rate=LR)
+        theirs = serialization.to_state_dict(tx.init(params))
+        shapes = lambda t: jax.tree_util.tree_map(np.shape, t)   # noqa: E731
+        assert shapes(mine) == shapes(theirs), (shapes(mine), shapes(theirs))

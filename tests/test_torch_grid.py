@@ -38,7 +38,7 @@ from advmil_tpu_torch.train import baseline as tbaseline
 from advmil_tpu_torch.train import handler as thandler
 from tests.test_grid_banding import _block_slide, _tissue_graph
 from tests.test_torch_baseline import _cfg as _base_cfg
-from tests.test_torch_graph import _cfg, _grads_match, _read_pred, _write_yaml
+from tests.test_torch_graph import _cfg, _grads_match, _read_pred, _write_yaml, raster_graph
 
 TOL = 1e-5
 
@@ -455,3 +455,163 @@ def test_grid_resident_runs_on_both_handlers(tissue_synth, tmp_path, monkeypatch
         preds[name] = _read_pred(osp.join(str(tmp_path / name), "train_best_pred_test.csv"))
     assert preds["adv"] and sorted(preds["adv"]) == sorted(preds["base"])
     assert np.all(np.isfinite([v for p in preds.values() for v in p.values()]))
+
+
+# ---------------------------------------------------------------------------
+# (f) a repeated edge, route by route against the JAX package
+# ---------------------------------------------------------------------------
+
+def _repeat_an_edge(esrc, em, node):
+    """The tables with `node`'s second real neighbour replaced by its first:
+    the (node, src) pair listed twice. Returns (tables, slot of the copy)."""
+    esrc, em = esrc.copy(), em.copy()
+    slots = [s for s in range(esrc.shape[1]) if em[node, s] > 0 and esrc[node, s] != node]
+    esrc[node, slots[1]] = esrc[node, slots[0]]
+    return esrc, em, slots[1]
+
+
+def _genconv_pair(C, x, port_ex, jax_ex, route, paths=("pallas", "jnp")):
+    """GENConv from the same weights on both sides: {"port": output, path:
+    the JAX output} for each JAX path: "pallas", the path the JAX package
+    takes on the TPU (`pallas_banded_aggregate`, `fused_knn_softmax_aggregate`),
+    here in interpret mode; "jnp", its path elsewhere (the residual edge
+    lists' rolls, the jnp softmax chain)."""
+    import functools
+    from advmil_tpu.ops import banded_pallas as jbp
+    jex = {k: jnp.asarray(v) for k, v in jax_ex.items()}
+    band = _jax_band(jex) if route == "grid" else (
+        {"offs": jex["band_offs"], "mask": jex["band_mask"], "res_node": jex["res_node"],
+         "res_src": jex["res_src"], "res_mask": jex["res_mask"],
+         "u_rows": jex["band_urows"], "u_src": jex["band_usrc"],
+         "u_emask": jex["band_uemask"], "u_inv": jex["band_uinv"]}
+        if route == "banded" else None)
+    es, em = jex.get("edge_src"), jex.get("edge_mask")
+    jmod = jbb.GENConv(C, use_pallas=True)
+    axes = tuple(None if a is None else 0 for a in (es, em, band))
+
+    def japply(params, xx, es, em, band):
+        return jax.vmap(lambda xb, eb, mb, bb: jmod.apply(
+            {"params": params}, xb, eb, mb, None, None, bb, deterministic=True),
+            in_axes=(0,) + axes)(xx, es, em, band)
+
+    # the parameters do not depend on the route: init on a 4-node dense graph
+    jparams = jmod.init(jax.random.PRNGKey(0), jnp.zeros((4, C)), jnp.zeros((4, 1), jnp.int32),
+                        jnp.ones((4, 1)), None, None, None, deterministic=True)["params"]
+    jparams = jax.tree_util.tree_map(lambda a: a * 1.1 + 0.05, jparams)
+    tmod = tbb.GENConv(C).eval()
+    tmod.load_state_dict(bridge.flax_to_torch(jax.tree_util.tree_map(np.asarray, jparams)))
+    tex = {k: torch.from_numpy(v) for k, v in port_ex.items()}
+    out = {"port": tmod(torch.from_numpy(x), tex).detach().numpy()}
+    for path in paths:
+        with pytest.MonkeyPatch.context() as mp:
+            if path == "pallas":
+                mp.setattr(jbb, "pallas_available", lambda: True)
+                mp.setattr(jbb, "pallas_banded_aggregate",
+                           functools.partial(jbp.pallas_banded_aggregate, interpret=True))
+                mp.setattr(jbb, "fused_knn_softmax_aggregate",
+                           functools.partial(jseg.fused_knn_softmax_aggregate, interpret=True))
+            # a new function per path: jit caches by function, not by the patches
+            out[path] = np.asarray(jax.jit(lambda *a: japply(*a))(jparams, jnp.asarray(x), es,
+                                                                   em, band))
+    return out
+
+
+def _route_tables(route, esrc, em, N):
+    """(port extra, JAX extra) of one [N, epn] table on the dense or banded
+    route, each built by its own package's builders."""
+    from advmil_tpu_torch.ops import banded as tbanded
+    esrc, em = esrc[None], em[None]
+    if route == "dense":
+        ex = {"edge_src": esrc, "edge_mask": em}
+        return ex, dict(ex)
+    offs, bmask, *_ = tseg.build_band_tables(esrc[0], em[0], res_slots=128)
+    u_slots = 8 * (1 + tseg.band_coverage(esrc[0], em[0])[2] // 8)
+    u = tbanded.build_u_tables(esrc[0], em[0], bmask, u_slots=u_slots)
+    port = {"band_offs": offs[None], "band_mask": bmask[None], "band_urows": u[0][None],
+            "band_usrc": u[1][None], "band_uemask": u[2][None],
+            "band_uinv": tbanded.build_u_inv(u[0], N)[None]}
+    joffs, jbmask, rn, rs, rm = jseg.build_band_tables(esrc[0], em[0], res_slots=128)
+    jx = dict(port, band_offs=joffs[None], band_mask=jbmask[None], res_node=rn[None],
+              res_src=rs[None], res_mask=rm[None])
+    return port, jx
+
+
+def _grid_tables(tmp_path, slides):
+    """The grid route's first batch for `slides` (coords, edge_index, n) in
+    both packages' batchers: (port batch, JAX extra)."""
+    root = str(tmp_path)
+    for d in ("feats", "graphs"):
+        os.makedirs(osp.join(root, d), exist_ok=True)
+    rng = np.random.default_rng(0)
+    rows = []
+    for p, slide in enumerate(slides):
+        _write_slide(root, f"p{p:02d}_s0", slide, 8, rng)
+        rows.append([f"p{p:02d}", f"p{p:02d}_s0", f"{1.0 + p:.1f}", str(p % 2)])
+    table = osp.join(root, "labels.csv")
+    with open(table, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "pathology_id", "t", "e"])
+        w.writerows(rows)
+    tds, jds = _datasets({"root": root, "pids": [r[0] for r in rows], "table": table})
+    tb = BucketBatcher(tds, **GRID_KW)
+    assert tb.grid_on and not tb.band_on
+    batch = next(iter(tb.epoch_batches()))
+    jbatch = next(iter(JBucketBatcher(jds, **GRID_KW).epoch_batches()))
+    np.testing.assert_array_equal(batch.idx, jbatch.idx)
+    return batch, jbatch.extra
+
+
+@pytest.mark.parametrize("route", ["dense", "banded", "grid"])
+def test_repeated_edge_matches_jax_route_by_route(tmp_path, route):
+    """A node that lists the same (dst, src) pair twice, through one GENConv
+    from the same weights, the port's route against the JAX package's same
+    route, each side with its own table builders: within 1e-5 of the path
+    the JAX package takes on the TPU (its Pallas kernels, here in interpret
+    mode), which the port's kernels translate; on the same graph without
+    the copy, within 1e-5 of its jnp path. Whether the copy counts (the
+    node's output moves against the graph without it): twice on the
+    dense route (two slots) and on the banded route (one banded slot, one
+    residual edge: `build_band_tables` bands by slot position), in the port
+    and in both JAX paths. On the grid route the copy's offset is banded
+    (`build_band_tables_matched` ORs both copies into one slot) and the
+    node also has an edge off the bands, so it is a residual row: the port
+    and the JAX Pallas path recompute it from its full edge slice (twice),
+    the JAX jnp path adds the band's one slot to the residual edge list
+    (once). The two JAX paths disagree as the port's dense and grid routes
+    do: the precondition (sources unique per node,
+    `advmil_tpu/ops/segment.py:502-503`) is the JAX package's own."""
+    C = 12
+    rng = np.random.default_rng(8)
+    if route == "grid":
+        coords, ei, n = _tissue_slide(20, 12)
+        dst, src = ei
+        node = int(np.bincount(dst).argmax())
+        first, second = np.nonzero(dst == node)[0][:2]
+        src_rep = src.copy()
+        src_rep[second] = src[first]
+        other = _tissue_slide(21, 13)
+        graphs = {"repeated": (coords, np.stack([dst, src_rep]), n),
+                  "without": (coords, np.stack([np.delete(dst, second),
+                                                np.delete(src, second)]), n)}
+        tables = {k: _grid_tables(tmp_path / k, [g, other]) for k, g in graphs.items()}
+        batch = tables["repeated"][0]
+        x = rng.normal(size=batch.feats.shape[:2] + (C,)).astype(np.float32)
+        row = int(np.nonzero(batch.idx == 0)[0][0])
+        tables = {k: (b.extra, jx) for k, (b, jx) in tables.items()}
+    else:
+        N, node, row = 96, 20, 0
+        esrc, em = raster_graph(N, 8, rng, epn=9, irregular=6, empty=(3,))
+        rep_src, rep_em, slot = _repeat_an_edge(esrc, em, node)
+        plain_em = rep_em.copy()
+        plain_em[node, slot] = 0.0
+        x = rng.normal(size=(1, N, C)).astype(np.float32)
+        tables = {k: _route_tables(route, rep_src, m, N)
+                  for k, m in (("repeated", rep_em), ("without", plain_em))}
+    rep = _genconv_pair(C, x, *tables["repeated"], route)
+    plain = _genconv_pair(C, x, *tables["without"], route, paths=("jnp",))
+    np.testing.assert_allclose(rep["port"], rep["pallas"], atol=TOL)
+    np.testing.assert_allclose(plain["port"], plain["jnp"], atol=TOL)
+    gap = {k: float(np.abs(rep[k][row, node] - plain["jnp"][row, node]).max())
+           for k in ("port", "pallas", "jnp")}
+    twice = {k: g > 1e-3 for k, g in gap.items()}
+    assert twice == {"port": True, "pallas": True, "jnp": route != "grid"}, gap

@@ -275,6 +275,22 @@ def test_checkpoint_mid_accumulation_continues_bit_for_bit(name):
             assert np.array_equal(g[k], w[k]), k
 
 
+@pytest.mark.parametrize("name", ["adam", "lookahead_nvnovograd"])
+def test_wrappers_share_the_inner_groups_after_a_load(name):
+    """torch's `load_state_dict` gives the inner optimizer new group dicts;
+    MultiSteps (and Lookahead inside it) take them too, so an LR set on the
+    outer optimizer after a resume (the plateau rule) reaches the inner
+    step."""
+    params = _torch_params(_problem(3)[0])
+    opt = topt.MultiSteps(topt.create_optimizer(name, params, 1e-2), 3)
+    opt.load_state_dict(opt.state_dict())
+    topt.set_lr(opt, 0.25)
+    inner = opt
+    while isinstance(inner, topt.MultiSteps | topt.Lookahead):
+        inner = inner.inner
+        assert all(g["lr"] == 0.25 for g in inner.param_groups), type(inner).__name__
+
+
 # ---------------------------------------------------------------------------
 # AdaHessian
 # ---------------------------------------------------------------------------
