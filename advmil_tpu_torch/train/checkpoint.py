@@ -11,8 +11,12 @@ through `bridge.flax_to_torch`, the optimizer state as a `FlaxOptState`,
 which `optimizer_state` maps onto the port's optimizer
 (`bridge.opt_state_from_flax`: every optimizer name, `lookahead_`,
 MultiSteps and AdaHessian, per leaf or fused by `opt_flatten`). The format
-is told from the file's first bytes. An orbax checkpoint (`ckpt_backend:
-orbax`, a directory) is refused.
+is told from the file's first bytes. Its `ckpt_backend: orbax` writes a
+directory per checkpoint (`_METADATA` and an OCDBT store of zarr arrays),
+read by `utils/orbax_ckpt.py` into the same bundle as the msgpack file of
+the same state, and mapped the same way. The port itself writes torch files
+whatever `ckpt_backend` says: the JAX package reads neither of the port's
+formats.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import os.path as osp
 import torch
 
 from .. import bridge
-from ..utils import flax_msgpack
+from ..utils import flax_msgpack, orbax_ckpt
 
 _TORCH_ZIP = b"PK\x03\x04"
 
@@ -51,20 +55,20 @@ def save_checkpoint(path: str, epoch: int, state_dict: dict,
 
 def restore_checkpoint(path: str) -> tuple[int, dict, dict | None]:
     """(epoch, state_dict on CPU, optimizer state or None): the port's
-    optimizer state_dict, or a `FlaxOptState` from a JAX package file."""
+    optimizer state_dict, or a `FlaxOptState` from a JAX package file or
+    orbax directory."""
     if osp.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: an orbax checkpoint (ckpt_backend: orbax), which the "
-            "port does not read (ROADMAP A15); save the JAX run with ckpt_backend: msgpack")
-    with open(path, "rb") as f:
-        head = f.read(4)
-    if head == _TORCH_ZIP:
-        bundle = torch.load(path, map_location="cpu", weights_only=True)
-        return int(bundle["epoch"]), bundle["params"], bundle.get("opt_state")
-    if not flax_msgpack.is_msgpack_map(head):
-        raise ValueError(f"{path}: neither a torch checkpoint nor a JAX package "
-                         f"msgpack checkpoint (first bytes {head!r})")
-    bundle = flax_msgpack.read(path)
+        bundle = orbax_ckpt.read(path)
+    else:
+        with open(path, "rb") as f:
+            head = f.read(4)
+        if head == _TORCH_ZIP:
+            bundle = torch.load(path, map_location="cpu", weights_only=True)
+            return int(bundle["epoch"]), bundle["params"], bundle.get("opt_state")
+        if not flax_msgpack.is_msgpack_map(head):
+            raise ValueError(f"{path}: neither a torch checkpoint nor a JAX package "
+                             f"msgpack checkpoint (first bytes {head!r})")
+        bundle = flax_msgpack.read(path)
     opt = bundle.get("opt_state")
     return (int(bundle["epoch"]), bridge.flax_to_torch(bundle["params"]),
             None if opt is None else FlaxOptState(opt))

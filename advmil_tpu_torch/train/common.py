@@ -14,6 +14,7 @@ scalars log; a barrier follows each checkpoint, so every rank can read it
 back."""
 from __future__ import annotations
 
+import contextlib
 import os
 import os.path as osp
 import time
@@ -60,9 +61,12 @@ class HandlerCommon:
     `_eval_step(n_samples, zero_noise)`, `load_params`, `save_model`, and
     `evaluator` / `metrics_list` / `ret_metrics`. `draws_plots`: whether a
     checkpoint's evaluation draws `log_plot`'s time histograms (the
-    adversarial handler's, as in the JAX package)."""
+    adversarial handler's, as in the JAX package). `traces_epoch_2`: whether
+    `profile_dir` traces the second training epoch (the adversarial
+    handler's, as in the JAX package)."""
 
     draws_plots = False
+    traces_epoch_2 = False
 
     def _setup_paths(self):
         cfg = self.cfg
@@ -222,13 +226,15 @@ class HandlerCommon:
         self.steplr = ReduceLROnPlateau(factor=0.5, patience=10, verbose=True)
         visible_set = None if mode == "wlabel" else self.patient_id["label_visible"]
         is_kfold = isinstance(name_loader, (list, tuple))
+        profile_dir = cfg.get("profile_dir") if self.traces_epoch_2 else None
         last_epoch = -1
         for epoch in range(epochs):
             last_epoch = epoch + 1
             loader, name = ((train_loader[epoch % len(name_loader)],
                              name_loader[epoch % len(name_loader)])
                             if is_kfold else (train_loader, name_loader))
-            cltor = self._train_each_epoch(loader, visible_set)
+            with self._trace(profile_dir if epoch == 1 else None):
+                cltor = self._train_each_epoch(loader, visible_set)
             self._eval_and_print(cltor, name=name, at_epoch=epoch + 1)
 
             val_metrics = None
@@ -260,6 +266,26 @@ class HandlerCommon:
                     break
         self.save_model(last_epoch, "last", run_name)
         print(f"[{run_name}] last model saved at epoch {last_epoch}")
+
+    @contextlib.contextmanager
+    def _trace(self, profile_dir):
+        """With `profile_dir`, a `torch.profiler` trace of the block (CPU,
+        and CUDA on the card) written there as a Chrome trace,
+        `epoch2_rank<r>.trace.json`; the counterpart of the JAX handler's
+        `jax.profiler` trace of epoch 2."""
+        if not profile_dir:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield
+        os.makedirs(profile_dir, exist_ok=True)
+        rank = self.grid.rank if self.grid is not None else 0
+        prof.export_chrome_trace(osp.join(profile_dir, f"epoch2_rank{rank}.trace.json"))
+        print(f"[profile] epoch-2 trace written to {profile_dir}")
 
     def _train_each_epoch(self, loader, visible_set=None):
         """One shuffled pass of training steps; the device is synced once,

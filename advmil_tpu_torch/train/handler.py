@@ -4,15 +4,16 @@ AdvHandler`): builds G and D on the configured device and runs
 - `exec`: adversarial training with plateau LR and early stopping on the
   validation split, best / last checkpoints with optimizer state, then the
   evaluation of the best checkpoint on every split (`times_test_sample`
-  noise samples, lower median);
+  noise samples, lower median); with `profile_dir`, a Chrome trace of the
+  second epoch;
 - `exec_semi_sl`: semi-supervised training (`semi_training: True`): a
   labelled share of the training patients, an optional supervised
   pretraining run, then `semitrain_{LD_UD,LD,UD}` in which only the labelled
   patients' labels reach the supervised loss;
 - `exec_test`: test mode, which loads the `best` checkpoints of a training
-  run (the port's, or the JAX package's `.ckpt`: `test_load_path` may name
-  an `advmil_tpu` run directory), evaluates the occluded test split with
-  zero noise;
+  run (the port's, or the JAX package's msgpack `.ckpt` or orbax
+  directories: `test_load_path` may name an `advmil_tpu` run directory),
+  evaluates the occluded test split with zero noise;
 - `resume_model`: parameters and optimizer states from either package's
   checkpoints;
 
@@ -88,6 +89,7 @@ class AdvHandler(HandlerCommon):
     """Adversarial (generator/discriminator) survival model."""
 
     draws_plots = True
+    traces_epoch_2 = True
 
     def __init__(self, cfg: dict):
         check_configs(cfg)

@@ -1874,11 +1874,29 @@ def _log_adv_run(tag, handler, metrics, launches, widths, splits, card):
 def phase_disc_train(paths, card):
     """Phase 21: disc_gansurv `exec` at cfg_nlst width (bf16, 2 epochs) on
     phase 4's data, whose 1,024-region training bucket engages the flash
-    kernels."""
+    kernels. With `profile_dir` (this run's bags/s is read nowhere): the
+    second epoch's Chrome trace, which must name the LN-pool kernels #1 and
+    #2 among its device kernels."""
     import numpy as np
-    cfg = _smoke_cfg(paths, "disc_run", test=False, epochs=2, es_warmup=0, **DISC)
-    handler, metrics, launches, widths, _ = _adv_run(
+    profile_dir = osp.join(WORK_DIR, "disc_run_profile")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    cfg = _smoke_cfg(paths, "disc_run", test=False, epochs=2, es_warmup=0,
+                     profile_dir=profile_dir, **DISC)
+    handler, metrics, launches, widths, lines = _adv_run(
         cfg, "disc_run", ("ln_relu_region_mean", "ln_relu_region_mean_bwd") + FLASH_KERNELS)
+    trace = osp.join(profile_dir, "epoch2_rank0.trace.json")
+    if f"[profile] epoch-2 trace written to {profile_dir}" not in lines or not osp.isfile(trace):
+        raise AssertionError(f"profile_dir: no epoch-2 trace at {trace}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ln = {k: sum(k in n for n in kernels) for k in ("ln_relu_region_mean_kernel",
+                                                    "ln_relu_region_mean_bwd_kernel")}
+    if not all(ln.values()):
+        raise AssertionError(f"profile_dir: the epoch-2 trace's {len(kernels)} kernel names "
+                             f"hold no LN-pool kernel ({ln})")
+    log(f"[21 disc train] profile_dir: epoch-2 trace {osp.getsize(trace)} bytes, "
+        f"{len(events)} events, {len(kernels)} kernel names, LN-pool names {ln}")
     splits = ("train", "validation", "test")
     for split in splits:
         n = _check_disc_csv(osp.join(handler.save_dir, f"train_best_pred_{split}.csv"))
@@ -3444,6 +3462,9 @@ JAX_LOSSES = ("Loss_D", "Loss_G_total", "Loss_G_fake", "Loss_G_time", "D_real")
 # the baseline on ABMIL with three more optimizers
 JAX_ADV_RUNS = ("flat", "lookahead_accum")
 JAX_BASE_OPTS = ("sgd", "adamp", "adahessian")
+# orbax/<twin>: the Adam pair (top directory) and flat/ saved again with
+# ckpt_backend: orbax (directories); their numbers are the msgpack runs'
+JAX_ORBAX_TWINS = ("adam", "flat")
 
 
 def _fixture_cfg(work, device, sub=""):
@@ -3462,34 +3483,51 @@ def _fixture_cfg(work, device, sub=""):
 
 
 def phase_jax_ckpt(card, device="cuda"):
-    """Phase 38: the JAX package's msgpack checkpoints on the card. This
-    machine has no JAX, so the run directory (G on ABMIL 16-32-32, D's X
-    tower 16 -> 128: the narrowest model that still runs #1) and the JAX
-    package's numbers for it were written on the CPU by
+    """Phase 38: the JAX package's checkpoints on the card. This machine has
+    no JAX, so the run directories (the Adam pair: G on ABMIL 16-32-32, D's X
+    tower 16 -> 128, the narrowest model that still runs #1) and the JAX
+    package's numbers for them were written on the CPU by
     `scripts/make_jax_ckpt_fixture.py` (`tests/data/jax_ckpt/`); the
     full-width check of the same path is the CPU test
-    `tests/test_torch_ckpt.py`. Test mode with `test_load_path` at the JAX
+    `tests/test_torch_ckpt.py`. The msgpack Adam pair (`_jax_adam_pair`),
+    then the fixture's other msgpack runs (`_resume_fixture_step`): the JAX
+    defaults' fused Adam moments, lookahead_radam under accum_steps 2, and
+    the baseline with sgd, adamp and AdaHessian. Then the orbax twins
+    (`ckpt_backend: orbax` directories) of the Adam pair and of the fused
+    run: each read as its msgpack twin bit for bit (`_orbax_same_state`,
+    with the libzstd loaded), the pair's test mode and resumed step, and
+    the fused run's resumed step, held to the msgpack runs' numbers."""
+    launches = _jax_adam_pair("", card, device)
+    # the other runs' models take no kernel (ABMIL; D's tower at 32 takes
+    # the plain LN-pool): their launches are printed, not required
+    for sub in JAX_ADV_RUNS + tuple(osp.join("base_opts", o) for o in JAX_BASE_OPTS):
+        _resume_fixture_step(sub, "adv" if sub in JAX_ADV_RUNS else "base", card, device)
+    _orbax_same_state(card, device)
+    orbax = _jax_adam_pair("orbax/adam", card, device)
+    _resume_fixture_step("orbax/flat", "adv", card, device, ref="flat")
+    return dict(launches, orbax_test=orbax["test"], orbax_step=orbax["step"])
+
+
+def _jax_adam_pair(sub, card, device):
+    """Phase 38: the Adam pair in the fixture's directory `sub` (msgpack at
+    the top, or its orbax twin). Test mode with `test_load_path` at the JAX
     run directory: its prediction CSV within 1e-4 of the JAX test mode's.
     Then `resume_model` from the same files (parameters, Adam moments, the
     halved injected learning rate) and one f32 step on the fixture's second
     batch: the step's losses, G's parameters after it and the eval outputs
     of G and D after it within 1e-4 of the JAX step's. Counters are reset
-    before and read after each of the two. Then the same resume and step
-    from the fixture's other runs (`_resume_fixture_step`): the JAX
-    defaults' fused Adam moments, lookahead_radam under accum_steps 2, and
-    the baseline with sgd, adamp and AdaHessian."""
+    before and read after each of the two."""
     import numpy as np
     import torch
     from advmil_tpu_torch import main as port_main
     from advmil_tpu_torch.config import with_defaults
     from advmil_tpu_torch.data.bags import BucketBatcher, prepare_dataset
     from advmil_tpu_torch.models.layers import set_dropout_rates
-    work = osp.join(WORK_DIR, "jax_ckpt")
+    tag = "38 jax checkpoint" + (f" {sub}" if sub else "")
+    work = osp.join(WORK_DIR, "jax_ckpt", sub)
     shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(osp.join(work, "run"))
-    for f in ("train_modelG-best.ckpt", "train_modelD-best.ckpt"):    # resume reads save_path
-        shutil.copy(osp.join(JAX_FIXTURE, "run", f), osp.join(work, "run", f))
-    cfg = _fixture_cfg(work, device)
+    shutil.copytree(osp.join(JAX_FIXTURE, sub, "run"), osp.join(work, "run"))  # resume reads save_path
+    cfg = _fixture_cfg(work, device, sub)
     want = np.load(osp.join(JAX_FIXTURE, "expected.npz"))
 
     reset_counters()
@@ -3501,7 +3539,7 @@ def phase_jax_ckpt(card, device="cuda"):
     jax_test = _read_csv_preds(osp.join(JAX_FIXTURE, "test", name))
     test_diff = max_abs(torch.from_numpy(got), torch.from_numpy(jax_test))
     if not (len(got) == len(jax_test) == 12 and test_diff <= 1e-4):
-        raise AssertionError(f"38 jax test mode: predictions differ from JAX's by {test_diff}")
+        raise AssertionError(f"{tag} test mode: predictions differ from JAX's by {test_diff}")
 
     h = port_main.handler_class("adv")(with_defaults(dict(cfg)))
     reset_counters()
@@ -3512,7 +3550,7 @@ def phase_jax_ckpt(card, device="cuda"):
     batch = list(BucketBatcher(ds, token_budget=cfg["batch_token_budget"],
                                min_bucket=cfg["bucket_min"]).epoch_batches())[1]
     if not np.array_equal(batch.idx, want["batch_idx"]):
-        raise AssertionError("38 jax resume: the second batch holds other bags than JAX's")
+        raise AssertionError(f"{tag} resume: the second batch holds other bags than JAX's")
     resumed = {k: v.clone() for k, v in h.gen_model.state_dict().items()}
     metrics_step, _ = h.train_step(h._ship(batch, train=True), h.train_rngs)
     if device == "cuda":
@@ -3533,7 +3571,8 @@ def phase_jax_ckpt(card, device="cuda"):
     out_diff = max(max_abs(y_hat.cpu(), torch.from_numpy(want["y_hat_after"])),
                    max_abs(d_out.cpu(), torch.from_numpy(want["d_after"])))
     lr = [g["lr"] for g in h.opt_G.param_groups]
-    log(f"[38 jax checkpoint] {device}: the JAX package's .ckpt pair (scripts/"
+    fmt = "orbax directories" if sub else ".ckpt pair"
+    log(f"[{tag}] {device}: the JAX package's {fmt} (scripts/"
         f"make_jax_ckpt_fixture.py) read by the port's decoder; test mode from the JAX run "
         f"directory: {len(got)} predictions within {test_diff:.3e} of JAX's (bound 1e-4), "
         f"C-index {dict(metrics['exec-test'])['cindex']:.6f} | resume + one f32 step: G's "
@@ -3542,24 +3581,82 @@ def phase_jax_ckpt(card, device="cuda"):
         f"of JAX's (bounds 1e-4) | launches test {({k: v for k, v in test_launches.items() if v})}"
         f" step {({k: v for k, v in step_launches.items() if v})} | {card}")
     if not (loss_diff <= 1e-4 and g_diff <= 1e-4 and out_diff <= 1e-4 and g_moved > 1e-4):
-        raise AssertionError(f"38 jax resume: losses {loss_diff}, G {g_diff}, outputs "
+        raise AssertionError(f"{tag} resume: losses {loss_diff}, G {g_diff}, outputs "
                              f"{out_diff} from JAX's (bound 1e-4); G moved {g_moved}")
     if abs(lr[0] - float(cfg["opt_netG_lr"]) * 0.5) > 1e-9:
-        raise AssertionError(f"38 jax resume: G's learning rate {lr} is not the injected one")
-    # the other runs' models take no kernel (ABMIL; D's tower at 32 takes
-    # the plain LN-pool): their launches are printed, not required
-    for sub in JAX_ADV_RUNS + tuple(osp.join("base_opts", o) for o in JAX_BASE_OPTS):
-        _resume_fixture_step(sub, "adv" if sub in JAX_ADV_RUNS else "base", card, device)
+        raise AssertionError(f"{tag} resume: G's learning rate {lr} is not the injected one")
     return {"test": test_launches, "step": step_launches}
 
 
-def _resume_fixture_step(sub, handler_name, card, device):
+def _same_tree(a, b, where, device) -> int:
+    """The number of leaves of `b`; raises unless `a` has the same keys at
+    every level and each leaf the same type, dtype, shape and bits (tensors
+    compared on `device`)."""
+    import numpy as np
+    import torch
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            raise AssertionError(f"{where}: keys {sorted(map(str, a))} against "
+                                 f"{sorted(map(str, b))}")
+        return sum(_same_tree(a[k], b[k], f"{where}/{k}", device) for k in b)
+    if isinstance(b, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{where}: {a!r} against {b!r}")
+        return sum(_same_tree(x, y, f"{where}/{i}", device) for i, (x, y) in enumerate(zip(a, b)))
+    if isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.to(device), b.to(device)))
+    elif isinstance(b, np.ndarray):
+        same = (isinstance(a, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+    else:
+        same = type(a) is type(b) and a == b
+    if not same:
+        raise AssertionError(f"{where}: the orbax twin differs from the msgpack file")
+    return 1
+
+
+def _orbax_same_state(card, device):
+    """Phase 38: each orbax twin (`orbax/{adam,flat}`) and its msgpack run
+    read by the port: the same epoch, state dicts, raw optimizer states
+    (`{}` / `None` slots included) and optimizer states mapped onto a port
+    handler's optimizers, bit for bit. Logs the libzstd it loaded."""
+    from advmil_tpu_torch import main as port_main
+    from advmil_tpu_torch.config import with_defaults
+    from advmil_tpu_torch.train import checkpoint as ckpt_lib
+    from advmil_tpu_torch.utils import zstd
+    counts = {"state dict": 0, "raw optimizer state": 0, "mapped optimizer state": 0}
+    for twin in JAX_ORBAX_TWINS:
+        sub = osp.join("orbax", twin)
+        cfg = _fixture_cfg(osp.join(WORK_DIR, "jax_ckpt", "orbax_state", twin), device, sub)
+        h = port_main.handler_class("adv")(with_defaults(dict(cfg)))
+        for net, model, opt, name in (("G", h.gen_model, h.opt_G, cfg["opt_netG"]),
+                                      ("D", h.disc_model, h.opt_D, "adam")):
+            f = f"train_model{net}-best.ckpt"
+            eo, so, oo = ckpt_lib.restore_checkpoint(osp.join(JAX_FIXTURE, sub, "run", f))
+            em, sm, om = ckpt_lib.restore_checkpoint(
+                osp.join(JAX_FIXTURE, "" if twin == "adam" else twin, "run", f))
+            where = f"38 jax checkpoint orbax: {sub}/run/{f}"
+            if not (eo == em and type(oo) is type(om)):
+                raise AssertionError(f"{where}: epoch {eo} / {em}, {type(oo)} / {type(om)}")
+            counts["state dict"] += _same_tree(so, sm, where, h.device)
+            counts["raw optimizer state"] += _same_tree(oo, om, where, h.device)
+            counts["mapped optimizer state"] += _same_tree(
+                ckpt_lib.optimizer_state(oo, opt, model, name),
+                ckpt_lib.optimizer_state(om, opt, model, name), where, h.device)
+    log(f"[38 jax checkpoint orbax] {device}: {zstd.library()} loaded; "
+        f"{', '.join(f'orbax/{t}' for t in JAX_ORBAX_TWINS)} read as their msgpack twins, "
+        f"bit for bit: {', '.join(f'{n} {k} leaves' for k, n in counts.items())} | {card}")
+
+
+def _resume_fixture_step(sub, handler_name, card, device, ref=None):
     """Phase 38: `resume_model` of a fresh port handler from the fixture's
     JAX run directory `sub`, then the next step on the batch the JAX run
     took (`batch_idx`): its losses, every parameter after it and the eval
-    outputs after it within 1e-4 of the JAX numbers. An AdaHessian step
-    takes the JAX step's Rademacher z (`z/<parameter>`). Returns the step's
-    launch counts (counters reset before the resume, read after the step)."""
+    outputs after it within 1e-4 of the JAX numbers (`<ref>/expected.npz`,
+    `ref` defaulting to `sub`). An AdaHessian step takes the JAX step's
+    Rademacher z (`z/<parameter>`). Returns the step's launch counts
+    (counters reset before the resume, read after the step)."""
     import numpy as np
     import torch
     from advmil_tpu_torch import main as port_main
@@ -3572,7 +3669,7 @@ def _resume_fixture_step(sub, handler_name, card, device):
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(osp.join(JAX_FIXTURE, sub, "run"), osp.join(work, "run"))
     cfg = _fixture_cfg(work, device, sub)
-    want = np.load(osp.join(JAX_FIXTURE, sub, "expected.npz"))
+    want = np.load(osp.join(JAX_FIXTURE, ref or sub, "expected.npz"))
     h = port_main.handler_class(handler_name)(with_defaults(dict(cfg)))
     nets = ({"G": h.gen_model, "D": h.disc_model} if handler_name == "adv"
             else {"net": h.model})
@@ -3895,6 +3992,8 @@ def main():
                        "inst2_cluster_step": inst2_cluster_launches[name],
                        "jax_ckpt_test_mode": jax_launches["test"][name],
                        "jax_ckpt_resume_step": jax_launches["step"][name],
+                       "jax_orbax_test_mode": jax_launches["orbax_test"][name],
+                       "jax_orbax_resume_step": jax_launches["orbax_step"][name],
                        "jax_flat_full_width_step": jax_full_launches[name],
                        "grid_train": grid_launches[name],
                        "grid_test_mode": grid_test_launches[name]}
@@ -3919,6 +4018,8 @@ def main():
                            ("inst2_cluster_step", LN_KERNELS),
                            ("jax_ckpt_test_mode", LN_KERNELS[:1]),
                            ("jax_ckpt_resume_step", LN_KERNELS),
+                           ("jax_orbax_test_mode", LN_KERNELS[:1]),
+                           ("jax_orbax_resume_step", LN_KERNELS),
                            ("jax_flat_full_width_step", LN_KERNELS),
                            ("grid_train", GRAPH_KERNELS + LN_KERNELS),
                            ("grid_test_mode", ("banded_aggregate", "ln_relu_region_mean"))):

@@ -3,7 +3,7 @@ where JAX is not installed: JAX package run directories and the JAX
 package's own numbers for them.
 
     JAX_PLATFORMS=cpu python scripts/make_jax_ckpt_fixture.py [--out tests/data/jax_ckpt]
-        [--runs adam,flat,lookahead_accum,base_opts]
+        [--runs adam,flat,lookahead_accum,base_opts,orbax]
 
 `adam` (the top directory) is the narrowest adversarial model that still
 runs the LN-pool kernel #1 on the card: G on ABMIL 16-32-32, D's X tower the
@@ -42,6 +42,15 @@ fused layout runs #1 / #2.
   16-32-32 with `opt_net` sgd (a fused `trace`), adamp (per tensor) and
   adahessian (its own state; the Rademacher z of the next step is drawn
   with numpy and recorded as `z/<parameter>`, which the port's step takes).
+
+`orbax` writes `orbax/{adam,flat}/`: the `adam` and `flat` runs again with
+`ckpt_backend: orbax`, each its `config.json` and `run/train_model{G,D}-
+best.ckpt/` as orbax directories. The script asserts that the next step
+from them equals the msgpack run's `expected.npz` bit for bit (and, for
+`adam`, that the JAX test mode from the orbax directory writes the msgpack
+run's prediction CSV), so those files serve both twins. They stay under
+1 MB, a budget of their own (D's 16 -> 128 tower, whose state zstd does
+not shrink, takes most of it).
 """
 from __future__ import annotations
 
@@ -59,7 +68,8 @@ sys.path.insert(0, ROOT)
 
 LOSSES = ("Loss_D", "Loss_G_total", "Loss_G_fake", "Loss_G_time", "D_real")
 BASE_LOSSES = ("loss_supervision", "loss_total")
-RUNS = ("adam", "flat", "lookahead_accum", "base_opts")
+RUNS = ("adam", "flat", "lookahead_accum", "base_opts", "orbax")
+ORBAX_TWINS = ("adam", "flat")
 BASE_OPTS = ("sgd", "adamp", "adahessian")
 # D's X tower in the runs beside `adam` (the 1 MB budget; see above)
 NARROW_D = {"disc_netx_out_dim": 32, "disc_nety_hid_dims": "16-32"}
@@ -157,7 +167,8 @@ def _torch_tree(tree) -> dict:
 def _keep_ckpts(save_path: str) -> None:
     for f in os.listdir(save_path):
         if not f.endswith("-best.ckpt"):
-            os.remove(osp.join(save_path, f))
+            path = osp.join(save_path, f)
+            shutil.rmtree(path) if osp.isdir(path) else os.remove(path)
 
 
 def _write_cfg(run_dir: str, cfg: dict) -> None:
@@ -169,7 +180,6 @@ def _write_cfg(run_dir: str, cfg: dict) -> None:
 def adam_run(out: str) -> None:
     """The top directory: the dataset and the Adam pair (opt_flatten: false)
     with its test mode."""
-    import jax
     from advmil_tpu.config import with_defaults
     from advmil_tpu.train.handler import AdvHandler
     _write_data(out)
@@ -183,19 +193,7 @@ def adam_run(out: str) -> None:
     jh.save_model(1, "best", "train")
     _keep_ckpts(full["save_path"])
 
-    b = batches[1]
-    jh.state, met, _ = jh.train_step(jh.state, _dev(jh, b))
-    x, mask = jax.numpy.asarray(b.feats), jax.numpy.asarray(b.mask)
-    y_hat = jh.gen_model.apply({"params": jh.state.params_G}, x, mask, None,
-                               zero_noise=True, deterministic=True)
-    d_out = jh.disc_model.apply({"params": jh.state.params_D}, x,
-                                jax.numpy.asarray(b.label[:, :1]), mask, deterministic=True)
-    expected = {f"loss/{k}": np.float32(met[k]) for k in LOSSES}
-    expected.update({f"G/{k}": v.numpy() for k, v in _torch_tree(jh.state.params_G).items()})
-    expected.update(y_hat_after=np.asarray(y_hat, np.float32).reshape(-1),
-                    d_after=np.asarray(d_out, np.float32).reshape(-1),
-                    batch_idx=np.asarray(b.idx))
-    np.savez(osp.join(out, "expected.npz"), **expected)
+    np.savez(osp.join(out, "expected.npz"), **_next_step(jh, batches[1], ("G",)))
 
     AdvHandler(with_defaults(dict(full, test=True, rng_impl="threefry"))).exec_test()
     test_dir = full["test_save_path"]
@@ -208,7 +206,6 @@ def adv_run(out: str, name: str, before: list, **over) -> None:
     """An adversarial run `name`: mini-steps on the batches `before`, G's
     injected learning rate halved, saved; then the step on the next batch
     and the eval outputs after it in `expected.npz`."""
-    import jax
     from advmil_tpu.config import with_defaults
     from advmil_tpu.train.handler import AdvHandler
     run_dir = osp.join(out, name)
@@ -224,6 +221,13 @@ def adv_run(out: str, name: str, before: list, **over) -> None:
     jh.save_model(1, "best", "train")
     _keep_ckpts(full["save_path"])
     b = batches[(before[-1] + 1) % len(batches)]
+    np.savez(osp.join(run_dir, "expected.npz"), **_next_step(jh, b, ("G", "D")))
+
+
+def _next_step(jh, b, nets) -> dict:
+    """The JAX handler's step on batch `b`: its losses, the parameters of
+    `nets` after it, and the eval-mode outputs of G and D on `b` after it."""
+    import jax
     jh.state, met, _ = jh.train_step(jh.state, _dev(jh, b))
     x, mask = jax.numpy.asarray(b.feats), jax.numpy.asarray(b.mask)
     y_hat = jh.gen_model.apply({"params": jh.state.params_G}, x, mask, None,
@@ -231,12 +235,51 @@ def adv_run(out: str, name: str, before: list, **over) -> None:
     d_out = jh.disc_model.apply({"params": jh.state.params_D}, x,
                                 jax.numpy.asarray(b.label[:, :1]), mask, deterministic=True)
     expected = {f"loss/{k}": np.float32(met[k]) for k in LOSSES}
-    for net, tree in (("G", jh.state.params_G), ("D", jh.state.params_D)):
+    for net in nets:
+        tree = {"G": jh.state.params_G, "D": jh.state.params_D}[net]
         expected.update({f"{net}/{k}": v.numpy() for k, v in _torch_tree(tree).items()})
     expected.update(y_hat_after=np.asarray(y_hat, np.float32).reshape(-1),
                     d_after=np.asarray(d_out, np.float32).reshape(-1),
                     batch_idx=np.asarray(b.idx))
-    np.savez(osp.join(run_dir, "expected.npz"), **expected)
+    return expected
+
+
+def orbax_run(out: str, twin: str) -> None:
+    """`orbax/<twin>/`: the msgpack run `twin` (`adam`, the top directory,
+    or `flat`) again with `ckpt_backend: orbax`: the same steps before the
+    save, the save, then the same next step, which must equal the msgpack
+    run's `expected.npz` bit for bit; for `adam`, the JAX test mode from
+    the orbax directory must write the msgpack run's prediction CSV."""
+    from advmil_tpu.config import with_defaults
+    from advmil_tpu.train.handler import AdvHandler
+    src = out if twin == "adam" else osp.join(out, twin)
+    run_dir = osp.join(out, "orbax", twin)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    with open(osp.join(src, "config.json")) as f:
+        cfg = dict(json.load(f), ckpt_backend="orbax")
+    _write_cfg(run_dir, cfg)
+    full = resolve(cfg, out, run_dir)
+    over = {"opt_flatten": False} if twin == "adam" else {}
+    jh = AdvHandler(with_defaults(dict(full, rng_impl="threefry", **over)))
+    batches = _batches(full)
+    jh.state, _, _ = jh.train_step(jh.state, _dev(jh, batches[0]))
+    jh._set_lr(cfg["opt_netG_lr"] * 0.5)
+    jh.save_model(1, "best", "train")
+    _keep_ckpts(full["save_path"])
+    assert all(osp.isfile(osp.join(full["save_path"], f"train_model{n}-best.ckpt", "_METADATA"))
+               for n in "GD")
+    got = _next_step(jh, batches[1], ("G",) if twin == "adam" else ("G", "D"))
+    want = np.load(osp.join(src, "expected.npz"))
+    assert sorted(got) == sorted(want.files), (sorted(got), want.files)
+    for k in want.files:
+        assert np.array_equal(got[k], want[k]), f"orbax/{twin}: {k} differs from {src}"
+    if twin == "adam":
+        AdvHandler(with_defaults(dict(full, test=True, rng_impl="threefry"))).exec_test()
+        name = "test_mode_best_pred_exec-test.csv"
+        with open(osp.join(full["test_save_path"], name)) as f, \
+                open(osp.join(out, "test", name)) as g:
+            assert f.read() == g.read(), "orbax/adam: test mode differs from the msgpack run's"
+        shutil.rmtree(full["test_save_path"])
 
 
 def base_run(out: str, opt: str) -> None:
@@ -321,10 +364,14 @@ def main():
         adv_run(out, "lookahead_accum", [0, 1, 2], opt_netG="lookahead_radam", accum_steps=2)
     for opt in BASE_OPTS if "base_opts" in runs else ():
         base_run(out, opt)
-    new = [r for r in RUNS[1:] if osp.isdir(osp.join(out, r))]
-    old, added = _size(out, skip=new), sum(_size(osp.join(out, r)) for r in new)
-    print(f"fixtures written to {out}: {old} bytes (adam), {added} bytes ({', '.join(new)})")
-    assert old <= 1 << 20 and added <= 1 << 20, (old, added)
+    for twin in ORBAX_TWINS if "orbax" in runs else ():
+        orbax_run(out, twin)
+    new = [r for r in RUNS[1:-1] if osp.isdir(osp.join(out, r))]
+    old = _size(out, skip=new + ["orbax"])
+    added, orbax = sum(_size(osp.join(out, r)) for r in new), _size(osp.join(out, "orbax"))
+    print(f"fixtures written to {out}: {old} bytes (adam), {added} bytes ({', '.join(new)}), "
+          f"{orbax} bytes (orbax)")
+    assert max(old, added, orbax) <= 1 << 20, (old, added, orbax)
 
 
 if __name__ == "__main__":

@@ -125,7 +125,8 @@ def test_decoder_matches_flax_restore(tmp_path, monkeypatch, chunk):
 def test_checkpoint_formats(tmp_path):
     """restore_checkpoint tells the format from the first bytes: a JAX file
     gives the bridged state_dict and a FlaxOptState; the port's own file is
-    read as before; a directory (orbax) names A15; other bytes raise."""
+    read as before; a directory that is not an orbax checkpoint names what
+    it lacks; other bytes raise."""
     tree = _jax_tree()
     jpath = str(tmp_path / "j.ckpt")
     jckpt.save_checkpoint(jpath, 3, tree["params"], tree["opt_state"])
@@ -141,7 +142,8 @@ def test_checkpoint_formats(tmp_path):
     epoch, sd2, opt2 = tckpt.restore_checkpoint(tpath)
     assert epoch == 4 and opt2 == {"state": {}, "param_groups": []}
     assert all(torch.equal(sd[k], sd2[k]) for k in sd)
-    with pytest.raises(NotImplementedError, match="orbax.*A15"):
+    with pytest.raises(ValueError, match="not an orbax checkpoint.*lacks _METADATA and "
+                                         "manifest.ocdbt"):
         tckpt.restore_checkpoint(str(tmp_path))
     with open(str(tmp_path / "bad.ckpt"), "wb") as f:
         f.write(b"\x00\x01junk")
@@ -542,23 +544,28 @@ def test_chip_smoke_jax_fixture_phase_on_cpu(monkeypatch, tmp_path, capsys):
     (`scripts/make_jax_ckpt_fixture.py`) evaluated and resumed by the port
     within the phase's 1e-4 of the committed JAX numbers, with no JAX in the
     phase's path: the Adam pair, the JAX defaults' fused moments, lookahead
-    under accumulation, and the baseline with sgd, adamp and AdaHessian. The
-    Adam pair and the dataset stay under 1 MB, and so do the other runs
-    together."""
+    under accumulation, and the baseline with sgd, adamp and AdaHessian;
+    then the orbax twins of the Adam pair and the fused run, read as their
+    msgpack runs bit for bit, the pair's test mode and both resumed steps.
+    The Adam pair and the dataset stay under 1 MB, and so do the other
+    msgpack runs together, and the orbax twins together."""
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "WORK_DIR", str(tmp_path))
     runs = chip_smoke.JAX_ADV_RUNS + ("base_opts",)
     size = lambda root: sum(osp.getsize(osp.join(d, f))   # noqa: E731
                             for d, _, fs in os.walk(root) for f in fs)
     added = sum(size(osp.join(chip_smoke.JAX_FIXTURE, r)) for r in runs)
-    assert 0 < size(chip_smoke.JAX_FIXTURE) - added <= 1 << 20
-    assert 0 < added <= 1 << 20
+    orbax = size(osp.join(chip_smoke.JAX_FIXTURE, "orbax"))
+    assert 0 < size(chip_smoke.JAX_FIXTURE) - added - orbax <= 1 << 20
+    assert 0 < added <= 1 << 20 and 0 < orbax <= 1 << 20
     launches = chip_smoke.phase_jax_ckpt("cpu", device="cpu")
-    assert set(launches) == {"test", "step"}
+    assert set(launches) == {"test", "step", "orbax_test", "orbax_step"}
     out = capsys.readouterr().out
     assert "[38 jax checkpoint] cpu" in out
-    for sub in runs[:-1] + tuple(f"base_opts/{o}" for o in chip_smoke.JAX_BASE_OPTS):
+    subs = runs[:-1] + tuple(f"base_opts/{o}" for o in chip_smoke.JAX_BASE_OPTS)
+    for sub in subs + tuple(f"orbax/{t}" for t in chip_smoke.JAX_ORBAX_TWINS):
         assert f"[38 jax checkpoint {sub}] cpu" in out, sub
+    assert "[38 jax checkpoint orbax] cpu: libzstd" in out
 
 
 def test_chip_smoke_full_width_flat_resume_on_cpu(monkeypatch, tmp_path, capsys):

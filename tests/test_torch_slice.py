@@ -153,8 +153,12 @@ def test_port_imports_no_jax():
         "import advmil_tpu_torch, advmil_tpu_torch.main\n"
         "for m in pkgutil.walk_packages(advmil_tpu_torch.__path__, 'advmil_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from advmil_tpu_torch.train.checkpoint import restore_checkpoint\n"
+        "for f in ('run/train_modelG-best.ckpt', 'orbax/flat/run/train_modelG-best.ckpt'):\n"
+        "    restore_checkpoint('tests/data/jax_ckpt/' + f)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'yaml', 'h5py', 'advmil_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'yaml', 'h5py', 'advmil_tpu',\n"
+        "              'orbax', 'tensorstore', 'zstandard', 'msgpack'))\n"
         "print('BAD', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
