@@ -51,6 +51,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -114,6 +115,55 @@ def graph_grid_cfg(paths: dict, fold: int, run_dir: str, epochs: int) -> dict:
     return cfg
 
 
+RASTER_WIDTH = 12
+
+
+def write_raster_graphs(paths: dict) -> str:
+    """The adv_graph_banded arm's graphs: for every slide the 8-nearest-
+    neighbour graph of its patches on a raster `RASTER_WIDTH` patches wide
+    with full rows, nodes in raster order (`chip_smoke.tissue_graph`, the
+    card test's graphs, with no short rows or holes), written once under
+    `<data>/raster_graphs/` as `edge_index` / `edge_latent` / `num_nodes`.
+    In raster order most edges keep their slot's offset from row to row
+    (about 75% over the dataset's 32-256-patch slides), so both packages'
+    batchers take the banded route on them."""
+    import torch
+    sys.path.insert(0, REPO)
+    from chip_smoke import tissue_graph
+    out = osp.join(osp.dirname(paths["path_label"]), "raster_graphs")
+    os.makedirs(out, exist_ok=True)
+    for f in sorted(os.listdir(paths["path_patch"])):
+        sid = osp.splitext(f)[0]
+        dst = osp.join(out, f"{sid}.npz")
+        if osp.exists(dst):
+            continue
+        n = int(torch.load(osp.join(paths["path_patch"], f), mmap=True,
+                           weights_only=True).shape[0])
+        ei = tissue_graph(n, np.random.default_rng(int(sid[1:])), width=RASTER_WIDTH,
+                          p_short=0.0, p_hole=0.0)
+        np.savez(dst, edge_index=ei, edge_latent=ei, num_nodes=np.asarray(n))
+    return out
+
+
+def graph_banded_cfg(paths: dict, fold: int, run_dir: str, epochs: int) -> dict:
+    """`graph_grid_cfg` on the raster graphs (`path_raster_graph`), where
+    the banded route engages on both sides."""
+    return graph_grid_cfg({**paths, "path_tissue_graph": paths["path_raster_graph"]},
+                          fold, run_dir, epochs)
+
+
+def graph_dense_cfg(paths: dict, fold: int, run_dir: str, epochs: int) -> dict:
+    """`graph_grid_cfg` with `graph_banded: off`: the dense route."""
+    return {**graph_grid_cfg(paths, fold, run_dir, epochs), "graph_banded": "off"}
+
+
+def fused_cfg(paths: dict, fold: int, run_dir: str, epochs: int) -> dict:
+    """adv_esat's config with G's patch embedding as the fused op. Off the
+    TPU the JAX package runs its flax fallback (`pallas_available()` is
+    False), the port its fused op's plain version."""
+    return {**run_parity.adv_cfg(paths, fold, run_dir, epochs), "use_fused_embedding": True}
+
+
 # arm -> (handler, run_parity config function, run_parity batching decorator)
 ARMS = {"adv_esat": ("adv", run_parity.adv_cfg, run_parity.ours_extra),
         "adv_esat_disc": ("adv", run_parity.disc_cfg, run_parity.ours_extra),
@@ -122,7 +172,16 @@ ARMS = {"adv_esat": ("adv", run_parity.adv_cfg, run_parity.ours_extra),
         "base_nll_cluster": ("base", run_parity.cluster_cfg, run_parity.ours_extra),
         "base_nll_abmil_refregime": ("base", run_parity.base_cfg,
                                      run_parity.ours_refregime),
-        "adv_graph_grid": ("adv", graph_grid_cfg, run_parity.ours_extra)}
+        "adv_graph_grid": ("adv", graph_grid_cfg, run_parity.ours_extra),
+        "base_cox_abmil": ("base", run_parity.cox_cfg, run_parity.ours_extra),
+        "base_nll_abmil": ("base", run_parity.base_cfg, run_parity.ours_extra),
+        "base_reg_esat": ("base", run_parity.reg_esat_cfg, run_parity.ours_extra),
+        "base_nll_cluster_refregime": ("base", run_parity.cluster_cfg,
+                                       run_parity.ours_refregime),
+        "adv_esat_fused": ("adv", fused_cfg, run_parity.ours_extra),
+        "adv_graph_dense": ("adv", graph_dense_cfg, run_parity.ours_extra),
+        "adv_graph_banded": ("adv", graph_banded_cfg, run_parity.ours_extra)}
+TISSUE_GRAPH_ARMS = ("adv_graph_grid", "adv_graph_dense")
 CRITERION = 0.005
 RECORD = osp.join(REPO, "TORCH_PARITY.json")
 
@@ -147,6 +206,24 @@ def side_cfg(arm: str, side: str, paths: dict, fold: int, seed: int,
         cfg.pop("rng_impl")
         cfg["device"] = "cpu"
     return cfg
+
+
+def graph_routes(stdout: str, cfg: dict) -> list:
+    """The graph routes a run's batchers took, from the `[batcher]` lines
+    both packages print: `banded <coverage>`, `grid <coverage>`, or `dense`
+    (compact and grid banding refused, or `graph_banded: off`)."""
+    routes = set()
+    for line in re.findall(r"\[batcher\] (.*)", stdout):
+        cov = re.search(r"coverage ([0-9.]+)", line)
+        if "grid-raster banded streaming ON" in line:
+            routes.add(f"grid {cov.group(1)}")
+        elif "banded graph route ON" in line or "banded graph streaming ON" in line:
+            routes.add(f"banded {cov.group(1)}")
+        elif "grid-raster banding not engaged" in line:
+            routes.add("dense")
+    if cfg.get("graph_banded") in ("off", False):
+        routes.add("dense")
+    return sorted(routes)
 
 
 def run_side(arm: str, side: str, cfg: dict, run_dir: str, threads: int) -> dict:
@@ -182,6 +259,8 @@ def run_side(arm: str, side: str, cfg: dict, run_dir: str, threads: int) -> dict
     res = {"val": run_parity.cindex_of(metrics, "validation"),
            "test": run_parity.cindex_of(metrics, "test"),
            "seconds": seconds}
+    if cfg.get("bcb_mode") == "graph":
+        res["routes"] = graph_routes(r.stdout, cfg)
     labeled = re.search(r"PARITY_SSL_LABELED_JSON=(\[.*\])", r.stdout)
     if labeled:
         res["labeled"] = json.loads(labeled.group(1))
@@ -267,6 +346,16 @@ def write_report(results: dict, args) -> None:
                       f"{sum(row['ssl_split_match'] for row in r['rows'])} of "
                       f"{r['ssl_split_match_n']} pairs (`PARITY_SSL_LABELED_JSON`)."]
     for arm, r in results.items():
+        routed = [row for row in r.get("rows", []) if "jax_routes" in row]
+        if routed:
+            tally = {side: sorted(Counter(" + ".join(row[f"{side}_routes"])
+                                          for row in routed).items())
+                     for side in ("jax", "port")}
+            lines += ["", f"{arm}: graph routes taken by the runs' batchers (route and "
+                      f"banded coverage: runs) over {len(routed)} pairs: JAX "
+                      + "; ".join(f"{k}: {v}" for k, v in tally["jax"]) + ", port "
+                      + "; ".join(f"{k}: {v}" for k, v in tally["port"]) + "."]
+    for arm, r in results.items():
         picked = r.get("jax_from_port_init")
         if not picked:
             continue
@@ -338,8 +427,10 @@ def main():
 
     os.makedirs(args.workdir, exist_ok=True)
     paths = run_parity.build_dataset(args.workdir, args.folds)
-    if "adv_graph_grid" in args.arms:
+    if set(TISSUE_GRAPH_ARMS) & set(args.arms):
         paths["path_tissue_graph"] = write_tissue_graphs(paths)
+    if "adv_graph_banded" in args.arms:
+        paths["path_raster_graph"] = write_raster_graphs(paths)
     jobs = []
     for arm in args.arms:
         for fold in range(args.folds):
@@ -423,6 +514,9 @@ def main():
                     row = {"fold": fold, "seed": seed,
                            **{f"{s}_{k}": got[s][k] for s in got
                               for k in ("val", "test", "seconds")}}
+                    for s in got:
+                        if "routes" in got[s]:
+                            row[f"{s}_routes"] = got[s]["routes"]
                     if "labeled" in got["jax"] or "labeled" in got["port"]:
                         row["ssl_split_match"] = (got["jax"].get("labeled")
                                                   == got["port"].get("labeled"))
