@@ -2,12 +2,28 @@
 
 Both packages train on the same synthetic dataset and split files
 (`scripts/run_parity.py::build_dataset`: 160 patients, 128-d `.pt`
-features, a planted survival signal) with the same arm configs
-(`run_parity.adv_cfg` / `disc_cfg` / `ssl_cfg` / `reg_cfg`, built from this
-repo's `config/cfg_nlst.yaml`), on the CPU in f32:
+features, a planted survival signal) with the same arm configs (`ARMS`,
+built from `run_parity`'s builders and this repo's `config/cfg_nlst.yaml`),
+on the CPU in f32. One arm a mode:
+
+- adversarial ESAT: `adv_esat`, `adv_esat_fused` (`use_fused_embedding`),
+  `adv_esat_disc` (disc_gansurv), `adv_ssl` (semi-supervised UD+LD);
+- adversarial PatchGCN, one arm a graph route: `adv_graph_grid` and
+  `adv_graph_dense` (`graph_banded: off`) on tissue-slide graphs
+  (`write_tissue_graphs`), `adv_graph_banded` on raster graphs
+  (`write_raster_graphs`); each side's route and band coverage are read off
+  its `[batcher]` lines and reported;
+- the baseline handler: `base_reg_abmil`, `base_cox_abmil`,
+  `base_nll_abmil`, `base_reg_esat`, `base_nll_cluster` (DeepAttnMISL), and
+  `base_nll_abmil_refregime` / `base_nll_cluster_refregime` in the
+  reference's regime (one bag a micro-batch, an optimizer step every 16:
+  accumulation);
+
+and on the two sides:
 
 - JAX side: `python main.py` with `ADVMIL_FORCE_CPU=1`, `rng_impl: threefry`
-  and `run_parity.ours_extra`'s batching;
+  and `run_parity.ours_extra`'s batching (`ours_refregime`'s for the
+  `*_refregime` arms);
 - port side: `python -m advmil_tpu_torch.main` with `device: cpu` and the
   same batching.
 
@@ -29,7 +45,7 @@ The pairs already recorded in TORCH_PARITY.json are pooled with the new
 ones and never run again (a recorded row is not re-drawn), and arms not
 named in `--arms` keep their recorded results.
 
-`--jax-from-port-init N` (adversarial arms) also runs, for the N pairs of
+`--jax-from-port-init N` (every arm but adv_ssl) also runs, for the N pairs of
 each named arm where the port's val C-index falls furthest below JAX's, the
 JAX side from the port's initial weights (`scripts/_jax_from_port_init.py`):
 the one pairing that separates the port's init from the rest of its
@@ -245,7 +261,7 @@ def run_side(arm: str, side: str, cfg: dict, run_dir: str, threads: int) -> dict
     else:
         cmd = [sys.executable, "-m", "advmil_tpu_torch.main"]
         env = dict(os.environ, OMP_NUM_THREADS=str(threads))
-    cmd += ["--config", cfg_path] + ([] if side == "jax_port_init" else ["--handler", handler])
+    cmd += ["--config", cfg_path, "--handler", handler]
     t0 = time.time()
     r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, env=env)
     seconds = time.time() - t0
@@ -401,7 +417,8 @@ def write_report(results: dict, args) -> None:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workdir", default=osp.join(tempfile.gettempdir(), "torch_parity"))
-    ap.add_argument("--arms", nargs="+", default=list(ARMS), choices=list(ARMS))
+    ap.add_argument("--arms", nargs="+", default=list(ARMS), choices=list(ARMS),
+                    metavar="ARM", help="arms to run (default: all): " + ", ".join(ARMS))
     ap.add_argument("--folds", type=int, default=5)
     ap.add_argument("--seeds", nargs="+", default=["42-51"],
                     help="seeds, or inclusive ranges such as 52-71")
@@ -479,9 +496,9 @@ def main():
     init_jobs = []
     if args.jax_from_port_init:
         for arm in args.arms:
-            if ARMS[arm][0] != "adv" or arm == "adv_ssl":
-                raise SystemExit(f"--jax-from-port-init runs exec of the adversarial "
-                                 f"handler; {arm} is not such an arm")
+            if arm == "adv_ssl":
+                raise SystemExit("--jax-from-port-init runs exec; adv_ssl trains with "
+                                 "exec_semi_sl")
             for row in largest_gaps(pooled_rows(arm)):
                 cfg = side_cfg(arm, "jax", paths, row["fold"], row["seed"],
                                init_dir(arm, row), args.epochs)
