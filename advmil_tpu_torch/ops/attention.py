@@ -63,14 +63,20 @@ def masked_attention_reference(q, k, v, mask, dropout_p: float = 0.0,
 
 
 def masked_attention_rounded(q, k, v, mask, dout=None, dropout_p: float = 0.0,
-                             seed: int | None = None):
+                             seed: int | None = None, fwd_out=None):
     """(out, dq, dk, dv) of the plain version (`out` alone without `dout`),
     forward and backward written out in f32 with the roundings of the bf16
     kernels: q is scaled in its own dtype; the forward rounds the
     unnormalised, dropped weights exp(s - m) to bf16 before P.V while the row
     sum adds them unrounded; the backward rounds the dropped probabilities
     (dV) and dS (dK and dQ) to bf16 before its second products. Masked keys
-    are selected to 0, so a fully masked bag gives exact zeros."""
+    are selected to 0, so a fully masked bag gives exact zeros.
+
+    The backward's dvec = rowsum(dO * O) takes this function's own out, or
+    `fwd_out`, the forward kernel's output that the backward kernels are
+    given (`flash_bwd_inputs`): the two may differ by a bf16 ulp, and on a
+    row whose softmax is saturated dS = P (dP - dvec) cancels to far below
+    dP, so that ulp alone can move dQ and dK by a share of themselves."""
     B, Lq, H, Dh = q.shape
     f32 = torch.float32
     scale = 1.0 / math.sqrt(Dh)
@@ -96,7 +102,8 @@ def masked_attention_rounded(q, k, v, mask, dout=None, dropout_p: float = 0.0,
         return out
     do = dout.to(q.dtype).to(f32)
     p = torch.where(real, torch.exp(s - (m + torch.log(l))), zero)
-    dvec = (do * out.to(f32)).sum(-1).permute(0, 2, 1)[..., None]     # [B, H, Lq, 1]
+    o = out if fwd_out is None else fwd_out.to(q.dtype)
+    dvec = (do * o.to(f32)).sum(-1).permute(0, 2, 1)[..., None]       # [B, H, Lq, 1]
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vf) * keep - dvec)
     dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p * keep), do)
     dk = torch.einsum("bhqk,bqhd->bkhd", rnd(ds), qs)
@@ -111,7 +118,11 @@ def rounded_tol(want) -> dict:
     differ from the oracle's in the last bits, so here and there a P or dS
     rounds the other way, by one ulp of an element that may be among the
     largest; the result then moves by that ulp times an operand, which is
-    bounded by one bf16 ulp of the largest result: 2^-7 of it."""
+    bounded by one bf16 ulp of the largest result: 2^-7 of it. dQ and dK hold
+    within it against the oracle fed the forward output the backward kernels
+    were given (`masked_attention_rounded(..., fwd_out=)`): on trained
+    weights, where a softmax row saturates and dS cancels, the oracle's own
+    output, a bf16 ulp away here and there, moves them past it."""
     return dict(atol=float(want.detach().abs().max()) / 128, rtol=1e-2)
 
 

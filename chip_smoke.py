@@ -142,11 +142,22 @@ Phases, each printed on its own line:
      runs' models, ABMIL and a D tower of 32, take no kernel).
  39. `python -m advmil_tpu_torch.stats` at cfg_nlst width in every mode on
      the card, parameter counts and FLOPs equal to the CPU's.
+ 40. every on-path kernel on trained activations: cfg_nlst ESAT (unfused
+     and with `use_fused_embedding`) on phase 4's data, adversarial PatchGCN
+     on phase 8's graphs (banded) and phase 34's slides (grid), each trained
+     at full width until early stopping or its epochs (the validation
+     C-index by epoch and each weight matrix's drift logged); from each best
+     checkpoint one training step and one eval batch with the kernel entry
+     points recorded (calls = launch counters), every call replayed through
+     the kernel and its plain version and held with the kernel's tolerance
+     function; each kernel's trained share of its bound beside a unit-normal
+     twin's; rows `trained_<kernel>` in the kernels JSON.
 Phase 3 also holds the graph aggregation kernels (dense and banded, forward
 and backward) against their plain versions at B=2, N=16,384, C=384. Every
 phase's seconds are logged. The last lines are the kernels JSON, the card
 line and the result JSON. Any failure raises and exits non-zero.
 """
+import contextlib
 import json
 import math
 import os
@@ -1821,7 +1832,6 @@ def _adv_run(cfg, name, need, dims=(384, 128)):
     in `need` launched, and #1 (and #2, where it is needed) at each width of
     `dims`: G's (384) and D's X tower's (128). Returns (handler, metrics,
     launches, widths, printed lines)."""
-    import contextlib
     import io
     from advmil_tpu_torch import main as port_main
     yaml_path = osp.join(WORK_DIR, f"{name}.yaml")
@@ -3854,6 +3864,477 @@ def phase_stats(card, device="cuda"):
         f"products counted by FlopCounterMode) | {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 40: every on-path kernel on trained activations
+# ---------------------------------------------------------------------------
+
+# the kernel entry points that the ops modules' autograd Functions call by
+# module-level name: (ops module, entry point, launch counter)
+TRAINED_CAPTURE = (
+    ("ln_pool", "ln_relu_region_mean_fwd", "ln_relu_region_mean"),
+    ("ln_pool", "ln_relu_region_mean_bwd", "ln_relu_region_mean_bwd"),
+    ("attention", "flash_attention_fwd", "masked_flash_attention"),
+    ("attention", "flash_bwd_dq", "flash_bwd_dq"),
+    ("attention", "flash_bwd_dkv", "flash_bwd_dkv"),
+    ("fused_embed", "fused_region_embedding_fwd", "fused_region_embedding"),
+    ("fused_embed", "fused_region_embedding_bwd_dparams", "fused_region_embedding_bwd_dparams"),
+    ("fused_embed", "fused_region_embedding_bwd_dx", "fused_region_embedding_bwd_dx"),
+    ("segment", "fused_agg_fwd", "fused_knn_softmax_aggregate"),
+    ("segment", "fused_agg_bwd", "fused_knn_softmax_aggregate_bwd"),
+    ("banded", "banded_core_fwd", "banded_aggregate"),
+    ("banded", "banded_core_bwd", "banded_aggregate_bwd"))
+# phase 40's training runs: (name, epochs); the epochs are the depth cut
+TRAINED_RUNS = (("esat", 20), ("esat_fused", 20), ("graph_banded", 20), ("graph_grid", 10))
+
+
+def _copied(v):
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.detach().clone()
+    if isinstance(v, dict):
+        return {k: _copied(x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_copied(x) for x in v)
+    return v
+
+
+@contextlib.contextmanager
+def recorded_calls(targets):
+    """For the length of the block each (module, name) of `targets` is
+    replaced by a wrapper that records a copy of every call's arguments (the
+    tensors cloned: a backward's incoming cotangent, the flash seed and p
+    included) and then calls the original. Code that looks the name up in
+    the module when it calls (the ops modules' autograd Functions calling
+    their kernel entry points; the model modules calling the ops) goes
+    through the wrapper. Yields {name: [(args, kwargs), ...]}. The package
+    has no such switch: this is the checks' instrument."""
+    calls, saved = {}, []
+    for mod, name in targets:
+        orig = getattr(mod, name)
+        log_ = calls.setdefault(name, [])
+
+        def wrapper(*args, _orig=orig, _log=log_, **kwargs):
+            _log.append((_copied(args), _copied(kwargs)))
+            return _orig(*args, **kwargs)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, wrapper)
+    try:
+        yield calls
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+
+
+def _trained_train(cfg, epochs):
+    """One phase-40 training run: the handler `main` builds, its initial
+    weight matrices kept, then `exec` (which ends with the best checkpoint
+    loaded). Returns (handler, metrics, the validation C-index the handler
+    evaluates each epoch, each weight matrix's drift |W - W0| / |W0|,
+    seconds)."""
+    import torch
+    from advmil_tpu_torch import main as port_main
+    from advmil_tpu_torch.config import check_configs, with_defaults
+    cfg = with_defaults(dict(cfg, test=False, epochs=epochs))
+    check_configs(cfg, "adv")
+    h = port_main.handler_class("adv")(cfg)
+    w0 = {f"{n}.{k}": p.detach().clone() for n, m in (("G", h.gen_model), ("D", h.disc_model))
+          for k, p in m.named_parameters() if p.dim() >= 2}
+    val = []
+    orig = h._eval_and_print
+
+    def eval_and_print(cltor, name="", at_epoch=None):
+        out = orig(cltor, name=name, at_epoch=at_epoch)
+        if name == "validation" and at_epoch is not None:
+            val.append(float(out[0]))
+        return out
+
+    h._eval_and_print = eval_and_print
+    t0 = time.perf_counter()
+    metrics = h.exec()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    drift = {k: float((p - w0[k]).norm() / w0[k].norm().clamp_min(1e-30))
+             for n, m in (("G", h.gen_model), ("D", h.disc_model))
+             for k, p in ((f"{n}.{k}", p.detach()) for k, p in m.named_parameters())
+             if k in w0}
+    return h, metrics, val, drift, sec
+
+
+def _trained_capture(h):
+    """One training step (D phase, then G phase) from the best checkpoint on
+    the training batch of the longest bags, and one eval batch (the test
+    split's batch of the longest bags), with every kernel entry point
+    recorded; the launch counters are reset before and read after."""
+    import torch
+    mods = _counter_modules()
+    train_b = max(h.loaders["train"][1].epoch_batches(), key=lambda b: b.feats.shape[1])
+    eval_b = max(h.loaders["test"][1].epoch_batches(), key=lambda b: b.feats.shape[1])
+    gen = torch.Generator(device=h.device).manual_seed(40)
+    reset_counters()
+    targets = [(mods[m], f) for m, f, _ in TRAINED_CAPTURE] + [(mods["attention"],
+                                                                "flash_bwd_inputs")]
+    with recorded_calls(targets) as calls:
+        h.train_step(h._ship(train_b, train=True), h.train_rngs)
+        h._eval_step(1, False)(h._ship(eval_b), gen)
+        torch.cuda.synchronize()
+    launches = read_counters()
+    for _, fn, counter in TRAINED_CAPTURE:
+        if len(calls[fn]) != launches[counter]:
+            raise AssertionError(f"40: {fn} recorded {len(calls[fn])} calls, its counter "
+                                 f"{counter} read {launches[counter]}")
+    shapes = (tuple(train_b.feats.shape), tuple(eval_b.feats.shape))
+    return calls, launches, shapes
+
+
+def _replay(fn, args, kw):
+    """(trained share, max |kernel - plain|, the kernel's result kept for #10,
+    (kernel callable, plain callable, bytes, operations, kind, library
+    callable or None) for the timing) of one recorded call, through the
+    kernel and its plain version in the call's dtypes, held with the
+    kernel's own tolerance function applied to the plain result."""
+    import torch
+    from advmil_tpu_torch.ops import attention as attn
+    from advmil_tpu_torch.ops import banded as tband
+    from advmil_tpu_torch.ops import fused_embed as fe
+    from advmil_tpu_torch.ops import ln_pool
+    from advmil_tpu_torch.ops import segment as tseg
+
+    def grad_of(plain, leaf_in, others, g):
+        leaf = leaf_in.detach().float().requires_grad_(True)
+        out = plain(leaf, *others)
+        return torch.autograd.grad(out.float(), leaf, g.float())[0].to(leaf_in.dtype)
+
+    pairs, keep, own_pairs = [], None, None
+    if fn == "ln_relu_region_mean_fwd":
+        h, scale, bias = args
+        got = ln_pool.ln_relu_region_mean_fwd(h, scale, bias)
+        want = ln_pool.ln_relu_region_mean_plain(h, scale, bias)
+        pairs = [(got, want, ln_pool.fwd_tol(want))]
+        timing = (lambda: ln_pool.ln_relu_region_mean_fwd(h, scale, bias),
+                  lambda: ln_pool.ln_relu_region_mean_plain(h, scale, bias),
+                  nbytes(h, got, scale, bias), 10 * h.numel(), "f32", None)
+    elif fn == "ln_relu_region_mean_bwd":
+        g, h, scale, bias = args
+        # the kernel reads g exactly in f32; regions with a ReLU input within
+        # 2e-5 of 0 get no cotangent, as in phase 3
+        ge = away_from_relu_edge(pre_relu(h.float(), scale.float(), bias.float()),
+                                 g.float(), 16)
+        dh = ln_pool.ln_relu_region_mean_bwd(ge, h, scale, bias)[0]
+        dh_ref = grad_of(lambda x: ln_pool.ln_relu_region_mean_plain(x, scale, bias), h, (), ge)
+        pairs = [(dh, dh_ref, ln_pool.bwd_tol(dh_ref))]
+        timing = (lambda: ln_pool.ln_relu_region_mean_bwd(g, h, scale, bias),
+                  lambda: grad_of(lambda x: ln_pool.ln_relu_region_mean_plain(x, scale, bias),
+                                  h, (), g),
+                  nbytes(h, h, g, scale, bias, scale, bias), 25 * h.numel(), "f32", None)
+    elif fn == "flash_attention_fwd":
+        q, k, v, mask = args[:4]
+        rest = args[4:]
+        p = rest[0] if rest else kw.get("dropout_p", 0.0)
+        seed = rest[1] if len(rest) > 1 else kw.get("seed")
+        out, lse = attn.flash_attention_fwd(q, k, v, mask, p, seed)
+        want = attn.masked_attention_rounded(q, k, v, mask, None, p, seed)
+        pairs = [(out, want, attn.rounded_tol(want))]
+        pairs_n = q.shape[1] * int(mask.sum()) * q.shape[2] * q.shape[3]
+        timing = (lambda: attn.flash_attention_fwd(q, k, v, mask, p, seed),
+                  lambda: attn.masked_attention_reference(q, k, v, mask, p, seed),
+                  nbytes(q, k, v, out, mask, lse), 4 * pairs_n, "bf16",
+                  _sdpa(q, k, v, mask, p))
+    elif fn in ("flash_bwd_dq", "flash_bwd_dkv"):
+        (ops, p, seed), (q, k, v, mask, out, _, dout) = args
+        # held on the forward's out that the backward was given; the oracle's
+        # own out (a bf16 ulp away here and there) is read beside it
+        want = attn.masked_attention_rounded(q, k, v, mask, dout, p, seed, fwd_out=out)
+        mine = attn.masked_attention_rounded(q, k, v, mask, dout, p, seed)
+        pairs_n = q.shape[1] * int(mask.sum()) * q.shape[2] * q.shape[3]
+        io = nbytes(q, k, v, dout, mask, ops["lse"], ops["dvec"])
+        if fn == "flash_bwd_dq":
+            dq = attn.flash_bwd_dq(ops, p, seed) * (1.0 / math.sqrt(q.shape[-1]))
+            pairs = [(dq, want[1], attn.rounded_tol(want[1]))]
+            own_pairs = [(dq, mine[1], attn.rounded_tol(mine[1]))]
+            launch, outs, ops_n = (lambda: attn.flash_bwd_dq(ops, p, seed)), (dq,), 6 * pairs_n
+        else:
+            dk, dv = attn.flash_bwd_dkv(ops, p, seed)
+            pairs = [(dk, want[2], attn.rounded_tol(want[2])),
+                     (dv, want[3], attn.rounded_tol(want[3]))]
+            own_pairs = [(dk, mine[2], attn.rounded_tol(mine[2])),
+                         (dv, mine[3], attn.rounded_tol(mine[3]))]
+            launch, outs, ops_n = (lambda: attn.flash_bwd_dkv(ops, p, seed)), (dk, dv), 8 * pairs_n
+        timing = (launch, lambda: attn.masked_attention_rounded(q, k, v, mask, dout, p, seed),
+                  io + nbytes(*outs), ops_n, "bf16", _sdpa(q, k, v, mask, p, dout))
+    elif fn == "fused_region_embedding_fwd":
+        x, w, b, scale, bias = args
+        got = fe.fused_region_embedding_fwd(x, w, b, scale, bias)
+        want = fe.fused_region_embedding_plain(x, w, b, scale, bias)
+        pairs = [(got, want, fe.fwd_tol(want))]
+        M, K, D = x.shape[0], x.shape[1], w.shape[1]
+        timing = (lambda: fe.fused_region_embedding_fwd(x, w, b, scale, bias),
+                  lambda: fe.fused_region_embedding_plain(x, w, b, scale, bias),
+                  nbytes(x, got, b, scale, bias) + K * D * x.element_size(), 2 * M * K * D,
+                  "bf16", None)
+    elif fn == "fused_region_embedding_bwd_dparams":
+        g, x, w, b, scale, bias = args
+        h32 = x.float() @ w.to(x.dtype).float() + b.float()
+        mu = h32.mean(dim=-1, keepdim=True)
+        var = ((h32 - mu) ** 2).mean(dim=-1, keepdim=True)
+        ge = away_from_relu_edge((h32 - mu) * (var + 1e-6).rsqrt() * scale.float()
+                                 + bias.float(), g.float(), 16)
+        del h32, mu, var
+        dh, dw = fe.fused_region_embedding_bwd_dparams(ge, x, w, b, scale, bias)[:2]
+        dh_ref = fe.fused_region_embedding_dh_plain(ge, x, w, b, scale, bias)[0].to(x.dtype)
+        own = x.float().t() @ dh.float()
+        pairs = [(dh, dh_ref, fe.dh_tol(dh_ref)), (dw, own, fe.dw_tol(own))]
+        keep = (dh, w)
+        M, K, D = x.shape[0], x.shape[1], w.shape[1]
+        timing = (lambda: fe.fused_region_embedding_bwd_dparams(g, x, w, b, scale, bias),
+                  lambda: fe.fused_region_embedding_bwd_plain(g, x, w, b, scale, bias),
+                  nbytes(g, x, dh, dw) + K * D * x.element_size() + 5 * 4 * D, 4 * M * K * D,
+                  "bf16", None)
+    elif fn == "fused_region_embedding_bwd_dx":
+        dh, w = args
+        got = fe.fused_region_embedding_bwd_dx(dh, w)
+        want = fe.fused_region_embedding_bwd_dx_plain(dh, w)
+        pairs = [(got, want, fe.dx_tol(want))]
+        timing = (lambda: fe.fused_region_embedding_bwd_dx(dh, w),
+                  lambda: fe.fused_region_embedding_bwd_dx_plain(dh, w),
+                  nbytes(dh, got) + w.numel() * dh.element_size(),
+                  2 * dh.shape[0] * dh.shape[1] * w.shape[0], "bf16",
+                  lambda: torch.matmul(dh, w.to(dh.dtype).t()))
+    elif fn == "fused_agg_fwd":
+        msg, em, t = args
+        got = tseg.fused_agg_fwd(msg, em, t)
+        want = tseg.knn_edge_softmax_aggregate(msg, em, t)
+        pairs = [(got, want, tseg.knn_tol(want))]
+        timing = (lambda: tseg.fused_agg_fwd(msg, em, t),
+                  lambda: tseg.knn_edge_softmax_aggregate(msg, em, t),
+                  nbytes(msg, em, got), 5 * msg.numel(), "f32", None)
+    elif fn == "fused_agg_bwd":
+        msg, em, t, g = args
+        ge = g.to(msg.dtype)
+        dm = tseg.fused_agg_bwd(msg, em, t, ge)[0]
+        dm_ref = grad_of(lambda m: tseg.knn_edge_softmax_aggregate(m, em, t), msg, (), ge)
+        pairs = [(dm, dm_ref, tseg.knn_bwd_tol(dm_ref))]
+        timing = (lambda: tseg.fused_agg_bwd(msg, em, t, g),
+                  lambda: grad_of(lambda m: tseg.knn_edge_softmax_aggregate(m, em, t), msg, (),
+                                  ge),
+                  nbytes(msg, em, g, dm), 10 * msg.numel(), "f32", None)
+    elif fn == "banded_core_fwd":
+        y, offs, bm, t = args[:4]
+        save = bool(args[4] if len(args) > 4 else kw.get("save_stats", False))
+        got, stats = tband.banded_core_fwd(y, offs, bm, t, save_stats=save)
+        want = tband.banded_core_plain(y, offs, bm, t)
+        pairs = [(got, want, tband.banded_tol(want.float()))]
+        timing = (lambda: tband.banded_core_fwd(y, offs, bm, t, save_stats=save),
+                  lambda: tband.banded_core_plain(y, offs, bm, t),
+                  nbytes(y, offs, bm, got, *(stats or ())), 5 * y.numel() * bm.shape[2], "f32",
+                  None)
+    elif fn == "banded_core_bwd":
+        y, offs, bm, t, stats, g = args
+        ge = g.to(y.dtype)
+        dy = tband.banded_core_bwd(y, offs, bm, t, stats, ge)[0]
+        dy_ref = grad_of(lambda yy: tband.banded_core_plain(yy, offs, bm, t), y, (), ge)
+        pairs = [(dy, dy_ref, tband.banded_tol(dy_ref.float()))]
+        timing = (lambda: tband.banded_core_bwd(y, offs, bm, t, stats, g),
+                  lambda: grad_of(lambda yy: tband.banded_core_plain(yy, offs, bm, t), y, (),
+                                  ge),
+                  nbytes(y, offs, bm, *stats, g, dy), 8 * y.numel() * bm.shape[2], "f32",
+                  None)
+    else:
+        raise KeyError(fn)
+    share = max(share_of(a, b, **tol) for a, b, tol in pairs)
+    err = max(max_abs(a, b) for a, b, _ in pairs)
+    own_share = max(share_of(a, b, **tol) for a, b, tol in own_pairs) if own_pairs else None
+    return share, err, keep, timing, own_share
+
+
+def _unit_normal_twin(fn, args, kw, gen):
+    """The same call on unit-normal data of the same shapes and dtypes, as
+    phase 3 draws it (rows and cotangents N(0, 1); LayerNorm scale 1 + 0.1 N,
+    bias 0.1 N; W N(0, 1 / K); node messages relu(N) + 1e-7): the masks,
+    tables, seed and p are the recorded call's. The backward's forward
+    operands (flash lse, banded statistics) come from the kernels' forwards
+    on the twin's data."""
+    import torch
+    from advmil_tpu_torch.ops import attention as attn
+    from advmil_tpu_torch.ops import banded as tband
+
+    def n(t, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(t.shape, device=t.device, generator=gen)).to(t.dtype)
+
+    def pos(t):
+        return (torch.relu(torch.randn(t.shape, device=t.device, generator=gen))
+                + 1e-7).to(t.dtype)
+
+    if fn in ("ln_relu_region_mean_fwd",):
+        h, scale, bias = args
+        return (n(h), n(scale, 0.1, 1.0), n(bias, 0.1)), kw
+    if fn == "ln_relu_region_mean_bwd":
+        g, h, scale, bias = args
+        return (n(g), n(h), n(scale, 0.1, 1.0), n(bias, 0.1)), kw
+    if fn == "flash_attention_fwd":
+        q, k, v = args[:3]
+        return (n(q), n(k), n(v), *args[3:]), kw
+    if fn in ("flash_bwd_dq", "flash_bwd_dkv"):
+        (_, p, seed), (q, k, v, mask, _, _, dout) = args
+        q, k, v, dout = n(q), n(k), n(v), n(dout)
+        out, lse = attn.flash_attention_fwd(q, k, v, mask, p, seed)
+        ops = attn.flash_bwd_inputs(q, k, v, mask, out, lse, dout)
+        return ((ops, p, seed), (q, k, v, mask, out, lse, dout)), kw
+    if fn == "fused_region_embedding_fwd":
+        x, w, b, scale, bias = args
+        return (n(x), n(w, w.shape[0] ** -0.5), n(b, 0.1), n(scale, 0.1, 1.0), n(bias, 0.1)), kw
+    if fn == "fused_region_embedding_bwd_dparams":
+        g, x, w, b, scale, bias = args
+        return (n(g), n(x), n(w, w.shape[0] ** -0.5), n(b, 0.1), n(scale, 0.1, 1.0),
+                n(bias, 0.1)), kw
+    if fn == "fused_region_embedding_bwd_dx":
+        dh, w = args
+        return (n(dh), n(w, w.shape[0] ** -0.5)), kw
+    if fn == "fused_agg_fwd":
+        msg, em, t = args
+        return (pos(msg), em, t), kw
+    if fn == "fused_agg_bwd":
+        msg, em, t, g = args
+        return (pos(msg), em, t, n(g)), kw
+    if fn == "banded_core_fwd":
+        return (pos(args[0]), *args[1:]), kw
+    if fn == "banded_core_bwd":
+        y, offs, bm, t, _, g = args
+        y = pos(y)
+        stats = tband.banded_core_fwd(y, offs, bm, t, save_stats=True)[1]
+        return (y, offs, bm, t, stats, n(g)), kw
+    raise KeyError(fn)
+
+
+def phase_trained_kernels(paths, gpaths, tpaths, card):
+    """Phase 40: every on-path kernel on trained activations. The main path
+    trains at full width on the card until early stopping or its epochs
+    (`TRAINED_RUNS`): cfg_nlst ESAT (bf16, phase 4's data: the 2,048-region
+    test bag, training bags of 700 and 1,000 regions), the same with
+    `use_fused_embedding`, adversarial PatchGCN on phase 8's graphs (banded
+    route) and on phase 34's tool-built slides (grid route). Each run logs its
+    validation C-index per epoch (the ESAT runs' must rise by 0.05 over epoch
+    1) and each weight matrix's drift |W - W0| / |W0|. From its best
+    checkpoint one training step (D and G phases) and one eval batch with the
+    longest test bag run with every kernel entry point recorded
+    (`recorded_calls`); the recorded calls per kernel must equal the launch
+    counters over the same block. Every recorded call is replayed through
+    the kernel and its plain version in the call's own dtypes and held with
+    the kernel's tolerance function (`ln_pool.fwd_tol / bwd_tol`,
+    `attention.rounded_tol` against `masked_attention_rounded` with the same
+    keep bits, `fused_embed.fwd_tol / dh_tol / dw_tol / dx_tol`,
+    `segment.knn_tol / knn_bwd_tol`, `banded.banded_tol`); #10 (no launch on
+    the path: x is data) replays on #11's dh. A share above 1 fails the
+    phase. Beside each trained share stands the share of a unit-normal twin
+    of the same calls (`_unit_normal_twin`). #3 / #4 (`ln_relu`) and #8 (the
+    keep mask) are on no model's path and keep phase 3's checks. Returns the
+    kernels JSON rows `trained_<kernel>`."""
+    import numpy as np
+    import torch
+    runs = {"esat": _smoke_cfg(paths, "trained_esat"),
+            "esat_fused": _smoke_cfg(paths, "trained_esat_fused", use_fused_embedding=True),
+            "graph_banded": _graph_cfg(paths, gpaths, "trained_graph_banded",
+                                       graph_banded="auto"),
+            "graph_grid": _tissue_cfg(tpaths, "trained_graph_grid")}
+    log(f"[40 trained] runs and their depth cut (epochs; widths as shipped): "
+        f"{dict(TRAINED_RUNS)}; kernels #3 / #4 (ln_relu) and #8 (keep mask) are on no "
+        f"model's path and keep phase 3's checks")
+    recorded = {}          # entry point -> [(run, args, kwargs)]
+    path_launches = {}
+    for run, epochs in TRAINED_RUNS:
+        h, metrics, val, drift, sec = _trained_train(runs[run], epochs)
+        d = sorted(drift.values())
+        rise = max(val) - val[0]
+        log(f"[40 trained] {run}: {len(h.train_timings)} epochs in {sec:.1f} s; validation "
+            f"C-index by epoch {' '.join(f'{v:.3f}' for v in val)} (best checkpoint's "
+            f"{dict(metrics['validation'])['cindex']:.4f}, rise over epoch 1 {rise:+.3f}); "
+            f"weight drift |W - W0| / |W0| over {len(d)} matrices: min {d[0]:.3f} median "
+            f"{d[len(d) // 2]:.3f} max {d[-1]:.3f} ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(drift.items())[:4]) + ", ...)")
+        if run.startswith("esat") and not rise >= 0.05:
+            raise AssertionError(f"40 {run}: the validation C-index did not rise (by "
+                                 f"{rise:+.3f} over epoch 1)")
+        if not all(math.isfinite(v) and v > 0 for v in d):
+            raise AssertionError(f"40 {run}: weights did not move or are not finite")
+        calls, launches, shapes = _trained_capture(h)
+        log(f"[40 trained] {run}: recorded one training step on {shapes[0]} and one eval "
+            f"batch on {shapes[1]} from the best checkpoint: calls = launches "
+            f"{({k: v for k, v in launches.items() if v})}")
+        for _, fn, counter in TRAINED_CAPTURE:
+            path_launches[counter] = path_launches.get(counter, 0) + launches[counter]
+        # pair each flash backward call with its operands (flash_attention_bwd
+        # forms them with flash_bwd_inputs just before the two launches)
+        for fn in ("flash_bwd_dq", "flash_bwd_dkv"):
+            calls[fn] = [((a, b[0]), kw) for (a, kw), b in zip(calls[fn],
+                                                                calls["flash_bwd_inputs"])]
+        for fn, cs in calls.items():
+            if fn != "flash_bwd_inputs":
+                recorded.setdefault(fn, []).extend((run, a, kw) for a, kw in cs)
+        del h
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    rows, failed, dx_calls = [], [], []
+    for _, fn, counter in TRAINED_CAPTURE:
+        # #10 (x is data: no launch on the path) is held on #11's dh, which
+        # comes first in TRAINED_CAPTURE
+        cs = dx_calls if fn == "fused_region_embedding_bwd_dx" else recorded.get(fn, [])
+        if not cs:
+            raise AssertionError(f"40: no call of {fn} was recorded on the trained runs")
+        shares, twins, errs, owns, bf16s, largest = [], [], [], [], [], None
+        for run, a, kw in cs:
+            share, err, keep, timing, own = _replay(fn, a, kw)
+            twin = _replay(fn, *_unit_normal_twin(fn, a, kw, gen))[0]
+            shares.append((share, run))
+            if own is not None:
+                owns.append(own)
+            if fn in ("fused_agg_fwd", "fused_agg_bwd") and a[0].dtype == torch.float32:
+                # the path gathers these messages in f32, where knn_tol (a bf16
+                # bound) is loose; the same trained call in bf16 reads the bound
+                bf16s.append(_replay(fn, (a[0].bfloat16(), *a[1:3],
+                                          *(x.bfloat16() for x in a[3:])), kw)[0])
+            twins.append(twin)
+            errs.append(err)
+            if keep is not None:
+                dx_calls.append((run, keep, {}))
+            size = timing[2]
+            if largest is None or size > largest[0]:
+                largest = (size, timing)
+            torch.cuda.synchronize()
+        share, run = max(shares)
+        twin = max(twins)
+        _, (k_fn, p_fn, moved, ops, kind, lib_fn) = largest
+        k_ms, p_ms = timed_pair(k_fn, p_fn)
+        lib_ms = timed_one(lib_fn) if lib_fn is not None else None
+        by_run = {}
+        for s, r in shares:
+            by_run[r] = max(by_run.get(r, 0.0), s)
+        log(f"[40 trained] {counter}: {len(cs)} recorded calls, trained share of its bound "
+            f"{share:.3f} (worst in {run}; by run "
+            + ", ".join(f"{r} {s:.3f}" for r, s in by_run.items())
+            + f") beside {twin:.3f} on unit-normal twins of the same calls"
+            + (f" (against the oracle's own forward output instead of the one the backward "
+               f"was given: {max(owns):.3f})" if owns else "")
+            + (f"; the same calls with the messages in bf16: {max(bf16s):.3f}" if bf16s else "")
+            + f"; max |kernel - plain| {max(errs):.3e} | largest call: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms"
+            + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "") + f" | {card}")
+        if not share <= 1.0:
+            failed.append(f"{counter} at {share:.3f} of its bound (run {run})")
+        if bf16s and not max(bf16s) <= 1.0:
+            failed.append(f"{counter} in bf16 at {max(bf16s):.3f} of its bound")
+        src, replaces = SOURCES[counter]
+        rows.append(dict(name=f"trained_{counter}", route="cuda", source=src,
+                         replaces=replaces, launches=path_launches[counter],
+                         max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                         share=share, unit_normal_share=twin, calls=len(cs),
+                         **({"share_bf16": max(bf16s)} if bf16s else {}),
+                         **bound(moved, ops, kind)))
+    if failed:
+        raise AssertionError("40: on trained inputs " + "; ".join(failed))
+    return rows
+
+
 def timed(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -3951,6 +4432,8 @@ def main():
     jax_launches = timed("38 jax checkpoint", phase_jax_ckpt, card)
     jax_full_launches = timed("38 jax checkpoint full width", phase_jax_flat_full, paths, card)
     timed("39 stats", phase_stats, card)
+    trained_rows = timed("40 trained kernels", phase_trained_kernels, paths, gpaths, tpaths,
+                         card)
     for d in ("data", "tissue"):
         shutil.rmtree(osp.join(WORK_DIR, d), ignore_errors=True)
     log(f"[time] total: {time.perf_counter() - t_start:.1f} s")
@@ -4043,6 +4526,9 @@ def main():
                 launches=grid_launches[name] + grid_test_launches[name],
                 launches_by_path={"grid_train": grid_launches[name],
                                   "grid_test_mode": grid_test_launches[name]}))
+    # phase 40: the on-path kernels replayed on trained activations, with
+    # their share of the tight bound beside a unit-normal twin's
+    kernels += trained_rows
     assert all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms"))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -3,7 +3,7 @@
 Both packages train on the same synthetic dataset and split files
 (`scripts/run_parity.py::build_dataset`: 160 patients, 128-d `.pt`
 features, a planted survival signal) with the same arm configs (`ARMS`,
-built from `run_parity`'s builders and this repo's `config/cfg_nlst.yaml`),
+made by `run_parity`'s config functions from this repo's `config/cfg_nlst.yaml`),
 on the CPU in f32. One arm a mode:
 
 - adversarial ESAT: `adv_esat`, `adv_esat_fused` (`use_fused_embedding`),
@@ -137,8 +137,8 @@ RASTER_WIDTH = 12
 def write_raster_graphs(paths: dict) -> str:
     """The adv_graph_banded arm's graphs: for every slide the 8-nearest-
     neighbour graph of its patches on a raster `RASTER_WIDTH` patches wide
-    with full rows, nodes in raster order (`chip_smoke.tissue_graph`, the
-    card test's graphs, with no short rows or holes), written once under
+    with full rows, nodes in raster order (`chip_smoke.tissue_graph`, which
+    makes phase 8's graphs, here with no short rows or holes), written once under
     `<data>/raster_graphs/` as `edge_index` / `edge_latent` / `num_nodes`.
     In raster order most edges keep their slot's offset from row to row
     (about 75% over the dataset's 32-256-patch slides), so both packages'

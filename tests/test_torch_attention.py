@@ -190,6 +190,35 @@ def test_rounded_tol_catches_a_dropped_term_of_dq(p):
     assert _share(wrong, right, **tattn.rounded_tol(right)) > 4.0
 
 
+@pytest.mark.parametrize("peak", [1.0, 12.0])
+def test_rounded_oracle_holds_the_backward_on_the_forward_output_it_was_given(peak):
+    """The backward kernels take dvec = rowsum(dO * O) from the forward
+    kernel's output, which may sit one bf16 ulp from the oracle's own. On a
+    row whose softmax is saturated (logits scaled by `peak`, as trained
+    attention grows them) dS = P (dP - dvec) cancels, and that ulp alone
+    moves dQ past `rounded_tol`; held on the same forward output
+    (`fwd_out`) the oracle gives the kernel's function. Unit-scale logits
+    (peak 1) keep dQ within the bound either way."""
+    B, L, H, Dh = 1, 256, 2, 48
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, L, H, Dh)).astype(np.float32))
+                   for _ in range(4))
+    q, k, v, do = (q * peak).bfloat16(), (k * peak).bfloat16(), v.bfloat16(), do.bfloat16()
+    mask = torch.ones(B, L)
+    own = tattn.masked_attention_rounded(q, k, v, mask, do)
+    same = tattn.masked_attention_rounded(q, k, v, mask, do, fwd_out=own[0])
+    assert all(torch.equal(a, b) for a, b in zip(own, same))
+    # a forward output about one bf16 ulp away at every element
+    nudged = (own[0].float() * (1.0 + 2.0 ** -7)).bfloat16()
+    moved = tattn.masked_attention_rounded(q, k, v, mask, do, fwd_out=nudged)
+    share = _share(moved[1], own[1], **tattn.rounded_tol(own[1]))
+    if peak == 1.0:
+        assert share <= 1.0
+    else:
+        assert share > 1.0
+    assert _share(moved[3], own[3], **tattn.rounded_tol(own[3])) == 0.0   # dV reads no dvec
+
+
 @pytest.mark.parametrize("seed,BH,Lq,Lk,p", [(77, 3, 20, 131, 0.25), ((1 << 63) + 5, 2, 9, 64, 0.6),
                                              (0, 1, 33, 6, 0.1)])
 def test_a_column_pair_shares_one_philox_block(seed, BH, Lq, Lk, p):
