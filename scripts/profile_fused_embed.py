@@ -7,6 +7,7 @@ library pair it replaces, on one CUDA GPU.
     python3 scripts/profile_fused_embed.py --dx-mutant
     python3 scripts/profile_fused_embed.py --fwd --dparams [--other-csrc DIR] [--variants a,b]
     python3 scripts/profile_fused_embed.py --mutants
+    python3 scripts/profile_fused_embed.py --f32 --fwd --dparams --mutants [--other-csrc DIR] [--variants a,b]
 
 Without arguments, for M = 32,768 patches of K = 1,024 features, D = 384 and
 128, bf16 and f32: five calls each of the forward (#9), the parameter backward
@@ -58,13 +59,28 @@ in one row tile; one M slab dropped from dW; a column beyond D let into the
 LayerNorm's variance at D = 96), each held to the plain and the tight bounds
 over `MUTANT_CASES` (rows of mean 0 to 1 for the LayerNorm one); fails
 unless each is caught by its tight bound.
+
+`--f32` with `--fwd` / `--dparams` / `--mutants`: the same for the f32
+kernels of `csrc/fused_embed.cu` (true f32 on the CUDA cores; TF32 off for
+the library pair too). The checks hold each value to the f32 bounds of
+`chip_smoke.py` phase 3 (values 1e-5 + 1e-4 relative, dh and the gradients
+2e-4 + 1e-3 relative against the plain versions), which are the tight ones
+in f32; the times use the f32 peak (67 TFLOP/s) for the bound;
+`F32_VARIANTS` are the builds without the products' FMAs (`no_products`) or
+without the loads after the ring's first round (`no_loads`; both give wrong
+results and are only timed); `F32_MUTANTS` are the three faults written for
+the f32 sources. Beside the ptxas lines it prints, from `cuobjdump -sass` of
+the library, the FFMA and shared-load (LDS) instructions of each f32
+kernel's innermost loop that holds FFMAs (`sass_loops`).
 """
 import argparse
 import json
 import os
 import os.path as osp
+import re
 import shutil
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -132,6 +148,31 @@ EMBED_MUTANTS = {
     "8 columns beyond D in the variance": [
         (_ROWS, "if (p * S::kN + 8 * j < D) {", "if (p * S::kN + 8 * j < D + 8) {")],
 }
+_F32 = "fused_embed.cu"
+_F32_ROW_K = "for (int kk = 0; kk < kBK; ++kk) {\n      float a[8];"
+_F32_GEMM_K = "for (int kk = 0; kk < kBK; ++kk) {\n      float bv[NCOL];"
+# name: (file, text, replacement) triples in the f32 sources; wrong results, only timed
+F32_VARIANTS = {
+    "no_products": [(_F32, _F32_ROW_K, _F32_ROW_K.replace("kk < kBK", "kk < (nk < 0 ? kBK : 0)")),
+                    (_F32, _F32_GEMM_K, _F32_GEMM_K.replace("kk < kBK", "kk < (nk < 0 ? kBK : 0)"))],
+    # each ring slot is filled once; later chunks multiply stale tiles
+    "no_loads": [(_F32, "if (kt < nk) {\n      load_tile(stage_a(kt)",
+                  "if (kt < nk && kt < kStages - 1) {\n      load_tile(stage_a(kt)"),
+                 (_F32, "if (kt < nk) {\n      float* As = stage_a(kt);",
+                  "if (kt < nk && kt < kStages - 1) {\n      float* As = stage_a(kt);")],
+}
+F32_MUTANTS = {
+    "K chunk 1 dropped in row tile 1": [
+        (_F32, _F32_ROW_K,
+         _F32_ROW_K.replace("kk < kBK", "kk < ((kt == 1 && blockIdx.x == 1) ? 0 : kBK)"))],
+    "slab 1 of M dropped from dW": [
+        (_F32, _F32_GEMM_K, _F32_GEMM_K.replace("kk < kBK", "kk < (blockIdx.z == 1 ? 0 : kBK)"))],
+    "32 columns beyond D in the variance": [
+        (_F32, "const float d = j < nc ? v[i][j] - mu : 0.f;",
+         "const float d = j < nc + 1 ? v[i][j] - mu : 0.f;")],
+}
+# the f32 kernels whose ptxas lines and innermost loops are reported
+F32_KERNELS = ("fused_rows_kernel", "gemm_tile_kernel", "sum_rows_kernel")
 # (M, K, D, mean of b, a zero region): the checks of right kernels
 EMBED_SHAPES = [(32768, 1024, 384, 0.0, True), (32768, 1024, 128, 0.0, True),
                 (16 * 67, 1024, 384, 0.0, True), (16 * 67, 128, 96, 0.0, True),
@@ -298,16 +339,17 @@ def run_dx_mutant(dev):
         raise SystemExit("the dx mutant passed dx_tol")
 
 
-def embed_case(M, K, D, b_mean, dev, zero_region=True, seed=0):
-    """bf16 x [M, K] (rows 16 .. 31 zero with `zero_region`), f32 parameters
-    (b around `b_mean`: the rows' mean), and a cotangent zeroed on the zero
-    region and wherever a ReLU input lies within 2e-5 of 0 (there a rounding
-    flips the mask)."""
+def embed_case(M, K, D, b_mean, dev, zero_region=True, seed=0, dtype=None):
+    """x [M, K] in `dtype` (bf16 unless given; rows 16 .. 31 zero with
+    `zero_region`), f32 parameters (b around `b_mean`: the rows' mean), and a
+    cotangent zeroed on the zero region and wherever a ReLU input lies within
+    2e-5 of 0 (there a rounding flips the mask)."""
     import torch
 
     import chip_smoke
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed + M + K + D)
-    x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+    x = torch.randn(M, K, device=dev, generator=g).to(dtype)
     if M >= 32 and zero_region:
         x[16:32] = 0.0
     w = torch.randn(K, D, device=dev, generator=g) / K ** 0.5
@@ -317,38 +359,54 @@ def embed_case(M, K, D, b_mean, dev, zero_region=True, seed=0):
     gout = torch.randn(M // 16, D, device=dev, generator=g)
     if M >= 32 and zero_region:
         gout[1] = 0.0
-    pre = chip_smoke.pre_relu(x.float() @ w.bfloat16().float() + b, scale, bias)
+    pre = chip_smoke.pre_relu(x.float() @ w.to(dtype).float() + b, scale, bias)
     return x, w, b, scale, bias, chip_smoke.away_from_relu_edge(pre, gout, 16)
 
 
-def fwd_of(lib, x, wt, b, scale, bias):
-    """The forward from `lib`'s C entry point (wt = W^T [D, K] in bf16)."""
+def w_operand(w, dtype):
+    """W as the row kernels take it: W^T [D, K] in bf16, W [K, D] in f32."""
+    import torch
+    return w.bfloat16().t().contiguous() if dtype == torch.bfloat16 else w.contiguous()
+
+
+def fwd_of(lib, x, wk, b, scale, bias):
+    """The forward from `lib`'s C entry point (wk: `w_operand`)."""
     import torch
     from advmil_tpu_torch.ops import _build
     from advmil_tpu_torch.ops.ln_pool import LN_EPS
-    (M, K), D = x.shape, wt.shape[0]
+    (M, K), D = x.shape, b.shape[0]
     out = torch.empty((M // 16, D), dtype=x.dtype, device=x.device)
-    _build.check(lib.advmil_fused_embed_fwd(x.data_ptr(), wt.data_ptr(), b.data_ptr(),
+    _build.check(lib.advmil_fused_embed_fwd(x.data_ptr(), wk.data_ptr(), b.data_ptr(),
                                             scale.data_ptr(), bias.data_ptr(), out.data_ptr(), M,
-                                            K, D, 1, LN_EPS, _build.stream_of(x)),
+                                            K, D, _build.DTYPE_CODES[x.dtype], LN_EPS,
+                                            _build.stream_of(x)),
                  "advmil_fused_embed_fwd")
     return out
 
 
-def dh_of(lib, gout, x, wt, b, scale, bias):
+def row_blocks(lib, M, D, code):
+    """Rows of the backward's partials: `lib`'s entry point takes (M, D,
+    dtype) since the f32 row kernel's block height follows D; an earlier
+    library's takes M alone (ctypes passes what it is given and the C
+    function reads the first argument)."""
+    return lib.advmil_fused_embed_row_blocks(M, D, code)
+
+
+def dh_of(lib, gout, x, wk, b, scale, bias):
     """(dh, [db, dscale, dbias]) from `lib`'s backward row kernel."""
     import torch
     from advmil_tpu_torch.ops import _build
     from advmil_tpu_torch.ops.ln_pool import LN_EPS
-    (M, K), D = x.shape, wt.shape[0]
+    (M, K), D = x.shape, b.shape[0]
+    code = _build.DTYPE_CODES[x.dtype]
     dh = torch.empty((M, D), dtype=x.dtype, device=x.device)
     sums = torch.empty((3, D), dtype=torch.float32, device=x.device)
-    part = torch.empty((lib.advmil_fused_embed_row_blocks(M), 3, D), dtype=torch.float32,
+    part = torch.empty((row_blocks(lib, M, D, code), 3, D), dtype=torch.float32,
                        device=x.device)
-    _build.check(lib.advmil_fused_embed_bwd_dh(gout.data_ptr(), x.data_ptr(), wt.data_ptr(),
+    _build.check(lib.advmil_fused_embed_bwd_dh(gout.data_ptr(), x.data_ptr(), wk.data_ptr(),
                                                b.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                                                dh.data_ptr(), part.data_ptr(), sums.data_ptr(), M,
-                                               K, D, 1, LN_EPS, _build.stream_of(x)),
+                                               K, D, code, LN_EPS, _build.stream_of(x)),
                  "advmil_fused_embed_bwd_dh")
     return dh, sums
 
@@ -360,56 +418,74 @@ def dw_of(lib, x, dh, part):
     (M, K), D = x.shape, dh.shape[1]
     dw = torch.empty((K, D), dtype=torch.float32, device=x.device)
     _build.check(lib.advmil_fused_embed_dw(x.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-                                           part.data_ptr(), M, K, D, 1, _build.stream_of(x)),
+                                           part.data_ptr(), M, K, D, _build.DTYPE_CODES[x.dtype],
+                                           _build.stream_of(x)),
                  "advmil_fused_embed_dw")
     return dw
 
 
-def dw_scratch(lib, M, K, D, dev):
+def dw_scratch(lib, M, K, D, dev, dtype):
     import torch
-    slabs = lib.advmil_fused_embed_dw_slabs(M, K, D, 1)
+    from advmil_tpu_torch.ops import _build
+    slabs = lib.advmil_fused_embed_dw_slabs(M, K, D, _build.DTYPE_CODES[dtype])
     return torch.empty((slabs if slabs > 1 else 0, K, D), dtype=torch.float32, device=dev)
 
 
-def check_embed(lib, cases, dev, tag):
-    """Each case against the plain bounds and the tight ones; returns the
-    records (shares of each bound, bit-for-bit repeat)."""
+# f32: the bounds of chip_smoke.py phase 3 (values; dh and the gradients), as (atol, rtol)
+F32_OUT_TOL, F32_GRAD_TOL = (1e-5, 1e-4), (2e-4, 1e-3)
+
+
+def check_embed(lib, cases, dev, tag, dtype=None):
+    """Each case against the plain bounds and the tight ones (in f32 both are
+    the f32 bounds); returns the records (shares of each bound, bit-for-bit
+    repeat)."""
     import torch
 
     import chip_smoke
     from advmil_tpu_torch.ops import fused_embed as fe
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
     recs = []
     for M, K, D, b_mean, zero_region in cases:
-        x, w, b, scale, bias, gout = embed_case(M, K, D, b_mean, dev, zero_region)
-        wt = w.bfloat16().t().contiguous()
-        part = dw_scratch(lib, M, K, D, dev)
-        out = fwd_of(lib, x, wt, b, scale, bias)
-        dh, sums = dh_of(lib, gout, x, wt, b, scale, bias)
+        x, w, b, scale, bias, gout = embed_case(M, K, D, b_mean, dev, zero_region, dtype=dtype)
+        wk = w_operand(w, dtype)
+        part = dw_scratch(lib, M, K, D, dev, dtype)
+        out = fwd_of(lib, x, wk, b, scale, bias)
+        dh, sums = dh_of(lib, gout, x, wk, b, scale, bias)
         dw = dw_of(lib, x, dh, part)
-        again = (fwd_of(lib, x, wt, b, scale, bias), *dh_of(lib, gout, x, wt, b, scale, bias))
+        again = (fwd_of(lib, x, wk, b, scale, bias), *dh_of(lib, gout, x, wk, b, scale, bias))
         same = all(torch.equal(u, v) for u, v in zip((out, dh, sums), again)) and \
             torch.equal(dw, dw_of(lib, x, again[1], part))
         torch.cuda.synchronize()
         ref = fe.fused_region_embedding_plain(x, w, b, scale, bias)
-        dh_ref = fe.fused_region_embedding_dh_plain(gout, x, w, b, scale, bias)[0].bfloat16()
+        dh_ref = fe.fused_region_embedding_dh_plain(gout, x, w, b, scale, bias)[0].to(dtype)
         _, dw_ref, *sums_ref = fe.fused_region_embedding_bwd_plain(gout, x, w, b, scale, bias)
-        own = x.float().t() @ dh.float()
         share = chip_smoke.share_of
-        plain = {"out": share(out, ref, 2e-2, 2e-2), "dw": share(dw, dw_ref, 2e-2, 2e-2),
-                 "db_dscale_dbias": max(share(a, e, 2e-2, 2e-2) for a, e in zip(sums, sums_ref))}
-        tight = {"out": share(out, ref, **fe.fwd_tol(ref)),
-                 "dh": share(dh, dh_ref, **fe.dh_tol(dh_ref)),
-                 "dw": share(dw, own, **fe.dw_tol(own))}
+        if f32:
+            tight = {"out": share(out, ref, *F32_OUT_TOL), "dh": share(dh, dh_ref, *F32_GRAD_TOL),
+                     "dw": share(dw, dw_ref, *F32_GRAD_TOL),
+                     "db_dscale_dbias": max(share(a, e, *F32_GRAD_TOL)
+                                            for a, e in zip(sums, sums_ref))}
+            plain = tight
+        else:
+            own = x.float().t() @ dh.float()
+            plain = {"out": share(out, ref, 2e-2, 2e-2), "dw": share(dw, dw_ref, 2e-2, 2e-2),
+                     "db_dscale_dbias": max(share(a, e, 2e-2, 2e-2)
+                                            for a, e in zip(sums, sums_ref))}
+            tight = {"out": share(out, ref, **fe.fwd_tol(ref)),
+                     "dh": share(dh, dh_ref, **fe.dh_tol(dh_ref)),
+                     "dw": share(dw, own, **fe.dw_tol(own))}
+            del own
         finite = all(bool(torch.isfinite(t).all()) for t in (out, dh, dw, sums))
         zero = bool((dh[16:32] == 0).all()) if M >= 32 and zero_region else True
-        rec = dict(check=f"{tag} M={M} K={K} D={D} b_mean={b_mean} bf16", share_of_plain=plain,
-                   share_of_tight=tight, bit_for_bit=same, finite=finite,
+        rec = dict(check=f"{tag} M={M} K={K} D={D} b_mean={b_mean} {str(dtype)[6:]}",
+                   share_of_plain=plain, share_of_tight=tight, bit_for_bit=same, finite=finite,
                    zero_region_dh_exactly_zero=zero,
                    ok=finite and zero and same and max(plain.values()) <= 1.0
                    and max(tight.values()) <= 1.0)
         emit(**rec)
         recs.append(rec)
-        del x, w, out, dh, dw, part, ref, dh_ref, dw_ref, own
+        del x, w, out, dh, dw, part, ref, dh_ref, dw_ref
     return recs
 
 
@@ -425,6 +501,49 @@ def ptxas_report(prefixes):
     emit(ptxas_performance_warnings=serialized)
 
 
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(so_path, prefixes):
+    """For each kernel of the library whose name contains one of `prefixes`:
+    from `cuobjdump -sass`, the innermost loop (a backward branch's range)
+    that holds the most FFMAs, with its count of FFMA and of shared loads by
+    width (LDS, LDS.64, LDS.128), and the same counts over the whole kernel."""
+    from advmil_tpu_torch.ops import _build
+    tool = osp.join(osp.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if not any(p in name for p in prefixes):
+            continue
+        insns = [(int(a, 16), op, rest) for a, op, rest in _SASS_INSN.findall(body)]
+
+        def counts(seq):
+            c = {"FFMA": 0, "LDS": 0, "LDS.64": 0, "LDS.128": 0}
+            for _, op, _ in seq:
+                base = op.split(".")[0]
+                if base == "FFMA":
+                    c["FFMA"] += 1
+                elif base == "LDS":
+                    width = ".128" if ".128" in op else ".64" if ".64" in op else ""
+                    c["LDS" + width] += 1
+            return c
+
+        loops = []
+        for addr, op, rest in insns:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+                lo = int(m.group(1), 16)
+                body_insns = [t for t in insns if lo <= t[0] <= addr]
+                loops.append((counts(body_insns), addr - lo, len(body_insns)))
+        # the loop with the most FFMAs; of equals, the innermost (shortest)
+        best = max(loops, key=lambda t: (t[0]["FFMA"], -t[1])) if loops else None
+        emit(sass=name, whole_kernel=counts(insns),
+             main_loop=best[0] if best else None,
+             main_loop_instructions=best[2] if best else None)
+
+
 def run_embed(args, card, dev):
     import torch
     import torch.nn.functional as F
@@ -432,41 +551,54 @@ def run_embed(args, card, dev):
 
     from advmil_tpu_torch.ops import _build
     from advmil_tpu_torch.ops import ln_pool
+    f32 = args.f32
+    dtype = torch.float32 if f32 else torch.bfloat16
+    kind, tag = ("f32", "f32") if f32 else ("bf16", "bf16")
+    peak = 67e12 if f32 else 989e12
     lib = _build.load()
-    ptxas_report(("rows_wgmma", "dw_wgmma"))
-    ok = all(r["ok"] for r in check_embed(lib, EMBED_SHAPES, dev, "embed"))
+    if f32:
+        ptxas_report(F32_KERNELS)
+        sass_loops(_build.build_info["path"], F32_KERNELS)
+    else:
+        ptxas_report(("rows_wgmma", "dw_wgmma"))
+    ok = all(r["ok"] for r in check_embed(lib, EMBED_SHAPES, dev, "embed", dtype))
     emit(all_embed_checks_ok=ok)
     others, tmps = {}, []
     if args.other_csrc:
         others["other_csrc"] = load_from(args.other_csrc,
                                          osp.join(ROOT, "chiprun_out", "other_build"))
+    variants = F32_VARIANTS if f32 else ROW_VARIANTS
     for name in filter(None, (args.variants or "").split(",")):
-        others[name], tmp = build_patched(name, _ROWS, ROW_VARIANTS[name])
+        others[name], tmp = build_patched(name, _ROWS, variants[name])
         tmps.append(tmp)
     M, K = 32768, 1024
     for D in (384, 128):
-        x, w, b, scale, bias, gout = embed_case(M, K, D, 0.0, dev)
-        wt = w.bfloat16().t().contiguous()     # W^T [D, K]: also F.linear's weight
-        bl = b.bfloat16()
+        x, w, b, scale, bias, gout = embed_case(M, K, D, 0.0, dev, dtype=dtype)
+        wk = w_operand(w, dtype)
+        wt = w.to(dtype).t().contiguous()      # W^T [D, K]: F.linear's weight
+        bl = b.to(dtype)
         libs = {"kernel": lib, **others}
-        parts = {n: dw_scratch(lb, M, K, D, dev) for n, lb in libs.items()}
-        dhs = {n: dh_of(lb, gout, x, wt, b, scale, bias)[0] for n, lb in libs.items()}
+        parts = {n: dw_scratch(lb, M, K, D, dev, dtype) for n, lb in libs.items()}
+        dhs = {n: dh_of(lb, gout, x, wk, b, scale, bias)[0] for n, lb in libs.items()}
         flop = 2 * M * K * D
         small = 3 * D * 4
+        el = x.element_size()
         if args.fwd:
-            arms = {n: (lambda lb=lb: fwd_of(lb, x, wt, b, scale, bias)) for n, lb in libs.items()}
+            arms = {n: (lambda lb=lb: fwd_of(lb, x, wk, b, scale, bias)) for n, lb in libs.items()}
             arms["library"] = lambda: ln_pool.ln_relu_region_mean_fwd(F.linear(x, wt, bl), scale,
                                                                      bias)
             times = turns(arms, args.reps)
-            moved = x.numel() * 2 + wt.numel() * 2 + M // 16 * D * 2 + small
-            emit(time=f"fwd #9 M={M} K={K} D={D} bf16", card=card,
-                 bound_ms=max(flop / 989e12, moved / 3.35e12) * 1e3,
-                 **{f"{n}_ms": statistics.median(v) for n, v in times.items()},
-                 kernel_tflops=flop / statistics.median(times["kernel"]) / 1e9)
+            moved = (x.numel() + wk.numel() + M // 16 * D) * el + small
+            bound_ms = max(flop / peak, moved / 3.35e12) * 1e3
+            med = {n: statistics.median(v) for n, v in times.items()}
+            emit(time=f"fwd #9 M={M} K={K} D={D} {tag}", card=card, bound_ms=bound_ms,
+                 **{f"{n}_ms": v for n, v in med.items()},
+                 kernel_tflops=flop / med["kernel"] / 1e9,
+                 kernel_share_of_bound=bound_ms / med["kernel"])
         if args.dparams:
             arms = {}
             for n, lb in libs.items():
-                arms[f"{n}_dh"] = lambda lb=lb: dh_of(lb, gout, x, wt, b, scale, bias)
+                arms[f"{n}_dh"] = lambda lb=lb: dh_of(lb, gout, x, wk, b, scale, bias)
                 arms[f"{n}_dw"] = lambda lb=lb, n=n: dw_of(lb, x, dhs[n], parts[n])
             hh = F.linear(x, wt, bl)
             lin = [t.detach().clone().requires_grad_(True) for t in (wt, bl)]
@@ -479,25 +611,39 @@ def run_embed(args, card, dev):
             arms["library"] = lib_params
             times = turns(arms, args.reps)
             med = {n: statistics.median(v) for n, v in times.items()}
-            moved = x.numel() * 2 + wt.numel() * 2 + gout.numel() * 4 + K * D * 4 + 3 * small
-            emit(time=f"dparams #11 M={M} K={K} D={D} bf16", card=card,
-                 bound_ms=max(2 * flop / 989e12, moved / 3.35e12) * 1e3,
+            moved = (x.numel() + wk.numel()) * el + gout.numel() * 4 + K * D * 4 + 3 * small
+            bound_ms = max(2 * flop / peak, moved / 3.35e12) * 1e3
+            emit(time=f"dparams #11 M={M} K={K} D={D} {tag}", card=card, bound_ms=bound_ms,
                  **{f"{n}_ms": v for n, v in med.items()},
                  **{f"{n}_dh_plus_dw_ms": med[f"{n}_dh"] + med[f"{n}_dw"] for n in libs},
-                 dh_tflops=flop / med["kernel_dh"] / 1e9, dw_tflops=flop / med["kernel_dw"] / 1e9)
+                 dh_tflops=flop / med["kernel_dh"] / 1e9, dw_tflops=flop / med["kernel_dw"] / 1e9,
+                 kernel_share_of_bound=bound_ms / (med["kernel_dh"] + med["kernel_dw"]))
             del hh, hl, lin
+        if f32 and args.fwd:
+            # #10 rides on the same product kernel as #11's dW
+            from advmil_tpu_torch.ops import fused_embed as fe
+            dh = dhs["kernel"]
+            arms = {"kernel": lambda: fe.fused_region_embedding_bwd_dx(dh, w),
+                    "library": lambda: torch.matmul(dh, wt)}
+            times = turns(arms, args.reps)
+            med = {n: statistics.median(v) for n, v in times.items()}
+            bound_ms = max(flop / peak, (dh.numel() + wk.numel() + M * K) * el / 3.35e12) * 1e3
+            emit(time=f"dx #10 M={M} K={K} D={D} {tag}", card=card, bound_ms=bound_ms,
+                 **{f"{n}_ms": v for n, v in med.items()},
+                 kernel_tflops=flop / med["kernel"] / 1e9,
+                 kernel_share_of_bound=bound_ms / med["kernel"])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
-                fwd_of(lib, x, wt, b, scale, bias)
-                dh_of(lib, gout, x, wt, b, scale, bias)
+                fwd_of(lib, x, wk, b, scale, bias)
+                dh_of(lib, gout, x, wk, b, scale, bias)
                 dw_of(lib, x, dhs["kernel"], parts["kernel"])
             torch.cuda.synchronize()
         rows = [(getattr(ev, "self_device_time_total", 0), ev) for ev in prof.key_averages()]
-        emit(profile=f"M={M} K={K} D={D} bf16, device ms per launch", card=card,
+        emit(profile=f"M={M} K={K} D={D} {tag}, device ms per launch", card=card,
              kernels={ev.key[:90]: us / ev.count / 1e3 for us, ev in rows
                       if us > 0 and ev.device_type.name != "CPU"})
-        del x, w, wt, dhs, parts
+        del x, w, wk, wt, dhs, parts
     for tmp in tmps:
         shutil.rmtree(tmp, ignore_errors=True)
     if not ok:
@@ -513,16 +659,20 @@ def turns(arms, reps):
     return times
 
 
-def run_embed_mutants(dev):
+def run_embed_mutants(args, dev):
+    import torch
+    f32 = args.f32
+    dtype = torch.float32 if f32 else torch.bfloat16
     caught_all = True
-    for name, changes in EMBED_MUTANTS.items():
+    for name, changes in (F32_MUTANTS if f32 else EMBED_MUTANTS).items():
         lib, tmp = build_patched(name, _ROWS, changes)
         cases = [c for c in MUTANT_CASES if (c[2] == 96) == ("beyond D" in name)]
-        recs = check_embed(lib, cases, dev, f"mutant '{name}'")
+        recs = check_embed(lib, cases, dev, f"mutant '{name}'", dtype)
         shutil.rmtree(tmp, ignore_errors=True)
         caught = [max(r["share_of_tight"].values()) > 1.0 for r in recs]
         passes_plain = [max(r["share_of_plain"].values()) <= 1.0 for r in recs]
-        emit(mutant=name, caught_by_tight_bounds=caught, passes_plain_bounds=passes_plain,
+        emit(mutant=name, dtype=str(dtype)[6:], caught_by_tight_bounds=caught,
+             passes_plain_bounds=passes_plain,
              tight_share=[max(r["share_of_tight"].values()) for r in recs])
         caught_all = caught_all and any(caught)
     if not caught_all:
@@ -592,6 +742,9 @@ def main():
                                          "in the same turns")
     ap.add_argument("--variants", help="comma-separated names of DX_VARIANTS (with --dx) or "
                                        "ROW_VARIANTS (with --fwd / --dparams) to build and time")
+    ap.add_argument("--f32", action="store_true",
+                    help="with --fwd / --dparams / --mutants: the f32 kernels of "
+                         "csrc/fused_embed.cu instead of the bf16 ones")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
 
@@ -618,9 +771,10 @@ def main():
             if args.fwd or args.dparams:
                 run_embed(args, card, dev)
             if args.mutants:
-                run_embed_mutants(dev)
+                run_embed_mutants(args, dev)
         finally:
-            with open(osp.join(ROOT, "chiprun_out", "profile_fused_embed_rows.jsonl"), "w") as f:
+            name = "profile_fused_embed_f32.jsonl" if args.f32 else "profile_fused_embed_rows.jsonl"
+            with open(osp.join(ROOT, "chiprun_out", name), "w") as f:
                 for rec in OUT:
                     f.write(json.dumps(rec) + "\n")
         return
