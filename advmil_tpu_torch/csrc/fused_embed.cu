@@ -9,34 +9,55 @@
 // for the product, f32 accumulation, h = x W + b kept in f32 (never rounded),
 // LN statistics in f32 with eps inside the rsqrt.
 //
-// Every matrix product is a hand-written kernel: the f32 ones here, with
-// plain FMAs (true f32, no TF32); the bf16 ones on the warpgroup tensor cores
-// (wgmma + TMA, csrc/wgmma.cuh): the row kernel of the forward and of dh in
-// fused_embed_rows.cu, dW = x^T dh in fused_embed_dw.cu, dx = dh W^T in
-// fused_embed_dx.cu. No library GEMM is called. This file holds the f32
-// kernels, the ordered sums and the C entry points.
+// Every matrix product is a hand-written kernel: the f32 ones here, true f32
+// on the CUDA cores (no TF32, which keeps 10 bits of the mantissa); the bf16
+// ones on the warpgroup tensor cores (wgmma + TMA, csrc/wgmma.cuh): the row
+// kernel of the forward and of dh in fused_embed_rows.cu, dW = x^T dh in
+// fused_embed_dw.cu, dx = dh W^T in fused_embed_dx.cu. No library GEMM is
+// called. This file holds the f32 kernels, the ordered sums and the C entry
+// points.
 //
-// What bounds them on the card (M = 32,768, K = 1,024, D = 384): the forward
-// does 25.8 GFLOP, 385 us at the 67 TFLOP/s of the f32 CUDA cores (26 us on
-// the bf16 tensor cores, against 68 MB or 20 us at 3.35 TB/s). The backward
-// does two products for the parameters (recompute h, then x^T dh) and one
-// more for dx.
+// What bounds the f32 kernels on the card (M = 32,768, K = 1,024, D = 384):
+// the forward does 25.8 GFLOP, 385 us at the 67 TFLOP/s of the CUDA cores
+// (its 151 MB take 45 us at 3.35 TB/s); the backward of the parameters does
+// two products (recompute h, then x^T dh), dx one more. So the FFMA issue
+// rate is the roof, and what keeps a product from it is every instruction
+// beside the FFMAs: shared-memory loads first.
 //
-// Design of the f32 kernels.
-// - LN needs a whole row of h, so one block owns 128 full rows: a 128 x D
-//   tile of f32 accumulators held in registers across 16 warps (D <= 384: 96
-//   per thread, 512 threads: the whole register file), K walked in chunks of
-//   32 through shared memory; W [K, D] is read by every block from L2, its
-//   lane-contiguous columns without bank conflicts. A warp owns 8 whole rows,
-//   lane-contiguous columns, as the LN-pool kernels do, so mean and variance
-//   are warp shuffles; two warps' sums make one region.
+// Design of the f32 kernels: register-blocked products. Each thread holds a
+// two-dimensional tile of accumulators and, per reduction step, loads its
+// operands from shared memory 16 bytes at a time, a step ahead of their use:
+// a value of W, dh or dx's operands feeds 8 FMAs, one of x 12 (4 at D <=
+// 128), and a loop issues one shared load for every 10 (D <= 128) to 19 FFMA.
+// - The row kernel (#9, and the dh half of #11): LN needs a whole row of h,
+//   so one block owns 64 full rows; 8 warps, 2 down the rows and 4 across D.
+//   A thread holds 8 rows (lr + 4 i of its warp's 32) x NJ groups of 4
+//   adjacent columns, group j at column 32 (wc + 4 j) + 4 lc (lane = 8 lr +
+//   lc): 96 accumulators at D = 384 (NJ = 3), under the 255 registers that
+//   256 threads a block leave. x's tile stays row-major in shared memory (a
+//   float4 holds 4 reduction steps of one row; rows 144 bytes apart, so the
+//   4 rows one load instruction reads lie in 4 bank groups), W's k-major (8
+//   lanes read 128 contiguous bytes). The LN statistics are two passes
+//   (mean, then the centred square): a shuffle over the 8 lanes of a row,
+//   then the 4 warps across D add their partials from shared memory in a
+//   fixed order. The ReLU, the 16-row region mean (the 4 lanes lr of a
+//   column hold its 16 rows) or, backward, dh and the per-block partials of
+//   db / dscale / dbias run from registers. D <= 128 takes NJ = 1 (4 warps x
+//   32 columns), other D NJ = 3 with the groups beyond D idle.
+// - The product C = A B (#11's dW = x^T dh, and #10's dx = dh W^T): 128 x
+//   128 output tiles, 256 threads of 8 x 8. An operand that is k-major in
+//   device memory (both of dW) stays so in shared memory and a thread reads
+//   two float4 of it per step (8 adjacent values in two runs of 4, 64 apart);
+//   one that is k-contiguous (both of dx) stays row-major and a thread reads
+//   4 steps of a row as one float4, its 8 rows or columns 16 apart (16 lanes
+//   on 16 consecutive rows: every bank group twice, the least for 256 bytes).
 // - The TPU backward carried dW [K, D] in scratch across its sequential grid
 //   and recomputed h in both kernels. Here blocks run in any order, so the
 //   row kernel runs once more in backward mode and writes dh [M, D] (in x's
 //   type: traffic the TPU kernels avoided by recomputing twice) with
-//   per-block partials of db / dscale / dbias; a tiled product then forms
-//   dW = x^T dh split over M into a fixed number of slabs, and dx = dh W^T
-//   reads the same dh only when x needs a gradient.
+//   per-block partials of db / dscale / dbias; the product then forms dW =
+//   x^T dh split over M into a fixed number of slabs, and dx = dh W^T reads
+//   the same dh only when x needs a gradient.
 // - No atomics: per-block and per-slab partials are summed by a last pass
 //   in a fixed order, so the gradients are the same from run to run.
 // - Tiles reach shared memory through cp.async (16 bytes a thread, zero fill
@@ -50,18 +71,17 @@
 namespace advmil {
 namespace fe {
 
-constexpr int kThreads = 256;     // threads of the tiled products (8 warps)
-constexpr int kRowThreads = 512;  // threads of the row kernel (16 warps)
-constexpr int kRowWarps = 16;
 constexpr int kBK = 32;           // reduction chunk
-constexpr int kPad = 8;           // padding of shared rows, in elements
-constexpr int kRowsBM = 128;      // rows of x per block of the row kernel
 constexpr int kRegion = 16;
-constexpr int kGM = 128;          // output tile of the plain products
+constexpr int kStages = 3;        // cp.async ring depth
+constexpr int kRowThreads = 256;  // the row kernel: 8 warps, 2 down x 4 across D
+constexpr int kRowsBM = 64;       // rows of x per block of the row kernel
+constexpr int kWgmmaRowsBM = 128; // rows per block of the bf16 row kernel (fused_embed_rows.cu)
+constexpr int kRowLdA = kBK + 4;  // x's shared rows: 144 bytes apart
+constexpr int kThreads = 256;     // the product: 16 x 16 threads of 8 x 8
+constexpr int kGM = 128;          // its output tile
 constexpr int kGN = 128;
 constexpr int kTargetBlocks = 264;  // blocks the dW product is split into (2 x 132 SMs)
-
-constexpr int kStages = 3;        // cp.async ring depth
 
 // 16 bytes from device memory to shared memory without passing registers;
 // with ok false nothing is read and the 16 bytes are zero-filled.
@@ -76,159 +96,132 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Start the copy of a rows x cols tile (cols a multiple of 16 bytes) from
-// device memory into shared memory, 16 bytes a thread; elements at or beyond
-// (row_lim, col_lim) are zero-filled and not read. All addresses are 16-byte
-// aligned: the wrappers check the bases, and every stride is a multiple of 32
-// elements.
+// Start the copy of a ROWS x COLS tile from device memory into shared memory,
+// 16 bytes at a time, the same number of pieces for each of the THREADS
+// threads (a constant count, so the loop unrolls and its offsets stay in
+// registers from chunk to chunk); elements at or beyond (row_lim, col_lim) are
+// zero-filled and not read. All addresses are 16-byte aligned: the wrappers
+// check the bases, and every stride is a multiple of 4 elements.
+template <int ROWS, int COLS, int THREADS>
 __device__ __forceinline__ void load_tile(float* dst, int dst_ld, const float* src, size_t src_ld,
-                                          int rows, int cols, int row_lim, int col_lim) {
-  constexpr int V = 4;
-  const int cv = cols / V;
-  for (int i = threadIdx.x; i < rows * cv; i += blockDim.x) {
-    const int r = i / cv;
-    const int c = (i - r * cv) * V;
+                                          int row_lim, int col_lim) {
+  constexpr int CV = COLS / 4;
+  static_assert(ROWS * CV % THREADS == 0, "a tile's pieces must divide among the threads");
+#pragma unroll
+  for (int n = 0; n < ROWS * CV / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS;
+    const int r = i / CV;
+    const int c = (i - r * CV) * 4;
     const bool ok = r < row_lim && c < col_lim;
     cp_async16(dst + r * dst_ld + c, ok ? src + static_cast<size_t>(r) * src_ld + c : src, ok);
   }
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float at(const float4& v, int s) {  // s is a constant after unrolling
+  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float& at(float4& v, int s) {
+  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
+}
+
 // ---------------------------------------------------------------------------
-// The row kernel (f32): h = x W + b for 128 rows, then the forward or the backward
-// epilogue.
+// The row kernel (f32): h = x W + b for 64 rows, then the forward or the
+// backward epilogue.
 // ---------------------------------------------------------------------------
 
-// Shared memory of the row kernel: a ring of 3 (A tile, B tile) stages, over
-// which the warps later lay their partial sums; then the epilogue's operands:
-// scale, bias and, backward, the cotangent rows of the block's 8 regions,
-// already divided by 16 (in shared memory, not registers: beside 4 rows of h
-// and the sums they would spill).
+// Shared memory of the row kernel, in floats: a ring of kStages (x tile [64]
+// [kRowLdA], W tile [kBK][WP]) stages, WP = 128 NJ the columns the block's
+// groups span; then the epilogue's operands: scale, bias, b and, backward,
+// the cotangent rows of the block's 4 regions already divided by 16; then
+// the row statistics' exchange (mean, centred square, and backward the two
+// means of dh's formula: 4 warps across D x 64 rows each). Backward, the
+// column sums of the two warps down the rows meet over the idle ring.
 struct RowSmem {
-  int off_b, stage, off_p, total;
+  int off_b, stage, off_p, off_red, floats;
 };
 
-__host__ __device__ inline RowSmem row_smem(int D, bool bwd) {
+__host__ __device__ inline RowSmem row_smem(int wp, bool bwd) {
   RowSmem s;
-  s.off_b = kRowsBM * (kBK + kPad) * 4;
-  s.stage = s.off_b + kBK * (D + kPad) * 4;
-  s.off_p = kStages * s.stage;   // >= 16 warps x 3 x D floats of sums
-  s.total = s.off_p + (bwd ? 2 + kRowsBM / kRegion : 2) * D * 4;
+  s.off_b = kRowsBM * kRowLdA;
+  s.stage = s.off_b + kBK * wp;
+  s.off_p = kStages * s.stage;
+  s.off_red = s.off_p + (bwd ? 3 + kRowsBM / kRegion : 3) * wp;
+  s.floats = s.off_red + (bwd ? 4 : 2) * 4 * kRowsBM;
   return s;
 }
 
-// The LN / ReLU epilogue of four whole rows of h held by one warp (v[i][j]:
-// row i, column lane + 32 j; the rows lie in one region). Forward: returns
-// their ReLU sums in `acc` (the caller's slot of the region mean). Backward:
-// writes their dh rows and adds to the warp's db / dscale / dbias sums.
-template <int NC, bool BWD>
-__device__ __forceinline__ void ln_rows4(float (&v)[4][NC], int nc, int lane, float inv_d,
-                                         float eps, const float* sc, const float* bi,
-                                         const float* gr, float* __restrict__ dh, int grow,
-                                         bool live, int D, float (&acc)[3][NC]) {
-  // sc, bi, gr: this lane's first column of scale, bias and the region's
-  // cotangent row / 16 in shared memory; column j is 32 j further on
+// The full sums of the thread's 8 rows: its own columns' partials `v` are
+// added over the 8 lanes of each row, then over the 4 warps across D in
+// warp order through `red` (every lane of a row gets the same bits).
+__device__ __forceinline__ void row_sums(float (&v)[8], float* red, int wr, int wc, int lr,
+                                         int lc) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float s = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    v[i] += __shfl_xor_sync(0xffffffffu, v[i], 1);
+    v[i] += __shfl_xor_sync(0xffffffffu, v[i], 2);
+    v[i] += __shfl_xor_sync(0xffffffffu, v[i], 4);
+  }
+  const int r0 = 32 * wr + lr;
+  if (lc == 0) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) s += v[i][j];
-    const float mu = warp_sum(s) * inv_d;
-    float q = 0.f;
+    for (int i = 0; i < 8; ++i) red[wc * kRowsBM + r0 + 4 * i] = v[i];
+  }
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float d = j < nc ? v[i][j] - mu : 0.f;
-      q += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(q) * inv_d + eps);
-    if (!BWD) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        if (j < nc) acc[0][j] += fmaxf((v[i][j] - mu) * inv * sc[32 * j] + bi[32 * j], 0.f);
-    } else {
-      float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        if (j < nc) {
-          const float xh = (v[i][j] - mu) * inv;
-          const float gy = (xh * sc[32 * j] + bi[32 * j] > 0.f) ? gr[32 * j] : 0.f;
-          acc[1][j] += gy * xh;   // dscale
-          acc[2][j] += gy;        // dbias
-          const float gx = gy * sc[32 * j];
-          m1 += gx;
-          m2 += gx * xh;
-          v[i][j] = xh;
-        }
-      }
-      m1 = warp_sum(m1) * inv_d;
-      m2 = warp_sum(m2) * inv_d;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        // gy again from its definition: cheaper than keeping gx in registers
-        if (j < nc) {
-          const float gy = (v[i][j] * sc[32 * j] + bi[32 * j] > 0.f) ? gr[32 * j] : 0.f;
-          const float d = inv * (gy * sc[32 * j] - m1 - v[i][j] * m2);
-          acc[0][j] += d;       // db, from the unrounded dh
-          if (live) dh[static_cast<size_t>(grow + i) * D + lane + 32 * j] = d;
-        }
-      }
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + 4 * i;
+    v[i] = ((red[r] + red[kRowsBM + r]) + red[2 * kRowsBM + r]) + red[3 * kRowsBM + r];
   }
 }
 
-// Four rows of h, all of one region, into the epilogue; forward: acc[0]
-// gathers their ReLU sums; backward: acc holds the warp's db / dscale / dbias.
-template <int NC, bool BWD>
-__device__ __forceinline__ void finish4(float (&v4)[4][NC], int grow, int rloc, const float* Ps,
-                                        int nc, int lane, float inv_d, float eps,
-                                        float* __restrict__ out, int M, int D,
-                                        float (&acc)[3][NC]) {
-  // rloc: the rows' region within the block; Ps: scale, bias, the regions' g / 16
-  ln_rows4<NC, BWD>(v4, nc, lane, inv_d, eps, Ps + lane, Ps + D + lane,
-                       Ps + (2 + rloc) * D + lane, out, grow, grow < M, D, acc);
-}
-
-// The epilogue's per-warp state, set after the products so that it does not
-// sit in registers beside the accumulators: zeroed sums and the Dense bias.
-template <int NC>
-__device__ __forceinline__ void epilogue_state(float (&acc)[3][NC], float (&bb)[NC],
-                                               const float* __restrict__ b, int nc, int lane) {
+// The sum of a float4 over the 4 lanes lr that share the lane's columns.
+__device__ __forceinline__ void sum_over_lr(float4& v) {
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    acc[0][j] = acc[1][j] = acc[2][j] = 0.f;
-    bb[j] = j < nc ? b[lane + 32 * j] : 0.f;
+  for (int o = 8; o <= 16; o <<= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+    v.z += __shfl_xor_sync(0xffffffffu, v.z, o);
+    v.w += __shfl_xor_sync(0xffffffffu, v.w, o);
   }
 }
 
-template <int NC, bool BWD>
-__global__ void __launch_bounds__(kRowThreads)
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+template <int NJ, bool BWD>
+__global__ void __launch_bounds__(kRowThreads, 1)
 fused_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ b, const float* __restrict__ scale,
                   const float* __restrict__ bias, const float* __restrict__ g,
                   float* __restrict__ out, float* __restrict__ partials, int M, int K, int D,
                   float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowSmem lay = row_smem(D, BWD);
-  float* Rs = reinterpret_cast<float*>(smem);  // over the ring, once it is idle
-  const int lda = kBK + kPad, ldb = D + kPad;
+  constexpr int WP = 128 * NJ;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const RowSmem lay = row_smem(WP, BWD);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nc = D >> 5;
+  const int wr = warp >> 2, wc = warp & 3;    // warp row (32 rows), warp column
+  const int lr = lane >> 3, lc = lane & 7;    // lane row (rows lr + 4 i), lane column
   const int row0 = blockIdx.x * kRowsBM;
   const int nk = K / kBK;
   const float inv_d = 1.f / static_cast<float>(D);
-  auto stage_a = [&](int kt) {
-    return reinterpret_cast<float*>(smem + (kt % kStages) * lay.stage);
-  };
-  auto stage_b = [&](int kt) {
-    return reinterpret_cast<float*>(smem + (kt % kStages) * lay.stage + lay.off_b);
-  };
-  // chunk kt of x and W into its ring slot; always one commit, so that the
-  // group count stays the chunk count
+  auto stage_a = [&](int kt) { return smem + (kt % kStages) * lay.stage; };
+  // chunk kt of x and W into its ring slot (W's columns beyond D zero-filled);
+  // always one commit, so that the group count stays the chunk count
   auto prefetch = [&](int kt) {
     if (kt < nk) {
-      load_tile(stage_a(kt), lda, x + static_cast<size_t>(row0) * K + kt * kBK, K, kRowsBM, kBK,
-                M - row0, K - kt * kBK);
-      load_tile(stage_b(kt), ldb, w + static_cast<size_t>(kt) * kBK * D, D, kBK, D,
-                K - kt * kBK, D);
+      float* As = stage_a(kt);
+      load_tile<kRowsBM, kBK, kRowThreads>(As, kRowLdA, x + static_cast<size_t>(row0) * K +
+                                           kt * kBK, K, M - row0, K - kt * kBK);
+      load_tile<kBK, WP, kRowThreads>(As + lay.off_b, WP, w + static_cast<size_t>(kt) * kBK * D,
+                                      D, K - kt * kBK, D);
     }
     cp_async_commit();
   };
@@ -242,86 +235,229 @@ fused_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) prefetch(st);
   // the epilogue's operands; the main loop's barriers come before their use
-  float* Ps = reinterpret_cast<float*>(smem + lay.off_p);
+  float* Ps = smem + lay.off_p;
   for (int c = threadIdx.x; c < D; c += kRowThreads) {
     Ps[c] = scale[c];
-    Ps[D + c] = bias[c];
+    Ps[WP + c] = bias[c];
+    Ps[2 * WP + c] = b[c];
   }
   if (BWD) {
     const int regions = M / kRegion;
     for (int idx = threadIdx.x; idx < (kRowsBM / kRegion) * D; idx += kRowThreads) {
-      const int region = blockIdx.x * (kRowsBM / kRegion) + idx / D;
-      Ps[2 * D + idx] = region < regions
-                            ? g[static_cast<size_t>(region) * D + idx % D] * (1.f / kRegion)
-                            : 0.f;
+      const int r = idx / D, c = idx - r * D;
+      const int region = blockIdx.x * (kRowsBM / kRegion) + r;
+      Ps[(3 + r) * WP + c] =
+          region < regions ? g[static_cast<size_t>(region) * D + c] * (1.f / kRegion) : 0.f;
     }
   }
-  float acc[3][NC], bb[NC];  // see epilogue_state
 
-  // warp w owns rows 8 w .. + 8, every column (lane + 32 j)
-  float v[8][NC];
+  // acc[i][j]: row 32 wr + lr + 4 i, columns col(j) .. + 3
+  auto col = [&](int j) { return 32 * (wc + 4 * j) + 4 * lc; };
+  float4 acc[8][NJ];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) v[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int kt = 0; kt < nk; ++kt) {
     advance(kt);
-    const float* As = stage_a(kt);
-    const float* Bs = stage_b(kt);
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[8];
+    const float* arow = stage_a(kt) + (32 * wr + lr) * kRowLdA;
+    const float* bcol = stage_a(kt) + lay.off_b + col(0);
+    // operands in registers one step ahead: x's float4 of 4 steps a group
+    // of 4 ahead, W's row one step ahead, so that each step's loads are in
+    // flight while the step before it issues its FMAs
+    float4 a[8], bv[NJ];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(8 * warp + i) * lda + kk];
+    for (int i = 0; i < 8; ++i) a[i] = ld4(arow + 4 * i * kRowLdA);
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        if (j < nc) {
-          const float bv = Bs[kk * ldb + lane + 32 * j];
+    for (int j = 0; j < NJ; ++j) bv[j] = ld4(bcol + 128 * j);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) v[i][j] = fmaf(a[i], bv, v[i][j]);
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float4 an[8];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int kn = kq + s + 1;
+        float4 bn[NJ];
+        if (kn < kBK) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) bn[j] = ld4(bcol + kn * WP + 128 * j);
         }
+        if (s == 0 && kq + 4 < kBK) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) an[i] = ld4(arow + 4 * i * kRowLdA + kq + 4);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = at(a[i], s);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            acc[i][j].x = fmaf(av, bv[j].x, acc[i][j].x);
+            acc[i][j].y = fmaf(av, bv[j].y, acc[i][j].y);
+            acc[i][j].z = fmaf(av, bv[j].z, acc[i][j].z);
+            acc[i][j].w = fmaf(av, bv[j].w, acc[i][j].w);
+          }
+        }
+        if (kn < kBK) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) bv[j] = bn[j];
+        }
+      }
+      if (kq + 4 < kBK) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = an[i];
       }
     }
   }
   cp_async_wait<0>();
-  epilogue_state<NC>(acc, bb, b, nc, lane);
-#pragma unroll
-  for (int grp = 0; grp < 2; ++grp) {
-    float v4[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) v4[i][j] = v[4 * grp + i][j] + bb[j];
-    finish4<NC, BWD>(v4, row0 + 8 * warp + 4 * grp, warp / 2, Ps, nc, lane, inv_d, eps, out, M,
-                     D, acc);
-  }
 
-  // every warp holds the sums of its 8 rows (half a region); they meet in
-  // shared memory, over the ring, which nobody reads any more
-  __syncthreads();
-  constexpr int NQ = BWD ? 3 : 1;
+  // h = acc + b, then the row statistics; groups at or beyond D take no part
+  float* red = smem + lay.off_red;
+  bool live[NJ];
+  float mu[8], inv[8];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q)
+  for (int j = 0; j < NJ; ++j) live[j] = 32 * (wc + 4 * j) < D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      if (j < nc) Rs[(warp * NQ + q) * D + lane + 32 * j] = acc[q][j];
-  __syncthreads();
+  for (int i = 0; i < 8; ++i) mu[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (live[j]) {
+      const float4 bj = ld4(Ps + 2 * WP + col(j));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        add4(acc[i][j], bj);
+        mu[i] += (acc[i][j].x + acc[i][j].y) + (acc[i][j].z + acc[i][j].w);
+      }
+    }
+  }
+  row_sums(mu, red, wr, wc, lr, lc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mu[i] *= inv_d;
+    inv[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (live[j]) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float dx = acc[i][j].x - mu[i], dy = acc[i][j].y - mu[i];
+        const float dz = acc[i][j].z - mu[i], dw = acc[i][j].w - mu[i];
+        inv[i] += (dx * dx + dy * dy) + (dz * dz + dw * dw);
+      }
+    }
+  }
+  row_sums(inv, red + 4 * kRowsBM, wr, wc, lr, lc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) inv[i] = rsqrtf(inv[i] * inv_d + eps);
+
+  const int regions = M / kRegion;
+  const int region0 = blockIdx.x * (kRowsBM / kRegion) + 2 * wr;  // rows i < 4; i >= 4: + 1
   if constexpr (!BWD) {
-    const int regions = M / kRegion;
-    for (int idx = threadIdx.x; idx < (kRowsBM / kRegion) * D; idx += kRowThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const int region = blockIdx.x * (kRowsBM / kRegion) + r;
-      if (region < regions)
-        out[static_cast<size_t>(region) * D + c] =
-            (Rs[(2 * r) * D + c] + Rs[(2 * r + 1) * D + c]) * (1.f / kRegion);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (live[j]) {
+        const float4 sc = ld4(Ps + col(j)), bi = ld4(Ps + WP + col(j));
+        float4 rs[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            at(rs[i >> 2], s) +=
+                fmaxf((at(acc[i][j], s) - mu[i]) * inv[i] * at(sc, s) + at(bi, s), 0.f);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum_over_lr(rs[h]);
+          if (lr == 0 && region0 + h < regions)
+            *reinterpret_cast<float4*>(out + static_cast<size_t>(region0 + h) * D + col(j)) =
+                make_float4(rs[h].x * (1.f / kRegion), rs[h].y * (1.f / kRegion),
+                            rs[h].z * (1.f / kRegion), rs[h].w * (1.f / kRegion));
+        }
+      }
     }
   } else {
-    // block partials of db / dscale / dbias: the warps' sums added in a fixed order
-    for (int idx = threadIdx.x; idx < 3 * D; idx += kRowThreads) {
-      float a = 0.f;
+    // gy = g / 16 where y > 0; dscale += gy xhat, dbias += gy; gx = gy scale;
+    // dh = inv (gx - mean(gx) - xhat mean(gx xhat)); db += dh
+    float4 sums[3][NJ];   // db, dscale, dbias of the thread's 8 rows
+    float m1[8], m2[8];
 #pragma unroll
-      for (int wv = 0; wv < kRowWarps; ++wv) a += Rs[wv * 3 * D + idx];
-      partials[static_cast<size_t>(blockIdx.x) * 3 * D + idx] = a;
+    for (int i = 0; i < 8; ++i) m1[i] = m2[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) sums[q][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live[j]) {
+        const float4 sc = ld4(Ps + col(j)), bi = ld4(Ps + WP + col(j));
+        const float4 gr[2] = {ld4(Ps + (3 + 2 * wr) * WP + col(j)),
+                              ld4(Ps + (4 + 2 * wr) * WP + col(j))};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const float xh = (at(acc[i][j], s) - mu[i]) * inv[i];
+            const float gy = xh * at(sc, s) + at(bi, s) > 0.f ? at(gr[i >> 2], s) : 0.f;
+            at(sums[1][j], s) += gy * xh;
+            at(sums[2][j], s) += gy;
+            const float gx = gy * at(sc, s);
+            m1[i] += gx;
+            m2[i] += gx * xh;
+            at(acc[i][j], s) = xh;
+          }
+        }
+      }
+    }
+    row_sums(m1, red + 8 * kRowsBM, wr, wc, lr, lc);
+    row_sums(m2, red + 12 * kRowsBM, wr, wc, lr, lc);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (live[j]) {
+        const float4 sc = ld4(Ps + col(j)), bi = ld4(Ps + WP + col(j));
+        const float4 gr[2] = {ld4(Ps + (3 + 2 * wr) * WP + col(j)),
+                              ld4(Ps + (4 + 2 * wr) * WP + col(j))};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float4 d;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            // gy again from its definition: cheaper than keeping gx in registers
+            const float xh = at(acc[i][j], s);
+            const float gy = xh * at(sc, s) + at(bi, s) > 0.f ? at(gr[i >> 2], s) : 0.f;
+            at(d, s) = inv[i] * (gy * at(sc, s) - m1[i] * inv_d - xh * (m2[i] * inv_d));
+          }
+          add4(sums[0][j], d);    // db, from the unrounded dh
+          const int row = row0 + 32 * wr + lr + 4 * i;
+          if (row < M) *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * D + col(j)) = d;
+        }
+      }
+    }
+    // the block's partials: the 4 lanes lr, then warp row 1 onto warp row 0,
+    // over the idle ring (the row statistics' barriers come after every
+    // thread's last read of it)
+    float* Rs = smem;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) sum_over_lr(sums[q][j]);
+    if (wr == 1 && lr == 0) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (live[j])
+#pragma unroll
+          for (int q = 0; q < 3; ++q) *reinterpret_cast<float4*>(Rs + q * WP + col(j)) = sums[q][j];
+    }
+    __syncthreads();
+    if (wr == 0 && lr == 0) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (live[j]) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            float4 p = sums[q][j];
+            add4(p, ld4(Rs + q * WP + col(j)));
+            *reinterpret_cast<float4*>(partials + (static_cast<size_t>(blockIdx.x) * 3 + q) * D +
+                                       col(j)) = p;
+          }
+        }
+      }
     }
   }
 }
@@ -351,12 +487,12 @@ inline cudaError_t sum_rows(const float* part, float* out, int nrows, int ncols,
   return cudaGetLastError();
 }
 
-template <int NC, bool BWD>
-cudaError_t launch_rows_nc(const void* x, const void* w, const void* b, const void* scale,
+template <int NJ, bool BWD>
+cudaError_t launch_rows_nj(const void* x, const void* w, const void* b, const void* scale,
                            const void* bias, const void* g, void* out, void* partials, int M,
                            int K, int D, float eps, cudaStream_t stream) {
-  const int bytes = row_smem(D, BWD).total;
-  auto kernel = fused_rows_kernel<NC, BWD>;
+  const int bytes = row_smem(128 * NJ, BWD).floats * 4;
+  auto kernel = fused_rows_kernel<NJ, BWD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -374,61 +510,89 @@ cudaError_t launch_rows(const void* x, const void* w, const void* b, const void*
                         const void* bias, const void* g, void* out, void* partials, int M,
                         int K, int D, float eps, cudaStream_t stream) {
   if (D <= 128)
-    return launch_rows_nc<4, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps, stream);
-  return launch_rows_nc<12, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps, stream);
+    return launch_rows_nj<1, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps, stream);
+  return launch_rows_nj<3, BWD>(x, w, b, scale, bias, g, out, partials, M, K, D, eps, stream);
 }
 
 // ---------------------------------------------------------------------------
-// The plain tiled product C[m, n] = sum_k a(m, k) b(k, n) for dW and dx in f32:
-// 128 x 128 output tiles (64-wide ones move 1.5 times the bytes from L2 for
-// the same product), the reduction walked in chunks of 32, optionally
-// split into slabs (blockIdx.z) that each write their own partial C.
-// A_COL: a(m, k) = A[k * lda + m], else A[m * lda + k];
-// B_COL: b(k, n) = B[n * ldb + k], else B[k * ldb + n].
+// The f32 product C[m, n] = sum_k a(m, k) b(k, n) for dW and dx: 128 x 128
+// output tiles (64-wide ones move 1.5 times the bytes from L2 for the same
+// product), the reduction walked in chunks of 32, optionally split into
+// slabs (blockIdx.z) that each write their own partial C.
+// A_COL: a(m, k) = A[k * lda + m] (k-major), else A[m * lda + k];
+// B_COL: b(k, n) = B[n * ldb + k], else B[k * ldb + n] (k-major).
 // ---------------------------------------------------------------------------
 
-// shared elements of the A and B tiles: the larger of each one's two layouts
-constexpr int kAsElems = kGM * (kBK + kPad) > kBK * (kGM + kPad) ? kGM * (kBK + kPad)
-                                                                   : kBK * (kGM + kPad);
-constexpr int kBsElems = kGN * (kBK + kPad) > kBK * (kGN + kPad) ? kGN * (kBK + kPad)
-                                                                   : kBK * (kGN + kPad);
+// A thread's 8 indices (rows of C, or columns) within a tile, t its 16-way
+// thread coordinate: in a k-major tile 4 t .. 4 t + 3 and 64 + 4 t .., else
+// t + 16 i.
+__device__ __forceinline__ int tile_index(bool kmajor, int t, int i) {
+  return kmajor ? 4 * t + (i & 3) + 64 * (i >> 2) : t + 16 * i;
+}
 
-constexpr int kGemmSmemBytes = kStages * (kAsElems + kBsElems) * 4;  // kStages x (A, B)
+// The thread's 8 values for the reduction steps kq .. kq + 3 of a shared
+// tile: k-major, tile[k * ld + index]: two float4 a step; else
+// tile[index * ld + k]: one float4 (4 steps) an index.
+template <bool KMAJOR>
+__device__ __forceinline__ void frag8(const float* tile, int ld, int kq, int t,
+                                      float (&f)[4][8]) {
+  if constexpr (KMAJOR) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float4 lo = ld4(tile + (kq + s) * ld + 4 * t);
+      const float4 hi = ld4(tile + (kq + s) * ld + 64 + 4 * t);
+      f[s][0] = lo.x, f[s][1] = lo.y, f[s][2] = lo.z, f[s][3] = lo.w;
+      f[s][4] = hi.x, f[s][5] = hi.y, f[s][6] = hi.z, f[s][7] = hi.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 v = ld4(tile + (t + 16 * i) * ld + kq);
+      f[0][i] = v.x, f[1][i] = v.y, f[2][i] = v.z, f[3][i] = v.w;
+    }
+  }
+}
+
+// shared floats of one operand tile: the larger of its two layouts
+constexpr int kTileK = kBK * (kGM + 4);     // k-major: [kBK][128 + 4]
+constexpr int kTileR = kGM * (kBK + 4);     // row-major: [128][kBK + 4]
+constexpr int kTileFloats = kTileK > kTileR ? kTileK : kTileR;
+constexpr int kGemmSmemBytes = kStages * 2 * kTileFloats * 4;  // kStages x (A, B)
 
 template <bool A_COL, bool B_COL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gemm_tile_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
                  int Mc, int Nc, int Kr, size_t lda, size_t ldb, int slab_len) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int sa_ld = A_COL ? kGM + kPad : kBK + kPad;
-  constexpr int sb_ld = B_COL ? kBK + kPad : kGN + kPad;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  constexpr bool A_K = A_COL, B_K = !B_COL;   // which operands are k-major
+  constexpr int sa_ld = A_K ? kGM + 4 : kBK + 4;
+  constexpr int sb_ld = B_K ? kGN + 4 : kBK + 4;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   const int kbeg = blockIdx.z * slab_len;
   const int kend = min(Kr, kbeg + slab_len);
   C += static_cast<size_t>(blockIdx.z) * Mc * Nc;
 
   const int nk = (kend - kbeg + kBK - 1) / kBK;
-  auto stage_a = [&](int kt) {
-    return reinterpret_cast<float*>(smem) + (kt % kStages) * (kAsElems + kBsElems);
-  };
+  auto stage_a = [&](int kt) { return smem + (kt % kStages) * 2 * kTileFloats; };
   auto prefetch = [&](int kt) {   // always one commit: the group count is the chunk count
     if (kt < nk) {
       float* As = stage_a(kt);
-      float* Bs = As + kAsElems;
+      float* Bs = As + kTileFloats;
       const int k0 = kbeg + kt * kBK;
-      if (A_COL)
-        load_tile(As, sa_ld, A + static_cast<size_t>(k0) * lda + m0, lda, kBK, kGM, kend - k0,
-                  Mc - m0);
+      if constexpr (A_K)
+        load_tile<kBK, kGM, kThreads>(As, sa_ld, A + static_cast<size_t>(k0) * lda + m0, lda,
+                                      kend - k0, Mc - m0);
       else
-        load_tile(As, sa_ld, A + static_cast<size_t>(m0) * lda + k0, lda, kGM, kBK, Mc - m0,
-                  kend - k0);
-      if (B_COL)
-        load_tile(Bs, sb_ld, B + static_cast<size_t>(n0) * ldb + k0, ldb, kGN, kBK, Nc - n0,
-                  kend - k0);
+        load_tile<kGM, kBK, kThreads>(As, sa_ld, A + static_cast<size_t>(m0) * lda + k0, lda,
+                                      Mc - m0, kend - k0);
+      if constexpr (B_K)
+        load_tile<kBK, kGN, kThreads>(Bs, sb_ld, B + static_cast<size_t>(k0) * ldb + n0, ldb,
+                                      kend - k0, Nc - n0);
       else
-        load_tile(Bs, sb_ld, B + static_cast<size_t>(k0) * ldb + n0, ldb, kBK, kGN, kend - k0,
-                  Nc - n0);
+        load_tile<kGN, kBK, kThreads>(Bs, sb_ld, B + static_cast<size_t>(n0) * ldb + k0, ldb,
+                                      Nc - n0, kend - k0);
     }
     cp_async_commit();
   };
@@ -440,40 +604,59 @@ gemm_tile_kernel(const float* __restrict__ A, const float* __restrict__ B, float
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) prefetch(st);
 
-  // warp w owns rows 16 w .. + 16, lane the columns lane + 32 c
-  constexpr int NCOL = kGN / 32;
-  float acc[16][NCOL];
+  // acc[i][c]: row tile_index(A_K, ty, i), column tile_index(B_K, tx, c)
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < NCOL; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
   for (int kt = 0; kt < nk; ++kt) {
     advance(kt);
     const float* As = stage_a(kt);
-    const float* Bs = As + kAsElems;
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float bv[NCOL];
+    const float* Bs = As + kTileFloats;
+    // the operands of 4 steps in registers, the next 4 loading while these
+    // 4 issue their FMAs
+    float a[4][8], bv[4][8];
+    frag8<A_K>(As, sa_ld, 0, ty, a);
+    frag8<B_K>(Bs, sb_ld, 0, tx, bv);
 #pragma unroll
-      for (int c = 0; c < NCOL; ++c)
-        bv[c] = B_COL ? Bs[(lane + 32 * c) * sb_ld + kk] : Bs[kk * sb_ld + lane + 32 * c];
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float an[4][8], bn[4][8];
+      if (kq + 4 < kBK) {
+        frag8<A_K>(As, sa_ld, kq + 4, ty, an);
+        frag8<B_K>(Bs, sb_ld, kq + 4, tx, bn);
+      }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float a = A_COL ? As[kk * sa_ld + 16 * warp + i] : As[(16 * warp + i) * sa_ld + kk];
+      for (int s = 0; s < 4; ++s)
 #pragma unroll
-        for (int c = 0; c < NCOL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[s][i], bv[s][c], acc[i][c]);
+      if (kq + 4 < kBK) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[s][i] = an[s][i], bv[s][i] = bn[s][i];
       }
     }
   }
   cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int m = m0 + 16 * warp + i;
-    if (m < Mc) {
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + tile_index(A_K, ty, i);
+    if (m >= Mc) continue;
+    float* crow = C + static_cast<size_t>(m) * Nc + n0;
+    if constexpr (B_K) {
+      // columns 4 tx .. + 3 and 64 + 4 tx ..: Nc % 4 == 0, so a float4 is all in or all out
 #pragma unroll
-      for (int c = 0; c < NCOL; ++c)
-        if (n0 + lane + 32 * c < Nc)
-          C[static_cast<size_t>(m) * Nc + n0 + lane + 32 * c] = acc[i][c];
+      for (int h = 0; h < 2; ++h)
+        if (n0 + 64 * h + 4 * tx < Nc)
+          *reinterpret_cast<float4*>(crow + 64 * h + 4 * tx) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (n0 + tx + 16 * c < Nc) crow[tx + 16 * c] = acc[i][c];
     }
   }
 }
@@ -565,10 +748,11 @@ extern "C" int advmil_fused_embed_fwd(const void* x, const void* w, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Blocks of the row kernel for M rows (128 rows each in both dtypes): the
-// backward's partials hold blocks * 3 * D floats.
-extern "C" int advmil_fused_embed_row_blocks(int M) {
-  return (M + advmil::fe::kRowsBM - 1) / advmil::fe::kRowsBM;
+// Blocks of the row kernel for M rows of this dtype (f32 64 rows each, bf16
+// 128): the backward's partials hold blocks * 3 * D floats.
+extern "C" int advmil_fused_embed_row_blocks(int M, int dtype) {
+  const int rows = dtype == advmil::kBF16 ? advmil::fe::kWgmmaRowsBM : advmil::fe::kRowsBM;
+  return (M + rows - 1) / rows;
 }
 
 // g [M / 16, D] f32 and the forward's inputs -> dh [M, D] in x's dtype and
@@ -587,7 +771,7 @@ extern "C" int advmil_fused_embed_bwd_dh(const void* g, const void* x, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess) return err;
   return advmil::fe::sum_rows(static_cast<const float*>(partials), static_cast<float*>(sums),
-                              advmil_fused_embed_row_blocks(M), 3 * D, s);
+                              advmil_fused_embed_row_blocks(M, dtype), 3 * D, s);
 }
 
 // Slabs of the dW product for these shapes and dtype: its partials hold

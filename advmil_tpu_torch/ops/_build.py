@@ -46,7 +46,7 @@ _SIGNATURES = {
     "advmil_ln_relu_bwd": [_P] * 8 + [_I, _I, _I, _F, _P],
     "advmil_fused_embed_fwd": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     "advmil_fused_embed_bwd_dh": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
-    "advmil_fused_embed_row_blocks": [_I],                   # returns a count
+    "advmil_fused_embed_row_blocks": [_I, _I],               # returns a count
     "advmil_fused_embed_dw": [_P] * 4 + [_I, _I, _I, _I, _P],
     "advmil_fused_embed_dw_slabs": [_I, _I, _I, _I],         # returns a count
     "advmil_fused_embed_dx": [_P] * 3 + [_I, _I, _I, _I, _P],

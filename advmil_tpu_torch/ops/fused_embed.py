@@ -19,9 +19,10 @@ Dispatch: a CPU tensor goes to `fused_region_embedding_plain` (autograd
 through plain torch ops); a CUDA tensor goes to `FusedRegionEmbedding`, whose
 forward and backward are hand-written kernels (the matrix products included:
 no library GEMM on this path), or raises. There is no fallback from the
-kernels to the plain version. f32 runs as plain FMAs (`csrc/fused_embed.cu`);
-bf16 on the warpgroup tensor cores with TMA loads (`csrc/wgmma.cuh`): the row
-kernel `csrc/fused_embed_rows.cu`, dW `csrc/fused_embed_dw.cu`, dx
+kernels to the plain version. f32 runs as register-blocked products on the
+CUDA cores, true f32 (`csrc/fused_embed.cu`); bf16 on the warpgroup tensor
+cores with TMA loads (`csrc/wgmma.cuh`): the row kernel
+`csrc/fused_embed_rows.cu`, dW `csrc/fused_embed_dw.cu`, dx
 `csrc/fused_embed_dx.cu`.
 
 On an H100 (M = 32,768, K = 1,024, D = 384, bf16) the forward is bound by its
@@ -47,7 +48,7 @@ import torch
 from . import _build
 from .ln_pool import LN_EPS, S2
 
-MAX_D = 384               # the row kernel keeps a 128 x D f32 tile in registers
+MAX_D = 384               # the row kernels keep a block's rows x D in registers
 LAUNCHES = 0              # forward (#9) launches since the last reset
 LAUNCHES_BWD_DPARAMS = 0  # parameter backward (#11: dh + sums, then dW) launches
 LAUNCHES_BWD_DX = 0       # dx (#10) launches
@@ -222,7 +223,7 @@ def fused_region_embedding_bwd_dparams(g, x, w, b, scale, bias):
         return dh, dw, sums[0], sums[1], sums[2]
     lib = _build.load()
     code = _build.DTYPE_CODES[x.dtype]
-    partials = torch.empty((lib.advmil_fused_embed_row_blocks(M), 3, D),
+    partials = torch.empty((lib.advmil_fused_embed_row_blocks(M, code), 3, D),
                            dtype=torch.float32, device=x.device)
     slabs = lib.advmil_fused_embed_dw_slabs(M, K, D, code)
     dw_partials = torch.empty((slabs if slabs > 1 else 0, K, D), dtype=torch.float32,

@@ -390,14 +390,19 @@ def phase_kernels(card):
             f"{str(dtype)[6:]}: max_abs_err {err:.3e} (atol {atol}){tight}; fully masked "
             f"bag exactly 0 | kernel {k_ms:.4f} ms ({tflops:.2f} TFLOP/s over the {keys} "
             f"real keys) | plain {p_ms:.4f} ms | {card}")
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        lib_ms = timed_one(_sdpa(q1, k1, v1, m1, 0.0))
+        row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, max_abs_err=err,
+                   **bound(nbytes(q1, k1, v1, q1, m1) + 4 * H * L, 4 * L * keys * H * Dh, kind))
+        log(f"[3 kernel] masked_flash_attention {kind}: F.scaled_dot_product_attention "
+            f"(same q, k, v, key mask, p=0{', TF32 off' if kind == 'f32' else ''}) "
+            f"{lib_ms:.4f} ms{_sdpa_names(q1, k1, v1, m1, 0.0, kind)} | bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
         if dtype == torch.bfloat16:
             worst = err
-            lib_ms = timed_one(_sdpa(q1, k1, v1, m1, 0.0))
-            report["masked_flash_attention"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                **bound(nbytes(q1, k1, v1, q1, m1) + 4 * H * L, 4 * L * keys * H * Dh, "bf16"))
-            log(f"[3 kernel] masked_flash_attention bf16: F.scaled_dot_product_attention "
-                f"(same q, k, v, key mask, p=0) {lib_ms:.4f} ms | {card}")
+            report["masked_flash_attention"] = dict(row, f32=report.pop("_flash_f32"))
+        else:
+            report["_flash_f32"] = row
     report["masked_flash_attention"]["max_abs_err"] = worst
     _kernels_flash_extra(card, dev, g)
     report.update(_kernels_training(card, dev, g))
@@ -540,6 +545,15 @@ def _kernels_flash_extra(card, dev, g):
         f"{card}")
 
 
+def _sdpa_names(q, k, v, mask, p, kind, dout=None):
+    """In f32, the kernels behind the SDPA yardstick (its default dispatch),
+    for the log: whether its products are true f32; empty in bf16."""
+    if kind != "f32":
+        return ""
+    names = sorted(device_ms_by_kernel(_sdpa(q, k, v, mask, p, dout), calls=2))
+    return f" (its kernels: {'; '.join(n[:70] for n in names) or 'not measured'})"
+
+
 def _sdpa(q, k, v, mask, p, dout=None):
     """The library yardstick of the flash kernels: one
     `F.scaled_dot_product_attention` call on the same q, k, v [B, L, H, Dh] and
@@ -677,24 +691,35 @@ def _kernels_training(card, dev, g):
             log(f"{line} | dq kernel {dq_ms:.4f} ms ({6 * pairs / dq_ms / 1e9:.2f} TFLOP/s), "
                 f"dk/dv kernel {dkv_ms:.4f} ms ({8 * pairs / dkv_ms / 1e9:.2f} TFLOP/s over the "
                 f"real keys), plain autograd bwd (dq, dk, dv) {plain_ms:.4f} ms | {card}")
-            if dtype == torch.bfloat16:
-                lib_f, lib_b = timed_one(_sdpa(q, k, v, mask, p)), \
-                    timed_one(_sdpa(q, k, v, mask, p, dout))
-                log(f"[3 kernel] flash bf16 p={p}: F.scaled_dot_product_attention forward "
-                    f"{lib_f:.4f} ms, its backward (dq, dk, dv in one call) {lib_b:.4f} ms "
-                    f"| {card}")
-            if dtype == torch.bfloat16 and p:
-                io = nbytes(q, k, v, out)
-                report["masked_flash_attention_dropout"] = dict(
-                    ms=f_ms, plain_ms=fp_ms, max_abs_err=errs["out"], library_ms=lib_f,
-                    **bound(io + nbytes(mask, lse), 4 * pairs, "bf16"))
-                report["flash_bwd_dq"] = dict(
-                    ms=dq_ms, plain_ms=plain_ms, max_abs_err=errs["dq"], library_ms=lib_b,
-                    **bound(io + nbytes(dout, dq, mask, lse), 6 * pairs, "bf16"))
-                report["flash_bwd_dkv"] = dict(
-                    ms=dkv_ms, plain_ms=plain_ms, max_abs_err=max(errs["dk"], errs["dv"]),
-                    library_ms=lib_b,
-                    **bound(io + nbytes(dout, dk, dv, mask, lse), 8 * pairs, "bf16"))
+            kind = "bf16" if dtype == torch.bfloat16 else "f32"
+            lib_f, lib_b = timed_one(_sdpa(q, k, v, mask, p)), \
+                timed_one(_sdpa(q, k, v, mask, p, dout))
+            io = nbytes(q, k, v, out)
+            b_f = bound(io + nbytes(mask, lse), 4 * pairs, kind)
+            b_dq = bound(io + nbytes(dout, dq, mask, lse), 6 * pairs, kind)
+            b_dkv = bound(io + nbytes(dout, dk, dv, mask, lse), 8 * pairs, kind)
+            log(f"[3 kernel] flash {kind} p={p}: F.scaled_dot_product_attention forward "
+                f"{lib_f:.4f} ms, its backward (dq, dk, dv in one call) {lib_b:.4f} ms"
+                f"{', TF32 off' if kind == 'f32' else ''}"
+                f"{_sdpa_names(q, k, v, mask, p, kind, dout)} | bounds: forward "
+                f"{b_f['bound_ms']:.4f} ms ({b_f['bound_by']}), dq {b_dq['bound_ms']:.4f} "
+                f"({b_dq['bound_by']}), dk/dv {b_dkv['bound_ms']:.4f} ({b_dkv['bound_by']}) "
+                f"| {card}")
+            if p:
+                rows = {"masked_flash_attention_dropout": dict(
+                            ms=f_ms, plain_ms=fp_ms, max_abs_err=errs["out"], library_ms=lib_f,
+                            **b_f),
+                        "flash_bwd_dq": dict(
+                            ms=dq_ms, plain_ms=plain_ms, max_abs_err=errs["dq"],
+                            library_ms=lib_b, **b_dq),
+                        "flash_bwd_dkv": dict(
+                            ms=dkv_ms, plain_ms=plain_ms,
+                            max_abs_err=max(errs["dk"], errs["dv"]), library_ms=lib_b, **b_dkv)}
+                for name, row in rows.items():
+                    if kind == "bf16":
+                        report[name] = dict(row, **report.pop(f"_{name}_f32"))
+                    else:   # f32 runs first: kept for the bf16 row, beside it
+                        report[f"_{name}_f32"] = {"f32": row}
 
     # the keep-mask oracle, bit for bit, and philox.cuh against cuRAND
     km = philox.keep_mask(seed, B * H, L, L, 0.25, device=dev)
@@ -1053,6 +1078,14 @@ def _kernels_embed(card, dev, g):
             del own
             if not f32:
                 line += _embed_tight(out, ref, dh, dw, gout, x, w, b, scale, bias)
+            # no atomics: a second call of #9 and of #11 gives the same bits
+            again = (fe.fused_region_embedding_fwd(x, w, b, scale, bias),
+                     *fe.fused_region_embedding_bwd_dparams(gout, x, w, b, scale, bias))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, e) for a, e in zip((out, dh, dw, db, dsc, dbi), again)):
+                raise AssertionError(f"fused embedding M={M} D={D} {dtype}: two calls differ")
+            del again
+            line += "; two calls of #9 and #11 bit for bit"
             if M < 32768:
                 log(f"{line} | ragged M | {card}")
                 continue
@@ -1082,26 +1115,38 @@ def _kernels_embed(card, dev, g):
             lib_x = timed_one(lambda: torch.matmul(dh, wt))
             prod = 2 * M * K * D
             kind = "f32" if f32 else "bf16"
+            small = nbytes(b, scale, bias)
+            rows = {"fused_region_embedding": dict(
+                        ms=f_ms, plain_ms=fp_ms, library_ms=lib_f, max_abs_err=errs["out"],
+                        **bound(nbytes(x, w, out) + small, prod, kind)),
+                    "fused_region_embedding_bwd_dparams": dict(
+                        ms=p_ms, plain_ms=pp_ms, library_ms=lib_p,
+                        max_abs_err=max(errs["dw"], errs["db"], errs["dscale"], errs["dbias"]),
+                        **bound(nbytes(x, w, gout, dw) + 3 * small, 2 * prod, kind)),
+                    "fused_region_embedding_bwd_dx": dict(
+                        ms=x_ms, plain_ms=pp_ms, library_ms=lib_x, max_abs_err=errs["dx"],
+                        **bound(nbytes(dh, w, dx), prod, kind))}
+            bounds = {n: r["bound_ms"] for n, r in rows.items()}
             log(f"{line} | fwd kernel {f_ms:.4f} ms ({prod / f_ms / 1e9:.1f} TFLOP/s), plain "
-                f"{fp_ms:.4f} ms, F.linear + LN-pool kernel {lib_f:.4f} ms | dparams kernels "
-                f"(dh, dW) {p_ms:.4f} ms, plain autograd bwd (all five) {pp_ms:.4f} ms, "
-                f"LN-pool bwd kernel + F.linear's dW, db {lib_p:.4f} ms | dx kernel {x_ms:.4f} "
-                f"ms, torch.matmul {lib_x:.4f} ms | {card}")
+                f"{fp_ms:.4f} ms, F.linear + LN-pool kernel {lib_f:.4f} ms, bound "
+                f"{bounds['fused_region_embedding']:.4f} ms | dparams kernels (dh, dW) "
+                f"{p_ms:.4f} ms, plain autograd bwd (all five) {pp_ms:.4f} ms, LN-pool bwd "
+                f"kernel + F.linear's dW, db {lib_p:.4f} ms, bound "
+                f"{bounds['fused_region_embedding_bwd_dparams']:.4f} ms | dx kernel {x_ms:.4f} "
+                f"ms, torch.matmul {lib_x:.4f} ms, bound "
+                f"{bounds['fused_region_embedding_bwd_dx']:.4f} ms (operations at "
+                f"{PEAK[kind] / 1e12:.0f} TFLOP/s) | {card}")
             if not f32:
                 worst = {"out": max(worst["out"], errs["out"]), "dx": max(worst["dx"], errs["dx"]),
                          "dparams": max(worst["dparams"], errs["dw"], errs["db"],
                                         errs["dscale"], errs["dbias"])}
-                if D == 384:
-                    small = nbytes(b, scale, bias)
-                    report["fused_region_embedding"] = dict(
-                        ms=f_ms, plain_ms=fp_ms, library_ms=lib_f,
-                        **bound(nbytes(x, w, out) + small, prod, kind))
-                    report["fused_region_embedding_bwd_dparams"] = dict(
-                        ms=p_ms, plain_ms=pp_ms, library_ms=lib_p,
-                        **bound(nbytes(x, w, gout, dw) + 3 * small, 2 * prod, kind))
-                    report["fused_region_embedding_bwd_dx"] = dict(
-                        ms=x_ms, plain_ms=pp_ms, library_ms=lib_x,
-                        **bound(nbytes(dh, w, dx), prod, kind))
+            if D == 384:
+                for name, row in rows.items():
+                    if f32:     # f32 runs first: kept beside the bf16 row
+                        report.setdefault(name, {})["f32"] = row
+                    else:
+                        report.setdefault(name, {}).update(
+                            {k: v for k, v in row.items() if k != "max_abs_err"})
             del leaves, pout, plain_bwd, hh, hl, lin
         del x32, x, out, dh, dw, dx, ref, want
     report["fused_region_embedding"]["max_abs_err"] = worst["out"]
@@ -4510,7 +4555,7 @@ def main():
                 raise AssertionError(f"kernel {name} was not launched on {path}")
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
-        entry.update({k: r[k] for k in ("dtype", "bf16") if k in r})
+        entry.update({k: r[k] for k in ("dtype", "bf16", "f32") if k in r})
         if name in inst_report:       # phase 31: the local query rows of an inst rank
             entry["lq_lt_lk"] = inst_report[name]
         kernels.append(entry)

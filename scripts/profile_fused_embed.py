@@ -66,9 +66,10 @@ the library pair too). The checks hold each value to the f32 bounds of
 `chip_smoke.py` phase 3 (values 1e-5 + 1e-4 relative, dh and the gradients
 2e-4 + 1e-3 relative against the plain versions), which are the tight ones
 in f32; the times use the f32 peak (67 TFLOP/s) for the bound;
-`F32_VARIANTS` are the builds without the products' FMAs (`no_products`) or
-without the loads after the ring's first round (`no_loads`; both give wrong
-results and are only timed); `F32_MUTANTS` are the three faults written for
+`F32_VARIANTS` are the builds without the products' FMAs (`no_products`),
+without the loads after the ring's first round (`no_loads`) or without the
+row kernel's epilogue (`no_epilogue`; all three give wrong results and are
+only timed); `F32_MUTANTS` are the three faults written for
 the f32 sources. Beside the ptxas lines it prints, from `cuobjdump -sass` of
 the library, the FFMA and shared-load (LDS) instructions of each f32
 kernel's innermost loop that holds FFMAs (`sass_loops`).
@@ -149,27 +150,35 @@ EMBED_MUTANTS = {
         (_ROWS, "if (p * S::kN + 8 * j < D) {", "if (p * S::kN + 8 * j < D + 8) {")],
 }
 _F32 = "fused_embed.cu"
-_F32_ROW_K = "for (int kk = 0; kk < kBK; ++kk) {\n      float a[8];"
-_F32_GEMM_K = "for (int kk = 0; kk < kBK; ++kk) {\n      float bv[NCOL];"
+_F32_ROW_K = "for (int kq = 0; kq < kBK; kq += 4) {\n      float4 an[8];"
+_F32_GEMM_K = "for (int kq = 0; kq < kBK; kq += 4) {\n      float an[4][8], bn[4][8];"
 # name: (file, text, replacement) triples in the f32 sources; wrong results, only timed
 F32_VARIANTS = {
-    "no_products": [(_F32, _F32_ROW_K, _F32_ROW_K.replace("kk < kBK", "kk < (nk < 0 ? kBK : 0)")),
-                    (_F32, _F32_GEMM_K, _F32_GEMM_K.replace("kk < kBK", "kk < (nk < 0 ? kBK : 0)"))],
+    "no_products": [(_F32, _F32_ROW_K, _F32_ROW_K.replace("kq < kBK", "kq < (nk < 0 ? kBK : 0)")),
+                    (_F32, _F32_GEMM_K, _F32_GEMM_K.replace("kq < kBK", "kq < (nk < 0 ? kBK : 0)"))],
     # each ring slot is filled once; later chunks multiply stale tiles
-    "no_loads": [(_F32, "if (kt < nk) {\n      load_tile(stage_a(kt)",
-                  "if (kt < nk && kt < kStages - 1) {\n      load_tile(stage_a(kt)"),
-                 (_F32, "if (kt < nk) {\n      float* As = stage_a(kt);",
-                  "if (kt < nk && kt < kStages - 1) {\n      float* As = stage_a(kt);")],
+    "no_loads": [(_F32, "if (kt < nk) {\n      float* As = stage_a(kt);\n      load_tile<kRowsBM",
+                  "if (kt < nk && kt < kStages - 1) {\n      float* As = stage_a(kt);\n"
+                  "      load_tile<kRowsBM"),
+                 (_F32, "if (kt < nk) {\n      float* As = stage_a(kt);\n      float* Bs",
+                  "if (kt < nk && kt < kStages - 1) {\n      float* As = stage_a(kt);\n"
+                  "      float* Bs")],
+    # the row kernel ends after its products (which it keeps: D <= 0 would use them)
+    "no_epilogue": [(_F32, "  cp_async_wait<0>();\n\n  // h = acc + b",
+                     "  cp_async_wait<0>();\n  if (D > 0) return;\n\n  // h = acc + b")],
 }
 F32_MUTANTS = {
     "K chunk 1 dropped in row tile 1": [
         (_F32, _F32_ROW_K,
-         _F32_ROW_K.replace("kk < kBK", "kk < ((kt == 1 && blockIdx.x == 1) ? 0 : kBK)"))],
+         _F32_ROW_K.replace("kq < kBK", "kq < ((kt == 1 && blockIdx.x == 1) ? 0 : kBK)"))],
     "slab 1 of M dropped from dW": [
-        (_F32, _F32_GEMM_K, _F32_GEMM_K.replace("kk < kBK", "kk < (blockIdx.z == 1 ? 0 : kBK)"))],
+        (_F32, _F32_GEMM_K, _F32_GEMM_K.replace("kq < kBK", "kq < (blockIdx.z == 1 ? 0 : kBK)"))],
+    # the first idle group of 32 columns (zero-filled W: h = 0 there) in the variance
     "32 columns beyond D in the variance": [
-        (_F32, "const float d = j < nc ? v[i][j] - mu : 0.f;",
-         "const float d = j < nc + 1 ? v[i][j] - mu : 0.f;")],
+        (_F32, "    if (live[j]) {\n#pragma unroll\n      for (int i = 0; i < 8; ++i) {\n"
+               "        const float dx",
+         "    if (32 * (wc + 4 * j) < D + 32) {\n#pragma unroll\n      for (int i = 0; i < 8; ++i) {\n"
+         "        const float dx")],
 }
 # the f32 kernels whose ptxas lines and innermost loops are reported
 F32_KERNELS = ("fused_rows_kernel", "gemm_tile_kernel", "sum_rows_kernel")
@@ -384,14 +393,6 @@ def fwd_of(lib, x, wk, b, scale, bias):
     return out
 
 
-def row_blocks(lib, M, D, code):
-    """Rows of the backward's partials: `lib`'s entry point takes (M, D,
-    dtype) since the f32 row kernel's block height follows D; an earlier
-    library's takes M alone (ctypes passes what it is given and the C
-    function reads the first argument)."""
-    return lib.advmil_fused_embed_row_blocks(M, D, code)
-
-
 def dh_of(lib, gout, x, wk, b, scale, bias):
     """(dh, [db, dscale, dbias]) from `lib`'s backward row kernel."""
     import torch
@@ -401,7 +402,9 @@ def dh_of(lib, gout, x, wk, b, scale, bias):
     code = _build.DTYPE_CODES[x.dtype]
     dh = torch.empty((M, D), dtype=x.dtype, device=x.device)
     sums = torch.empty((3, D), dtype=torch.float32, device=x.device)
-    part = torch.empty((row_blocks(lib, M, D, code), 3, D), dtype=torch.float32,
+    # (M, dtype): 64-row f32 blocks, 128-row bf16 ones; a library built before
+    # the f32 redesign (128 rows in both) reads M alone
+    part = torch.empty((lib.advmil_fused_embed_row_blocks(M, code), 3, D), dtype=torch.float32,
                        device=x.device)
     _build.check(lib.advmil_fused_embed_bwd_dh(gout.data_ptr(), x.data_ptr(), wk.data_ptr(),
                                                b.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -553,7 +556,7 @@ def run_embed(args, card, dev):
     from advmil_tpu_torch.ops import ln_pool
     f32 = args.f32
     dtype = torch.float32 if f32 else torch.bfloat16
-    kind, tag = ("f32", "f32") if f32 else ("bf16", "bf16")
+    tag = "f32" if f32 else "bf16"
     peak = 67e12 if f32 else 989e12
     lib = _build.load()
     if f32:

@@ -59,13 +59,14 @@ def _attn_inputs(B, L, H, Dh, device, seed=11):
     return q, k, v, mask
 
 
-def _assert_tight(got, q, k, v, mask, dout=None, p=0.0, seed=None):
+def _assert_tight(got, q, k, v, mask, dout=None, p=0.0, seed=None, fwd_out=None):
     """The bf16 tensor-core kernels against the plain version that rounds
     where they round, within `rounded_tol`: far below the values compared,
     so a dropped term of dS or a few keys never visited fail here, where the
     bounds against the plain version (as large as bf16's noise on the scores)
-    can let them pass."""
-    want = tattn.masked_attention_rounded(q, k, v, mask, dout, p, seed)
+    can let them pass. `fwd_out`: the forward output the backward kernels
+    were given, for the oracle's dvec (`masked_attention_rounded`)."""
+    want = tattn.masked_attention_rounded(q, k, v, mask, dout, p, seed, fwd_out=fwd_out)
     want = (want,) if dout is None else want
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
         torch.testing.assert_close(a.float(), b.float(), **tattn.rounded_tol(b),
@@ -202,6 +203,36 @@ def test_flash_fwd_bwd_kernels_match_plain(cuda_device, B, L, H, Dh, dtype, tol,
         assert torch.all(a[-1] == 0), f"{name}: fully masked bag not exactly 0"
     if dtype == torch.bfloat16:
         _assert_tight(got, q, k, v, mask, dout, p, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.25])
+def test_flash_bf16_backward_on_saturated_rows(cuda_device, p):
+    """#6 / #7 on rows whose softmax is saturated: q and k scaled by 12, as
+    the CPU case of tests/test_torch_attention.py scales them and as trained
+    attention grows its logits. There dS = P (dP - dvec) cancels, and a bf16
+    ulp between the forward kernel's output and the oracle's own moves dQ by
+    a share of itself; so the oracle takes dvec from the output the backward
+    kernels were given (`fwd_out`), and dQ, dK and dV are held within
+    `rounded_tol` of it. A ragged bag and a fully masked one (exact zeros)."""
+    B, L, H, Dh = 2, 1024, 8, 48
+    rng = np.random.default_rng(11)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(B, L, H, Dh)).astype(np.float32))
+                     for _ in range(4))
+    q, k = (q * 12.0).bfloat16().to(cuda_device), (k * 12.0).bfloat16().to(cuda_device)
+    v, dout = v.bfloat16().to(cuda_device), dout.bfloat16().to(cuda_device)
+    mask = torch.ones(B, L, device=cuda_device)
+    mask[0, L - 300:] = 0.0
+    mask[1] = 0.0
+    seed = 0x0BAD_5EED if p else None
+    before = (tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV)
+    got = _flash_grads(lambda a, b, c: tattn.masked_flash_attention(
+        a, b, c, mask, dropout_p=p, seed=seed), q, k, v, mask, dout)
+    torch.cuda.synchronize()
+    assert (tattn.LAUNCHES_DQ, tattn.LAUNCHES_DKV) == tuple(n + 1 for n in before)
+    for name, a in zip(("out", "dq", "dk", "dv"), got):
+        assert bool(torch.isfinite(a).all()) and bool((a[1] == 0).all()), name
+    _assert_tight(got, q, k, v, mask, dout, p, seed, fwd_out=got[0])
 
 
 @pytest.mark.cuda
@@ -782,11 +813,16 @@ def _embed_case(M, K, D, dtype, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,D", [(4096, 1024, 384), (4096, 1024, 128), (16 * 67, 128, 96),
-                                   (48, 64, 32), (16, 32, 256)])
+                                   (48, 64, 32), (16, 32, 256), (16 * 67, 32, 160),
+                                   (16 * 67, 64, 384), (16 * 9, 64, 32), (16 * 5, 32, 96)])
 def test_fused_embed_kernels_match_plain(cuda_device, M, K, D, dtype):
     """#9, #11 and #10 through the autograd Function (x requires grad, so dx is
     launched) against the plain forward and the written-out backward; ragged M
-    (M % 64 != 0), a zero region with a zero cotangent."""
+    (M % 64 != 0: the f32 row kernel's blocks hold 64 rows, the bf16 one's
+    128), D across the f32 kernel's 32-column groups (32 and 96 below its
+    128-wide tiling, 160 with groups of the 384-wide one idle), K of one or two
+    32-wide chunks, a zero region with a zero cotangent, and two calls equal
+    bit for bit (no atomics)."""
     x, w, b, scale, bias, g = _embed_case(M, K, D, dtype, cuda_device)
     before = (tfe.LAUNCHES, tfe.LAUNCHES_BWD_DPARAMS, tfe.LAUNCHES_BWD_DX)
     leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b, scale, bias)]
@@ -810,6 +846,10 @@ def test_fused_embed_kernels_match_plain(cuda_device, M, K, D, dtype):
         torch.testing.assert_close(a.float(), e.float(), **tol, msg=lambda m, n=name: f"{n}: {m}")
     if M >= 32:
         assert bool((got[0][16:32] == 0).all())         # zero cotangent -> dx exactly 0
+    again = tfe.fused_region_embedding(*leaves)
+    assert torch.equal(out, again)
+    assert all(torch.equal(a, e) for a, e in zip(got, torch.autograd.grad(again, leaves,
+                                                                          g.to(dtype))))
 
 
 @pytest.mark.cuda
