@@ -1482,9 +1482,12 @@ def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train"):
     grads = {dev: _step_grads(handler, batch, dev) for dev in ("cuda", "cpu")}
     if handler.cfg["use_fused_embedding"]:
         now = read_counters()
-        for name in ("fused_region_embedding", "fused_region_embedding_bwd_dparams"):
+        fused = ("fused_region_embedding", "fused_region_embedding_bwd_dparams")
+        for name in fused:
             if now[name] <= before[name]:
                 raise AssertionError(f"{tag}: the step on the card did not launch {name}")
+        log(f"[{tag}] the step on the card launched "
+            + ", ".join(f"{name} {now[name] - before[name]} times" for name in fused))
     _compare_grads(tag, "card against CPU", grads["cuda"], grads["cpu"],
                    tuple(batch.feats.shape))
     return batch, grads["cuda"]
