@@ -572,6 +572,57 @@ def _sdpa(q, k, v, mask, p, dout=None):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
+# the f32 flash kernels (the main path runs bf16, SOURCES)
+F32_SOURCES = {"masked_flash_attention_dropout": "advmil_tpu_torch/csrc/flash_fwd.cu",
+               "flash_bwd_dq": "advmil_tpu_torch/csrc/flash_bwd.cu",
+               "flash_bwd_dkv": "advmil_tpu_torch/csrc/flash_bwd.cu"}
+
+
+def _flash_f32_all_real(report, card, dev, q, k, v, dout, seed):
+    """Phase 3, f32 #6 / #7 on the training shape with every key real (no key
+    tile to skip) at p = 0.25 and 0: held to the plain version within 1e-4,
+    timed beside SDPA's one-call backward (TF32 off) and the bound over the
+    real keys; the p = 0.25 times join the f32 rows as `all_real`."""
+    import torch
+    from advmil_tpu_torch.ops import attention as attn
+    B, L, H, Dh = q.shape
+    mask = torch.ones(B, L, device=dev)
+    for p in (0.25, 0.0):
+        sd = seed if p else None
+        out, lse = attn.flash_attention_fwd(q, k, v, mask, p, sd)
+        ops = attn.flash_bwd_inputs(q, k, v, mask, out, lse, dout)
+        got = (attn.flash_bwd_dq(ops, p, sd) * (1.0 / Dh ** 0.5),) + attn.flash_bwd_dkv(ops, p, sd)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(attn.masked_attention_reference(*leaves, mask, p, sd), leaves,
+                                   dout)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = max_abs(a, b)
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m, n=name: f"flash f32 every key real {n}: {m}")
+        ms = {"dq": timed_one(lambda: attn.flash_bwd_dq(ops, p, sd)),
+              "dkv": timed_one(lambda: attn.flash_bwd_dkv(ops, p, sd))}
+        lib_b = timed_one(_sdpa(q, k, v, mask, p, dout))
+        pairs = L * int(mask.sum()) * H * Dh
+        io = nbytes(q, k, v, out)
+        bounds = {"dq": bound(io + nbytes(dout, got[0], mask, lse), 6 * pairs, "f32"),
+                  "dkv": bound(io + nbytes(dout, got[1], got[2], mask, lse), 8 * pairs, "f32")}
+        log(f"[3 kernel] flash f32 B={B} L={L} H={H} Dh={Dh} p={p}, every key real: max_abs_err "
+            f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} (atol 1e-4, rtol 1e-4) "
+            f"| dq kernel {ms['dq']:.4f} ms (bound {bounds['dq']['bound_ms']:.4f} ms, "
+            f"{bounds['dq']['bound_by']}: {bounds['dq']['bound_ms'] / ms['dq']:.1%}), dk/dv kernel "
+            f"{ms['dkv']:.4f} ms (bound {bounds['dkv']['bound_ms']:.4f}: "
+            f"{bounds['dkv']['bound_ms'] / ms['dkv']:.1%}) | SDPA backward (dq, dk, dv in one "
+            f"call, TF32 off) {lib_b:.4f} ms; dq + dk/dv over it "
+            f"{(ms['dq'] + ms['dkv']) / lib_b:.2f}x | {card}")
+        if p:
+            for name, key, err in (("flash_bwd_dq", "dq", errs["dq"]),
+                                   ("flash_bwd_dkv", "dkv", max(errs["dk"], errs["dv"]))):
+                report[name]["f32"]["all_real"] = dict(ms=ms[key], library_ms=lib_b,
+                                                       max_abs_err=err, **bounds[key])
+
+
 def _kernels_training(card, dev, g):
     """Phase 3, the training kernels: LN-pool backward, flash forward with
     dropout, flash dQ and dK/dV, the keep mask and philox.cuh."""
@@ -703,8 +754,9 @@ def _kernels_training(card, dev, g):
                 f"{', TF32 off' if kind == 'f32' else ''}"
                 f"{_sdpa_names(q, k, v, mask, p, kind, dout)} | bounds: forward "
                 f"{b_f['bound_ms']:.4f} ms ({b_f['bound_by']}), dq {b_dq['bound_ms']:.4f} "
-                f"({b_dq['bound_by']}), dk/dv {b_dkv['bound_ms']:.4f} ({b_dkv['bound_by']}) "
-                f"| {card}")
+                f"({b_dq['bound_by']}; the kernel at {b_dq['bound_ms'] / dq_ms:.1%}), dk/dv "
+                f"{b_dkv['bound_ms']:.4f} ({b_dkv['bound_by']}; {b_dkv['bound_ms'] / dkv_ms:.1%}) "
+                f"| dq + dk/dv over SDPA's backward {(dq_ms + dkv_ms) / lib_b:.2f}x | {card}")
             if p:
                 rows = {"masked_flash_attention_dropout": dict(
                             ms=f_ms, plain_ms=fp_ms, max_abs_err=errs["out"], library_ms=lib_f,
@@ -719,7 +771,8 @@ def _kernels_training(card, dev, g):
                     if kind == "bf16":
                         report[name] = dict(row, **report.pop(f"_{name}_f32"))
                     else:   # f32 runs first: kept for the bf16 row, beside it
-                        report[f"_{name}_f32"] = {"f32": row}
+                        report[f"_{name}_f32"] = {"f32": dict(row, source=F32_SOURCES[name])}
+    _flash_f32_all_real(report, card, dev, q32, k32, v32, do32, seed)
 
     # the keep-mask oracle, bit for bit, and philox.cuh against cuRAND
     km = philox.keep_mask(seed, B * H, L, L, 0.25, device=dev)
@@ -932,23 +985,29 @@ def _kernels_graph(card, dev, g):
             tight = f"; banded_tol used out {shares[0]:.3f} dy {shares[1]:.3f}"
         if not bool((whole[0][0][:, 100] == 0).all()):
             raise AssertionError("banded: a node without edges is not exactly 0")
+        # the core reads y once and writes out and its statistics (lse, f32
+        # out) once; the backward reads y, g and the statistics and writes dy;
+        # the operations run over the epn band slots of every node and channel
+        rows = {"banded_aggregate": dict(
+                    ms=f_ms, plain_ms=fp_ms, max_abs_err=max(errs[0], werrs[0]), library_ms=None,
+                    **bound(nbytes(y, offs, bm, out, *stats), 8 * epn * y.numel(), "f32")),
+                "banded_aggregate_bwd": dict(
+                    ms=b_ms, plain_ms=bp_ms, max_abs_err=max(errs[1:] + werrs[1:]),
+                    library_ms=None,
+                    **bound(nbytes(y, offs, bm, gout, dy, *stats), 16 * epn * y.numel(), "f32"))}
         log(f"[3 kernel] banded_aggregate B={B} N={N} epn={epn} C={C} {tag}, residual rows "
             f"{u_rows} + 1 sentinel: core max_abs_err out {errs[0]:.3e} dy {errs[1]:.3e} dt "
             f"{errs[2]:.3e}; whole op (core + exact rows) out {werrs[0]:.3e} dy "
             f"{werrs[1]:.3e} dt {werrs[2]:.3e} (f32 1e-5, bf16 2e-2 + 2e-2 rel, dt 1e-4 "
-            f"rel){tight}; empty node exactly 0 | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms | "
-            f"bwd kernel {b_ms:.4f} ms, plain autograd bwd {bp_ms:.4f} ms | {card}")
-        if dtype == torch.bfloat16:
-            # the core reads y once and writes out and its statistics (lse, f32
-            # out) once; the backward reads y, g and the statistics and writes dy;
-            # the operations run over the epn band slots of every node and channel
-            report["banded_aggregate"] = dict(
-                ms=f_ms, plain_ms=fp_ms, max_abs_err=max(errs[0], werrs[0]), library_ms=None,
-                **bound(nbytes(y, offs, bm, out, *stats), 8 * epn * y.numel(), "f32"))
-            report["banded_aggregate_bwd"] = dict(
-                ms=b_ms, plain_ms=bp_ms, max_abs_err=max(errs[1:] + werrs[1:]),
-                library_ms=None,
-                **bound(nbytes(y, offs, bm, gout, dy, *stats), 16 * epn * y.numel(), "f32"))
+            f"rel){tight}; empty node exactly 0 | fwd kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, "
+            f"bound {rows['banded_aggregate']['bound_ms']:.4f} ms | bwd kernel {b_ms:.4f} ms, "
+            f"plain autograd bwd {bp_ms:.4f} ms, bound "
+            f"{rows['banded_aggregate_bwd']['bound_ms']:.4f} ms (bytes) | {card}")
+        for name, row in rows.items():
+            if dtype == torch.bfloat16:   # f32 ran first: its row goes beside
+                report[name] = dict(row, f32=report.pop(f"_{name}_f32"))
+            else:
+                report[f"_{name}_f32"] = row
         del out, stats, dy, ref, want, plain_bwd, whole
     return report
 
@@ -1471,23 +1530,25 @@ def _compare_grads(tag, what, a, b, shape, bound_=1e-4, min_tensors=40, nets="G 
         raise AssertionError(f"{tag}, {what}: gradient {worst} differs by {diffs[worst]}")
 
 
-def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train"):
+def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train", need=()):
     """Phases 7, 11, 13 and 14: one adversarial step's gradients in f32 on the
     card (kernels) against the CPU (plain versions), on `batch` (default: the
-    long training batch)."""
+    long training batch). The step on the card must launch each kernel of
+    `need` (counter names), and the fused embedding's where it is on."""
     if batch is None:
         _, batcher = handler.loaders["train"]
         batch = list(batcher.epoch_batches())[-1]     # the largest bucket (1,024 regions)
     before = read_counters()
     grads = {dev: _step_grads(handler, batch, dev) for dev in ("cuda", "cpu")}
-    if handler.cfg["use_fused_embedding"]:
+    need = tuple(need) + (("fused_region_embedding", "fused_region_embedding_bwd_dparams")
+                          if handler.cfg["use_fused_embedding"] else ())
+    if need:
         now = read_counters()
-        fused = ("fused_region_embedding", "fused_region_embedding_bwd_dparams")
-        for name in fused:
+        for name in need:
             if now[name] <= before[name]:
                 raise AssertionError(f"{tag}: the step on the card did not launch {name}")
-        log(f"[{tag}] the step on the card launched "
-            + ", ".join(f"{name} {now[name] - before[name]} times" for name in fused))
+        log(f"[{tag}] the f32 step on the card launched "
+            + ", ".join(f"{name} {now[name] - before[name]} times" for name in need))
     _compare_grads(tag, "card against CPU", grads["cuda"], grads["cpu"],
                    tuple(batch.feats.shape))
     return batch, grads["cuda"]
@@ -2660,14 +2721,17 @@ def phase_inst_kernels(card):
                     f"{times['fwd'][1]:.4f} ms, autograd bwd {times['dq'][1]:.4f} ms | "
                     f"F.scaled_dot_product_attention per rank fwd {lib['fwd']:.4f} ms, bwd "
                     f"{lib['bwd']:.4f} ms | {card}")
-                if dtype == torch.bfloat16:
-                    for name, key, lib_key in (("masked_flash_attention", "fwd", "fwd"),
-                                               ("flash_bwd_dq", "dq", "bwd"),
-                                               ("flash_bwd_dkv", "dkv", "bwd")):
-                        out_report[name] = dict(
-                            shape=f"B={B} Lq={Lq} Lk={L} H={H} Dh={Dh} bf16 p=0",
-                            ms=times[key][0], unsharded_ms=full_ms[key],
-                            plain_ms=times[key][1], library_ms=lib[lib_key], **bounds[key])
+                tag = "bf16" if dtype == torch.bfloat16 else "f32"
+                for name, key, lib_key in (("masked_flash_attention", "fwd", "fwd"),
+                                           ("flash_bwd_dq", "dq", "bwd"),
+                                           ("flash_bwd_dkv", "dkv", "bwd")):
+                    row = dict(shape=f"B={B} Lq={Lq} Lk={L} H={H} Dh={Dh} {tag} p=0",
+                               ms=times[key][0], unsharded_ms=full_ms[key],
+                               plain_ms=times[key][1], library_ms=lib[lib_key], **bounds[key])
+                    if dtype == torch.bfloat16:   # f32 ran first: its row goes beside
+                        out_report[name] = dict(row, f32=out_report.pop(f"_{name}_f32"))
+                    else:   # SDPA in f32 with TF32 off (phase 1's setting)
+                        out_report[f"_{name}_f32"] = row
                 del leaves, ref, ops_r, ops_f
     return out_report
 
@@ -4406,7 +4470,8 @@ def main():
     train_widths = read_widths()
     handler, test_launches = timed("5 slice", phase_slice, paths)
     timed("6 gpu-vs-cpu", phase_gpu_vs_cpu, handler)
-    timed("7 gpu-vs-cpu train", phase_gpu_vs_cpu_train, train_handler)
+    timed("7 gpu-vs-cpu train", phase_gpu_vs_cpu_train, train_handler, None,
+          "7 gpu-vs-cpu train", ("flash_bwd_dq", "flash_bwd_dkv"))
     gpaths = timed("8 graph data", make_graph_data, paths)
     banded_handler, banded_launches = timed("8 graph train banded", phase_graph_train, paths,
                                             gpaths, True)

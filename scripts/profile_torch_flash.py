@@ -4,6 +4,8 @@
     python3 scripts/profile_torch_flash.py [--no-time] [--reps 20]
     python3 scripts/profile_torch_flash.py --variant no_exp|no_mma|wide|narrow
     python3 scripts/profile_torch_flash.py --mutants
+    python3 scripts/profile_torch_flash.py --f32 [--other-csrc DIR] [--only-other]
+        [--variants a,b] [--other-variants a,b] [--mutants] [--reps 20]
 
 Builds the kernels, prints the ptxas lines (registers, spills, shared memory)
 of the flash kernels, holds the bf16 forward, dQ and dK/dV kernels against
@@ -28,11 +30,37 @@ sixteen) and reports which of the two bounds catches it at the main path's
 shapes; it fails unless `rounded_tol` catches every one. Variants and mutants
 are built from a copy of the sources under `chiprun_out/`, removed afterwards:
 the package's own sources and build directory are not touched.
+
+`--f32`: the f32 backward kernels #6 / #7 (`csrc/flash_bwd.cu`, true f32 on
+the CUDA cores). Prints their ptxas lines and, from `cuobjdump -sass`, the
+FFMA / LDS / LDS.64 / LDS.128 counts of every loop of each kernel (nested
+loops' instructions not counted again). Checks each build against the plain
+version within the card tests' f32 bound (atol = rtol = 1e-4), the fully
+masked bag exactly 0, two calls bit for bit and the keep bits of dQ and dV
+against the torch Philox. Then times dQ and dK/dV through the C entry
+points (CUDA events behind a spin kernel, medians, in turns) at `F32_SHAPES`:
+phase 3's shape of `chip_smoke.py` (B = 2, L = 1,024, H = 8, Dh = 48, 300
+keys of bag 0 masked, bag 1 fully masked) and the same shape with every key
+real, p = 0.25 and 0, beside SDPA's one-call backward (TF32 off) and the
+bound over the real keys (67 TFLOP/s against 3.35 TB/s). `--other-csrc DIR`
+adds another source tree's kernels (an earlier commit's
+`advmil_tpu_torch/csrc`; `--only-other` leaves the package's own build out)
+to the same turns; `--variants` (`F32_VARIANTS`) and `--other-variants`
+(`F32_PARENT_VARIANTS`, written for the earlier lane-per-key kernels) add
+builds with one textual change: no exponentials, no Philox rounds, no
+second products, no step at all (wrong results: only timed). `--f32
+--mutants` builds each fault of `F32_MUTANTS`
+(a real key tile skipped, one term of dS dropped at one key in sixteen in dQ
+and in dK/dV, a Philox word taken for the wrong key) and fails unless the f32
+bound catches each at the main shape. JSON lines to stdout and to
+`chiprun_out/profile_torch_flash_f32*.jsonl`.
 """
 import argparse
 import json
+import math
 import os
 import os.path as osp
+import re
 import shutil
 import statistics
 import subprocess
@@ -307,6 +335,335 @@ def kernel_times(dev, card, calls=10):
         emit(kernels_of=name, shape=shape, ms_per_call=rows, card=card)
 
 
+# --- f32: the CUDA-core kernels of flash_bwd.cu ---------------------------
+
+_F32 = "flash_bwd.cu"
+_ROUNDS = "  for (int r = 0; r < 10; ++r) {\n    const uint32_t hi0"
+# name: [(file, text, replacement)], each text occurring once; wrong results, only timed
+F32_VARIANTS = {
+    "no_exp": [VARIANTS["no_exp"]],
+    "no_philox": [("philox.cuh", _ROUNDS, _ROUNDS.replace("r < 10", "r < 0"))],
+    "no_products": [(_F32, "kk < (ks + 1) * KPER; ++kk)", "kk < ks * KPER; ++kk)"),
+                    (_F32, "i < (qsp + 1) * QPER; ++i)", "i < qsp * QPER; ++i)")],
+    # the fixed cost: tile list, resident tiles, the ordered sums and stores, no step
+    "no_steps": [(_F32, "const int n_steps = (n_active + NT - 1) / NT;",
+                  "const int n_steps = 0 * n_active;"),
+                 (_F32, "const int n_steps = (Lq + BQ - 1) / BQ;", "const int n_steps = 0 * Lq;")],
+}
+# the same three for the earlier lane-per-key f32 kernels (an --other-csrc tree)
+F32_PARENT_VARIANTS = {
+    "no_exp": [(_F32, '#include "philox.cuh"\n\nnamespace advmil {',
+                '#include "philox.cuh"\n#define expf(x) fminf(fmaxf(fmaf((x), 0.01f, 0.5f), 0.f), 1.f)'
+                '\n\nnamespace advmil {')],
+    "no_philox": F32_VARIANTS["no_philox"],
+    "no_products": [(_F32, "for (int j = 0; j < kBT; ++j) {\n      float kk[NCOL];",
+                     "for (int j = 0; j < 0; ++j) {\n      float kk[NCOL];"),
+                    (_F32, "for (int i = 0; i < kBT; ++i) {\n      float qv[NCOL], ov[NCOL];",
+                     "for (int i = 0; i < 0; ++i) {\n      float qv[NCOL], ov[NCOL];")],
+}
+F32_MUTANTS = {
+    # dQ never visits the third listed key tile (keys 128..191 at the main shape)
+    "dq_skips_a_real_key_tile": [(_F32, "const bool have = e < n_active;",
+                                  "const bool have = e < n_active && e != 2;")],
+    # dS loses its - dvec term at one key in sixteen
+    "dq_drops_a_term_of_ds_at_one_key_in_16": [
+        (_F32, "ds[i] = p * (dpv - dvr[i]);",
+         "ds[i] = p * (dpv - (((j & 3) == 0 && (kq & 3) == 0) ? 0.f : dvr[i]));")],
+    "dkv_drops_a_term_of_ds_at_one_key_in_16": [
+        (_F32, "ds[j] = p * (dpv - dvv);", "ds[j] = p * (dpv - ((j == 0 && (kg & 3) == 0) ? 0.f : dvv));")],
+    # one key quad of each tile reads its neighbour's Philox words in dQ
+    "dq_takes_a_philox_word_for_the_wrong_key": [
+        (_F32, "keep[i][h] = ((n | (n << 4)) >> rot) & 0xFu;",
+         "keep[i][h] = ((n | (n << 4)) >> (rot ^ (kq == 5 ? 1 : 0))) & 0xFu;")],
+}
+# the sources of the f32 entry points (flash_bwd.cu calls the bf16 kernels' launchers)
+F32_SOURCES = ("flash_bwd.cu", "flash_dq_mma.cu", "flash_dkv_mma.cu")
+# (B, Lq, Lk, H, Dh, mask kind): the checks of a right build
+F32_CHECKS = [(2, 1024, 1024, 8, 48, "masked"), (2, 1024, 1024, 8, 48, "real"),
+              (2, 300, 1024, 4, 48, "holes"), (3, 1000, 200, 2, 32, "holes"),
+              (2, 77, 77, 4, 64, "holes"), (2, 200, 200, 1, 128, "holes"),
+              (2, 130, 333, 3, 128, "holes"), (3, 130, 130, 2, 16, "holes"),
+              (2, 1, 65, 2, 16, "holes"), (1, 4096, 4096, 2, 48, "holes")]
+# timed: phase 3's shape as it is (masked) and with every key real
+F32_SHAPES = [(2, 1024, 1024, 8, 48, "masked"), (2, 1024, 1024, 8, 48, "real")]
+F32_TOL = 1e-4
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def f32_csrc(base, name, changes):
+    """A copy of the source tree `base` under chiprun_out/ with `changes`
+    applied; returns its directory."""
+    tmp = Path(ROOT) / "chiprun_out" / f"flash_f32_{name}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.copytree(base, tmp / "csrc")
+    for fname, old, new in changes:
+        text = (tmp / "csrc" / fname).read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: the text to change occurs {text.count(old)} times in {fname}")
+        (tmp / "csrc" / fname).write_text(text.replace(old, new))
+    return tmp / "csrc"
+
+
+def f32_libs(trees):
+    """Build the f32 backward entry points of each source tree of `trees`
+    (name -> csrc directory) from the three sources they need, not the
+    package's whole library, every nvcc at once; returns name -> (ctypes
+    library, ptxas log, path of the library)."""
+    import ctypes
+    nvcc = _build._nvcc()
+    jobs = {}
+    for name, csrc in trees.items():
+        out = Path(ROOT) / "chiprun_out" / f"flash_f32_build_{name}"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        jobs[name] = (out, [(out / f"{Path(src).stem}.o", subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(out / f"{Path(src).stem}.o"),
+             str(Path(csrc) / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in F32_SOURCES])
+    libs = {}
+    for name, (out, procs) in jobs.items():
+        logs = []
+        for obj, proc in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                raise SystemExit(f"{name}: nvcc failed\n{logs[-1]}")
+        so = out / "libflash_f32.so"
+        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
+                        *(str(o) for o, _ in procs)], check=True)
+        lib = ctypes.CDLL(str(so))
+        for fn in ("advmil_flash_bwd_dq", "advmil_flash_bwd_dkv"):
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = (lib, "\n".join(logs), str(so))
+    return libs
+
+
+def sass_loop_counts(so_path, name_has):
+    """For each kernel of the library whose name holds every string of
+    `name_has`: each loop of `cuobjdump -sass` (a backward branch's range)
+    that holds an FFMA, with its counts of instructions, FFMA, LDS, LDS.64,
+    LDS.128 and MUFU, none of them counting the loops nested in it again."""
+    tool = osp.join(osp.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if not all(x in name for x in name_has):
+            continue
+        insns = [(int(a, 16), op) for a, op, _ in _SASS_INSN.findall(body)]
+        spans = set()
+        for a, op, rest in _SASS_INSN.findall(body):
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and m and int(m.group(1), 16) < int(a, 16):
+                spans.add((int(m.group(1), 16), int(a, 16)))
+        loops = []
+        for lo, hi in sorted(spans):
+            inner = [(l2, h2) for l2, h2 in spans if lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)]
+            c = {"FFMA": 0, "LDS": 0, "LDS.64": 0, "LDS.128": 0, "MUFU": 0}
+            for addr, op in insns:
+                if lo <= addr <= hi and not any(l2 <= addr <= h2 for l2, h2 in inner):
+                    base = op.split(".")[0]
+                    if base in ("FFMA", "MUFU"):
+                        c[base] += 1
+                    elif base == "LDS":
+                        c["LDS" + (".128" if ".128" in op else ".64" if ".64" in op else "")] += 1
+            lds = c["LDS"] + c["LDS.64"] + c["LDS.128"]
+            if c["FFMA"]:
+                own = sum(lo <= a <= hi and not any(l2 <= a <= h2 for l2, h2 in inner)
+                          for a, _ in insns)
+                loops.append(dict(c, instructions=own,
+                                  ffma_per_shared_load=round(c["FFMA"] / max(lds, 1), 2)))
+        out[name] = loops
+    return out
+
+
+def f32_inputs(B, Lq, Lk, H, Dh, kind, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(B, Lq, H, Dh, device=dev, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, Lk, H, Dh, device=dev, generator=g) for _ in range(2))
+    mask = torch.ones(B, Lk, device=dev)
+    if kind == "masked":              # chip_smoke.py phase 3
+        mask[0, Lk - 300:] = 0.0
+        mask[1] = 0.0
+    elif kind == "holes":             # a masked tile inside bag 0, a ragged tail, a masked bag
+        if Lk >= 200:
+            mask[0, 64:128] = 0.0
+            mask[0, 185:197] = 0.0
+        mask[0, Lk - 7:] = 0.0
+        if B > 1:
+            mask[-1] = 0.0
+    return q, k, v, do, mask
+
+
+def f32_lse(q, k, mask):
+    """The forward's lse [B*H, Lq] from the plain logits (a fully masked row:
+    -1e30, which the kernels never exponentiate)."""
+    B, Lq, H, Dh = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(Dh), k)
+    logits = logits.masked_fill(mask[:, None, None, :] <= 0, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, torch.full_like(lse, -1e30)).reshape(B * H, Lq)
+
+
+def f32_call(lib, which, ops, p, seed, outs):
+    ptrs, sizes = attn._bwd_args(ops)
+    fn = lib.advmil_flash_bwd_dq if which == "dq" else lib.advmil_flash_bwd_dkv
+    rc = fn(*ptrs, *(o.data_ptr() for o in outs), *sizes, *attn._dropout_args(p, seed),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{which}: CUDA error {rc}")
+    return outs
+
+
+def f32_operands(B, Lq, Lk, H, Dh, kind, p, dev):
+    q, k, v, do, mask = f32_inputs(B, Lq, Lk, H, Dh, kind, dev, Lq + Lk + Dh)
+    seed = 0x1234_5678_9ABC_DEF0 if p else None
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attn.masked_attention_reference(*leaves, mask, p, seed)
+    want = torch.autograd.grad(out, leaves, do)
+    ops = attn.flash_bwd_inputs(q, k, v, mask, out.detach(), f32_lse(q, k, mask), do)
+    return ops, mask, seed, want, out
+
+
+def f32_check(name, lib, case, p, dev):
+    """One build on one case: (ok, largest share of the f32 bound)."""
+    B, Lq, Lk, H, Dh, kind = case
+    ops, mask, seed, want, _ = f32_operands(B, Lq, Lk, H, Dh, kind, p, dev)
+    new = lambda: (torch.empty(B, Lq, H, Dh, device=dev), torch.empty(B, Lk, H, Dh, device=dev),  # noqa: E731
+                   torch.empty(B, Lk, H, Dh, device=dev))
+    a, b = new(), new()
+    for outs in (a, b):
+        f32_call(lib, "dq", ops, p, seed, outs[:1])
+        f32_call(lib, "dkv", ops, p, seed, outs[1:])
+    torch.cuda.synchronize()
+    got = (a[0] / math.sqrt(Dh), a[1], a[2])
+    shares, ok = {}, all(torch.equal(x, y) for x, y in zip(a, b))
+    bit_for_bit = ok
+    for tag, x, y in zip(("dq", "dk", "dv"), got, want):
+        shares[tag] = float(((x - y).abs() / (F32_TOL + F32_TOL * y.abs())).max())
+        ok = ok and bool(torch.isfinite(x).all()) and shares[tag] <= 1.0
+        if kind != "real":
+            ok = ok and bool((x[-1] == 0).all() if B > 1 else True)
+    for x in got[1:]:                 # a masked key gets no gradient
+        ok = ok and bool((x.permute(0, 2, 3, 1)[(mask == 0)[:, None, None, :].expand(
+            B, H, Dh, Lk)] == 0).all())
+    emit(check=f"f32 {name}: B={B} Lq={Lq} Lk={Lk} H={H} Dh={Dh} {kind} p={p}", ok=ok,
+         two_calls_bit_for_bit=bit_for_bit, share_of_f32_bound=shares)
+    return ok, max(shares.values())
+
+
+def f32_keep_bits(name, lib, dev):
+    """Against the torch Philox (which chip_smoke.py holds to the keep-mask
+    kernel bit for bit): q = 0 gives uniform probabilities (lse = log L).
+    With dO = I, dV[j, i] is non-zero exactly where (i, j) was kept; with
+    k = I, out = 0 (dvec 0) and v = dO = e_0, dQ[i, j] is."""
+    BH, L, Dh, p, seed = 6, 128, 128, 0.4, (1 << 63) + 99
+    q = torch.zeros(1, L, BH, Dh, device=dev)
+    eye = torch.eye(L, device=dev)[None, :, None, :].expand(1, L, BH, Dh).contiguous()
+    e0 = torch.zeros_like(eye)
+    e0[..., 0] = 1.0
+    mask = torch.ones(1, L, device=dev)
+    keep = philox.keep_mask_plain(seed, BH, L, L, p, device=dev)    # [BH, Lq, Lk]
+    lse = torch.full((BH, L), math.log(L), device=dev)
+    out = attn.masked_attention_reference(q, eye, eye, mask, p, seed)
+    dk, dv = torch.empty_like(eye), torch.empty_like(eye)
+    f32_call(lib, "dkv", attn.flash_bwd_inputs(q, eye, eye, mask, out, lse, eye), p, seed, (dk, dv))
+    dq = torch.empty_like(eye)
+    f32_call(lib, "dq", attn.flash_bwd_inputs(q, eye, e0, mask, torch.zeros_like(q), lse, e0),
+             p, seed, (dq,))
+    torch.cuda.synchronize()
+    dkv_ok = torch.equal((dv[0] != 0).permute(1, 2, 0).float(), keep)
+    dq_ok = torch.equal((dq[0] != 0).permute(1, 0, 2).float(), keep)
+    emit(check=f"f32 {name}: dropout keep bits against the torch Philox",
+         dkv_bit_exact=dkv_ok, dq_bit_exact=dq_ok)
+    return dkv_ok and dq_ok
+
+
+def f32_times(libs, reps, dev, card):
+    """dQ and dK/dV of every build in turns, beside SDPA's backward."""
+    for case in F32_SHAPES:
+        B, Lq, Lk, H, Dh, kind = case
+        for p in (0.25, 0.0):
+            ops, mask, seed, _, _ = f32_operands(B, Lq, Lk, H, Dh, kind, p, dev)
+            q = ops["qs"] * math.sqrt(Dh)
+            dq = torch.empty(B, Lq, H, Dh, device=dev)
+            dk, dv = torch.empty(B, Lk, H, Dh, device=dev), torch.empty(B, Lk, H, Dh, device=dev)
+            arms = {}
+            for name, (lib, _, _) in libs.items():
+                arms[f"{name}_dq"] = lambda lib=lib: f32_call(lib, "dq", ops, p, seed, (dq,))
+                arms[f"{name}_dkv"] = lambda lib=lib: f32_call(lib, "dkv", ops, p, seed, (dk, dv))
+            arms["sdpa_bwd"] = sdpa(q, ops["k"], ops["v"], mask, p, ops["do"])
+            for fn in arms.values():
+                fn()
+            torch.cuda.synchronize()
+            order = list(arms) + list(arms)[::-1]
+            times = {n: [] for n in arms}
+            for n in order:
+                times[n].append(event_ms(arms[n], reps))
+            med = {n: statistics.median(v) for n, v in times.items()}
+            pairs = Lq * int(mask.sum()) * H * Dh
+            nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+            io = nb(q, ops["k"], ops["v"], ops["do"], mask, ops["lse"]) + 4 * q.numel()  # + out
+            bounds = {"dq": max((io + nb(dq)) / 3.35e12, 6 * pairs / 67e12) * 1e3,
+                      "dkv": max((io + nb(dk, dv)) / 3.35e12, 8 * pairs / 67e12) * 1e3}
+            rec = {f"{n}_ms": v for n, v in med.items()}
+            for name in libs:
+                for w in ("dq", "dkv"):
+                    rec[f"{name}_{w}_share_of_bound"] = bounds[w] / med[f"{name}_{w}"]
+                rec[f"{name}_dq_plus_dkv_over_sdpa"] = (med[f"{name}_dq"] + med[f"{name}_dkv"]) \
+                    / med["sdpa_bwd"]
+            emit(time=f"f32 B={B} L={Lq} H={H} Dh={Dh} p={p} {kind}, real keys {int(mask.sum())}",
+                 card=card, bound_dq_ms=bounds["dq"], bound_dkv_ms=bounds["dkv"],
+                 spread_ms={n: [min(v), max(v)] for n, v in times.items()}, **rec)
+
+
+def run_f32(args, dev, card):
+    trees = {} if args.only_other else {"kernel": str(CSRC)}
+    if args.mutants:
+        trees = {n: str(f32_csrc(CSRC, n, ch)) for n, ch in F32_MUTANTS.items()}
+    else:
+        if args.other_csrc:
+            trees["other"] = args.other_csrc
+        for n in filter(None, (args.variants or "").split(",")):
+            trees[n] = str(f32_csrc(CSRC, n, F32_VARIANTS[n]))
+        for n in filter(None, (args.other_variants or "").split(",")):
+            trees[f"other_{n}"] = str(f32_csrc(args.other_csrc, f"other_{n}",
+                                               F32_PARENT_VARIANTS[n]))
+    libs = f32_libs(trees)
+    emit(card=card, torch=torch.__version__, cuda=torch.version.cuda, builds=list(libs))
+    for name, (_, log, so) in libs.items():
+        for kname, used, spill in ptxas_lines(log, "flash_bwd_d"):
+            if "f32_kernel" in kname or "IfLi" in kname:
+                emit(build=name, ptxas=kname, used=used, spill=spill)
+        for kname, loops in sass_loop_counts(so, ("flash_bwd_d", "Li48E")).items():
+            emit(build=name, sass=kname, loops=loops)
+    ok = True
+    if args.mutants:
+        for name, (lib, _, _) in libs.items():
+            caught = []
+            for p in (0.0, 0.25):
+                good, share = f32_check(name, lib, F32_CHECKS[0], p, dev)
+                caught.append(not good)
+            emit(mutant=name, change=F32_MUTANTS[name][0][2], caught_at_p=dict(zip(("0", "0.25"), caught)))
+            ok = ok and any(caught)
+        if not ok:
+            raise SystemExit("an f32 mutant passed the f32 bound")
+        return ok
+    wrong = lambda n: n not in ("kernel", "other")  # noqa: E731  variants: only timed
+    for name, (lib, _, _) in libs.items():
+        if wrong(name):
+            continue
+        for case in F32_CHECKS:
+            for p in (0.0, 0.25):
+                ok = f32_check(name, lib, case, p, dev)[0] and ok
+        ok = f32_keep_bits(name, lib, dev) and ok
+    emit(all_f32_checks_ok=ok)
+    if not args.no_time:
+        f32_times(libs, args.reps, dev, card)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-time", action="store_true", help="build and check only")
@@ -318,13 +675,39 @@ def main():
                          "blocks always (wide) or never (narrow), or with dQ's 8-warp blocks "
                          "one to an SM")
     ap.add_argument("--mutants", action="store_true",
-                    help="build each fault of MUTANTS and report which bound catches it")
+                    help="build each fault of MUTANTS (F32_MUTANTS with --f32) and report "
+                         "which bound catches it")
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32 backward kernels of flash_bwd.cu: ptxas, SASS loop counts, "
+                         "checks against the f32 bound, times beside SDPA's backward")
+    ap.add_argument("--other-csrc", help="with --f32: another source tree timed in the same turns")
+    ap.add_argument("--only-other", action="store_true",
+                    help="with --f32: leave the package's own build out")
+    ap.add_argument("--variants", help="with --f32: builds of F32_VARIANTS, comma-separated")
+    ap.add_argument("--other-variants",
+                    help="with --f32: builds of the --other-csrc tree with F32_PARENT_VARIANTS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(osp.join(ROOT, "chiprun_out"), exist_ok=True)
+    if args.f32:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+        try:
+            ok = run_f32(args, dev, card)
+        finally:
+            name = f"profile_torch_flash_f32{'_mutants' if args.mutants else ''}.jsonl"
+            with open(osp.join(ROOT, "chiprun_out", name), "w") as f:
+                for rec in OUT:
+                    f.write(json.dumps(rec) + "\n")
+            for tmp in Path(ROOT, "chiprun_out").glob("flash_f32_*"):
+                shutil.rmtree(tmp, ignore_errors=True)
+        if not ok:
+            raise SystemExit("an f32 flash kernel check failed")
+        return
     if args.mutants:
         caught = run_mutants(dev)
         with open(osp.join(ROOT, "chiprun_out", "profile_torch_flash_mutants.jsonl"), "w") as f:

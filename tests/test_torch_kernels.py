@@ -240,12 +240,17 @@ def test_flash_bf16_backward_on_saturated_rows(cuda_device, p):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("B,Lq,Lk,H,Dh", [(2, 300, 1024, 4, 48), (3, 1000, 200, 2, 32),
                                           (2, 1, 65, 2, 16),
-                                          (4, 1024, 300, 8, 16)])   # a grid of 8-warp blocks
+                                          (4, 1024, 300, 8, 16),    # a grid of 8-warp blocks
+                                          (2, 200, 333, 3, 48),     # odd tile count, ragged
+                                          (2, 129, 450, 2, 128)])   # Dh = 128: register limit
 def test_flash_kernels_skip_masked_tiles_and_take_lq_unlike_lk(cuda_device, B, Lq, Lk, H, Dh,
                                                                dtype, tol, p):
     """Lq != Lk, and a mask with holes: a whole 64-key tile masked inside bag
-    0 (the bf16 kernels skip it), a hole across a tile edge, a ragged tail and
-    a fully masked last bag. Forward, dQ and dK/dV launched directly."""
+    0 (every backward kernel skips it), a hole across a tile edge, a ragged
+    tail and a fully masked last bag. Lq and Lk ragged against the f32
+    kernels' steps too (dQ: 128 keys, two listed tiles, 64 at Dh = 128; dK/dV:
+    128 queries, 32 at Dh = 128): Lk = 333 leaves bag 0 five real tiles, so
+    its last dQ step holds one tile. Forward, dQ and dK/dV launched directly."""
     g = torch.Generator().manual_seed(Lq + Lk)
     q, dout = (torch.randn(B, Lq, H, Dh, generator=g).to(cuda_device).to(dtype) for _ in range(2))
     k, v = (torch.randn(B, Lk, H, Dh, generator=g).to(cuda_device).to(dtype) for _ in range(2))
@@ -350,17 +355,19 @@ def test_flash_inst_op_in_a_one_rank_group(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.25, 0.6])
-def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p):
-    """The tensor-core forward and dK/dV kernels share one Philox block between
-    lanes; their keep bits must still be the per-element stream that the
-    keep-mask kernel writes (the dQ kernel has its own test below). With q = 0 the
+def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p, dtype):
+    """The forward and dK/dV kernels share one Philox block between four
+    elements (bf16: between lanes; f32: a thread's four keys of one query);
+    their keep bits must still be the per-element stream that the keep-mask
+    kernel writes (the dQ kernel has its own test below). With q = 0 the
     probabilities are uniform, so with v = I the forward's output, and with
     dO = I the dV of the same backward call that runs the dQ kernel, are
     non-zero exactly where an element was kept."""
     BH, L, Dh, seed = 6, 128, 128, (1 << 63) + 99
-    q = torch.zeros(1, L, BH, Dh, device=cuda_device, dtype=torch.bfloat16)
-    eye = torch.eye(L, device=cuda_device, dtype=torch.bfloat16)[None, :, None, :].expand(
+    q = torch.zeros(1, L, BH, Dh, device=cuda_device, dtype=dtype)
+    eye = torch.eye(L, device=cuda_device, dtype=dtype)[None, :, None, :].expand(
         1, L, BH, Dh).contiguous()
     mask = torch.ones(1, L, device=cuda_device)
     keep = tphilox.keep_mask(seed, BH, L, L, p, device=cuda_device)          # [BH, Lq, Lk]
@@ -372,19 +379,27 @@ def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p)
         n + 1 for n in before)
     assert torch.equal((out[0] != 0).permute(1, 0, 2).float(), keep)        # out[i, h, j]
     assert torch.equal((dv[0] != 0).permute(1, 2, 0).float(), keep)         # dv[j, h, i]
-    _assert_tight((out, dq, dk, dv), q, eye, eye, mask, eye, p, seed)
+    if dtype == torch.bfloat16:
+        _assert_tight((out, dq, dk, dv), q, eye, eye, mask, eye, p, seed)
+    else:
+        want = _flash_grads(lambda a, b, c: tattn.masked_attention_reference(
+            a, b, c, mask, p, seed), q, eye, eye, mask, eye)
+        for name, a, b in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv), want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.25, 0.6])
-def test_flash_bf16_dq_kernel_regenerates_the_keep_mask_bit_for_bit(cuda_device, p):
-    """The tensor-core dQ kernel shares one Philox block between two lanes, as
-    the forward does. With q = 0 the probabilities are uniform; k = I makes
+def test_flash_bf16_dq_kernel_regenerates_the_keep_mask_bit_for_bit(cuda_device, p, dtype):
+    """The dQ kernel shares one Philox block between four elements (bf16: two
+    lanes, as the forward does; f32: a thread's quad of keys, read in a
+    rotated order). With q = 0 the probabilities are uniform; k = I makes
     dQ[i, j] = dS[i, j]; an `out` of zeros makes dvec 0, and v = dO = e_0 makes
     every dP 1: dQ is then non-zero exactly where an element was kept."""
     BH, L, Dh, seed = 6, 128, 128, (1 << 63) + 99
-    q = torch.zeros(1, L, BH, Dh, device=cuda_device, dtype=torch.bfloat16)
-    eye = torch.eye(L, device=cuda_device, dtype=torch.bfloat16)[None, :, None, :].expand(
+    q = torch.zeros(1, L, BH, Dh, device=cuda_device, dtype=dtype)
+    eye = torch.eye(L, device=cuda_device, dtype=dtype)[None, :, None, :].expand(
         1, L, BH, Dh).contiguous()
     e0 = torch.zeros_like(eye)
     e0[..., 0] = 1.0
@@ -397,6 +412,33 @@ def test_flash_bf16_dq_kernel_regenerates_the_keep_mask_bit_for_bit(cuda_device,
     torch.cuda.synchronize()
     assert tattn.LAUNCHES_DQ == before + 1
     assert torch.equal((dq[0] != 0).permute(1, 0, 2).float(), keep)         # dq[i, h, j]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.25])
+@pytest.mark.parametrize("all_real", [False, True])
+def test_flash_f32_backward_is_bit_for_bit_over_two_calls(cuda_device, p, all_real):
+    """The f32 dQ and dK/dV kernels add their partial sums (the split of a
+    step's keys or queries over thread groups) in a fixed order and use no
+    atomics: two calls on the same inputs agree bit for bit. Phase 3's shape
+    of chip_smoke.py, its mask (a ragged bag, a fully masked bag) and with
+    every key real."""
+    B, L, H, Dh = 2, 1024, 8, 48
+    rng = np.random.default_rng(22)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(B, L, H, Dh)).astype(np.float32))
+                     .to(cuda_device) for _ in range(4))
+    mask = torch.ones(B, L, device=cuda_device)
+    if not all_real:
+        mask[0, L - 300:] = 0.0
+        mask[1] = 0.0
+    seed = 0x22_5EED if p else None
+    out, lse = tattn.flash_attention_fwd(q, k, v, mask, p, seed)
+    ops = tattn.flash_bwd_inputs(q, k, v, mask, out, lse, dout)
+    first = (tattn.flash_bwd_dq(ops, p, seed),) + tattn.flash_bwd_dkv(ops, p, seed)
+    second = (tattn.flash_bwd_dq(ops, p, seed),) + tattn.flash_bwd_dkv(ops, p, seed)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), f"{name}: two calls differ"
 
 
 @pytest.mark.cuda
