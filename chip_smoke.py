@@ -34,7 +34,9 @@ Phases, each printed on its own line:
   6. one batch of the test-mode slice in f32 on the card (kernels) against
      the same batch and weights on the CPU (plain versions).
   7. one training step's gradients of G and D in f32 on the card against the
-     CPU, dropout off and zero noise, on the long training batch.
+     CPU, zero noise and dropout off but for the attention dropout (p = 0.25,
+     whose flash seeds one seeded host generator draws alike on both
+     devices), on the long training batch.
   8. PatchGCN (`bcb_mode: graph`, 3 graph layers) training on the banded
      route, bf16, 2 epochs, on 8-nearest-neighbour graphs over tissue-like
      patch rasters (written here with numpy) of the same patients.
@@ -579,10 +581,11 @@ F32_SOURCES = {"masked_flash_attention_dropout": "advmil_tpu_torch/csrc/flash_fw
 
 
 def _flash_f32_all_real(report, card, dev, q, k, v, dout, seed):
-    """Phase 3, f32 #6 / #7 on the training shape with every key real (no key
+    """Phase 3, f32 #5-#7 on the training shape with every key real (no key
     tile to skip) at p = 0.25 and 0: held to the plain version within 1e-4,
-    timed beside SDPA's one-call backward (TF32 off) and the bound over the
-    real keys; the p = 0.25 times join the f32 rows as `all_real`."""
+    timed beside SDPA's forward and its one-call backward (TF32 off) and the
+    bounds over the real keys; the p = 0.25 times join the f32 rows as
+    `all_real`."""
     import torch
     from advmil_tpu_torch.ops import attention as attn
     B, L, H, Dh = q.shape
@@ -593,33 +596,40 @@ def _flash_f32_all_real(report, card, dev, q, k, v, dout, seed):
         ops = attn.flash_bwd_inputs(q, k, v, mask, out, lse, dout)
         got = (attn.flash_bwd_dq(ops, p, sd) * (1.0 / Dh ** 0.5),) + attn.flash_bwd_dkv(ops, p, sd)
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        want = torch.autograd.grad(attn.masked_attention_reference(*leaves, mask, p, sd), leaves,
-                                   dout)
+        ref = attn.masked_attention_reference(*leaves, mask, p, sd)
+        want = torch.autograd.grad(ref, leaves, dout)
         torch.cuda.synchronize()
         errs = {}
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        for name, a, b in zip(("out", "dq", "dk", "dv"), (out,) + got, (ref.detach(),) + want):
             errs[name] = max_abs(a, b)
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
                                        msg=lambda m, n=name: f"flash f32 every key real {n}: {m}")
-        ms = {"dq": timed_one(lambda: attn.flash_bwd_dq(ops, p, sd)),
+        ms = {"fwd": timed_one(lambda: attn.flash_attention_fwd(q, k, v, mask, p, sd)),
+              "dq": timed_one(lambda: attn.flash_bwd_dq(ops, p, sd)),
               "dkv": timed_one(lambda: attn.flash_bwd_dkv(ops, p, sd))}
-        lib_b = timed_one(_sdpa(q, k, v, mask, p, dout))
+        lib_f, lib_b = timed_one(_sdpa(q, k, v, mask, p)), timed_one(_sdpa(q, k, v, mask, p, dout))
         pairs = L * int(mask.sum()) * H * Dh
         io = nbytes(q, k, v, out)
-        bounds = {"dq": bound(io + nbytes(dout, got[0], mask, lse), 6 * pairs, "f32"),
+        bounds = {"fwd": bound(io + nbytes(mask, lse), 4 * pairs, "f32"),
+                  "dq": bound(io + nbytes(dout, got[0], mask, lse), 6 * pairs, "f32"),
                   "dkv": bound(io + nbytes(dout, got[1], got[2], mask, lse), 8 * pairs, "f32")}
         log(f"[3 kernel] flash f32 B={B} L={L} H={H} Dh={Dh} p={p}, every key real: max_abs_err "
-            f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} (atol 1e-4, rtol 1e-4) "
-            f"| dq kernel {ms['dq']:.4f} ms (bound {bounds['dq']['bound_ms']:.4f} ms, "
+            f"out {errs['out']:.3e} dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
+            f"(atol 1e-4, rtol 1e-4) | fwd kernel {ms['fwd']:.4f} ms (bound "
+            f"{bounds['fwd']['bound_ms']:.4f} ms, {bounds['fwd']['bound_by']}: "
+            f"{bounds['fwd']['bound_ms'] / ms['fwd']:.1%}), SDPA forward (TF32 off) {lib_f:.4f} ms"
+            f" | dq kernel {ms['dq']:.4f} ms (bound {bounds['dq']['bound_ms']:.4f} ms, "
             f"{bounds['dq']['bound_by']}: {bounds['dq']['bound_ms'] / ms['dq']:.1%}), dk/dv kernel "
             f"{ms['dkv']:.4f} ms (bound {bounds['dkv']['bound_ms']:.4f}: "
             f"{bounds['dkv']['bound_ms'] / ms['dkv']:.1%}) | SDPA backward (dq, dk, dv in one "
             f"call, TF32 off) {lib_b:.4f} ms; dq + dk/dv over it "
             f"{(ms['dq'] + ms['dkv']) / lib_b:.2f}x | {card}")
         if p:
-            for name, key, err in (("flash_bwd_dq", "dq", errs["dq"]),
-                                   ("flash_bwd_dkv", "dkv", max(errs["dk"], errs["dv"]))):
-                report[name]["f32"]["all_real"] = dict(ms=ms[key], library_ms=lib_b,
+            for name, key, err, lib in (
+                    ("masked_flash_attention_dropout", "fwd", errs["out"], lib_f),
+                    ("flash_bwd_dq", "dq", errs["dq"], lib_b),
+                    ("flash_bwd_dkv", "dkv", max(errs["dk"], errs["dv"]), lib_b)):
+                report[name]["f32"]["all_real"] = dict(ms=ms[key], library_ms=lib,
                                                        max_abs_err=err, **bounds[key])
 
 
@@ -1473,13 +1483,16 @@ def phase_gpu_vs_cpu(handler):
             raise AssertionError(f"GPU vs CPU {k} differs by {d}")
 
 
-def _step_grads(handler, batch, dev, **over):
+def _step_grads(handler, batch, dev, attn_dropout=0.0, **over):
     """The gradients of one adversarial step (D phase, then G phase against
     the frozen D) in f32 with dropout off and zero noise, with `handler`'s
-    weights, on device `dev`; `over` overrides config keys."""
+    weights, on device `dev`; `over` overrides config keys. `attn_dropout` > 0
+    turns G's attention dropout alone on, its flash seeds drawn from one
+    seeded host generator on either device: the kernels' Philox stream is the
+    plain version's, so both devices drop the same probabilities."""
     import torch
     from advmil_tpu_torch import losses
-    from advmil_tpu_torch.models.layers import set_dropout_rates
+    from advmil_tpu_torch.models.layers import Rngs, set_dropout_rates
     from advmil_tpu_torch.train.handler import build_models
 
     cfg = dict(handler.cfg, precision="f32", **over)
@@ -1488,6 +1501,13 @@ def _step_grads(handler, batch, dev, **over):
     D.load_state_dict(handler.disc_model.state_dict())
     set_dropout_rates(G.to(dev), 0.0)
     set_dropout_rates(D.to(dev), 0.0)
+    rng = None
+    if attn_dropout:
+        for m in G.modules():
+            if hasattr(m, "attn_drop"):
+                m.attn_drop.rate = float(attn_dropout)
+        rng = Rngs(device=torch.Generator(device=dev).manual_seed(0),
+                   host=torch.Generator().manual_seed(7))
     feats, mask, label, smask = (torch.from_numpy(a).to(dev) for a in (
         batch.feats, batch.mask, batch.label, batch.sample_mask))
     if "coords" in batch.extra:
@@ -1506,7 +1526,7 @@ def _step_grads(handler, batch, dev, **over):
     G.train()
     D.eval()
     D.requires_grad_(False)
-    pred = G(feats, mask, extra, zero_noise=True)
+    pred = G(feats, mask, extra, zero_noise=True, rng=rng)
     total = (handler.sup_loss_fn(pred[:, 0], t, e, weight=smask)
              + cfg["loss_gan_coef"] * losses.fake_generator_loss(
                  D(feats, pred, mask).float(), weight=smask)
@@ -1530,16 +1550,18 @@ def _compare_grads(tag, what, a, b, shape, bound_=1e-4, min_tensors=40, nets="G 
         raise AssertionError(f"{tag}, {what}: gradient {worst} differs by {diffs[worst]}")
 
 
-def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train", need=()):
+def phase_gpu_vs_cpu_train(handler, batch=None, tag="7 gpu-vs-cpu train", need=(),
+                           attn_dropout=0.0):
     """Phases 7, 11, 13 and 14: one adversarial step's gradients in f32 on the
     card (kernels) against the CPU (plain versions), on `batch` (default: the
-    long training batch). The step on the card must launch each kernel of
-    `need` (counter names), and the fused embedding's where it is on."""
+    long training batch), with G's attention dropout at `attn_dropout`. The
+    step on the card must launch each kernel of `need` (counter names), and
+    the fused embedding's where it is on."""
     if batch is None:
         _, batcher = handler.loaders["train"]
         batch = list(batcher.epoch_batches())[-1]     # the largest bucket (1,024 regions)
     before = read_counters()
-    grads = {dev: _step_grads(handler, batch, dev) for dev in ("cuda", "cpu")}
+    grads = {dev: _step_grads(handler, batch, dev, attn_dropout) for dev in ("cuda", "cpu")}
     need = tuple(need) + (("fused_region_embedding", "fused_region_embedding_bwd_dparams")
                           if handler.cfg["use_fused_embedding"] else ())
     if need:
@@ -2712,7 +2734,8 @@ def phase_inst_kernels(card):
                 log(f"[31 inst kernels] p=0 {str(dtype)[6:]}: the two ranks' outputs and dQ "
                     f"concatenated, their dK / dV summed, against the unsharded launch: "
                     f"max_abs_err {' '.join(errs)} (atol {tol}, rtol {tol}); outputs bit for "
-                    f"bit: {bit} | per rank (Lq={Lq}, Lk={L}): fwd {times['fwd'][0]:.4f} ms, dq "
+                    f"bit: {bit} | per rank (Lq={Lq}, Lk={L}): fwd {times['fwd'][0]:.4f} ms "
+                    f"({bounds['fwd']['bound_ms'] / times['fwd'][0]:.1%} of its bound), dq "
                     f"{times['dq'][0]:.4f} ms, dk/dv {times['dkv'][0]:.4f} ms | unsharded "
                     f"(Lq=Lk={L}): fwd {full_ms['fwd']:.4f} ms, dq {full_ms['dq']:.4f} ms, dk/dv "
                     f"{full_ms['dkv']:.4f} ms | bounds per rank fwd "
@@ -4471,7 +4494,8 @@ def main():
     handler, test_launches = timed("5 slice", phase_slice, paths)
     timed("6 gpu-vs-cpu", phase_gpu_vs_cpu, handler)
     timed("7 gpu-vs-cpu train", phase_gpu_vs_cpu_train, train_handler, None,
-          "7 gpu-vs-cpu train", ("flash_bwd_dq", "flash_bwd_dkv"))
+          "7 gpu-vs-cpu train", ("masked_flash_attention_dropout", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), 0.25)
     gpaths = timed("8 graph data", make_graph_data, paths)
     banded_handler, banded_launches = timed("8 graph train banded", phase_graph_train, paths,
                                             gpaths, True)

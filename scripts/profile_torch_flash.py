@@ -335,31 +335,45 @@ def kernel_times(dev, card, calls=10):
         emit(kernels_of=name, shape=shape, ms_per_call=rows, card=card)
 
 
-# --- f32: the CUDA-core kernels of flash_bwd.cu ---------------------------
+# --- f32: the CUDA-core kernels of flash_fwd.cu and flash_bwd.cu ----------
 
 _F32 = "flash_bwd.cu"
+_FWD = "flash_fwd.cu"
 _ROUNDS = "  for (int r = 0; r < 10; ++r) {\n    const uint32_t hi0"
-# name: [(file, text, replacement)], each text occurring once; wrong results, only timed
+_DQ_STEPS = "const int n_steps = (n_active + NT - 1) / NT;"   # dQ's, and the forward's
+_DQ_PRODUCT = "kk < (ks + 1) * KPER; ++kk)"                    # dQ's, and the forward's P~ V
+# name: [(file, text, replacement)], each text occurring once in its file;
+# wrong results, only timed. The backward's texts hold for this tree and
+# its parent alike (the backward kernels are the same).
+_BWD_VARIANTS = {
+    "no_products": [(_F32, _DQ_PRODUCT, "kk < ks * KPER; ++kk)"),
+                    (_F32, "i < (qsp + 1) * QPER; ++i)", "i < qsp * QPER; ++i)")],
+    # the fixed cost: tile list, resident tiles, the ordered sums and stores, no step
+    "no_steps": [(_F32, _DQ_STEPS, "const int n_steps = 0 * n_active;"),
+                 (_F32, "const int n_steps = (Lq + BQ - 1) / BQ;", "const int n_steps = 0 * Lq;")],
+}
 F32_VARIANTS = {
     "no_exp": [VARIANTS["no_exp"]],
     "no_philox": [("philox.cuh", _ROUNDS, _ROUNDS.replace("r < 10", "r < 0"))],
-    "no_products": [(_F32, "kk < (ks + 1) * KPER; ++kk)", "kk < ks * KPER; ++kk)"),
-                    (_F32, "i < (qsp + 1) * QPER; ++i)", "i < qsp * QPER; ++i)")],
-    # the fixed cost: tile list, resident tiles, the ordered sums and stores, no step
-    "no_steps": [(_F32, "const int n_steps = (n_active + NT - 1) / NT;",
-                  "const int n_steps = 0 * n_active;"),
-                 (_F32, "const int n_steps = (Lq + BQ - 1) / BQ;", "const int n_steps = 0 * Lq;")],
+    "no_products": _BWD_VARIANTS["no_products"] + [(_FWD, _DQ_PRODUCT, "kk < ks * KPER; ++kk)")],
+    "no_steps": _BWD_VARIANTS["no_steps"] + [(_FWD, _DQ_STEPS, "const int n_steps = 0 * n_active;")],
+    # right results: the forward with one key tile a step, two blocks an SM
+    "one_tile_a_step": [(_FWD, "constexpr int kFwdTiles = 2;", "constexpr int kFwdTiles = 1;")],
 }
-# the same three for the earlier lane-per-key f32 kernels (an --other-csrc tree)
+F32_RIGHT_VARIANTS = ("one_tile_a_step",)   # checked as well as timed
+# the same four for the parent tree (an --other-csrc tree): these backward
+# kernels and the earlier lane-per-key f32 forward of flash_fwd.cu
 F32_PARENT_VARIANTS = {
-    "no_exp": [(_F32, '#include "philox.cuh"\n\nnamespace advmil {',
+    "no_exp": [VARIANTS["no_exp"],
+               (_FWD, '#include "philox.cuh"\n\nnamespace advmil {',
                 '#include "philox.cuh"\n#define expf(x) fminf(fmaxf(fmaf((x), 0.01f, 0.5f), 0.f), 1.f)'
                 '\n\nnamespace advmil {')],
     "no_philox": F32_VARIANTS["no_philox"],
-    "no_products": [(_F32, "for (int j = 0; j < kBT; ++j) {\n      float kk[NCOL];",
-                     "for (int j = 0; j < 0; ++j) {\n      float kk[NCOL];"),
-                    (_F32, "for (int i = 0; i < kBT; ++i) {\n      float qv[NCOL], ov[NCOL];",
-                     "for (int i = 0; i < 0; ++i) {\n      float qv[NCOL], ov[NCOL];")],
+    "no_products": _BWD_VARIANTS["no_products"] + [
+        (_FWD, "for (int j = 0; j < kBK; ++j) {\n      float vv[NCOL];",
+         "for (int j = 0; j < 0; ++j) {\n      float vv[NCOL];")],
+    "no_steps": _BWD_VARIANTS["no_steps"] + [
+        (_FWD, "for (int k0 = 0; k0 < Lk; k0 += kBK) {", "for (int k0 = 0; k0 < 0 * Lk; k0 += kBK) {")],
 }
 F32_MUTANTS = {
     # dQ never visits the third listed key tile (keys 128..191 at the main shape)
@@ -375,17 +389,34 @@ F32_MUTANTS = {
     "dq_takes_a_philox_word_for_the_wrong_key": [
         (_F32, "keep[i][h] = ((n | (n << 4)) >> rot) & 0xFu;",
          "keep[i][h] = ((n | (n << 4)) >> (rot ^ (kq == 5 ? 1 : 0))) & 0xFu;")],
+    # the forward never visits the third listed key tile (keys 128..191)
+    "fwd_skips_a_real_key_tile": [(_FWD, "const bool have = e < n_active;",
+                                   "const bool have = e < n_active && e != 2;")],
+    # one split group's partial output is not rescaled with its rows
+    "fwd_drops_one_split_groups_rescale": [
+        (_FWD, "acc[i][c] *= f4_at(al, i);", "acc[i][c] *= ks == 1 ? 1.f : f4_at(al, i);")],
+    # the row sum adds the dropped probabilities (acts at p > 0 only)
+    "fwd_l_sums_the_dropped_p": [
+        (_FWD, "          sum += p;\n", ""),
+        (_FWD, "          s[i][j] = p;\n", "          s[i][j] = p;\n          sum += p;\n")],
+    # one key quad of each tile reads its neighbour's Philox words in the forward
+    "fwd_takes_a_philox_word_for_the_wrong_key": [
+        (_FWD, "keep[i][h] = ((n | (n << 4)) >> rot) & 0xFu;",
+         "keep[i][h] = ((n | (n << 4)) >> (rot ^ (kq == 5 ? 1 : 0))) & 0xFu;")],
 }
-# the sources of the f32 entry points (flash_bwd.cu calls the bf16 kernels' launchers)
-F32_SOURCES = ("flash_bwd.cu", "flash_dq_mma.cu", "flash_dkv_mma.cu")
+# the sources of the f32 entry points (each calls its bf16 kernels' launchers)
+F32_SOURCES = ("flash_fwd.cu", "flash_fwd_mma.cu", "flash_bwd.cu", "flash_dq_mma.cu",
+               "flash_dkv_mma.cu")
 # (B, Lq, Lk, H, Dh, mask kind): the checks of a right build
 F32_CHECKS = [(2, 1024, 1024, 8, 48, "masked"), (2, 1024, 1024, 8, 48, "real"),
               (2, 300, 1024, 4, 48, "holes"), (3, 1000, 200, 2, 32, "holes"),
               (2, 77, 77, 4, 64, "holes"), (2, 200, 200, 1, 128, "holes"),
               (2, 130, 333, 3, 128, "holes"), (3, 130, 130, 2, 16, "holes"),
               (2, 1, 65, 2, 16, "holes"), (1, 4096, 4096, 2, 48, "holes")]
-# timed: phase 3's shape as it is (masked) and with every key real
+# timed: phase 3's training shape as it is (masked) and with every key real,
+# at p = 0.25 and 0; the forward also at phase 3's eval shape, p = 0
 F32_SHAPES = [(2, 1024, 1024, 8, 48, "masked"), (2, 1024, 1024, 8, 48, "real")]
+F32_FWD_SHAPES = [(1, 2048, 2048, 8, 48, "tail")]
 F32_TOL = 1e-4
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -405,8 +436,8 @@ def f32_csrc(base, name, changes):
 
 
 def f32_libs(trees):
-    """Build the f32 backward entry points of each source tree of `trees`
-    (name -> csrc directory) from the three sources they need, not the
+    """Build the f32 flash entry points of each source tree of `trees`
+    (name -> csrc directory) from the five sources they need, not the
     package's whole library, every nvcc at once; returns name -> (ctypes
     library, ptxas log, path of the library)."""
     import ctypes
@@ -431,7 +462,7 @@ def f32_libs(trees):
         subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
                         *(str(o) for o, _ in procs)], check=True)
         lib = ctypes.CDLL(str(so))
-        for fn in ("advmil_flash_bwd_dq", "advmil_flash_bwd_dkv"):
+        for fn in ("advmil_flash_fwd", "advmil_flash_bwd_dq", "advmil_flash_bwd_dkv"):
             getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, "\n".join(logs), str(so))
@@ -486,6 +517,8 @@ def f32_inputs(B, Lq, Lk, H, Dh, kind, dev, seed):
     if kind == "masked":              # chip_smoke.py phase 3
         mask[0, Lk - 300:] = 0.0
         mask[1] = 0.0
+    elif kind == "tail":              # chip_smoke.py phase 3's eval bag
+        mask[0, Lk - 300:] = 0.0
     elif kind == "holes":             # a masked tile inside bag 0, a ragged tail, a masked bag
         if Lk >= 200:
             mask[0, 64:128] = 0.0
@@ -507,8 +540,13 @@ def f32_lse(q, k, mask):
 
 
 def f32_call(lib, which, ops, p, seed, outs):
+    """One launch of `lib`'s forward ("fwd": outs = out, lse; qs as the
+    wrapper scales q), dQ or dK/dV on the backward's operands `ops`."""
     ptrs, sizes = attn._bwd_args(ops)
-    fn = lib.advmil_flash_bwd_dq if which == "dq" else lib.advmil_flash_bwd_dkv
+    if which == "fwd":
+        ptrs = tuple(ops[n].data_ptr() for n in ("qs", "k", "v", "mask"))
+    fn = {"fwd": lib.advmil_flash_fwd, "dq": lib.advmil_flash_bwd_dq,
+          "dkv": lib.advmil_flash_bwd_dkv}[which]
     rc = fn(*ptrs, *(o.data_ptr() for o in outs), *sizes, *attn._dropout_args(p, seed),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -527,25 +565,32 @@ def f32_operands(B, Lq, Lk, H, Dh, kind, p, dev):
 
 
 def f32_check(name, lib, case, p, dev):
-    """One build on one case: (ok, largest share of the f32 bound)."""
+    """One build on one case, forward and backward: (ok, largest share of the
+    f32 bound)."""
     B, Lq, Lk, H, Dh, kind = case
-    ops, mask, seed, want, _ = f32_operands(B, Lq, Lk, H, Dh, kind, p, dev)
+    ops, mask, seed, want, out = f32_operands(B, Lq, Lk, H, Dh, kind, p, dev)
     new = lambda: (torch.empty(B, Lq, H, Dh, device=dev), torch.empty(B, Lk, H, Dh, device=dev),  # noqa: E731
-                   torch.empty(B, Lk, H, Dh, device=dev))
+                   torch.empty(B, Lk, H, Dh, device=dev), torch.empty(B, Lq, H, Dh, device=dev),
+                   torch.empty(B * H, Lq, device=dev))
     a, b = new(), new()
     for outs in (a, b):
+        f32_call(lib, "fwd", ops, p, seed, outs[3:])
         f32_call(lib, "dq", ops, p, seed, outs[:1])
-        f32_call(lib, "dkv", ops, p, seed, outs[1:])
+        f32_call(lib, "dkv", ops, p, seed, outs[1:3])
     torch.cuda.synchronize()
-    got = (a[0] / math.sqrt(Dh), a[1], a[2])
+    got = (a[0] / math.sqrt(Dh), a[1], a[2], a[3], a[4])
+    want = tuple(want) + (out.detach(), ops["lse"])
     shares, ok = {}, all(torch.equal(x, y) for x, y in zip(a, b))
     bit_for_bit = ok
-    for tag, x, y in zip(("dq", "dk", "dv"), got, want):
+    masked_bag = B > 1 and kind not in ("real", "tail")
+    if masked_bag:                    # its lse: -1e30 + log(1e-30)
+        ok = ok and bool((a[4][-H:] < -9e29).all())
+    for tag, x, y in zip(("dq", "dk", "dv", "out", "lse"), got, want):
         shares[tag] = float(((x - y).abs() / (F32_TOL + F32_TOL * y.abs())).max())
         ok = ok and bool(torch.isfinite(x).all()) and shares[tag] <= 1.0
-        if kind != "real":
-            ok = ok and bool((x[-1] == 0).all() if B > 1 else True)
-    for x in got[1:]:                 # a masked key gets no gradient
+        if masked_bag and tag != "lse":
+            ok = ok and bool((x[-1] == 0).all())
+    for x in got[1:3]:                # a masked key gets no gradient
         ok = ok and bool((x.permute(0, 2, 3, 1)[(mask == 0)[:, None, None, :].expand(
             B, H, Dh, Lk)] == 0).all())
     emit(check=f"f32 {name}: B={B} Lq={Lq} Lk={Lk} H={H} Dh={Dh} {kind} p={p}", ok=ok,
@@ -556,8 +601,9 @@ def f32_check(name, lib, case, p, dev):
 def f32_keep_bits(name, lib, dev):
     """Against the torch Philox (which chip_smoke.py holds to the keep-mask
     kernel bit for bit): q = 0 gives uniform probabilities (lse = log L).
-    With dO = I, dV[j, i] is non-zero exactly where (i, j) was kept; with
-    k = I, out = 0 (dvec 0) and v = dO = e_0, dQ[i, j] is."""
+    With v = I, out[i, j] is non-zero exactly where (i, j) was kept; with
+    dO = I, dV[j, i] is; with k = I, out = 0 (dvec 0) and v = dO = e_0,
+    dQ[i, j] is."""
     BH, L, Dh, p, seed = 6, 128, 128, 0.4, (1 << 63) + 99
     q = torch.zeros(1, L, BH, Dh, device=dev)
     eye = torch.eye(L, device=dev)[None, :, None, :].expand(1, L, BH, Dh).contiguous()
@@ -567,55 +613,71 @@ def f32_keep_bits(name, lib, dev):
     keep = philox.keep_mask_plain(seed, BH, L, L, p, device=dev)    # [BH, Lq, Lk]
     lse = torch.full((BH, L), math.log(L), device=dev)
     out = attn.masked_attention_reference(q, eye, eye, mask, p, seed)
+    fwd, fwd_lse = torch.empty_like(eye), torch.empty(BH, L, device=dev)
+    f32_call(lib, "fwd", attn.flash_bwd_inputs(q, eye, eye, mask, out, lse, eye), p, seed,
+             (fwd, fwd_lse))
     dk, dv = torch.empty_like(eye), torch.empty_like(eye)
     f32_call(lib, "dkv", attn.flash_bwd_inputs(q, eye, eye, mask, out, lse, eye), p, seed, (dk, dv))
     dq = torch.empty_like(eye)
     f32_call(lib, "dq", attn.flash_bwd_inputs(q, eye, e0, mask, torch.zeros_like(q), lse, e0),
              p, seed, (dq,))
     torch.cuda.synchronize()
+    fwd_ok = torch.equal((fwd[0] != 0).permute(1, 0, 2).float(), keep)
     dkv_ok = torch.equal((dv[0] != 0).permute(1, 2, 0).float(), keep)
     dq_ok = torch.equal((dq[0] != 0).permute(1, 0, 2).float(), keep)
     emit(check=f"f32 {name}: dropout keep bits against the torch Philox",
-         dkv_bit_exact=dkv_ok, dq_bit_exact=dq_ok)
-    return dkv_ok and dq_ok
+         forward_bit_exact=fwd_ok, dkv_bit_exact=dkv_ok, dq_bit_exact=dq_ok)
+    return fwd_ok and dkv_ok and dq_ok
 
 
 def f32_times(libs, reps, dev, card):
-    """dQ and dK/dV of every build in turns, beside SDPA's backward."""
-    for case in F32_SHAPES:
+    """The forward, dQ and dK/dV of every build in turns, beside SDPA's
+    forward and backward (TF32 off); at F32_FWD_SHAPES the forward alone."""
+    runs = [(case, p, True) for case in F32_SHAPES for p in (0.25, 0.0)]
+    runs += [(case, 0.0, False) for case in F32_FWD_SHAPES]
+    for case, p, bwd in runs:
         B, Lq, Lk, H, Dh, kind = case
-        for p in (0.25, 0.0):
-            ops, mask, seed, _, _ = f32_operands(B, Lq, Lk, H, Dh, kind, p, dev)
-            q = ops["qs"] * math.sqrt(Dh)
-            dq = torch.empty(B, Lq, H, Dh, device=dev)
-            dk, dv = torch.empty(B, Lk, H, Dh, device=dev), torch.empty(B, Lk, H, Dh, device=dev)
-            arms = {}
-            for name, (lib, _, _) in libs.items():
+        ops, mask, seed, _, _ = f32_operands(B, Lq, Lk, H, Dh, kind, p, dev)
+        q = ops["qs"] * math.sqrt(Dh)
+        out, lse = torch.empty(B, Lq, H, Dh, device=dev), torch.empty(B * H, Lq, device=dev)
+        dq = torch.empty(B, Lq, H, Dh, device=dev)
+        dk, dv = torch.empty(B, Lk, H, Dh, device=dev), torch.empty(B, Lk, H, Dh, device=dev)
+        arms = {}
+        for name, (lib, _, _) in libs.items():
+            arms[f"{name}_fwd"] = lambda lib=lib: f32_call(lib, "fwd", ops, p, seed, (out, lse))
+            if bwd:
                 arms[f"{name}_dq"] = lambda lib=lib: f32_call(lib, "dq", ops, p, seed, (dq,))
                 arms[f"{name}_dkv"] = lambda lib=lib: f32_call(lib, "dkv", ops, p, seed, (dk, dv))
+        arms["sdpa_fwd"] = sdpa(q, ops["k"], ops["v"], mask, p)
+        if bwd:
             arms["sdpa_bwd"] = sdpa(q, ops["k"], ops["v"], mask, p, ops["do"])
-            for fn in arms.values():
-                fn()
-            torch.cuda.synchronize()
-            order = list(arms) + list(arms)[::-1]
-            times = {n: [] for n in arms}
-            for n in order:
-                times[n].append(event_ms(arms[n], reps))
-            med = {n: statistics.median(v) for n, v in times.items()}
-            pairs = Lq * int(mask.sum()) * H * Dh
-            nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
-            io = nb(q, ops["k"], ops["v"], ops["do"], mask, ops["lse"]) + 4 * q.numel()  # + out
-            bounds = {"dq": max((io + nb(dq)) / 3.35e12, 6 * pairs / 67e12) * 1e3,
-                      "dkv": max((io + nb(dk, dv)) / 3.35e12, 8 * pairs / 67e12) * 1e3}
-            rec = {f"{n}_ms": v for n, v in med.items()}
-            for name in libs:
-                for w in ("dq", "dkv"):
-                    rec[f"{name}_{w}_share_of_bound"] = bounds[w] / med[f"{name}_{w}"]
+        for fn in arms.values():
+            fn()
+        torch.cuda.synchronize()
+        order = list(arms) + list(arms)[::-1]
+        times = {n: [] for n in arms}
+        for n in order:
+            times[n].append(event_ms(arms[n], reps))
+        med = {n: statistics.median(v) for n, v in times.items()}
+        pairs = Lq * int(mask.sum()) * H * Dh
+        nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+        io_f = nb(q, ops["k"], ops["v"], mask, out, lse)
+        io = nb(q, ops["k"], ops["v"], ops["do"], mask, ops["lse"]) + 4 * q.numel()  # + out
+        bounds = {"fwd": max(io_f / 3.35e12, 4 * pairs / 67e12) * 1e3,
+                  "dq": max((io + nb(dq)) / 3.35e12, 6 * pairs / 67e12) * 1e3,
+                  "dkv": max((io + nb(dk, dv)) / 3.35e12, 8 * pairs / 67e12) * 1e3}
+        rec = {f"{n}_ms": v for n, v in med.items()}
+        for name in libs:
+            for w in ("fwd", "dq", "dkv") if bwd else ("fwd",):
+                rec[f"{name}_{w}_share_of_bound"] = bounds[w] / med[f"{name}_{w}"]
+            rec[f"{name}_fwd_over_sdpa"] = med[f"{name}_fwd"] / med["sdpa_fwd"]
+            if bwd:
                 rec[f"{name}_dq_plus_dkv_over_sdpa"] = (med[f"{name}_dq"] + med[f"{name}_dkv"]) \
                     / med["sdpa_bwd"]
-            emit(time=f"f32 B={B} L={Lq} H={H} Dh={Dh} p={p} {kind}, real keys {int(mask.sum())}",
-                 card=card, bound_dq_ms=bounds["dq"], bound_dkv_ms=bounds["dkv"],
-                 spread_ms={n: [min(v), max(v)] for n, v in times.items()}, **rec)
+        emit(time=f"f32 B={B} L={Lq} H={H} Dh={Dh} p={p} {kind}, real keys {int(mask.sum())}",
+             card=card, bound_fwd_ms=bounds["fwd"],
+             **({"bound_dq_ms": bounds["dq"], "bound_dkv_ms": bounds["dkv"]} if bwd else {}),
+             spread_ms={n: [min(v), max(v)] for n, v in times.items()}, **rec)
 
 
 def run_f32(args, dev, card):
@@ -633,11 +695,13 @@ def run_f32(args, dev, card):
     libs = f32_libs(trees)
     emit(card=card, torch=torch.__version__, cuda=torch.version.cuda, builds=list(libs))
     for name, (_, log, so) in libs.items():
-        for kname, used, spill in ptxas_lines(log, "flash_bwd_d"):
-            if "f32_kernel" in kname or "IfLi" in kname:
-                emit(build=name, ptxas=kname, used=used, spill=spill)
-        for kname, loops in sass_loop_counts(so, ("flash_bwd_d", "Li48E")).items():
-            emit(build=name, sass=kname, loops=loops)
+        for needle in ("flash_fwd", "flash_bwd_d"):
+            for kname, used, spill in ptxas_lines(log, needle):
+                if "f32_kernel" in kname or "IfLi" in kname:
+                    emit(build=name, ptxas=kname, used=used, spill=spill)
+            for kname, loops in sass_loop_counts(so, (needle, "Li48E")).items():
+                if "mma" not in kname:
+                    emit(build=name, sass=kname, loops=loops)
     ok = True
     if args.mutants:
         for name, (lib, _, _) in libs.items():
@@ -650,7 +714,7 @@ def run_f32(args, dev, card):
         if not ok:
             raise SystemExit("an f32 mutant passed the f32 bound")
         return ok
-    wrong = lambda n: n not in ("kernel", "other")  # noqa: E731  variants: only timed
+    wrong = lambda n: n not in ("kernel", "other", *F32_RIGHT_VARIANTS)  # noqa: E731  only timed
     for name, (lib, _, _) in libs.items():
         if wrong(name):
             continue

@@ -242,15 +242,19 @@ def test_flash_bf16_backward_on_saturated_rows(cuda_device, p):
                                           (2, 1, 65, 2, 16),
                                           (4, 1024, 300, 8, 16),    # a grid of 8-warp blocks
                                           (2, 200, 333, 3, 48),     # odd tile count, ragged
-                                          (2, 129, 450, 2, 128)])   # Dh = 128: register limit
+                                          (2, 129, 450, 2, 128),    # Dh = 128: register limit
+                                          (2, 64, 70000, 1, 16)])   # past one window of listed tiles
 def test_flash_kernels_skip_masked_tiles_and_take_lq_unlike_lk(cuda_device, B, Lq, Lk, H, Dh,
                                                                dtype, tol, p):
     """Lq != Lk, and a mask with holes: a whole 64-key tile masked inside bag
-    0 (every backward kernel skips it), a hole across a tile edge, a ragged
+    0 (every kernel skips it), a hole across a tile edge, a ragged
     tail and a fully masked last bag. Lq and Lk ragged against the f32
     kernels' steps too (dQ: 128 keys, two listed tiles, 64 at Dh = 128; dK/dV:
     128 queries, 32 at Dh = 128): Lk = 333 leaves bag 0 five real tiles, so
-    its last dQ step holds one tile. Forward, dQ and dK/dV launched directly."""
+    its last dQ step holds one tile. Lk = 70,000 passes the 1,024 tiles (65,536
+    keys) that the f32 forward and dQ list at a time: bag 0's real keys lie in
+    both windows, the masked bag has none in either. Forward, dQ and dK/dV
+    launched directly."""
     g = torch.Generator().manual_seed(Lq + Lk)
     q, dout = (torch.randn(B, Lq, H, Dh, generator=g).to(cuda_device).to(dtype) for _ in range(2))
     k, v = (torch.randn(B, Lk, H, Dh, generator=g).to(cuda_device).to(dtype) for _ in range(2))
@@ -359,7 +363,8 @@ def test_flash_inst_op_in_a_one_rank_group(cuda_device):
 @pytest.mark.parametrize("p", [0.25, 0.6])
 def test_flash_bf16_kernels_regenerate_the_keep_mask_bit_for_bit(cuda_device, p, dtype):
     """The forward and dK/dV kernels share one Philox block between four
-    elements (bf16: between lanes; f32: a thread's four keys of one query);
+    elements (bf16: between lanes; f32: a thread's four keys of one query,
+    which the forward reads in a rotated order, as dQ does);
     their keep bits must still be the per-element stream that the keep-mask
     kernel writes (the dQ kernel has its own test below). With q = 0 the
     probabilities are uniform, so with v = I the forward's output, and with
@@ -417,12 +422,12 @@ def test_flash_bf16_dq_kernel_regenerates_the_keep_mask_bit_for_bit(cuda_device,
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", [0.0, 0.25])
 @pytest.mark.parametrize("all_real", [False, True])
-def test_flash_f32_backward_is_bit_for_bit_over_two_calls(cuda_device, p, all_real):
-    """The f32 dQ and dK/dV kernels add their partial sums (the split of a
-    step's keys or queries over thread groups) in a fixed order and use no
-    atomics: two calls on the same inputs agree bit for bit. Phase 3's shape
-    of chip_smoke.py, its mask (a ragged bag, a fully masked bag) and with
-    every key real."""
+def test_flash_f32_kernels_are_bit_for_bit_over_two_calls(cuda_device, p, all_real):
+    """The f32 forward, dQ and dK/dV kernels add their partial sums (the
+    split of a step's keys or queries over thread groups) in a fixed order
+    and use no atomics: two calls on the same inputs agree bit for bit, out
+    and lse as well as the gradients. Phase 3's shape of chip_smoke.py, its
+    mask (a ragged bag, a fully masked bag) and with every key real."""
     B, L, H, Dh = 2, 1024, 8, 48
     rng = np.random.default_rng(22)
     q, k, v, dout = (torch.from_numpy(rng.normal(size=(B, L, H, Dh)).astype(np.float32))
@@ -434,10 +439,11 @@ def test_flash_f32_backward_is_bit_for_bit_over_two_calls(cuda_device, p, all_re
     seed = 0x22_5EED if p else None
     out, lse = tattn.flash_attention_fwd(q, k, v, mask, p, seed)
     ops = tattn.flash_bwd_inputs(q, k, v, mask, out, lse, dout)
-    first = (tattn.flash_bwd_dq(ops, p, seed),) + tattn.flash_bwd_dkv(ops, p, seed)
-    second = (tattn.flash_bwd_dq(ops, p, seed),) + tattn.flash_bwd_dkv(ops, p, seed)
+    first = (out, lse, tattn.flash_bwd_dq(ops, p, seed)) + tattn.flash_bwd_dkv(ops, p, seed)
+    second = tattn.flash_attention_fwd(q, k, v, mask, p, seed) + (
+        tattn.flash_bwd_dq(ops, p, seed),) + tattn.flash_bwd_dkv(ops, p, seed)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), f"{name}: two calls differ"
 
 
