@@ -65,6 +65,9 @@ namespace advmil {
 // layout of dQ) or one (two blocks an SM: at most ~113 KB of shared memory
 // and 128 registers a thread). PERF.md times both.
 constexpr int kFwdTiles = 2;
+// Rows of O a thread accumulates in P~ V: 4, or 8 (16 FFMA a shared load and
+// more registers). PERF.md times both.
+constexpr int kPvRows = 4;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Per head dim; shared memory stays within the 227 KB of a block.
@@ -73,14 +76,17 @@ struct FwdTiles {
   static constexpr int kNT = DH == 128 ? 1 : kFwdTiles;          // key tiles a step
   static constexpr int kBlocks = kNT == 1 && DH <= 64 ? 2 : 1;   // blocks an SM
   static constexpr int kPitch = DH + 4;                          // streamed rows, floats apart
-  // P~ V columns a thread (fewer where the register cap of two blocks an SM
-  // would crowd them into spills), column groups, and the split of a step's
-  // keys over thread groups
-  static constexpr int kCW = DH <= 32 ? 8 : DH == 48 ? 12 : kBlocks == 2 ? 8 : 16;
+  // P~ V: rows and columns a thread (fewer columns where the register cap of
+  // two blocks an SM, or eight rows, would crowd them into spills), column
+  // groups, row groups, and the split of a step's keys over thread groups
+  static constexpr int kRows = kPvRows;
+  static constexpr int kCW =
+      DH <= 32 ? 8 : DH == 48 ? 12 : kBlocks == 2 || kRows == 8 ? 8 : 16;
   static constexpr int kNCG = DH / kCW;
-  static constexpr int kSplit = kF32Threads / (16 * kNCG);
-  // d a fully unrolled stretch of the score loop covers
-  static constexpr int kDU = DH == 48 ? DH : 16;
+  static constexpr int kNRG = kRes / kRows;
+  static constexpr int kSplit = kF32Threads / (kNRG * kNCG);
+  // d a fully unrolled stretch of the score loop covers (of a thread's half)
+  static constexpr int kDU = DH / 2 <= 32 ? DH / 2 : 16;
 };
 
 template <int DH>
@@ -104,7 +110,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NT = T::kNT;
   constexpr int KSTEP = kTile * NT;  // keys a step
   constexpr int TK = 4 * NT;         // keys a thread scores: NT aligned quads
-  constexpr int P = T::kPitch, CW = T::kCW, NCG = T::kNCG, SPLIT = T::kSplit;
+  constexpr int P = T::kPitch, R = T::kRows, CW = T::kCW, NCG = T::kNCG, NRG = T::kNRG;
+  constexpr int SPLIT = T::kSplit;
   constexpr int KPER = KSTEP / SPLIT;
   constexpr int kWinKeys = kListWindow * kTile;
   extern __shared__ __align__(16) float smem[];
@@ -140,16 +147,20 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   load_transposed<DH>(sQt, q + qoff, row_stride, q0, Lq, tid);
 
-  // scores: a warp covers 2 query groups x 16 key quads; thread: queries
-  // 4 qg .. 4 qg + 3, keys 4 kq .. 4 kq + 3 of each of the step's NT tiles
-  const int qg = 2 * warp + (lane >> 4);
+  // scores: warp w takes queries 8 w .. 8 w + 7 against 16 key quads of each
+  // of the step's NT tiles, lane l and l + 16 the two halves of d: a thread
+  // forms 8 queries x keys 4 kq .. 4 kq + 3 of each tile over its half, then
+  // keeps queries 4 qg .. 4 qg + 3 (qg = 2 w + half), adding its partner's
+  // other half through one shuffle per score
+  const int half = lane >> 4;
+  const int qg = 2 * warp + half;
   const int kq = lane & 15;
   const int rot = (kq >> 1) & 3;
   int koff[4];  // slot j of a quad holds key 4 kq + (j + rot) % 4
 #pragma unroll
   for (int j = 0; j < 4; ++j) koff[j] = 4 * kq + ((j + rot) & 3);
-  // O += P~ V: thread (qg2, cg, ks): queries 4 qg2 .., columns cg CW .., keys ks KPER ..
-  const int cg = tid % NCG, qg2 = (tid / NCG) % 16, ks = tid / (16 * NCG);
+  // O += P~ V: thread (rg, cg, ks): queries R rg .., columns cg CW .., keys ks KPER ..
+  const int cg = tid % NCG, rg = (tid / NCG) % NRG, ks = tid / (NRG * NCG);
 
   float m[4], l[4];  // running max (log2 units) and this thread's share of the row sum
 #pragma unroll
@@ -157,9 +168,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     m[i] = kMaskedScore;
     l[i] = 0.f;
   }
-  float acc[4][CW];
+  float acc[R][CW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
 
@@ -199,32 +210,45 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* tV = sV + st * KSTEP * P;
       const float* tM = sM + st * KSTEP;
 
-      // S = qs K^T on this thread's 4 queries x TK keys
-      float s[4][TK];
+      // S = qs K^T: 8 queries x TK keys over this thread's half of d, then
+      // this thread's 4 queries whole
+      float s8[8][TK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < TK; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < TK; ++j) s8[i][j] = 0.f;
 #pragma unroll 1
-      for (int d0 = 0; d0 < DH; d0 += T::kDU) {
+      for (int d0 = half * (DH / 2); d0 < (half + 1) * (DH / 2); d0 += T::kDU) {
 #pragma unroll
         for (int d = d0; d < d0 + T::kDU; d += 4) {
-          float4 qv[4];
+          float4 qv[4][2];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) qv[e] = lds4(sQt + (d + e) * kRes + 4 * qg);
+          for (int e = 0; e < 4; ++e) {
+            qv[e][0] = lds4(sQt + (d + e) * kRes + 8 * warp);
+            qv[e][1] = lds4(sQt + (d + e) * kRes + 8 * warp + 4);
+          }
 #pragma unroll
           for (int j = 0; j < TK; ++j) {
             const float4 kv = lds4(tK + ((j >> 2) * kTile + koff[j & 3]) * P + d);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              float si = s[i][j];
+            for (int i = 0; i < 8; ++i) {
+              float si = s8[i][j];
 #pragma unroll
-              for (int e = 0; e < 4; ++e) si = fmaf(f4_at(qv[e], i), f4_at(kv, e), si);
-              s[i][j] = si;
+              for (int e = 0; e < 4; ++e)
+                si = fmaf(f4_at(qv[e][i >> 2], i & 3), f4_at(kv, e), si);
+              s8[i][j] = si;
             }
           }
         }
       }
+      float s[4][TK];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TK; ++j) {
+          const float other = __shfl_xor_sync(0xffffffffu, half ? s8[i][j] : s8[4 + i][j], 16);
+          s[i][j] = (half ? s8[4 + i][j] : s8[i][j]) + other;
+        }
 
       // keep bits: one Philox block per (query, quad), bit j for slot j
       uint32_t keep[4][NT];
@@ -279,22 +303,25 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // O = alpha O + P~ V over this thread's share of the step's keys
-      const float4 al = lds4(sRow + 4 * qg2);
+      float4 al[R / 4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int r = 0; r < R / 4; ++r) al[r] = lds4(sRow + R * rg + 4 * r);
 #pragma unroll
-        for (int c = 0; c < CW; ++c) acc[i][c] *= f4_at(al, i);
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[i][c] *= f4_at(al[i >> 2], i & 3);
 #pragma unroll 4
       for (int kk = ks * KPER; kk < (ks + 1) * KPER; ++kk) {
-        const float4 p4 = lds4(sP + kk * kDsPitch + 4 * qg2);
-        float4 vr[CW / 4];
+        float4 p4[R / 4], vr[CW / 4];
+#pragma unroll
+        for (int r = 0; r < R / 4; ++r) p4[r] = lds4(sP + kk * kDsPitch + R * rg + 4 * r);
 #pragma unroll
         for (int c = 0; c < CW / 4; ++c) vr[c] = lds4(tV + kk * P + cg * CW + 4 * c);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < CW; ++c)
-            acc[i][c] = fmaf(f4_at(p4, i), f4_at(vr[c >> 2], c & 3), acc[i][c]);
+            acc[i][c] = fmaf(f4_at(p4[i >> 2], i & 3), f4_at(vr[c >> 2], c & 3), acc[i][c]);
       }
     }
     cp_async_wait<0>();
@@ -323,10 +350,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the split's partial tiles, then their sum in order, times 1 / l
   float* part = smem;  // [SPLIT][64][DH]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < CW; c += 4)
-      sts4(part + (ks * kRes + 4 * qg2 + i) * DH + cg * CW + c, acc[i][c], acc[i][c + 1],
+      sts4(part + (ks * kRes + R * rg + i) * DH + cg * CW + c, acc[i][c], acc[i][c + 1],
            acc[i][c + 2], acc[i][c + 3]);
   __syncthreads();
   write_summed_rows<DH>(out + qoff, row_stride, q0, Lq, part, SPLIT, tid, sRow);

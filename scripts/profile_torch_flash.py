@@ -359,8 +359,10 @@ F32_VARIANTS = {
     "no_steps": _BWD_VARIANTS["no_steps"] + [(_FWD, _DQ_STEPS, "const int n_steps = 0 * n_active;")],
     # right results: the forward with one key tile a step, two blocks an SM
     "one_tile_a_step": [(_FWD, "constexpr int kFwdTiles = 2;", "constexpr int kFwdTiles = 1;")],
+    # right results: the forward's P~ V with 8 rows a thread
+    "eight_pv_rows": [(_FWD, "constexpr int kPvRows = 4;", "constexpr int kPvRows = 8;")],
 }
-F32_RIGHT_VARIANTS = ("one_tile_a_step",)   # checked as well as timed
+F32_RIGHT_VARIANTS = ("one_tile_a_step", "eight_pv_rows")   # checked as well as timed
 # the same four for the parent tree (an --other-csrc tree): these backward
 # kernels and the earlier lane-per-key f32 forward of flash_fwd.cu
 F32_PARENT_VARIANTS = {
@@ -394,7 +396,8 @@ F32_MUTANTS = {
                                    "const bool have = e < n_active && e != 2;")],
     # one split group's partial output is not rescaled with its rows
     "fwd_drops_one_split_groups_rescale": [
-        (_FWD, "acc[i][c] *= f4_at(al, i);", "acc[i][c] *= ks == 1 ? 1.f : f4_at(al, i);")],
+        (_FWD, "acc[i][c] *= f4_at(al[i >> 2], i & 3);",
+         "acc[i][c] *= ks == 1 ? 1.f : f4_at(al[i >> 2], i & 3);")],
     # the row sum adds the dropped probabilities (acts at p > 0 only)
     "fwd_l_sums_the_dropped_p": [
         (_FWD, "          sum += p;\n", ""),
