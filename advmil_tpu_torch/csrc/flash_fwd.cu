@@ -23,11 +23,12 @@
 // the work is 4 * Lq * (real keys) * Dh flops per head, done here in f32 on
 // the CUDA cores (no TF32) out of shared memory, so the FMAs at 67 TFLOP/s
 // bound it, and close behind them the shared-memory load instructions that
-// feed them; device memory traffic is O(L Dh) per head (each streamed tile
-// is read once per 64-query block). The TPU kernel's reason to pad Dh to 128
-// lanes does not apply: Dh = 48 is used as it is.
+// feed them (a 16-byte load for every 12-16 FMAs); device memory traffic is
+// O(L Dh) per head (each streamed tile is read once per 64-query block). The
+// TPU kernel's reason to pad Dh to 128 lanes does not apply: Dh = 48 is used
+// as it is.
 //
-// Design (the f32 kernel; PR 22's dQ kernel of flash_bwd.cu with one product
+// Design (the f32 kernel; the dQ kernel of flash_bwd.cu with one product
 // fewer and an online softmax in place of the lse): one block of 256 threads
 // per (64 queries, batch * head). The queries are staged once, d-major; K, V
 // and the mask stream through a 2-stage cp.async ring of row-major tiles,
@@ -36,23 +37,26 @@
 // kListWindow tiles), and a step takes kNT of them: a tile without a real key
 // adds exactly 0 to l and O and leaves m alone, so it is neither loaded nor
 // computed, and a bag without a real key writes its zeros and its lse and
-// does no product. Each thread scores 4 queries x 4 kNT keys (aligned quads,
-// read in rotated order ((j + kq / 2) % 4) so that the 8 rows of a
-// quarter-warp's load fall in 8 bank groups) with 16-byte shared loads only.
-// The 16 threads of a query group are one half-warp: a row's step max is 4
-// shuffles, and each thread keeps its own share of the row sum, rescaled with
-// the row and added up once at the end. Scores are taken in log2 units
-// (exp2 on ex2.approx, as in the bf16 kernels); lse = ln2 (m2 + log2 l). The
-// dropped probabilities go to shared memory key-major, with each row's
-// rescale factor beside them, and O += P~ V runs as register-blocked outer
-// products (4 rows x kCW columns a thread) over a split of the step's keys
-// into groups whose partial tiles are rescaled alike and summed once, in a
-// fixed order, before the division by max(l, 1e-30). No atomics: two calls
-// agree bit for bit. Dropout: a thread's 4 keys of one query are the 4 words
-// of one Philox block, so it draws one block per four elements and uses
-// every word, in the order of dropout_bits. Inputs are read in the JAX
-// layout [B, L, H, Dh] directly (no fold / transpose copies) and must be
-// 16-byte aligned.
+// does no product. Warp w scores its 8 queries against the step's keys, lanes
+// l and l + 16 each over one half of Dh: a thread forms 8 queries x 4 kNT
+// keys (aligned quads, read in rotated order ((j + kq / 2) % 4) so that the 8
+// rows of a quarter-warp's load fall in 8 bank groups) with 16-byte shared
+// loads only, 16 FMAs a load, and one shuffle a score gives it its own 4
+// queries whole. Those 16 threads of a query group are one half-warp: a
+// row's step max is 4 shuffles, and each thread keeps its own share of the
+// row sum, rescaled with the row and added up once at the end. Scores are
+// taken in log2 units (exp2 on ex2.approx, as in the bf16 kernels); lse =
+// ln2 (m2 + log2 l). The dropped probabilities go to shared memory
+// key-major, with each row's rescale factor beside them, and the same warp
+// (after a warp barrier only) runs O += P~ V on its own 8 queries as
+// register-blocked outer products (4 rows x kCW columns a thread) over a
+// split of the step's keys into lane groups whose partial tiles are rescaled
+// alike and summed once, in a fixed order, before the division by
+// max(l, 1e-30). No atomics: two calls agree bit for bit. Dropout: a
+// thread's 4 keys of one query are the 4 words of one Philox block, so it
+// draws one block per four elements and uses every word, in the order of
+// dropout_bits. Inputs are read in the JAX layout [B, L, H, Dh] directly (no
+// fold / transpose copies) and must be 16-byte aligned.
 //
 // bf16 inputs go to the tensor-core kernel of flash_fwd_mma.cu, which
 // computes the same function.
@@ -65,9 +69,6 @@ namespace advmil {
 // layout of dQ) or one (two blocks an SM: at most ~113 KB of shared memory
 // and 128 registers a thread). PERF.md times both.
 constexpr int kFwdTiles = 2;
-// Rows of O a thread accumulates in P~ V: 4, or 8 (16 FFMA a shared load and
-// more registers). PERF.md times both.
-constexpr int kPvRows = 4;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Per head dim; shared memory stays within the 227 KB of a block.
@@ -76,15 +77,12 @@ struct FwdTiles {
   static constexpr int kNT = DH == 128 ? 1 : kFwdTiles;          // key tiles a step
   static constexpr int kBlocks = kNT == 1 && DH <= 64 ? 2 : 1;   // blocks an SM
   static constexpr int kPitch = DH + 4;                          // streamed rows, floats apart
-  // P~ V: rows and columns a thread (fewer columns where the register cap of
-  // two blocks an SM, or eight rows, would crowd them into spills), column
-  // groups, row groups, and the split of a step's keys over thread groups
-  static constexpr int kRows = kPvRows;
-  static constexpr int kCW =
-      DH <= 32 ? 8 : DH == 48 ? 12 : kBlocks == 2 || kRows == 8 ? 8 : 16;
+  // P~ V columns a thread (fewer where the register cap of two blocks an SM
+  // would crowd them into spills), column groups, and the split of a step's
+  // keys over the lanes of a warp that share 4 rows and a column group
+  static constexpr int kCW = DH <= 32 ? 8 : DH == 48 ? 12 : kBlocks == 2 ? 8 : 16;
   static constexpr int kNCG = DH / kCW;
-  static constexpr int kNRG = kRes / kRows;
-  static constexpr int kSplit = kF32Threads / (kNRG * kNCG);
+  static constexpr int kSplit = 16 / kNCG;
   // d a fully unrolled stretch of the score loop covers (of a thread's half)
   static constexpr int kDU = DH / 2 <= 32 ? DH / 2 : 16;
 };
@@ -110,8 +108,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NT = T::kNT;
   constexpr int KSTEP = kTile * NT;  // keys a step
   constexpr int TK = 4 * NT;         // keys a thread scores: NT aligned quads
-  constexpr int P = T::kPitch, R = T::kRows, CW = T::kCW, NCG = T::kNCG, NRG = T::kNRG;
-  constexpr int SPLIT = T::kSplit;
+  constexpr int P = T::kPitch, CW = T::kCW, NCG = T::kNCG, SPLIT = T::kSplit;
   constexpr int KPER = KSTEP / SPLIT;
   constexpr int kWinKeys = kListWindow * kTile;
   extern __shared__ __align__(16) float smem[];
@@ -149,9 +146,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // scores: warp w takes queries 8 w .. 8 w + 7 against 16 key quads of each
   // of the step's NT tiles, lane l and l + 16 the two halves of d: a thread
-  // forms 8 queries x keys 4 kq .. 4 kq + 3 of each tile over its half, then
-  // keeps queries 4 qg .. 4 qg + 3 (qg = 2 w + half), adding its partner's
-  // other half through one shuffle per score
+  // forms 8 queries (its own 4 first, 4 qg .. 4 qg + 3 with qg = 2 w + half)
+  // x keys 4 kq .. 4 kq + 3 of each tile over its half, then adds its
+  // partner's half of its own 4 through one shuffle per score
   const int half = lane >> 4;
   const int qg = 2 * warp + half;
   const int kq = lane & 15;
@@ -159,8 +156,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int koff[4];  // slot j of a quad holds key 4 kq + (j + rot) % 4
 #pragma unroll
   for (int j = 0; j < 4; ++j) koff[j] = 4 * kq + ((j + rot) & 3);
-  // O += P~ V: thread (rg, cg, ks): queries R rg .., columns cg CW .., keys ks KPER ..
-  const int cg = tid % NCG, rg = (tid / NCG) % NRG, ks = tid / (NRG * NCG);
+  // O += P~ V on the warp's own 8 queries, whose P~ its lanes wrote: thread
+  // (rg, cg, ks): queries 4 rg .., columns cg CW .., keys ks KPER ..
+  const int cg = lane % NCG, rg = 2 * warp + (lane / NCG) % 2, ks = lane / (2 * NCG);
 
   float m[4], l[4];  // running max (log2 units) and this thread's share of the row sum
 #pragma unroll
@@ -168,9 +166,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     m[i] = kMaskedScore;
     l[i] = 0.f;
   }
-  float acc[R][CW];
+  float acc[4][CW];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
 
@@ -224,8 +222,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float4 qv[4][2];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            qv[e][0] = lds4(sQt + (d + e) * kRes + 8 * warp);
-            qv[e][1] = lds4(sQt + (d + e) * kRes + 8 * warp + 4);
+            qv[e][0] = lds4(sQt + (d + e) * kRes + 4 * qg);
+            qv[e][1] = lds4(sQt + (d + e) * kRes + 4 * (qg ^ 1));
           }
 #pragma unroll
           for (int j = 0; j < TK; ++j) {
@@ -245,10 +243,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < TK; ++j) {
-          const float other = __shfl_xor_sync(0xffffffffu, half ? s8[i][j] : s8[4 + i][j], 16);
-          s[i][j] = (half ? s8[4 + i][j] : s8[i][j]) + other;
-        }
+        for (int j = 0; j < TK; ++j)
+          s[i][j] = s8[i][j] + __shfl_xor_sync(0xffffffffu, s8[4 + i][j], 16);
 
       // keep bits: one Philox block per (query, quad), bit j for slot j
       uint32_t keep[4][NT];
@@ -300,28 +296,25 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         sts4(sP + ((j >> 2) * kTile + koff[j & 3]) * kDsPitch + 4 * qg, s[0][j], s[1][j],
              s[2][j], s[3][j]);
       if (kq == 0) sts4(sRow + 4 * qg, alpha[0], alpha[1], alpha[2], alpha[3]);
-      __syncthreads();
+      __syncwarp();
 
       // O = alpha O + P~ V over this thread's share of the step's keys
-      float4 al[R / 4];
+      const float4 al = lds4(sRow + 4 * rg);
 #pragma unroll
-      for (int r = 0; r < R / 4; ++r) al[r] = lds4(sRow + R * rg + 4 * r);
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < CW; ++c) acc[i][c] *= f4_at(al[i >> 2], i & 3);
+        for (int c = 0; c < CW; ++c) acc[i][c] *= f4_at(al, i);
 #pragma unroll 4
       for (int kk = ks * KPER; kk < (ks + 1) * KPER; ++kk) {
-        float4 p4[R / 4], vr[CW / 4];
-#pragma unroll
-        for (int r = 0; r < R / 4; ++r) p4[r] = lds4(sP + kk * kDsPitch + R * rg + 4 * r);
+        const float4 p4 = lds4(sP + kk * kDsPitch + 4 * rg);
+        float4 vr[CW / 4];
 #pragma unroll
         for (int c = 0; c < CW / 4; ++c) vr[c] = lds4(tV + kk * P + cg * CW + 4 * c);
 #pragma unroll
-        for (int i = 0; i < R; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int c = 0; c < CW; ++c)
-            acc[i][c] = fmaf(f4_at(p4[i >> 2], i & 3), f4_at(vr[c >> 2], c & 3), acc[i][c]);
+            acc[i][c] = fmaf(f4_at(p4, i), f4_at(vr[c >> 2], c & 3), acc[i][c]);
       }
     }
     cp_async_wait<0>();
@@ -350,10 +343,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the split's partial tiles, then their sum in order, times 1 / l
   float* part = smem;  // [SPLIT][64][DH]
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < CW; c += 4)
-      sts4(part + (ks * kRes + R * rg + i) * DH + cg * CW + c, acc[i][c], acc[i][c + 1],
+      sts4(part + (ks * kRes + 4 * rg + i) * DH + cg * CW + c, acc[i][c], acc[i][c + 1],
            acc[i][c + 2], acc[i][c + 3]);
   __syncthreads();
   write_summed_rows<DH>(out + qoff, row_stride, q0, Lq, part, SPLIT, tid, sRow);

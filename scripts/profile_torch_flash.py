@@ -31,27 +31,34 @@ shapes; it fails unless `rounded_tol` catches every one. Variants and mutants
 are built from a copy of the sources under `chiprun_out/`, removed afterwards:
 the package's own sources and build directory are not touched.
 
-`--f32`: the f32 backward kernels #6 / #7 (`csrc/flash_bwd.cu`, true f32 on
-the CUDA cores). Prints their ptxas lines and, from `cuobjdump -sass`, the
-FFMA / LDS / LDS.64 / LDS.128 counts of every loop of each kernel (nested
-loops' instructions not counted again). Checks each build against the plain
-version within the card tests' f32 bound (atol = rtol = 1e-4), the fully
-masked bag exactly 0, two calls bit for bit and the keep bits of dQ and dV
-against the torch Philox. Then times dQ and dK/dV through the C entry
-points (CUDA events behind a spin kernel, medians, in turns) at `F32_SHAPES`:
-phase 3's shape of `chip_smoke.py` (B = 2, L = 1,024, H = 8, Dh = 48, 300
-keys of bag 0 masked, bag 1 fully masked) and the same shape with every key
-real, p = 0.25 and 0, beside SDPA's one-call backward (TF32 off) and the
-bound over the real keys (67 TFLOP/s against 3.35 TB/s). `--other-csrc DIR`
-adds another source tree's kernels (an earlier commit's
+`--f32`: the f32 kernels #5 (`csrc/flash_fwd.cu`) and #6 / #7
+(`csrc/flash_bwd.cu`), true f32 on the CUDA cores. Prints their ptxas lines
+and, from `cuobjdump -sass`, the FFMA / LDS / LDS.64 / LDS.128 / MUFU counts
+of every loop of each kernel (nested loops' instructions not counted again).
+Checks each build against the plain version within the card tests' f32
+bound (atol = rtol = 1e-4): out, lse, dQ, dK and dV, the fully masked bag
+exactly 0 (lse -1e30), two calls bit for bit and the keep bits of the
+forward, dQ and dV against the torch Philox. Then times the three through
+the C entry points (CUDA events behind a spin kernel, medians, in turns) at
+`F32_SHAPES`: phase 3's training shape of `chip_smoke.py` (B = 2, L =
+1,024, H = 8, Dh = 48, 300 keys of bag 0 masked, bag 1 fully masked) and
+the same shape with every key real, p = 0.25 and 0, beside SDPA's forward
+and its one-call backward (TF32 off) and the bound over the real keys (67
+TFLOP/s against 3.35 TB/s); the forward also at `F32_FWD_SHAPES`, phase 3's
+eval bag (B = 1, L = 2,048, its last 300 keys masked, p = 0).
+`--other-csrc DIR` adds another source tree's kernels (an earlier commit's
 `advmil_tpu_torch/csrc`; `--only-other` leaves the package's own build out)
 to the same turns; `--variants` (`F32_VARIANTS`) and `--other-variants`
-(`F32_PARENT_VARIANTS`, written for the earlier lane-per-key kernels) add
-builds with one textual change: no exponentials, no Philox rounds, no
-second products, no step at all (wrong results: only timed). `--f32
---mutants` builds each fault of `F32_MUTANTS`
-(a real key tile skipped, one term of dS dropped at one key in sixteen in dQ
-and in dK/dV, a Philox word taken for the wrong key) and fails unless the f32
+(`F32_PARENT_VARIANTS`, written for the tree before this forward: these
+backward kernels and the lane-per-key forward) add builds with one textual
+change: no exponentials, no Philox rounds, no second products (the
+forward's P~ V), no step at all, half of the forward's V or q loads (wrong
+results: only timed), or the forward with one key tile a step and two
+blocks an SM (checked and timed). `--f32 --mutants` builds each fault of
+`F32_MUTANTS` (a real key tile skipped in dQ and in the forward, one term
+of dS dropped at one key in sixteen in dQ and in dK/dV, a Philox word taken
+for the wrong key in dQ and in the forward, a split group's rescale dropped
+and the row sum of the dropped p in the forward) and fails unless the f32
 bound catches each at the main shape. JSON lines to stdout and to
 `chiprun_out/profile_torch_flash_f32*.jsonl`.
 """
@@ -359,10 +366,14 @@ F32_VARIANTS = {
     "no_steps": _BWD_VARIANTS["no_steps"] + [(_FWD, _DQ_STEPS, "const int n_steps = 0 * n_active;")],
     # right results: the forward with one key tile a step, two blocks an SM
     "one_tile_a_step": [(_FWD, "constexpr int kFwdTiles = 2;", "constexpr int kFwdTiles = 1;")],
-    # right results: the forward's P~ V with 8 rows a thread
-    "eight_pv_rows": [(_FWD, "constexpr int kPvRows = 4;", "constexpr int kPvRows = 8;")],
+    # what the shared-memory loads cost: the forward with half of P~ V's V
+    # loads (two keys share a row), or half of the scores' q loads
+    "half_v_loads": [(_FWD, "vr[c] = lds4(tV + kk * P + cg * CW + 4 * c);",
+                      "vr[c] = lds4(tV + (kk & ~1) * P + cg * CW + 4 * c);")],
+    "half_q_loads": [(_FWD, "qv[e][1] = lds4(sQt + (d + e) * kRes + 4 * (qg ^ 1));",
+                      "qv[e][1] = qv[e][0];")],
 }
-F32_RIGHT_VARIANTS = ("one_tile_a_step", "eight_pv_rows")   # checked as well as timed
+F32_RIGHT_VARIANTS = ("one_tile_a_step",)   # checked as well as timed
 # the same four for the parent tree (an --other-csrc tree): these backward
 # kernels and the earlier lane-per-key f32 forward of flash_fwd.cu
 F32_PARENT_VARIANTS = {
@@ -396,8 +407,7 @@ F32_MUTANTS = {
                                    "const bool have = e < n_active && e != 2;")],
     # one split group's partial output is not rescaled with its rows
     "fwd_drops_one_split_groups_rescale": [
-        (_FWD, "acc[i][c] *= f4_at(al[i >> 2], i & 3);",
-         "acc[i][c] *= ks == 1 ? 1.f : f4_at(al[i >> 2], i & 3);")],
+        (_FWD, "acc[i][c] *= f4_at(al, i);", "acc[i][c] *= ks == 1 ? 1.f : f4_at(al, i);")],
     # the row sum adds the dropped probabilities (acts at p > 0 only)
     "fwd_l_sums_the_dropped_p": [
         (_FWD, "          sum += p;\n", ""),
@@ -745,8 +755,9 @@ def main():
                     help="build each fault of MUTANTS (F32_MUTANTS with --f32) and report "
                          "which bound catches it")
     ap.add_argument("--f32", action="store_true",
-                    help="the f32 backward kernels of flash_bwd.cu: ptxas, SASS loop counts, "
-                         "checks against the f32 bound, times beside SDPA's backward")
+                    help="the f32 kernels of flash_fwd.cu and flash_bwd.cu: ptxas, SASS loop "
+                         "counts, checks against the f32 bound, times beside SDPA's forward and "
+                         "backward")
     ap.add_argument("--other-csrc", help="with --f32: another source tree timed in the same turns")
     ap.add_argument("--only-other", action="store_true",
                     help="with --f32: leave the package's own build out")
