@@ -52,9 +52,9 @@ to the same turns; `--variants` (`F32_VARIANTS`) and `--other-variants`
 (`F32_PARENT_VARIANTS`, written for the tree before this forward: these
 backward kernels and the lane-per-key forward) add builds with one textual
 change: no exponentials, no Philox rounds, no second products (the
-forward's P~ V), no step at all, half of the forward's V or q loads (wrong
-results: only timed), or the forward with one key tile a step and two
-blocks an SM (checked and timed). `--f32 --mutants` builds each fault of
+forward's P~ V), no step at all, the forward's V loads or half its q
+loads taken out of their loops (wrong results: only timed), or the forward
+with one key tile a step and two blocks an SM (checked and timed). `--f32 --mutants` builds each fault of
 `F32_MUTANTS` (a real key tile skipped in dQ and in the forward, one term
 of dS dropped at one key in sixteen in dQ and in dK/dV, a Philox word taken
 for the wrong key in dQ and in the forward, a split group's rescale dropped
@@ -366,12 +366,13 @@ F32_VARIANTS = {
     "no_steps": _BWD_VARIANTS["no_steps"] + [(_FWD, _DQ_STEPS, "const int n_steps = 0 * n_active;")],
     # right results: the forward with one key tile a step, two blocks an SM
     "one_tile_a_step": [(_FWD, "constexpr int kFwdTiles = 2;", "constexpr int kFwdTiles = 1;")],
-    # what the shared-memory loads cost: the forward with half of P~ V's V
-    # loads (two keys share a row), or half of the scores' q loads
-    "half_v_loads": [(_FWD, "vr[c] = lds4(tV + kk * P + cg * CW + 4 * c);",
-                      "vr[c] = lds4(tV + (kk & ~1) * P + cg * CW + 4 * c);")],
+    # what the shared-memory loads cost: the forward with P~ V's V rows, or
+    # half of the scores' q operands, read from one place a step (the loads
+    # leave the loops; every FFMA stays)
+    "no_v_loads": [(_FWD, "vr[c] = lds4(tV + kk * P + cg * CW + 4 * c);",
+                    "vr[c] = lds4(tV + cg * CW + 4 * c);")],
     "half_q_loads": [(_FWD, "qv[e][1] = lds4(sQt + (d + e) * kRes + 4 * (qg ^ 1));",
-                      "qv[e][1] = qv[e][0];")],
+                      "qv[e][1] = lds4(sQt + e * kRes + 4 * (qg ^ 1));")],
 }
 F32_RIGHT_VARIANTS = ("one_tile_a_step",)   # checked as well as timed
 # the same four for the parent tree (an --other-csrc tree): these backward
@@ -722,7 +723,8 @@ def run_f32(args, dev, card):
             for p in (0.0, 0.25):
                 good, share = f32_check(name, lib, F32_CHECKS[0], p, dev)
                 caught.append(not good)
-            emit(mutant=name, change=F32_MUTANTS[name][0][2], caught_at_p=dict(zip(("0", "0.25"), caught)))
+            emit(mutant=name, change=[c[2] for c in F32_MUTANTS[name]],
+                 caught_at_p=dict(zip(("0", "0.25"), caught)))
             ok = ok and any(caught)
         if not ok:
             raise SystemExit("an f32 mutant passed the f32 bound")
