@@ -53,7 +53,7 @@
 //    warps 4-7 dK += dS^T qs, on the same step.
 // Dropout: a thread's 4 keys of one query are the 4 words of one Philox
 // block, so it draws one block per four elements and uses every word, in the
-// order of dropout_bits. Exponentials are exp2 of a log2e-scaled score
+// stream's order (philox.cuh). Exponentials are exp2 of a log2e-scaled score
 // (ex2.approx), as in the bf16 kernels.
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"

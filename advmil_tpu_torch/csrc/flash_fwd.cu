@@ -54,9 +54,9 @@
 // alike and summed once, in a fixed order, before the division by
 // max(l, 1e-30). No atomics: two calls agree bit for bit. Dropout: a
 // thread's 4 keys of one query are the 4 words of one Philox block, so it
-// draws one block per four elements and uses every word, in the order of
-// dropout_bits. Inputs are read in the JAX layout [B, L, H, Dh] directly (no
-// fold / transpose copies) and must be 16-byte aligned.
+// draws one block per four elements and uses every word, in the stream's
+// order (philox.cuh). Inputs are read in the JAX layout [B, L, H, Dh]
+// directly (no fold / transpose copies) and must be 16-byte aligned.
 //
 // bf16 inputs go to the tensor-core kernel of flash_fwd_mma.cu, which
 // computes the same function.
@@ -65,22 +65,16 @@
 
 namespace advmil {
 
-// Key tiles of 64 a step at Dh <= 64: two (one 256-thread block an SM, the
-// layout of dQ) or one (two blocks an SM: at most ~113 KB of shared memory
-// and 128 registers a thread). PERF.md times both.
-constexpr int kFwdTiles = 2;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Per head dim; shared memory stays within the 227 KB of a block.
 template <int DH>
 struct FwdTiles {
-  static constexpr int kNT = DH == 128 ? 1 : kFwdTiles;          // key tiles a step
-  static constexpr int kBlocks = kNT == 1 && DH <= 64 ? 2 : 1;   // blocks an SM
-  static constexpr int kPitch = DH + 4;                          // streamed rows, floats apart
-  // P~ V columns a thread (fewer where the register cap of two blocks an SM
-  // would crowd them into spills), column groups, and the split of a step's
-  // keys over the lanes of a warp that share 4 rows and a column group
-  static constexpr int kCW = DH <= 32 ? 8 : DH == 48 ? 12 : kBlocks == 2 ? 8 : 16;
+  static constexpr int kNT = DH == 128 ? 1 : 2;  // key tiles of 64 a step (one block an SM)
+  static constexpr int kPitch = DH + 4;           // streamed rows, floats apart
+  // P~ V columns a thread, column groups, and the split of a step's keys
+  // over the lanes of a warp that share 4 rows and a column group
+  static constexpr int kCW = DH <= 32 ? 8 : DH == 48 ? 12 : 16;
   static constexpr int kNCG = DH / kCW;
   static constexpr int kSplit = 16 / kNCG;
   // d a fully unrolled stretch of the score loop covers (of a thread's half)
@@ -99,7 +93,7 @@ constexpr size_t fwd_f32_smem_bytes() {
 }
 
 template <int DH, bool DROP>
-__global__ void __launch_bounds__(kF32Threads, FwdTiles<DH>::kBlocks)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ mask,
                      float* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int H,

@@ -1,5 +1,5 @@
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC'11) and the attention-dropout keep decision built on it.
+// 3", SC'11), on which the attention-dropout stream is built.
 //
 // Replaces the TPU core PRNG of advmil_tpu/ops/attention.py:_dropout_keep,
 // whose bits cannot be reproduced off the TPU. The port's stream is defined
@@ -50,30 +50,11 @@ __host__ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t 
   return {c0, c1, c2, c3};
 }
 
-// The 32 random bits of attention element (bh, row, col).
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed_lo, uint32_t seed_hi,
-                                                 int bh, int row, int col) {
-  const Philox4 r = philox4x32_10(static_cast<uint32_t>(col) >> 2,
-                                  static_cast<uint32_t>(row),
-                                  static_cast<uint32_t>(bh), 0u, seed_lo, seed_hi);
-  switch (col & 3) {
-    case 0: return r.x;
-    case 1: return r.y;
-    case 2: return r.z;
-    default: return r.w;
-  }
-}
-
 // Dropout parameters passed by value to the attention kernels.
 struct DropoutArgs {
   uint32_t seed_lo, seed_hi;
   uint32_t threshold;  // keep when bits >= threshold
   float inv_keep;      // 1 / (1 - p), applied to kept probabilities
 };
-
-__device__ __forceinline__ bool dropout_keep(const DropoutArgs& d, int bh, int row,
-                                             int col) {
-  return dropout_bits(d.seed_lo, d.seed_hi, bh, row, col) >= d.threshold;
-}
 
 }  // namespace advmil

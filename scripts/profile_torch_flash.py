@@ -53,13 +53,13 @@ to the same turns; `--variants` (`F32_VARIANTS`) and `--other-variants`
 backward kernels and the lane-per-key forward) add builds with one textual
 change: no exponentials, no Philox rounds, no second products (the
 forward's P~ V), no step at all, the forward's V loads or half its q
-loads taken out of their loops (wrong results: only timed), or the forward
-with one key tile a step and two blocks an SM (checked and timed). `--f32 --mutants` builds each fault of
-`F32_MUTANTS` (a real key tile skipped in dQ and in the forward, one term
-of dS dropped at one key in sixteen in dQ and in dK/dV, a Philox word taken
-for the wrong key in dQ and in the forward, a split group's rescale dropped
-and the row sum of the dropped p in the forward) and fails unless the f32
-bound catches each at the main shape. JSON lines to stdout and to
+loads taken out of their loops (wrong results: only timed). `--f32
+--mutants` builds each fault of `F32_MUTANTS` (a real key tile skipped in
+dQ and in the forward, one term of dS dropped at one key in sixteen in dQ
+and in dK/dV, a Philox word taken for the wrong key in dQ and in the
+forward, a split group's rescale dropped and the row sum of the dropped p
+in the forward) and fails unless the f32 bound catches each at the main
+shape. JSON lines to stdout and to
 `chiprun_out/profile_torch_flash_f32*.jsonl`.
 """
 import argparse
@@ -364,8 +364,6 @@ F32_VARIANTS = {
     "no_philox": [("philox.cuh", _ROUNDS, _ROUNDS.replace("r < 10", "r < 0"))],
     "no_products": _BWD_VARIANTS["no_products"] + [(_FWD, _DQ_PRODUCT, "kk < ks * KPER; ++kk)")],
     "no_steps": _BWD_VARIANTS["no_steps"] + [(_FWD, _DQ_STEPS, "const int n_steps = 0 * n_active;")],
-    # right results: the forward with one key tile a step, two blocks an SM
-    "one_tile_a_step": [(_FWD, "constexpr int kFwdTiles = 2;", "constexpr int kFwdTiles = 1;")],
     # what the shared-memory loads cost: the forward with P~ V's V rows, or
     # half of the scores' q operands, read from one place a step (the loads
     # leave the loops; every FFMA stays)
@@ -374,7 +372,6 @@ F32_VARIANTS = {
     "half_q_loads": [(_FWD, "qv[e][1] = lds4(sQt + (d + e) * kRes + 4 * (qg ^ 1));",
                       "qv[e][1] = lds4(sQt + e * kRes + 4 * (qg ^ 1));")],
 }
-F32_RIGHT_VARIANTS = ("one_tile_a_step",)   # checked as well as timed
 # the same four for the parent tree (an --other-csrc tree): these backward
 # kernels and the earlier lane-per-key f32 forward of flash_fwd.cu
 F32_PARENT_VARIANTS = {
@@ -729,7 +726,7 @@ def run_f32(args, dev, card):
         if not ok:
             raise SystemExit("an f32 mutant passed the f32 bound")
         return ok
-    wrong = lambda n: n not in ("kernel", "other", *F32_RIGHT_VARIANTS)  # noqa: E731  only timed
+    wrong = lambda n: n not in ("kernel", "other")  # noqa: E731  variants: only timed
     for name, (lib, _, _) in libs.items():
         if wrong(name):
             continue
