@@ -298,7 +298,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < CW; ++c) acc[i][c] *= f4_at(al, i);
-#pragma unroll 4
+#pragma unroll
       for (int kk = ks * KPER; kk < (ks + 1) * KPER; ++kk) {
         const float4 p4 = lds4(sP + kk * kDsPitch + 4 * rg);
         float4 vr[CW / 4];
