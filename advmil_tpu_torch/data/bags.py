@@ -52,6 +52,7 @@ import torch
 from ..ops.banded import build_u_inv, build_u_tables
 from ..ops.segment import (band_coverage, build_band_tables, build_band_tables_matched,
                            crop_empty_grid_lines, grid_layout)
+from ..utils import tracing
 from ..utils.func import random_mask_square_instance, sampling_data
 from ..utils.io import (import_h5py, read_geom_graph, read_patch_coord, read_patch_feature,
                         retrieve_from_table)
@@ -623,6 +624,21 @@ class BucketBatcher:
                 yield pending.popleft().result()
 
     def _make_batch(self, group_i: int, item_ids: list) -> Batch:
+        """The batch of `item_ids` (group `group_i`), traced on the worker
+        that assembles it as the host span `assemble`, with its patch slots
+        counted (`utils/tracing.py`): all of them, the real patches of the
+        real bags, and the slots of the tail-filler rows."""
+        with tracing.span("assemble", host_only=True):
+            batch = self._assemble(group_i, item_ids)
+        if tracing.ACTIVE:
+            n_real = len(item_ids)
+            rows, n = batch.mask.shape
+            tracing.count("slots_total", rows * n)
+            tracing.count("slots_real", batch.mask[:n_real].sum())
+            tracing.count("slots_filler", (rows - n_real) * n)
+        return batch
+
+    def _assemble(self, group_i: int, item_ids: list) -> Batch:
         bucket_n, grid_n, _ = self._groups[group_i]
         bb = self.batch_size_for(bucket_n)
         n_real = len(item_ids)

@@ -28,6 +28,7 @@ from ..parallel.dist import barrier, is_multi_process, is_primary, multi_host_se
 from ..utils.func import (EarlyStopping, add_prefix_to_filename, plot_time_kde,
                           print_config, print_metrics, rename_keys)
 from ..utils.io import save_prediction
+from ..utils import tracing
 from ..utils.logging import RunLogger
 from .optim import ReduceLROnPlateau, reset_multisteps_accum, set_lr
 
@@ -161,36 +162,39 @@ class HandlerCommon:
         `use_coords_pe`, the cluster ids [B, N] (int32) in cluster mode.
         Under a grid the model's inputs are this rank's rows (and share of
         the patch axis), sliced on the host before any cast or copy; label,
-        sample_mask and visible stay global."""
-        arrays = {"feats": batch.feats, "mask": batch.mask}
-        if "coords" in batch.extra:
-            arrays["coords"] = batch.extra["coords"]
-        elif "cluster_id" in batch.extra:     # int32 [B, N], -1 on padding
-            arrays["cluster_id"] = batch.extra["cluster_id"]
-        elif batch.extra:
-            arrays["graph"] = batch.extra
-        if self.grid is not None:
-            arrays = mesh.shard_batch_2d(arrays, self.grid)
+        sample_mask and visible stay global. Traced as the span `ship`; the
+        counter `h2d_bytes` adds up the host arrays handed to `.to(device)`
+        (feats as shipped, f32)."""
+        with tracing.span("ship"):
+            arrays = {"feats": batch.feats, "mask": batch.mask}
+            if "coords" in batch.extra:
+                arrays["coords"] = batch.extra["coords"]
+            elif "cluster_id" in batch.extra:     # int32 [B, N], -1 on padding
+                arrays["cluster_id"] = batch.extra["cluster_id"]
+            elif batch.extra:
+                arrays["graph"] = batch.extra
+            if self.grid is not None:
+                arrays = mesh.shard_batch_2d(arrays, self.grid)
 
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        feats = dev(arrays["feats"])
-        if self.cfg["precision"] in ("bf16", "bfloat16"):
-            feats = feats.to(torch.bfloat16)
-        out = {"feats": feats, "mask": dev(arrays["mask"])}
-        if "coords" in arrays:
-            out["extra"] = dev(arrays["coords"])
-        elif "cluster_id" in arrays:
-            out["extra"] = dev(arrays["cluster_id"])
-        elif "graph" in arrays:
-            out["extra"] = {k: dev(v) for k, v in arrays["graph"].items()}
-        if train:
-            smask = torch.from_numpy(batch.sample_mask).to(self.device)
-            vis = (torch.ones_like(smask) if visible is None
-                   else torch.from_numpy(visible).to(self.device))
-            out.update(label=torch.from_numpy(batch.label).to(self.device),
-                       sample_mask=smask, visible=vis)
-        return out
+            def dev(a):
+                a = np.ascontiguousarray(a)
+                tracing.count("h2d_bytes", a.nbytes)
+                return torch.from_numpy(a).to(self.device)
+            feats = dev(arrays["feats"])
+            if self.cfg["precision"] in ("bf16", "bfloat16"):
+                feats = feats.to(torch.bfloat16)
+            out = {"feats": feats, "mask": dev(arrays["mask"])}
+            if "coords" in arrays:
+                out["extra"] = dev(arrays["coords"])
+            elif "cluster_id" in arrays:
+                out["extra"] = dev(arrays["cluster_id"])
+            elif "graph" in arrays:
+                out["extra"] = {k: dev(v) for k, v in arrays["graph"].items()}
+            if train:
+                smask = dev(batch.sample_mask)
+                vis = torch.ones_like(smask) if visible is None else dev(visible)
+                out.update(label=dev(batch.label), sample_mask=smask, visible=vis)
+            return out
 
     @staticmethod
     def _visible(ds, batch, visible_set) -> np.ndarray:
@@ -272,7 +276,9 @@ class HandlerCommon:
         """With `profile_dir`, a `torch.profiler` trace of the block (CPU,
         and CUDA on the card) written there as a Chrome trace,
         `epoch2_rank<r>.trace.json`; the counterpart of the JAX handler's
-        `jax.profiler` trace of epoch 2."""
+        `jax.profiler` trace of epoch 2. The loops' `advmil.*` spans
+        (`utils/tracing.py`) show in it on the main thread, above the
+        kernels; a line prints the block's span totals and counters."""
         if not profile_dir:
             yield
             return
@@ -286,45 +292,50 @@ class HandlerCommon:
         rank = self.grid.rank if self.grid is not None else 0
         prof.export_chrome_trace(osp.join(profile_dir, f"epoch2_rank{rank}.trace.json"))
         print(f"[profile] epoch-2 trace written to {profile_dir}")
+        print(f"[profile] epoch-2 {tracing.summary()}")
 
     def _train_each_epoch(self, loader, visible_set=None):
         """One shuffled pass of training steps; the device is synced once,
         at the end, for the logged metrics and the collected predictions
         (every tensor of the steps' `collect`). With `visible_set`, a
         sample's label reaches the supervised loss only if its patient is in
-        the set; `train_visible` records each epoch's count of such samples."""
+        the set; `train_visible` records each epoch's count of such samples.
+        Traced (`utils/tracing.py`): the spans `batch_wait`, `step` and
+        `pass_end`, as in `_run_eval`."""
         ds, batcher = loader
         t0 = time.perf_counter()
         pending, keeps, ys, idxs = [], [], [], []
         n_visible = 0
-        for batch in batcher.prefetch(shuffle=True, rng=self.np_rng):
+        for batch in tracing.batches(batcher.prefetch(shuffle=True, rng=self.np_rng)):
             visible = None
             if visible_set is not None:
                 visible = self._visible(ds, batch, visible_set)
                 n_visible += int((visible * batch.sample_mask).sum())
-            metrics, collect = self.train_step(self._ship(batch, train=True, visible=visible),
-                                               self.train_rngs)
+            shipped = self._ship(batch, train=True, visible=visible)
+            with tracing.span("step"):
+                metrics, collect = self.train_step(shipped, self.train_rngs)
             keep = batch.sample_mask.astype(bool)
             pending.append((metrics, collect))
             keeps.append(keep)
             ys.append(batch.label[keep])
             idxs.append(batch.idx[keep])
-        names = list(pending[0][0])
-        logged = {k: torch.stack([m[k] for m, _ in pending]).float().cpu().tolist()
-                  for k in names}
-        cltor = {"y": ys, "idx": idxs, **{k: [] for k in pending[0][1]}}
-        for (_, collect), keep in zip(pending, keeps):
-            for k, v in collect.items():
-                cltor[k].append(v.float().cpu().numpy()[keep])
-        self.train_timings.append((int(sum(k.sum() for k in keeps)),
-                                   time.perf_counter() - t0))
-        if visible_set is not None:
-            self.train_visible.append(n_visible)
-        for opt in self.accum_reset:
-            reset_multisteps_accum(opt)
-        for i in range(len(pending)):
-            self.logger.log({f"{self.batch_log_prefix}{k}": logged[k][i] for k in names})
-        return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
+        with tracing.span("pass_end"):
+            names = list(pending[0][0])
+            logged = {k: torch.stack([m[k] for m, _ in pending]).float().cpu().tolist()
+                      for k in names}
+            cltor = {"y": ys, "idx": idxs, **{k: [] for k in pending[0][1]}}
+            for (_, collect), keep in zip(pending, keeps):
+                for k, v in collect.items():
+                    cltor[k].append(v.float().cpu().numpy()[keep])
+            self.train_timings.append((int(sum(k.sum() for k in keeps)),
+                                       time.perf_counter() - t0))
+            if visible_set is not None:
+                self.train_visible.append(n_visible)
+            for opt in self.accum_reset:
+                reset_multisteps_accum(opt)
+            for i in range(len(pending)):
+                self.logger.log({f"{self.batch_log_prefix}{k}": logged[k][i] for k in names})
+            return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
 
     # ------------------------------------------------------------------
     # evaluation
@@ -338,21 +349,24 @@ class HandlerCommon:
         gen.manual_seed(((self.cfg["seed"] + 777) * 1_000_003 + rng_tag) % (1 << 62))
         t0 = time.perf_counter()
         pending, keeps, ys, idxs = [], [], [], []
-        for batch in batcher.prefetch():
-            out = step(self._ship(batch), gen)
+        for batch in tracing.batches(batcher.prefetch()):
+            shipped = self._ship(batch)
+            with tracing.span("step"):
+                out = step(shipped, gen)
             # every rank gets the whole batch's outputs, in global order
             pending.append({k: comm.gather_rows_nograd(v) for k, v in out.items()})
             keep = batch.sample_mask.astype(bool)
             ys.append(batch.label[keep])
             idxs.append(batch.idx[keep])
             keeps.append(keep)
-        cltor = {"y": ys, "idx": idxs, **{k: [] for k in pending[0]}}
-        for out, keep in zip(pending, keeps):
-            for k, v in out.items():
-                cltor[k].append(v.float().cpu().numpy()[keep])
-        self.eval_timings.append((int(sum(k.sum() for k in keeps)),
-                                  time.perf_counter() - t0))
-        return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
+        with tracing.span("pass_end"):
+            cltor = {"y": ys, "idx": idxs, **{k: [] for k in pending[0]}}
+            for out, keep in zip(pending, keeps):
+                for k, v in out.items():
+                    cltor[k].append(v.float().cpu().numpy()[keep])
+            self.eval_timings.append((int(sum(k.sum() for k in keeps)),
+                                      time.perf_counter() - t0))
+            return {k: np.concatenate(v, axis=0) for k, v in cltor.items()}
 
     def _eval_and_print(self, cltor, name="", at_epoch=None):
         results = self.evaluator.compute(cltor, self.metrics_list)

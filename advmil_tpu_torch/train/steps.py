@@ -24,6 +24,7 @@ from .. import losses
 from ..models.layers import Rngs
 from ..parallel import comm
 from ..parallel.mesh import local_rows
+from ..utils import tracing
 from .optim import AdaHessian, hutchinson_diag, rademacher_like
 
 
@@ -129,6 +130,8 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
     Returns (metrics, collect) as device tensors: the caller syncs once per
     epoch. collect holds the D phase's predictions and fake scores, which the
     reference logs as the training-set predictions (the global batch's).
+    The two phases are traced as the spans `step.d` and `step.g`
+    (`utils/tracing.py`).
     """
     is_disc_task = task == "disc_gansurv"
 
@@ -147,57 +150,59 @@ def make_adv_train_step(gen_model, disc_model, opt_G, opt_D, *, loss_netD: str,
             y_mask_rows = local_rows(y_mask)
 
         # ---- D phase: generator in eval mode (dropout off, noise on) ----
-        gen_model.eval()
-        disc_model.train()
-        with torch.no_grad():
-            pred_eval = gen_model(feats, mask, extra, zero_noise=False,
-                                  generator=rngs.device)
-        if is_disc_task:
-            t_real, fake_in = local_rows(y_disc * y_mask), pred_eval * y_mask_rows
-            real_w = smask      # visibility does not gate the disc task's real pairs
-        else:
-            t_real, fake_in = local_rows(t[:, None]), pred_eval
-            real_w = (e == 1).to(torch.float32) * visible
-        f_real, f_fake = disc_model(feats, (t_real, fake_in), mask, rngs)
-        f_real, f_fake = comm.gather_rows(f_real.float()), comm.gather_rows(f_fake.float())
-        loss_D = losses.real_fake_loss(f_real, f_fake, which=loss_netD,
-                                       real_weight=real_w, fake_weight=smask)
-        opt_D.zero_grad(set_to_none=True)
-        comm.for_backward(loss_D).backward()
-        comm.reduce_grads(disc_model.parameters())
-        opt_D.step()
-        metrics = {"Loss_D": loss_D.detach(),
-                   "D_real": losses._wmean(f_real.detach().reshape(-1), real_w),
-                   "D_fake": losses._wmean(f_fake.detach().reshape(-1), smask)}
-        collect = {"y_hat": comm.gather_rows_nograd(pred_eval),
-                   "f_fake": f_fake.detach().reshape(-1)}
+        with tracing.span("step.d"):
+            gen_model.eval()
+            disc_model.train()
+            with torch.no_grad():
+                pred_eval = gen_model(feats, mask, extra, zero_noise=False,
+                                      generator=rngs.device)
+            if is_disc_task:
+                t_real, fake_in = local_rows(y_disc * y_mask), pred_eval * y_mask_rows
+                real_w = smask      # visibility does not gate the disc task's real pairs
+            else:
+                t_real, fake_in = local_rows(t[:, None]), pred_eval
+                real_w = (e == 1).to(torch.float32) * visible
+            f_real, f_fake = disc_model(feats, (t_real, fake_in), mask, rngs)
+            f_real, f_fake = comm.gather_rows(f_real.float()), comm.gather_rows(f_fake.float())
+            loss_D = losses.real_fake_loss(f_real, f_fake, which=loss_netD,
+                                           real_weight=real_w, fake_weight=smask)
+            opt_D.zero_grad(set_to_none=True)
+            comm.for_backward(loss_D).backward()
+            comm.reduce_grads(disc_model.parameters())
+            opt_D.step()
+            metrics = {"Loss_D": loss_D.detach(),
+                       "D_real": losses._wmean(f_real.detach().reshape(-1), real_w),
+                       "D_fake": losses._wmean(f_fake.detach().reshape(-1), smask)}
+            collect = {"y_hat": comm.gather_rows_nograd(pred_eval),
+                       "f_fake": f_fake.detach().reshape(-1)}
 
         # ---- G phase (x gen_updates): D in eval mode and frozen ----
-        gen_model.train()
-        disc_model.eval()
-        _set_requires_grad(disc_model, False)
-        try:
-            for _ in range(gen_updates):
-                pred = gen_model(feats, mask, extra, zero_noise=False,
-                                 generator=rngs.device, rng=rngs)
-                f_fake_g = disc_model(feats, pred * y_mask_rows if is_disc_task else pred,
-                                      mask).float()
-                f_fake_g, pred = comm.gather_rows(f_fake_g), comm.gather_rows(pred)
-                gen_loss = losses.fake_generator_loss(f_fake_g, weight=smask)
-                t_reg = sup_loss_fn(pred if is_disc_task else pred[:, 0], t, e,
-                                    weight=visible)
-                total = t_reg if coef_gan == 0.0 else t_reg + coef_gan * gen_loss
-                total = total + losses.loss_reg_l1(gen_model.parameters(), l1_coef)
-                opt_G.zero_grad(set_to_none=True)
-                comm.for_backward(total).backward()
-                comm.reduce_grads(gen_model.parameters())
-                opt_G.step()
-                metrics.update({
-                    "Loss_G_fake": gen_loss.detach(), "Loss_G_time": t_reg.detach(),
-                    "Loss_G_total": total.detach(),
-                    "D_fake_avg": losses._wmean(f_fake_g.detach().reshape(-1), smask)})
-        finally:
-            _set_requires_grad(disc_model, True)
+        with tracing.span("step.g"):
+            gen_model.train()
+            disc_model.eval()
+            _set_requires_grad(disc_model, False)
+            try:
+                for _ in range(gen_updates):
+                    pred = gen_model(feats, mask, extra, zero_noise=False,
+                                     generator=rngs.device, rng=rngs)
+                    f_fake_g = disc_model(feats, pred * y_mask_rows if is_disc_task else pred,
+                                          mask).float()
+                    f_fake_g, pred = comm.gather_rows(f_fake_g), comm.gather_rows(pred)
+                    gen_loss = losses.fake_generator_loss(f_fake_g, weight=smask)
+                    t_reg = sup_loss_fn(pred if is_disc_task else pred[:, 0], t, e,
+                                        weight=visible)
+                    total = t_reg if coef_gan == 0.0 else t_reg + coef_gan * gen_loss
+                    total = total + losses.loss_reg_l1(gen_model.parameters(), l1_coef)
+                    opt_G.zero_grad(set_to_none=True)
+                    comm.for_backward(total).backward()
+                    comm.reduce_grads(gen_model.parameters())
+                    opt_G.step()
+                    metrics.update({
+                        "Loss_G_fake": gen_loss.detach(), "Loss_G_time": t_reg.detach(),
+                        "Loss_G_total": total.detach(),
+                        "D_fake_avg": losses._wmean(f_fake_g.detach().reshape(-1), smask)})
+            finally:
+                _set_requires_grad(disc_model, True)
         return metrics, collect
 
     return step
